@@ -17,7 +17,10 @@ setup(
     long_description_content_type="text/markdown",
     packages=find_packages(include=["yolo_contour_regression_tpu*"]),
     include_package_data=True,
-    package_data={"yolo_contour_regression_tpu": ["cfg/*.yaml", "cfg/**/*.yaml"]},
+    package_data={
+        "yolo_contour_regression_tpu": ["cfg/*.yaml", "cfg/**/*.yaml"],
+        "yolo_contour_regression_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "pyyaml", "opencv-python",

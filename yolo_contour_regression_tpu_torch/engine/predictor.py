@@ -1,0 +1,111 @@
+"""Polar segmentation predictor (counterpart of ``SegmentationPredictor``
+in the JAX package's ``engine/predictor.py``).
+
+Per batch: host letterbox (uint8, BGR -> RGB) -> device uint8 -> [0, 1]
+float -> ``predict_parts(sigmoid=False)`` -> ``non_max_suppression_parts(
+scores_are_logits=True)`` -> ``finalize_polar_extras`` -> host postprocess
+(unpad/ungain and clip of boxes and contour points). Sources are HWC uint8
+BGR numpy arrays or lists of them; decoding image files is not ported.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+from ..data.augment import letterbox
+from ..nn.modules.head import finalize_polar_extras
+from ..ops.nms import non_max_suppression_parts
+from .results import Results
+
+
+def iter_source(source) -> Iterator[Tuple[str, np.ndarray]]:
+    """Yield (name, BGR image) from an array or a list of arrays."""
+    if isinstance(source, np.ndarray):
+        yield "array", source
+        return
+    if isinstance(source, (list, tuple)):
+        for i, s in enumerate(source):
+            if not isinstance(s, np.ndarray):
+                raise TypeError(f"source {i}: expected a numpy image, got {type(s).__name__}")
+            yield f"array{i}", s
+        return
+    raise TypeError(f"sources are numpy images or lists of them, not {type(source).__name__}")
+
+
+def _as_float(images: torch.Tensor) -> torch.Tensor:
+    """uint8 -> [0, 1] float32 on the device (1 byte/px crosses the host
+    link)."""
+    if images.dtype != torch.uint8:
+        raise TypeError(f"images must be uint8, got {images.dtype}")
+    return images.float() / 255.0
+
+
+class SegmentationPredictor:
+    task = "segment"
+
+    def __init__(self, imgsz: int = 640, conf: float = 0.25, iou: float = 0.7,
+                 max_det: int = 300, pre_nms: int = 1024, batch: int = 1):
+        self.imgsz, self.batch = int(imgsz), max(int(batch), 1)
+        self.nms_kw = dict(conf_thres=conf, iou_thres=iou, pre_nms=pre_nms, max_det=max_det)
+
+    def preprocess_u8(self, img: np.ndarray, imgsz: int):
+        """Letterbox to imgsz and flip BGR -> RGB, staying uint8."""
+        lb, gain, pad = letterbox(img, (imgsz, imgsz))
+        return np.ascontiguousarray(lb[..., ::-1]), gain, pad
+
+    @torch.inference_mode()
+    def eval_batch(self, model, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images (B, H, W, 3) uint8 on the model's device -> NMS
+        outputs with ``extras`` as [36 x | 36 y | 36 valid]."""
+        x = _as_float(images).permute(0, 3, 1, 2).contiguous()
+        boxes, logits, extras = model.predict_parts(x, sigmoid=False)
+        out = non_max_suppression_parts(boxes, logits, extras, scores_are_logits=True,
+                                        **self.nms_kw)
+        out["extras"] = finalize_polar_extras(out["extras"])
+        return out
+
+    def postprocess(self, out: Dict[str, np.ndarray], bi: int, orig, path, gain, pad, names,
+                    device) -> Results:
+        keep = out["valid"][bi]
+        boxes = out["boxes"][bi][keep]
+        ex = out["extras"][bi][keep]  # (n, 108)
+        h, w = orig.shape[:2]
+        boxes = (boxes - np.array([pad[0], pad[1], pad[0], pad[1]])) / gain
+        boxes = np.clip(boxes, 0, [w, h, w, h])
+        pts = np.stack([ex[:, :36], ex[:, 36:72]], -1)
+        pts = (pts - np.array(pad)) / gain
+        pts[..., 0] = pts[..., 0].clip(0, w)
+        pts[..., 1] = pts[..., 1].clip(0, h)
+        valid_rays = ex[:, 72:108] > 0.5
+        data = np.concatenate(
+            [boxes, out["scores"][bi][keep][:, None], out["classes"][bi][keep][:, None]], -1
+        )
+        return Results(orig, path, names, boxes=data, contours=(pts, valid_rays), device=device)
+
+    def __call__(self, model, source, names=None) -> List[Results]:
+        device = next(model.parameters()).device
+        names = names or getattr(model, "names", {})
+        items = list(iter_source(source))
+        results: List[Results] = []
+        for b0 in range(0, len(items), self.batch):
+            chunk = items[b0 : b0 + self.batch]
+            t0 = time.perf_counter()
+            pre = [self.preprocess_u8(img, self.imgsz) for _, img in chunk]
+            x = torch.from_numpy(np.stack([p[0] for p in pre])).to(device)
+            t1 = time.perf_counter()
+            out = {k: v.cpu().numpy() for k, v in self.eval_batch(model, x).items()}
+            t2 = time.perf_counter()
+            n = len(chunk)
+            for bi, ((path, orig), (_, gain, pad)) in enumerate(zip(chunk, pre)):
+                t3 = time.perf_counter()
+                res = self.postprocess(out, bi, orig, path, gain, pad, names, device)
+                res.speed = {
+                    "preprocess": (t1 - t0) * 1e3 / n,
+                    "inference": (t2 - t1) * 1e3 / n,
+                    "postprocess": (time.perf_counter() - t3) * 1e3,
+                }
+                results.append(res)
+        return results

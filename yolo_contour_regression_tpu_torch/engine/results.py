@@ -1,0 +1,117 @@
+"""Inference result containers (counterpart of the JAX package's
+``engine/results.py``), numpy-backed.
+
+``Results.masks`` is lazy: the first read rasterizes the polar contours at
+the original image size through ``ops.raster.fill_polygons`` on the
+predictor's device (the CUDA kernel on a card, the plain version on the
+CPU). That is the crossing-number fill of ``ops/raster.py``, sampled at
+integer pixel coordinates, and not the JAX host path's ``cv2.fillPoly``, so
+boundary pixels can differ from it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..ops.raster import fill_polygons
+
+
+class Boxes:
+    """data rows: [x1, y1, x2, y2, conf, cls]."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data, np.float32).reshape(-1, 6)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    @property
+    def xyxy(self):
+        return self.data[:, :4]
+
+    @property
+    def conf(self):
+        return self.data[:, 4]
+
+    @property
+    def cls(self):
+        return self.data[:, 5]
+
+
+class Masks:
+    """Binary masks (n, H, W)."""
+
+    def __init__(self, data: np.ndarray, orig_shape):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return self.data.shape[0]
+
+
+class Contours:
+    """Polar contours (n, 36, 2) px + per-ray validity (n, 36)."""
+
+    def __init__(self, points: np.ndarray, valid: np.ndarray, orig_shape):
+        self.points = np.asarray(points, np.float32)
+        self.valid = np.asarray(valid, bool)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return self.points.shape[0]
+
+
+def contours_to_masks(points: np.ndarray, valid: np.ndarray, height: int, width: int,
+                      device="cuda") -> np.ndarray:
+    """(n, V, 2) px contours + validity -> (n, H, W) bool masks, filled on
+    ``device``."""
+    pts = torch.as_tensor(points, dtype=torch.float32).to(device).contiguous()
+    ok = torch.as_tensor(valid, dtype=torch.bool).to(device).contiguous()
+    return fill_polygons(pts, ok, height, width).cpu().numpy()
+
+
+class Results:
+    """One image's results: boxes, contours and lazy masks."""
+
+    def __init__(
+        self,
+        orig_img: np.ndarray,
+        path: str,
+        names: Dict[int, str],
+        boxes: Optional[np.ndarray] = None,
+        contours=None,
+        speed: Optional[Dict[str, float]] = None,
+        device="cuda",
+    ):
+        self.orig_img = orig_img
+        self.orig_shape = orig_img.shape[:2]
+        self.path = path
+        self.names = names
+        self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.contours = (
+            Contours(contours[0], contours[1], self.orig_shape) if contours is not None else None
+        )
+        self.device = device
+        self.speed = speed or {}
+        self._masks: Optional[Masks] = None
+
+    @property
+    def masks(self) -> Optional[Masks]:
+        if self._masks is None and self.contours is not None:
+            self._masks = Masks(
+                contours_to_masks(
+                    self.contours.points, self.contours.valid, *self.orig_shape,
+                    device=self.device,
+                ),
+                self.orig_shape,
+            )
+        return self._masks
+
+    def __len__(self):
+        for v in (self.boxes, self.contours):
+            if v is not None:
+                return len(v)
+        return 0

@@ -1,0 +1,78 @@
+"""The polar-contour segment head and its decode (counterpart of the JAX
+package's ``nn/modules/head.py``).
+
+``PolarSegment`` returns raw per-level maps in NCHW; the decode helpers
+take those maps and produce the JAX package's (B, A, .) layouts, anchors
+flattened row-major per level as ``make_anchors`` orders them.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ...ops import polar as polar_ops
+from .conv import Conv
+
+
+class PolarSegment(nn.Module):
+    """Per level i: cv2[i] = Conv3x3 -> Conv3x3 -> 1x1 (36 rays),
+    cv3[i] = Conv3x3 -> Conv3x3 -> 1x1 (nc logits). Output per level:
+    (B, nm + nc, H, W), rays first."""
+
+    def __init__(self, nc: int = 80, nm: int = polar_ops.NUM_RAYS, npr: int = 256,
+                 ch: Sequence[int] = ()):
+        super().__init__()
+        self.nc, self.nm = nc, nm  # npr is kept for config parity; unused
+        c2 = max(16, ch[0] // 4, 16 * 4)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(
+            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, nm, 1)) for x in ch
+        )
+        self.cv3 = nn.ModuleList(
+            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for x in ch
+        )
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        return [torch.cat([b2(x), b3(x)], dim=1) for x, b2, b3 in zip(feats, self.cv2, self.cv3)]
+
+
+def flatten_levels(outs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """[(B, C, H, W)...] -> (B, A, C): permute each level to NHWC first, so
+    anchors flatten row-major (y then x) as in ``make_anchors``."""
+    return torch.cat([o.permute(0, 2, 3, 1).reshape(o.shape[0], -1, o.shape[1]) for o in outs], 1)
+
+
+def decode_polar_parts(
+    outs: Sequence[torch.Tensor],
+    strides: Sequence[int],
+    nc: int,
+    nm: int = polar_ops.NUM_RAYS,
+    sigmoid: bool = True,
+):
+    """Predict-path polar decode: (boxes (B, A, 4), scores (B, A, nc),
+    extras (B, A, nm + 2) = [rays_px | anchor_px]). Contour points are
+    rebuilt for the NMS survivors by ``finalize_polar_extras``.
+    ``sigmoid=False`` returns raw class logits for
+    ``non_max_suppression_parts(..., scores_are_logits=True)``."""
+    feat_hw = [(o.shape[2], o.shape[3]) for o in outs]
+    anchor_points, stride_t = polar_ops.make_anchors(
+        feat_hw, strides, dtype=outs[0].dtype, device=outs[0].device
+    )
+    x = flatten_levels(outs)  # (B, A, nm + nc)
+    rays, cls = x[..., :nm], x[..., nm:]
+    rays_px = (rays * stride_t[None]).clamp_min(polar_ops.RAY_EPS)
+    anchors_px = anchor_points * stride_t
+    boxes = polar_ops.decode_ray_boxes(rays_px, anchors_px)
+    scores = torch.sigmoid(cls) if sigmoid else cls
+    anc = anchors_px[None].expand(x.shape[0], -1, -1).to(rays_px.dtype)
+    return boxes, scores, torch.cat([rays_px, anc], dim=-1)
+
+
+def finalize_polar_extras(ex: torch.Tensor, nm: int = polar_ops.NUM_RAYS):
+    """Post-NMS half of the decode: extras (..., nm + 2) [rays_px |
+    anchor_px] -> (..., 3 * nm) [36 x | 36 y | 36 valid]."""
+    rays, anc = ex[..., :nm], ex[..., nm:]
+    points, valid, _ = polar_ops.decode_rays(rays, anc)
+    return torch.cat([points[..., 0], points[..., 1], valid.to(ex.dtype)], dim=-1)

@@ -1,0 +1,230 @@
+"""Model config -> NCHW ``nn.Module`` graph (counterpart of the JAX
+package's ``nn/tasks.py``).
+
+``parse_model`` applies the same scaling rules as the JAX version: depth
+gain ``n = max(round(n * depth), 1)``, width gain ``c2 = make_divisible(
+min(c2, max_ch) * width, 8)`` except for the nc passthrough, and the scale
+letter from the config's ``scales`` block. It works on a config **dict** (a
+checkpoint's ``model_yaml``, or ``YOLOV8_SEG`` below), so no yaml parser is
+needed. Layers are registered as ``model.{i}`` so the state-dict keys are the
+reference's. Strides are tracked through the graph instead of calibrated by
+a dummy forward.
+"""
+from __future__ import annotations
+
+import copy
+import math
+from typing import Any, Dict, List, Optional
+
+from torch import nn
+
+from .modules import block as block_mod
+from .modules import conv as conv_mod
+from .modules import head as head_mod
+
+# cfg/models/yolov8-seg.yaml of the JAX package as a dict: RepConv/RepBlock
+# backbone, SPPF, Conv2 PAN neck and the polar Segment head (36 rays).
+YOLOV8_SEG: Dict[str, Any] = {
+    "nc": 10,
+    "scales": {
+        "n": [0.33, 0.25, 1024],
+        "s": [0.33, 0.50, 1024],
+        "m": [0.67, 0.75, 768],
+        "l": [1.00, 1.00, 512],
+        "x": [1.00, 1.25, 512],
+    },
+    "backbone": [
+        [-1, 1, "RepConv", [64, 3, 2]],  # 0 P1/2
+        [-1, 1, "RepConv", [128, 3, 2]],  # 1 P2/4
+        [-1, 3, "RepBlock", [128, True]],  # 2
+        [-1, 1, "RepConv", [256, 3, 2]],  # 3 P3/8
+        [-1, 6, "RepBlock", [256, True]],  # 4
+        [-1, 1, "RepConv", [512, 3, 2]],  # 5 P4/16
+        [-1, 6, "RepBlock", [512, True]],  # 6
+        [-1, 1, "RepConv", [1024, 3, 2]],  # 7 P5/32
+        [-1, 3, "RepBlock", [1024, True]],  # 8
+        [-1, 1, "SPPF", [1024, 5]],  # 9
+    ],
+    "head": [
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],  # 10
+        [[-1, 6], 1, "Concat", [1]],  # 11 cat backbone P4
+        [-1, 3, "Conv2", [512]],  # 12
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],  # 13
+        [[-1, 4], 1, "Concat", [1]],  # 14 cat backbone P3
+        [-1, 3, "Conv2", [256]],  # 15 P3/8-small
+        [-1, 1, "RepConv", [256, 3, 2]],  # 16
+        [[-1, 12], 1, "Concat", [1]],  # 17 cat head P4
+        [-1, 3, "Conv2", [512]],  # 18 P4/16-medium
+        [-1, 1, "RepConv", [512, 3, 2]],  # 19
+        [[-1, 9], 1, "Concat", [1]],  # 20 cat head P5
+        [-1, 3, "Conv2", [1024]],  # 21 P5/32-large
+        [[15, 18, 21], 1, "Segment", ["nc", 36, 256]],  # 22 polar Segment(P3, P4, P5)
+    ],
+    "scale": "n",
+}
+
+# config name -> (module class, positional field names after c1, kind)
+REGISTRY = {
+    "Conv": (conv_mod.Conv, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
+    "Conv2": (conv_mod.Conv2, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
+    "RepConv": (conv_mod.RepConv, ("c2", "k", "s", "g", "d", "act"), "conv"),
+    "SPPF": (block_mod.SPPF, ("c2", "k"), "conv"),
+    "RepBlock": (block_mod.RepBlock, ("c2", "n", "shortcut"), "csp"),
+    "Concat": (conv_mod.Concat, ("dim",), "concat"),
+    "nn.Upsample": (nn.Upsample, (), "upsample"),
+    "Segment": (head_mod.PolarSegment, ("nc", "nm", "npr"), "head"),
+}
+
+
+def make_divisible(x: float, divisor: int = 8) -> int:
+    return int(math.ceil(x / divisor) * divisor)
+
+
+class LayerSpec:
+    """One graph layer: from-index ``f``, module name and kwargs, input
+    channels ``c1`` (a list for multi-input layers), output channels ``c2``,
+    repeats and output stride (a list per level for the head)."""
+
+    __slots__ = ("i", "f", "name", "kwargs", "kind", "c1", "c2", "repeats", "stride")
+
+    def __init__(self, i, f, name, kwargs, kind, c1, c2, repeats, stride):
+        self.i, self.f, self.name, self.kwargs, self.kind = i, f, name, kwargs, kind
+        self.c1, self.c2, self.repeats, self.stride = c1, c2, repeats, stride
+
+
+def parse_model(cfg: dict, ch: int = 3):
+    """Config dict -> (specs, save, head_spec), with the JAX version's
+    scaling rules and from-index normalization."""
+    nc = cfg.get("nc", 80)
+    scales = cfg.get("scales")
+    depth = cfg.get("depth_multiple", 1.0)
+    width = cfg.get("width_multiple", 1.0)
+    max_channels = float("inf")
+    if scales:
+        scale = cfg.get("scale") or tuple(scales.keys())[0]
+        depth, width, max_channels = scales[scale]
+
+    chs: List[int] = [ch]
+    strides: List[float] = [1]
+    specs: List[LayerSpec] = []
+    save: List[int] = []
+    head_spec: Optional[LayerSpec] = None
+
+    for i, (f, n, name, args) in enumerate(list(cfg["backbone"]) + list(cfg["head"])):
+        args = list(args)
+        if isinstance(f, int):
+            f = f if f == -1 else f % i
+        else:
+            f = [x if x == -1 else x % i for x in f]
+        for j, a in enumerate(args):
+            if a == "nc":
+                args[j] = nc
+            elif a in ("True", "False", "None"):
+                args[j] = {"True": True, "False": False, "None": None}[a]
+        if name not in REGISTRY:
+            raise KeyError(f"module '{name}' is not ported (ported: {sorted(REGISTRY)})")
+        _, fields, kind = REGISTRY[name]
+        n = max(round(n * depth), 1) if n > 1 else n
+        c1 = chs[f] if isinstance(f, int) else [chs[x] for x in f]
+        s_in = strides[f] if isinstance(f, int) else [strides[x] for x in f]
+
+        kwargs: Dict[str, Any] = {}
+        repeats = 1
+        stride = s_in
+        if kind in ("conv", "csp"):
+            c2 = args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            vals = [c2] + args[1:]
+            if kind == "csp":
+                vals = [c2, n] + args[1:]
+            else:
+                repeats = n
+            kwargs = dict(zip(fields, vals))
+            stride = s_in * kwargs.get("s", 1)
+        elif kind == "concat":
+            c2 = sum(c1)
+            kwargs["dim"] = 1
+            stride = s_in[0]
+        elif kind == "upsample":
+            c2 = c1
+            kwargs["scale_factor"] = args[1] if len(args) > 1 else 2
+            kwargs["mode"] = args[2] if len(args) > 2 else "nearest"
+            stride = s_in / kwargs["scale_factor"]
+        else:  # head
+            kwargs = dict(zip(fields, args))
+            if len(args) > 2:
+                kwargs["npr"] = make_divisible(min(args[2], max_channels) * width, 8)
+            c2 = nc
+
+        spec = LayerSpec(i, f, name, kwargs, kind, c1, c2, repeats, stride)
+        specs.append(spec)
+        if kind == "head":
+            head_spec = spec
+        save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
+        if i == 0:
+            chs, strides = [], []
+        chs.append(c2)
+        strides.append(stride)
+    return specs, sorted(set(save)), head_spec
+
+
+def build_layer(spec: LayerSpec) -> nn.Module:
+    cls, _, kind = REGISTRY[spec.name]
+    if kind in ("concat", "upsample"):
+        return cls(**spec.kwargs)
+    if kind == "head":
+        return cls(ch=spec.c1, **spec.kwargs)
+    mods = [cls(spec.c1 if r == 0 else spec.c2, **spec.kwargs) for r in range(spec.repeats)]
+    return mods[0] if spec.repeats == 1 else nn.Sequential(*mods)
+
+
+class GraphModel(nn.Module):
+    """The wired network: ``model.{i}`` layers, routed by their from-index."""
+
+    def __init__(self, cfg: dict, ch: int = 3):
+        super().__init__()
+        self.specs, self.save, self.head_spec = parse_model(cfg, ch=ch)
+        self.model = nn.ModuleList(build_layer(s) for s in self.specs)
+
+    def forward(self, x):
+        y: Dict[int, Any] = {}
+        out = x
+        for spec, m in zip(self.specs, self.model):
+            if isinstance(spec.f, int):
+                inp = out if spec.f == -1 else y[spec.f]
+            else:
+                inp = [out if j == -1 else y[j] for j in spec.f]
+            out = m(inp)
+            if spec.i in self.save:
+                y[spec.i] = out
+        return out  # head output
+
+
+class SegmentationModel(GraphModel):
+    """Polar-contour segmentation model: ``forward`` gives the head's raw
+    per-level maps, ``predict_parts`` their predict-path decode."""
+
+    task = "segment"
+
+    def __init__(self, cfg: Optional[dict] = None, nc: Optional[int] = None, ch: int = 3):
+        cfg = copy.deepcopy(dict(cfg if cfg is not None else YOLOV8_SEG))
+        if nc and nc != cfg.get("nc"):
+            cfg["nc"] = nc
+        super().__init__(cfg, ch=ch)
+        if self.head_spec is None or self.head_spec.name != "Segment":
+            raise ValueError("SegmentationModel needs a polar 'Segment' head")
+        self.yaml = cfg
+        self.nc = cfg["nc"]
+        self.nm = self.head_spec.kwargs.get("nm", 36)
+        self.strides = tuple(int(s) for s in self.head_spec.stride)
+        self.names = {i: f"class{i}" for i in range(self.nc)}
+
+    def predict_parts(self, x, sigmoid: bool = True):
+        """x (B, 3, H, W) float -> (boxes (B, A, 4), scores (B, A, nc),
+        extras (B, A, 38)); ``sigmoid=False`` returns raw class logits."""
+        return head_mod.decode_polar_parts(self(x), self.strides, self.nc, self.nm, sigmoid=sigmoid)
+
+    @property
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())

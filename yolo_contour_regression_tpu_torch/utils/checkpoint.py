@@ -1,0 +1,125 @@
+"""Checkpoints of the JAX package, read without JAX (counterpart of its
+``utils/checkpoint.py``), and its weight trees carried into PyTorch.
+
+A ``.ckpt`` is one pickle of plain dicts of numpy arrays: ``params``,
+``batch_stats``, ``ema_params``, ``model_yaml``, ``names``, ``train_args``, ...
+``from_jax_variables`` inverts the name map of the JAX package's
+``utils/torch_convert.py``:
+
+  this port (reference .pt keys)       JAX tree
+  -----------------------------------  ------------------------------------
+  model.{i}.conv.weight (OIHW)         params.layer{i}.conv.kernel (HWIO)
+  model.{i}.bn.{weight,bias}           params.layer{i}.bn.{scale,bias}
+  model.{i}.bn.running_{mean,var}      batch_stats.layer{i}.bn.{mean,var}
+  model.{i}.{r}....   (repeats)        layer{i}_{r}....
+  model.{i}.cv2.{a}.{b}....  (heads)   layer{i}.cv2_{a}_{b}....
+  RepConv conv1.conv/conv1.bn/         RepConv conv1/bn1/
+          conv2.conv/conv2.bn/bn               conv2/bn2/bn_id
+"""
+from __future__ import annotations
+
+import pickle
+import re
+from collections import OrderedDict
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+# JAX module name holding the leaves -> the reference's dotted path
+_REPCONV_MAP = {
+    "conv1": ("conv1", "conv"),
+    "bn1": ("conv1", "bn"),
+    "conv2": ("conv2", "conv"),
+    "bn2": ("conv2", "bn"),
+    "bn_id": ("bn",),
+}
+_LEAF_MAP = {
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("params", "kernel"): "weight",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def load_checkpoint(path) -> Dict[str, Any]:
+    """Unpickle a checkpoint written by the JAX package (trusted files only:
+    unpickling can run code)."""
+    with open(path, "rb") as fh:
+        return pickle.load(fh)
+
+
+def checkpoint_variables(ckpt: Dict[str, Any]) -> Tuple[dict, dict]:
+    """(params, batch_stats) of a checkpoint: EMA weights when present, fp16
+    deploy checkpoints cast to fp32."""
+    params = ckpt.get("ema_params") or ckpt["params"]
+    return _upcast(params), _upcast(ckpt.get("batch_stats") or {})
+
+
+def _upcast(tree):
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    return arr.astype(np.float32) if arr.dtype == np.float16 else arr
+
+
+def _module_path(path: Tuple[str, ...]) -> Tuple[str, ...]:
+    """JAX module path (layer{i}[_{r}], ...) -> reference dotted tokens."""
+    m = re.fullmatch(r"layer(\d+)(?:_(\d+))?", path[0])
+    if m is None:
+        raise KeyError(f"not a graph layer: {'/'.join(path)}")
+    out = ["model", m.group(1)] + ([m.group(2)] if m.group(2) is not None else [])
+    for tok in path[1:]:
+        head = re.fullmatch(r"(cv\d)_(\d+)_(\d+)", tok)
+        out += list(head.groups()) if head else [tok]
+    return tuple(out[:-1]) + _REPCONV_MAP.get(out[-1], (out[-1],))
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``params``/``batch_stats`` numpy trees -> a state dict with the
+    reference's ``model.{i}....`` keys. Conv kernels go HWIO -> OIHW; every
+    leaf maps to exactly one key (a collision raises)."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for coll, tree in (("params", params), ("batch_stats", batch_stats)):
+        for path, arr in _leaves(tree):
+            leaf = _LEAF_MAP.get((coll, path[-1]))
+            if leaf is None:
+                raise KeyError(f"no mapping for {coll}/{'/'.join(path)}")
+            arr = np.asarray(arr, np.float32)
+            if path[-1] == "kernel":
+                if arr.ndim != 4:
+                    raise ValueError(f"{'/'.join(path)}: expected an HWIO kernel, got {arr.shape}")
+                arr = arr.transpose(3, 2, 0, 1)
+            key = ".".join(_module_path(path[:-1]) + (leaf,))
+            if key in sd:
+                raise KeyError(f"two JAX leaves map to {key}")
+            sd[key] = torch.tensor(arr)
+    return sd
+
+
+def load_jax_variables(model: torch.nn.Module, params: dict, batch_stats: dict):
+    """Load JAX weight trees into ``model``; raises unless every parameter
+    and running statistic of the model is set, with matching shapes, and
+    every JAX leaf is used. (BatchNorm's ``num_batches_tracked`` counter has
+    no JAX counterpart and keeps its value.)"""
+    sd = from_jax_variables(params, batch_stats)
+    want = {k: v.shape for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+    missing = sorted(set(want) - set(sd))
+    unused = sorted(set(sd) - set(want))
+    if missing or unused:
+        raise KeyError(f"weights do not fit the model: missing {missing[:5]}, unused {unused[:5]}")
+    bad = [k for k in sd if tuple(sd[k].shape) != tuple(want[k])]
+    if bad:
+        raise ValueError(f"shape mismatch for {bad[:5]}")
+    model.load_state_dict(sd, strict=False)
+    return model
