@@ -7,10 +7,14 @@ Phases, one timestamped line each (elapsed seconds):
   1. device: fail without CUDA (there is no CPU path); print the card's name
      and power limit; turn TF32 off for convolutions and matmuls, so the
      card computes in full float32 like the CPU it is compared with.
-  2. build: nvcc every kernel of the port from ``csrc/`` (timed).
+  2. build: nvcc every kernel of the port from ``csrc/``, one process per
+     source, all started together (timed).
   3. kernels: each kernel's wrapper against its plain PyTorch version on the
-     card, at the main path's shapes, with its time, the plain version's
-     time and the card's least time for the same work (its bound).
+     card, at the main paths' shapes, with its time, the plain version's
+     time and the card's least time for the same work (its bound): the
+     polygon fill at the predict path's masks; the GT rays, rows form, at
+     the trainer's two shapes (imgsz 640, batch 16, N_pad 8 -> K 128 and
+     N_pad 48 -> K 48), and per pair at P 16,384.
   4. predict: ``YOLO(runs/floor_seg160/best.ckpt).predict`` on synthetic
      circle/rectangle images at imgsz 160 (batch 1) and 640 (batch 8),
      reading every result's masks; launch counts are zeroed just before and
@@ -18,18 +22,32 @@ Phases, one timestamped line each (elapsed seconds):
      steps (copies, collapse, kernel, numpy), each timed apart, and the
      card's head outputs and detections are held against the port on the
      CPU at imgsz 160.
-  5. report: a JSON line of the kernels, the card's line, and last
-     ``{"ok": true, "device": {...}}``.
+  5. train: (a) the seg160 model at imgsz 160, batch 4: one loss, the
+     assignment and every gradient on the card against the CPU; (b) the
+     same model at full width, imgsz 640, batch 16: 3 warm-up steps of
+     ``make_train_step`` with AdamW, then 20 timed steps on one repeated
+     batch (launch counts zeroed just before and read just after; the loss
+     must stay finite and fall), each split by CUDA events at the step's
+     own stage marks into forward, assigner (and the GT-ray kernel in it),
+     loss, backward and clip + optimizer + EMA; (c) ``save_checkpoint`` of
+     the trained state and ``YOLO(path).predict`` from it.
+  6. report: a JSON line of the kernels (launches summed over the predict
+     and train runs), the card's line, and last ``{"ok": true, "device":
+     {...}}``.
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -37,8 +55,13 @@ import torch
 from yolo_contour_regression_tpu_torch import YOLO
 from yolo_contour_regression_tpu_torch.engine.predictor import SegmentationPredictor
 from yolo_contour_regression_tpu_torch.engine.results import Masks, contours_to_masks
-from yolo_contour_regression_tpu_torch.ops import raster
-from yolo_contour_regression_tpu_torch.utils import cuda_build
+from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
+from yolo_contour_regression_tpu_torch.nn.tasks import SegmentationModel
+from yolo_contour_regression_tpu_torch.ops import gt_rays, polar, raster
+from yolo_contour_regression_tpu_torch.utils import cuda_build, optim
+from yolo_contour_regression_tpu_torch.utils.checkpoint import (
+    checkpoint_variables, load_checkpoint, load_jax_variables, save_checkpoint, to_jax_variables)
+from yolo_contour_regression_tpu_torch.utils.loss import polar_loss, polar_targets
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "runs" / "floor_seg160" / "best.ckpt"
@@ -55,6 +78,18 @@ RASTER_N, RASTER_V, RASTER_HW = 300, 36, (480, 640)
 # the card against the port on the CPU, both in float32
 HEAD_ATOL = 1e-3  # raw head outputs: cuDNN and CPU conv sum orders differ
 BOX_ATOL = 0.05  # px
+# train step, card against CPU: loss (relative) and each gradient (of its
+# tensor's largest entry); f32 convs and BatchNorm summed in other orders
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+
+KERNEL_SOURCES = ("raster", "gt_rays")
+# the trainer at imgsz 640, batch 16, cand_per_gt 128 with cand_balance:
+# GT rows padded to N_pad 8 give K = 128 candidates a row, to N_pad 48 K = 48
+TRAIN_IMGSZ, TRAIN_B, TRAIN_NPAD, TRAIN_K = 640, 16, 8, 128
+RAY_SHAPES = ((8, 128), (48, 48))
+RAY_PAIRS = 16384  # the per-pair entry, as many pairs as the rows form at K 128
+TRAIN_STEPS = 20
 
 
 def log(phase: str, msg: str):
@@ -78,6 +113,115 @@ def shape_images(n: int, h: int, w: int, seed: int):
             else:
                 img[int(cy - r) : int(cy + r), int(cx - r) : int(cx + r)] = color
         out.append(img)
+    return out
+
+
+def rect_contour(x0: float, y0: float, x1: float, y1: float, n: int = 360):
+    """n points evenly along a rectangle's perimeter, clockwise in the
+    y-down frame from (x0, y0), n / 4 per side."""
+    corners = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1], [x0, y0]], np.float64)
+    u = np.arange(n) * 4.0 / n
+    side = np.floor(u).astype(int)
+    f = (u - side)[:, None]
+    return corners[side] + f * (corners[side + 1] - corners[side])
+
+
+def circle_contour(cx: float, cy: float, r: float, n: int = 360):
+    t = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    return np.stack([cx + r * np.cos(t), cy + r * np.sin(t)], -1)
+
+
+def shape_batch(n: int, imgsz: int, n_pad: int, seed: int):
+    """A train batch of n square images of filled circles (class 0) and
+    rectangles (class 1), drawn as ``shape_images`` draws them, with exact
+    360-point contours, in the train step's layout (numpy): images (n,
+    imgsz, imgsz, 3) f32 in [0, 1]; cls (n, n_pad) int32, bboxes (n, n_pad,
+    4) normalized xywh, segments (n, n_pad, 360, 2) normalized, mask_gt (n,
+    n_pad) bool. Each image holds 1 to min(3, n_pad) shapes."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:imgsz, :imgsz]
+    imgs = np.full((n, imgsz, imgsz, 3), 40, np.uint8)
+    batch = {"cls": np.zeros((n, n_pad), np.int32),
+             "bboxes": np.zeros((n, n_pad, 4), np.float32),
+             "segments": np.zeros((n, n_pad, 360, 2), np.float32),
+             "mask_gt": np.zeros((n, n_pad), bool)}
+    for i in range(n):
+        for j in range(rng.integers(1, min(3, n_pad) + 1)):
+            cx, cy = rng.uniform(0.3, 0.7, 2) * imgsz
+            r = rng.uniform(0.08, 0.2) * imgsz
+            color = rng.integers(100, 256, 3).astype(np.uint8)
+            if rng.integers(2) == 0:
+                imgs[i][(xx - cx) ** 2 + (yy - cy) ** 2 <= r * r] = color
+                contour = circle_contour(cx, cy, r)
+            else:
+                x0, y0, x1, y1 = int(cx - r), int(cy - r), int(cx + r), int(cy + r)
+                imgs[i, y0:y1, x0:x1] = color
+                contour = rect_contour(x0, y0, x1, y1)
+                batch["cls"][i, j] = 1
+            lo, hi = contour.min(0), contour.max(0)
+            batch["bboxes"][i, j] = np.concatenate([(lo + hi) / 2, hi - lo]) / imgsz
+            batch["segments"][i, j] = contour / imgsz
+            batch["mask_gt"][i, j] = True
+    return imgs.astype(np.float32) / 255.0, batch
+
+
+def ray_contours(n: int, seed: int, size: float = 640.0):
+    """n seeded 360-point contours in pixels: circles, ellipses, 5-point
+    stars and rectangles, of radius 2% to 20% of ``size``, with the center
+    and radius of each (numpy f32 (n, 360, 2), (n, 2), (n,))."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 2 * np.pi, 360, endpoint=False)
+    c = rng.uniform(0.2, 0.8, (n, 2)) * size
+    r = rng.uniform(0.02, 0.2, n) * size
+    out = np.empty((n, 360, 2))
+    for i in range(n):
+        kind = i % 4
+        if kind == 0:
+            out[i] = circle_contour(c[i, 0], c[i, 1], r[i])
+        elif kind == 1:
+            a = rng.uniform(0.4, 1.0)
+            out[i] = c[i] + np.stack([r[i] * np.cos(t), a * r[i] * np.sin(t)], -1)
+        elif kind == 2:
+            rad = r[i] * (1 + 0.5 * np.cos(5 * t + rng.uniform(0, 2 * np.pi)))
+            out[i] = c[i] + np.stack([rad * np.cos(t), rad * np.sin(t)], -1)
+        else:
+            a = rng.uniform(0.4, 1.0)
+            out[i] = rect_contour(c[i, 0] - r[i], c[i, 1] - a * r[i],
+                                  c[i, 0] + r[i], c[i, 1] + a * r[i])
+    return out.astype(np.float32), c.astype(np.float32), r.astype(np.float32)
+
+
+def ray_inputs(rows: int, k: int, seed: int):
+    """The assigner's GT-ray inputs at R = rows, K = k: seeded contours, K
+    centers per row within 1.5 radii of the shape's center (inside and
+    outside it), and a valid prefix per row of 0 to K pairs (numpy)."""
+    rng = np.random.default_rng(seed)
+    contours, c, r = ray_contours(rows, seed)
+    centers = c[:, None] + rng.uniform(-1.5, 1.5, (rows, k, 2)) * r[:, None, None]
+    n_valid = rng.integers(0, k + 1, rows)
+    n_valid[0], n_valid[-1] = k, 0
+    valid = np.arange(k)[None] < n_valid[:, None]
+    return contours, centers.astype(np.float32), valid
+
+
+def ray_mismatches(got, want, contours, rows, centers, rtol: float = 0.0):
+    """The rays where ``got`` and ``want`` (P, 36) differ by more than
+    ``rtol`` relative, each with its 3-degree gate and 4th/5th-nearest gap
+    recomputed in float64: pair p has contour ``contours[rows[p]]`` (R, 360,
+    2) and center ``centers[p]`` (P, 2). A difference is explained when the
+    nearest point lies within 1e-3 degrees of the gate, or the 4th and 5th
+    nearest within 1e-3 degrees of each other: there one rounding of atan2
+    may pick another point. Returns [(pair, ray, got, want, explained)]."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    bad = np.argwhere(np.abs(got - want) > rtol * np.abs(want))
+    out = []
+    for p, r in bad:
+        v = np.asarray(contours[rows[p]], np.float64) - np.asarray(centers[p], np.float64)
+        ang = np.degrees(np.arctan2(v[:, 1], v[:, 0])) % 360.0
+        diff = np.abs(ang - 10.0 * r)
+        d = np.sort(np.where(diff > 180.0, 360.0 - diff, diff))
+        explained = abs(d[0] - 3.0) < 1e-3 or abs(d[3] - d[4]) < 1e-3
+        out.append((int(p), int(r), float(got[p, r]), float(want[p, r]), explained))
     return out
 
 
@@ -224,6 +368,241 @@ def raster_bound_ms(pts, valid, h: int, w: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def gt_rays_bound_ms(n_rows: int, n_pairs: int, n_valid: int, with_valid: bool = True):
+    """Least time for GT rays on this card, from this run's data, and what
+    sets it: max(bytes / HBM rate, ops / fp32 issue rate).
+
+    Bytes: the contours once per row, the centers, the valid flags (rows
+    form) and the rays out. Ops: the work the function needs for the valid
+    pairs (an invalid pair needs none), not what the kernel does; the
+    kernel scans all 360 points for each ray, the function does not have to.
+    Per valid pair: per point the angle and distance, 10 (2 subtractions,
+    atan2, a multiply, the wrap's compare and add; 2 multiplies, an add and
+    a square root; atan2 and the square root counted as one each); one sort
+    of the 360 angles, log2(360!) comparisons (the least any comparison
+    sort needs), a compare and a select each; one walk of the sorted angles
+    beside the 36 rays in order, a compare per angle and per ray; per ray,
+    the 4 nearest of the 8 sorted neighbours around it, 2 ops each for 8
+    differences (a subtraction, the fold) and a compare for each of the 4
+    picks, then 6 (3 maxima of the 4 distances, the gate's compare and
+    select, the clamp). None is an FMA, so the rate is the data sheet's
+    fp32 rate halved. Every op counted is a lower bound, so the bound is."""
+    pts, rays = polar.NUM_CONTOUR_POINTS, polar.NUM_RAYS
+    sort_cmps = math.lgamma(pts + 1) / math.log(2)
+    per_pair = 10 * pts + 2 * sort_cmps + (pts + rays) + rays * (2 * 8 + 4 + 6)
+    ops = n_valid * per_pair
+    nbytes = n_rows * pts * 2 * 4 + n_pairs * 2 * 4 + n_pairs * with_valid + n_pairs * rays * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_INSTR_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_gt_rays(kind: str, contours, centers, valid, card: str, seed_note: str) -> dict:
+    """One GT-ray entry against its plain version on the card: differing
+    rays (each named, and required to sit at a gate or tie), times, bound."""
+    c = torch.from_numpy(contours).cuda()
+    x = torch.from_numpy(centers).cuda()
+    if kind == "rows":
+        v = torch.from_numpy(valid).cuda()
+        fast, plain = (lambda: gt_rays.gt_rays_rows_fast(c, x, v),
+                       lambda: gt_rays.gt_rays_rows_plain(c, x, v))
+        rows = np.nonzero(valid)[0]
+        pair_centers = centers[valid]
+        n_rows, n_pairs, n_valid = valid.shape[0], valid.size, int(valid.sum())
+    else:
+        fast, plain = (lambda: gt_rays.gt_rays_fast(c, x), lambda: gt_rays.gt_rays_pairs_plain(c, x))
+        rows, pair_centers = np.arange(len(centers)), centers
+        n_rows = n_pairs = n_valid = len(centers)
+    got, want = fast(), plain()
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    if kind == "rows":
+        if not bool((got[~v] == np.float32(polar.RAY_EPS)).all()):
+            raise AssertionError("GT-ray rows kernel: an invalid pair is not RAY_EPS")
+        got_v, want_v = got[v], want[v]
+    else:
+        got_v, want_v = got, want
+    named = ray_mismatches(got_v.cpu().numpy(), want_v.cpu().numpy(), contours, rows,
+                           pair_centers) if n_diff else []
+    for p_, r_, g_, w_, ok in named:
+        log("kernels", f"  gt_rays_{kind}: pair {p_} ray {r_}: kernel {g_:.6f} plain {w_:.6f}, "
+            f"at a 3-degree gate or 4th/5th tie: {ok}")
+    if not all(item[4] for item in named):
+        raise AssertionError(f"GT-ray {kind} kernel: {n_diff} rays differ from the plain "
+                             f"version, some away from any gate or tie")
+    ms, plain_ms = time_ms(fast), time_ms(plain)
+    bound_ms, bound_by = gt_rays_bound_ms(n_rows, n_pairs, n_valid, kind == "rows")
+    log("kernels", f"gt_rays_{kind} {seed_note}: {n_valid} valid of {n_pairs} pairs, {n_rows} "
+        f"contours; {n_diff} of {got.numel()} rays differ from the plain version; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"library ms: none (no PyTorch call computes GT rays) | {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": float((got - want).abs().max()), "n_diff": n_diff}
+
+
+def report_row(check: dict) -> dict:
+    return {k: check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+
+
+KERNEL_WRAPPERS = {"fill_polygons": raster.fill_polygons,
+                   "gt_rays_rows": gt_rays.gt_rays_rows_fast,
+                   "gt_rays_pairs": gt_rays.gt_rays_fast}
+
+
+def zero_launch_counts():
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def train_hyp(ckpt, **over):
+    """The checkpoint's train_args as the optimizer's and loss's hyp."""
+    hyp = SimpleNamespace(**ckpt["train_args"])
+    for k, v in over.items():
+        setattr(hyp, k, v)
+    return hyp
+
+
+def seg160_model(ckpt, device):
+    model = SegmentationModel(ckpt["model_yaml"])
+    model.names = dict(ckpt["names"])
+    load_jax_variables(model, *checkpoint_variables(ckpt))
+    return model.to(device).train()
+
+
+def to_device(images, batch, device):
+    return (torch.from_numpy(images).to(device),
+            {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+
+
+def train_card_vs_cpu(ckpt, card: str):
+    """One loss, the assignment and every gradient of the seg160 model at
+    imgsz 160, batch 4, on the card and on the CPU (f32, TF32 off)."""
+    images, batch = shape_batch(4, 160, 8, seed=3)
+    hyp = train_hyp(ckpt)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = seg160_model(ckpt, dev)
+        x, b = to_device(images, batch, dev)
+        feats = model(x.permute(0, 3, 1, 2).contiguous())
+        tg = polar_targets(feats, b, model.strides, model.nc, hyp, cand=hyp.cand_per_gt)
+        out = polar_loss(tg, hyp)
+        out.total.backward()
+        res[dev] = (out.total.item(), tg.assign.fg_mask.cpu(), tg.assign.target_gt_idx.cpu(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (lc, fc, ic, gc), (lg, fg, ig, gg) = res["cpu"], res["cuda"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    grad_rel = max(float((gg[n] - gc[n]).abs().max() / gc[n].abs().max().clamp_min(1e-30))
+                   for n in gc)
+    same = torch.equal(fc, fg) and torch.equal(ic[fc], ig[fg])
+    if not same or loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train card vs CPU: same assignment {same}, loss rel {loss_rel:.2e} "
+                             f"(limit {TRAIN_LOSS_RTOL}), grad {grad_rel:.2e} of the tensor max "
+                             f"(limit {TRAIN_GRAD_TOL})")
+    log("train", f"card vs CPU, seg160 at imgsz 160 batch 4: loss {lg:.6f} vs {lc:.6f} (rel "
+        f"{loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); same assignment ({int(fc.sum())} fg anchors); "
+        f"worst gradient {grad_rel:.2e} of its tensor's max (limit {TRAIN_GRAD_TOL}) | {card}")
+
+
+class StageTimer:
+    """The ``mark`` hook of ``make_train_step``: a CUDA event as each stage
+    of the step starts. ``split()`` reads the step just run, ms per stage:
+    forward, assigner (the GT-ray kernel's wrapper included), gt_rays_kernel
+    (that wrapper alone), loss, backward, clip_optimizer_ema, total."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, stage: str):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((stage, ev))
+
+    def split(self) -> dict:
+        marks, self.marks = self.marks, []
+        marks[-1][1].synchronize()
+        out = dict.fromkeys(("forward", "assigner", "gt_rays", "loss", "backward",
+                             "clip_optimizer_ema"), 0.0)
+        for (stage, a), (_, b) in zip(marks, marks[1:]):
+            out[stage] += a.elapsed_time(b)
+        out["gt_rays_kernel"] = out.pop("gt_rays")
+        out["assigner"] += out["gt_rays_kernel"]
+        out["total"] = marks[0][1].elapsed_time(marks[-1][1])
+        return out
+
+
+def train_full_width(ckpt, card: str):
+    """yolov8n-seg at full width from the seg160 checkpoint, imgsz 640,
+    batch 16, N_pad 8, AdamW from the checkpoint's train_args with no
+    warmup: 3 warm-up steps, then TRAIN_STEPS steps of ``make_train_step``
+    on one repeated batch (counts zeroed just before, read just after), each
+    timed on the host clock and split into its stages by the step's own
+    marks (``StageTimer``)."""
+    hyp = train_hyp(ckpt, optimizer="AdamW", warmup_epochs=0.0, batch=TRAIN_B)
+    model = seg160_model(ckpt, "cuda")
+    opt = optim.build_optimizer(model, hyp, steps_per_epoch=1000, iterations=1000)
+    state = init_train_state(model, opt, device="cuda")
+    timer = StageTimer()
+    step = make_train_step(model, opt, hyp, cand=hyp.cand_per_gt, mark=timer)
+    images, batch = shape_batch(TRAIN_B, TRAIN_IMGSZ, TRAIN_NPAD, seed=4)
+    x, b = to_device(images, batch, "cuda")
+    losses = [step(state, x, b)["loss"].item() for _ in range(3)]
+    timer.marks = []
+    zero_launch_counts()
+    times, splits = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step(state, x, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        splits.append(timer.split())
+        losses.append(metrics["loss"].item())
+    counts = launch_counts()
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train at 640: losses {losses}")
+    if counts["gt_rays_rows"] == 0:
+        raise AssertionError("the train path never launched the GT-ray kernel")
+    log("train", f"yolov8n-seg full width, imgsz {TRAIN_IMGSZ} batch {TRAIN_B} N_pad "
+        f"{TRAIN_NPAD}, AdamW lr0 {hyp.lr0}: loss {losses[0]:.4f} at step 0, {losses[-1]:.4f} "
+        f"at step {len(losses) - 1}, all finite; {int(batch['mask_gt'].sum())} GT instances; "
+        f"launches {counts}; ms per step (host clock, median of {TRAIN_STEPS}) "
+        f"{statistics.median(times):.3f} (min {min(times):.3f}, max {max(times):.3f}); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
+    med = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+    log("train", f"imgsz {TRAIN_IMGSZ} batch {TRAIN_B}, ms per step split by CUDA events at the "
+        f"step's own stage marks (median of the same {TRAIN_STEPS} steps): {parts} | {card}")
+    return state, counts, med, statistics.median(times)
+
+
+def save_and_predict(ckpt, state, images, card: str):
+    """``save_checkpoint`` the trained state in the JAX format, then
+    ``YOLO(path).predict`` on the card."""
+    params, bstats = to_jax_variables(state.model.state_dict())
+    ema, _ = to_jax_variables(state.ema)
+    with tempfile.TemporaryDirectory() as d:
+        path = save_checkpoint(Path(d) / "last.ckpt", params, bstats, ema, step=state.step,
+                               epoch=0, best_fitness=0.0, train_args=ckpt["train_args"],
+                               model_yaml=state.model.yaml, names=ckpt["names"])
+        size = path.stat().st_size
+        loaded = YOLO(path, device="cuda")
+        res = loaded.predict(images, imgsz=160)
+    # the facade loads the EMA weights, and the trained BatchNorm statistics
+    sd = loaded.model.state_dict()
+    same = (all(torch.equal(sd[n], t) for n, t in state.ema.items())
+            and all(torch.equal(sd[n], t) for n, t in state.model.state_dict().items()
+                    if "running" in n))
+    if len(res) != len(images) or not same:
+        raise AssertionError(f"predict from the saved checkpoint: {len(res)} results, "
+                             f"weights as saved: {same}")
+    log("train", f"saved the trained state ({size} bytes, step {state.step}); YOLO(path, "
+        f"device='cuda') holds the saved EMA weights and BatchNorm statistics exactly; "
+        f".predict on {len(images)} images: {sum(len(r) for r in res)} detections | {card}")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -236,11 +615,20 @@ def main() -> int:
         f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t = time.perf_counter()
-    lib = cuda_build.build("raster")
-    log("build", f"raster.cu -> {lib.relative_to(ROOT)} in {time.perf_counter() - t:.2f}s "
-        f"(nvcc {' '.join(cuda_build.NVCC_FLAGS)})")
+
+    def build(name):
+        t0 = time.perf_counter()
+        return cuda_build.build(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        futures = {name: ex.submit(build, name) for name in KERNEL_SOURCES}
+        built = {name: f.result() for name, f in futures.items()}
+    for name, (lib, secs) in built.items():
+        log("build", f"{name}.cu -> {lib.relative_to(ROOT)} in {secs:.2f}s | {card}")
+    log("build", f"all in {time.perf_counter() - t:.2f}s (nvcc {' '.join(cuda_build.NVCC_FLAGS)}) "
+        f"| {card}")
 
     # 3. kernels against their plain versions
     pts, valid = raster_inputs()
@@ -254,15 +642,27 @@ def main() -> int:
     ms = time_ms(lambda: raster.fill_polygons(pts, valid, h, w))
     plain_ms = time_ms(lambda: raster.fill_polygons_plain(pts, valid, h, w))
     bound_ms, bound_by = raster_bound_ms(pts, valid, h, w)
+    raster_err = float((got.int() - want.int()).abs().max())
     log("kernels", f"fill_polygons N={RASTER_N} V={RASTER_V} {h}x{w}: 0 of {got.numel()} "
         f"pixels differ; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}) | {card}")
+    raster_row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "max_abs_err": raster_err}
+    rows_checks = {}
+    for n_pad, k in RAY_SHAPES:
+        r = TRAIN_B * n_pad
+        rows_checks[k] = check_gt_rays("rows", *ray_inputs(r, k, seed=k), card,
+                                       f"R={r} (batch {TRAIN_B} x N_pad {n_pad}) K={k}")
+    contours, c, rad = ray_contours(RAY_PAIRS, seed=5)
+    centers = (c + np.random.default_rng(5).uniform(-1.5, 1.5, (RAY_PAIRS, 2)) * rad[:, None])
+    pairs_check = check_gt_rays("pairs", contours, centers.astype(np.float32), None, card,
+                                f"P={RAY_PAIRS}")
 
     # 4. the main path: predict on the card
     model = YOLO(CKPT, device="cuda")
     imgs160 = shape_images(4, 120, 200, seed=1)
     imgs640 = shape_images(8, *RASTER_HW, seed=2)
-    raster.fill_polygons.launches = 0
+    zero_launch_counts()
     res160 = model.predict(imgs160, imgsz=160)
     n_det = sum(len(r) for r in res160)
     n_px = sum(int(r.masks.data.sum()) for r in res160)
@@ -291,12 +691,12 @@ def main() -> int:
         run(images, imgsz, batch)  # warm-up
         runs = [run(images, imgsz, batch) for _ in range(10)]
         lat[imgsz] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    launches = raster.fill_polygons.launches
-    if launches == 0:
+    predict_counts = launch_counts()
+    if predict_counts["fill_polygons"] == 0:
         raise AssertionError("the predict path never launched the raster kernel")
     log("predict", f"imgsz 160: {n_det} detections, {n_px} mask pixels over {len(res160)} "
         f"images; imgsz 640 batch 8: {n_det640} detections, {n_px640} mask pixels; "
-        f"raster launches {launches} | {card}")
+        f"launches {predict_counts} | {card}")
     for imgsz, batch in ((160, 1), (640, 8)):
         parts = ", ".join(f"{k} {v:.3f}" for k, v in lat[imgsz].items())
         log("predict", f"imgsz {imgsz} batch {batch}, ms per image (host clock, median of 10 "
@@ -329,23 +729,33 @@ def main() -> int:
         raise AssertionError(f"card vs CPU: head {worst_head:.2e} (limit {HEAD_ATOL}), "
                              f"boxes {worst_box:.2e} px (limit {BOX_ATOL})")
     log("predict", f"card vs CPU at imgsz 160: head max abs {worst_head:.2e} (limit {HEAD_ATOL}), "
-        f"same detections, boxes max abs {worst_box:.2e} px (limit {BOX_ATOL})")
+        f"same detections, boxes max abs {worst_box:.2e} px (limit {BOX_ATOL}) | {card}")
 
-    # 5. report
-    kernels = [{
-        "name": "fill_polygons",
-        "route": "cuda",
-        "source": "yolo_contour_regression_tpu_torch/csrc/raster.cu",
-        "replaces": "yolo_contour_regression_tpu/ops/pallas_raster.py:58",
-        "launches": launches,
-        "max_abs_err": float((got.int() - want.int()).abs().max()),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]
-    log("report", f"wall {time.perf_counter() - T0:.2f}s")
+    # 5. the main path: the train step on the card
+    ckpt = load_checkpoint(CKPT)
+    train_card_vs_cpu(ckpt, card)
+    state, train_counts, _, _ = train_full_width(ckpt, card)
+    save_and_predict(ckpt, state, imgs160, card)
+
+    # 6. report: launches summed over the two main paths' runs
+    launches = {k: predict_counts[k] + train_counts[k] for k in KERNEL_WRAPPERS}
+    src = "yolo_contour_regression_tpu_torch/csrc/"
+    kernels = [
+        {"name": "fill_polygons", "route": "cuda", "source": src + "raster.cu",
+         "replaces": "yolo_contour_regression_tpu/ops/pallas_raster.py:58",
+         "launches": launches["fill_polygons"], **raster_row, "library_ms": None},
+        {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
+         "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
+         "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_K]),
+         "library_ms": None},
+        {"name": "gt_rays_pairs", "route": "cuda", "source": src + "gt_rays.cu",
+         "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:333",
+         "launches": launches["gt_rays_pairs"], **report_row(pairs_check), "library_ms": None},
+    ]
+    log("report", f"launches on the main paths: predict {predict_counts}, train {train_counts}; "
+        "gt_rays_rows: ms, plain_ms and bound at the train path's R=128 K=128; gt_rays_pairs "
+        "(also the counterpart of pallas_polar.py:101) at P=16,384 | wall "
+        f"{time.perf_counter() - T0:.2f}s | {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

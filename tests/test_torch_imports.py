@@ -1,8 +1,8 @@
 """The PyTorch port imports nothing that a CUDA machine with only torch,
 numpy and the standard library lacks: in a fresh interpreter that refuses
 jax, flax, optax, cv2, PIL, yaml, torchvision, triton and the JAX package,
-every module of the port and ``chip_smoke`` import, and the CPU predict runs
-on the committed seg160 checkpoint."""
+every module of the port and ``chip_smoke`` import, the CPU predict runs
+on the committed seg160 checkpoint, and one CPU train step runs on it."""
 import subprocess
 import sys
 from pathlib import Path
@@ -37,9 +37,25 @@ model = pkg.YOLO("runs/floor_seg160/best.ckpt", device="cpu")
 res = model.predict(chip_smoke.shape_images(2, 120, 200, seed=0), imgsz=160)
 assert sum(len(r) for r in res) > 0
 assert all(r.masks.data.shape[1:] == (120, 200) for r in res)
+import torch
+from types import SimpleNamespace
+from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
+from yolo_contour_regression_tpu_torch.ops import gt_rays
+from yolo_contour_regression_tpu_torch.utils import loss, optim, tal
+hyp = SimpleNamespace(optimizer="AdamW", nc=2, lr0=0.001667, lrf=0.01, momentum=0.9,
+                      weight_decay=0.0005, warmup_epochs=0.0, warmup_bias_lr=0.0, epochs=1,
+                      batch=2, nbs=16, box=7.5, cls=0.5)
+net = model.model
+opt = optim.build_optimizer(net, hyp, 1, 1)
+state = init_train_state(net, opt, device="cpu")
+images, batch = chip_smoke.shape_batch(2, 64, 3, seed=0)
+metrics = make_train_step(net, opt, hyp)(
+    state, torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in batch.items()})
+assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections")
+print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;",
+      "train step loss", float(metrics["loss"]))
 """
 
 
@@ -49,6 +65,6 @@ def test_port_imports_and_predicts_without_jax_cv2_yaml_triton():
         cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "detections" in res.stdout
+    assert "detections" in res.stdout and "train step loss" in res.stdout
     n_mods = int(res.stdout.split("imported ")[1].split()[0])
-    assert n_mods >= 15  # ops, nn, utils, engine, data modules of the port
+    assert n_mods >= 20  # ops, nn, utils, engine, data modules of the port

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from yolo_contour_regression_tpu_torch.ops import raster
+from chip_smoke import ray_contours, ray_inputs, ray_mismatches
+from yolo_contour_regression_tpu_torch.ops import gt_rays, raster
 
 pytestmark = pytest.mark.cuda
 
@@ -54,3 +55,112 @@ def test_raster_kernel_rejects_what_it_cannot_take(cuda):
         raster.fill_polygons(pts.transpose(0, 1), valid.t(), 32, 32)
     with pytest.raises(ValueError):
         raster.fill_polygons(pts, valid.cpu(), 32, 32)
+
+
+# The plain version on the CPU takes PyTorch's vectorized CPU sqrt, which is
+# not correctly rounded (about 0.6% of f32 values come out 1 ulp off), so
+# against it a ray may also differ by a few ulps of its distance
+CPU_SQRT_RTOL = 1e-6
+
+
+def _assert_same_rays(got, want, contours, rows, centers, rtol=0.0):
+    """Equal rays (within ``rtol``); a difference beyond that only where one
+    rounding of atan2 may pick another point, at the 3-degree gate or a
+    4th/5th-nearest tie (printed)."""
+    got, want = got.cpu().reshape(-1, 36).numpy(), want.cpu().reshape(-1, 36).numpy()
+    diffs = ray_mismatches(got, want, contours, rows, centers, rtol=rtol)
+    for d in diffs:
+        print(f"pair {d[0]} ray {d[1]}: {d[2]:.6f} vs {d[3]:.6f}, at a gate or tie: {d[4]}")
+    assert all(d[4] for d in diffs)
+
+
+@pytest.mark.parametrize("R,K", [(128, 128), (768, 48), (5, 1), (7, 13), (3, 9), (1, 300)])
+def test_gt_rays_rows_kernel_equals_plain(cuda, R, K):
+    """The main path's shapes (640, batch 16: R 128 x K 128 and R 768 x K 48),
+    K = 1, R * K not a multiple of the 8-pair block, all-invalid rows (the
+    last row of ``ray_inputs``, and row 1 here) and a non-prefix pattern."""
+    contours, centers, valid = ray_inputs(R, K, seed=R + K)
+    if R > 2:
+        valid[1] = False
+        valid[2] = np.arange(K) % 3 == 1
+    c, x, v = (torch.from_numpy(a).to(cuda) for a in (contours, centers, valid))
+    before = gt_rays.gt_rays_rows_fast.launches
+    got = gt_rays.gt_rays_rows_fast(c, x, v)
+    torch.cuda.synchronize()
+    assert gt_rays.gt_rays_rows_fast.launches == before + 1
+    want = gt_rays.gt_rays_rows_plain(c, x, v)
+    assert (got[~v] == np.float32(1e-6)).all()
+    rows = np.nonzero(valid)[0]
+    _assert_same_rays(got[v], want[v], contours, rows, centers[valid])
+    # and the plain version on the CPU, whose atan2 is another implementation
+    cpu = gt_rays.gt_rays_rows_plain(*(torch.from_numpy(a) for a in (contours, centers, valid)))
+    _assert_same_rays(got[v], cpu[torch.from_numpy(valid)], contours, rows, centers[valid],
+                      rtol=CPU_SQRT_RTOL)
+
+
+@pytest.mark.parametrize("P", [16384, 21, 1])
+def test_gt_rays_pairs_kernel_equals_plain(cuda, P):
+    contours, c, r = ray_contours(P, seed=P)
+    centers = (c + np.random.default_rng(P).uniform(-1.5, 1.5, (P, 2)) * r[:, None])
+    centers = centers.astype(np.float32)
+    ct, xt = torch.from_numpy(contours).to(cuda), torch.from_numpy(centers).to(cuda)
+    before = gt_rays.gt_rays_fast.launches
+    got = gt_rays.gt_rays_fast(ct, xt)
+    torch.cuda.synchronize()
+    assert gt_rays.gt_rays_fast.launches == before + 1
+    _assert_same_rays(got, gt_rays.gt_rays_pairs_plain(ct, xt), contours, np.arange(P), centers)
+
+
+def test_gt_rays_kernels_reject_what_they_cannot_take(cuda):
+    contours, centers, valid = ray_inputs(4, 8, seed=0)
+    c, x, v = (torch.from_numpy(a).to(cuda) for a in (contours, centers, valid))
+    before = (gt_rays.gt_rays_rows_fast.launches, gt_rays.gt_rays_fast.launches)
+    with pytest.raises(TypeError):
+        gt_rays.gt_rays_rows_fast(c.double(), x, v)
+    with pytest.raises(TypeError):
+        gt_rays.gt_rays_rows_fast(c, x.half(), v)
+    with pytest.raises(ValueError):
+        gt_rays.gt_rays_rows_fast(c, x, v.int())
+    with pytest.raises(ValueError):
+        gt_rays.gt_rays_rows_fast(c[:, :359].contiguous(), x, v)
+    with pytest.raises(ValueError):
+        gt_rays.gt_rays_rows_fast(c, x, v.cpu())
+    with pytest.raises(ValueError):
+        gt_rays.gt_rays_rows_fast(c, x.transpose(0, 1).contiguous().transpose(0, 1), v)
+    with pytest.raises(TypeError):
+        gt_rays.gt_rays_fast(c.double(), x[:, 0].contiguous())
+    with pytest.raises(ValueError):
+        gt_rays.gt_rays_fast(c, x[:, 0])  # not contiguous
+    with pytest.raises(ValueError):
+        gt_rays.gt_rays_fast(c, x[:3, 0].contiguous())
+    assert before == (gt_rays.gt_rays_rows_fast.launches, gt_rays.gt_rays_fast.launches)
+    # empty inputs launch nothing and give empty outputs
+    assert gt_rays.gt_rays_rows_fast(c[:0], x[:0], v[:0]).shape == (0, 8, 36)
+    assert gt_rays.gt_rays_fast(c[:0], x[:0, 0].contiguous()).shape == (0, 36)
+
+
+def test_train_state_defaults_to_the_card(cuda):
+    """``init_train_state`` without ``device`` moves the model and its EMA
+    to the card, and the step takes CPU inputs there, GT-ray kernel
+    included."""
+    from chip_smoke import shape_batch
+    from types import SimpleNamespace
+    from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
+    from yolo_contour_regression_tpu_torch.nn.tasks import YOLOV8_SEG, SegmentationModel
+    from yolo_contour_regression_tpu_torch.utils import optim
+
+    cfg = dict(YOLOV8_SEG, nc=2, scale="t", scales={"t": [0.33, 0.125, 256]})
+    model = SegmentationModel(cfg)
+    hyp = SimpleNamespace(optimizer="AdamW", nc=2, lr0=0.001667, lrf=0.01, momentum=0.9,
+                          weight_decay=0.0005, warmup_epochs=0.0, warmup_bias_lr=0.0,
+                          epochs=1, batch=2, nbs=16, box=7.5, cls=0.5)
+    opt = optim.build_optimizer(model, hyp, 1, 1)
+    state = init_train_state(model, opt)
+    assert state.device.type == "cuda"
+    assert all(p.is_cuda for p in model.parameters()) and all(e.is_cuda for e in state.ema.values())
+    images, batch = shape_batch(2, 64, 3, seed=0)
+    before = gt_rays.gt_rays_rows_fast.launches
+    metrics = make_train_step(model, opt, hyp)(
+        state, torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert metrics["loss"].is_cuda and torch.isfinite(metrics["loss"])
+    assert gt_rays.gt_rays_rows_fast.launches == before + 1

@@ -1,9 +1,10 @@
-"""The PyTorch port's ops against the JAX package's (polar decode, boxes,
-NMS, polygon fill, letterbox), on the CPU. Inputs are made from a seed with
-numpy and handed to both."""
+"""The PyTorch port's ops against the JAX package's (polar decode, GT rays
+and polar geometry, boxes, NMS, polygon fill, letterbox), on the CPU. Inputs
+are made from a seed with numpy and handed to both."""
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -12,18 +13,30 @@ from yolo_contour_regression_tpu.ops import boxes as jboxes
 from yolo_contour_regression_tpu.ops import nms as jnms
 from yolo_contour_regression_tpu.ops import polar as jpolar
 from yolo_contour_regression_tpu.ops import raster as jraster
+from yolo_contour_regression_tpu.ops import pallas_polar as jpallas_polar
 from yolo_contour_regression_tpu.ops.pallas_raster import fill_polygons_pallas
 from yolo_contour_regression_tpu_torch.data import augment as taug
 from yolo_contour_regression_tpu_torch.ops import boxes as tboxes
+from yolo_contour_regression_tpu_torch.ops import gt_rays as tgt_rays
 from yolo_contour_regression_tpu_torch.ops import nms as tnms
 from yolo_contour_regression_tpu_torch.ops import polar as tpolar
 from yolo_contour_regression_tpu_torch.ops import raster as traster
 
+from chip_smoke import ray_contours, ray_inputs, ray_mismatches
 from tests.test_nms import numpy_greedy_nms
 
 # f32 decode math in a different op order / fusion than XLA's: 1e-5 absolute
 # on pixel-scale values (< 1e3) is a few ulps
 DECODE_ATOL = 1e-5
+# GT rays: a ray is a distance picked from the same f32 arithmetic, so it
+# agrees to a few ulps unless one rounding of atan2 (torch's against XLA's,
+# or the Pallas kernels' polynomial) picks another point at the 3-degree gate
+# or at a 4th/5th-nearest tie; at most 0.1% of the rays may do so, each one
+# named and shown to sit within 1e-3 degrees of a gate or a tie
+RAY_RTOL = 1e-5
+RAY_MAX_FLIPS = 1e-3
+# the polar geometry: elementwise f32 and sums over 36 rays
+GEOM_TOL = 1e-6
 
 
 def _t(a):
@@ -206,3 +219,123 @@ def test_letterbox_matches_jax(shape, new):
     assert gr == wr and gpad == wpad and got.shape == want.shape and got.dtype == np.uint8
     # cv2 resizes uint8 in 11-bit fixed point, interpolate in float32
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 2
+
+
+def _assert_rays_match(got, want, contours, rows, centers, what):
+    """``got`` equals ``want`` within RAY_RTOL, except for at most
+    RAY_MAX_FLIPS of the rays, each at a gate or a tie (printed)."""
+    got, want = np.asarray(got).reshape(-1, 36), np.asarray(want).reshape(-1, 36)
+    assert got.shape == want.shape
+    diffs = ray_mismatches(got, want, contours, rows, centers, rtol=RAY_RTOL)
+    for d in diffs:
+        print(f"{what}: pair {d[0]} ray {d[1]}: {d[2]:.6f} vs {d[3]:.6f}, at a gate or tie: {d[4]}")
+    assert all(d[4] for d in diffs), f"{what}: a ray differs away from any gate or tie"
+    assert len(diffs) <= RAY_MAX_FLIPS * got.size, f"{what}: {len(diffs)} rays differ"
+
+
+def _ray_pairs(seed, P, size=256.0):
+    """P seeded (contour, center) pairs, centers inside and outside."""
+    rng = np.random.default_rng(seed + 100)
+    contours, c, r = ray_contours(P, seed, size)
+    centers = (c + rng.uniform(-1.5, 1.5, (P, 2)) * r[:, None]).astype(np.float32)
+    return contours, centers
+
+
+@pytest.mark.parametrize("seed,P", [(0, 64), (1, 257)])
+def test_gt_rays_dense_and_chunked_match_jax(seed, P):
+    contours, centers = _ray_pairs(seed, P)
+    rows = np.arange(P)
+    want = np.asarray(jpolar._gt_rays_dense(jnp.asarray(contours), jnp.asarray(centers)))
+    got = tpolar._gt_rays_dense(_t(contours), _t(centers)).numpy()
+    _assert_rays_match(got, want, contours, rows, centers, "_gt_rays_dense")
+    # chunked: slabs of 100 pairs, the last one ragged
+    want = np.asarray(jpolar.gt_rays_from_contour(jnp.asarray(contours), jnp.asarray(centers),
+                                                  chunk=100))
+    got = tpolar.gt_rays_from_contour(_t(contours), _t(centers), chunk=100).numpy()
+    _assert_rays_match(got, want, contours, rows, centers, "gt_rays_from_contour")
+    np.testing.assert_array_equal(tgt_rays.gt_rays_pairs_plain(_t(contours), _t(centers)).numpy(),
+                                  tpolar._gt_rays_dense(_t(contours), _t(centers)).numpy())
+
+
+def test_gt_rays_dense_ties_take_lowest_index():
+    """A circle about its own center: the 4th and 5th nearest points of
+    every ray tie in angle; the stable sort takes the lower index, as
+    lax.top_k does, and the rays equal the JAX ones."""
+    t = np.linspace(0, 2 * np.pi, 360, endpoint=False)
+    r = 10.0 + np.arange(360) * 0.01  # distinct distances, so a pick shows
+    contour = np.stack([50 + r * np.cos(t), 50 + r * np.sin(t)], -1).astype(np.float32)[None]
+    center = np.full((1, 2), 50.0, np.float32)
+    got = tpolar._gt_rays_dense(_t(contour), _t(center)).numpy()
+    want = np.asarray(jpolar._gt_rays_dense(jnp.asarray(contour), jnp.asarray(center)))
+    _assert_rays_match(got, want, contour, [0], center, "ties")
+
+
+def test_gt_rays_rows_plain_matches_pallas3_interpret():
+    """Rows form against the v3 kernel in interpret mode (K = 13 is not a
+    multiple of its 8-pair blocks): equal at valid pairs within the
+    allowance; RAY_EPS exactly at invalid ones."""
+    contours, centers, valid = ray_inputs(6, 13, seed=3)
+    valid[2, :] = False
+    want = np.asarray(jpallas_polar.gt_rays_rows_fast(
+        jnp.asarray(contours), jnp.asarray(centers), jnp.asarray(valid), interpret=True))
+    got = tgt_rays.gt_rays_rows_plain(_t(contours), _t(centers), _t(valid)).numpy()
+    assert got.shape == (6, 13, 36)
+    rows = np.nonzero(valid)[0]
+    _assert_rays_match(got[valid], want[valid], contours, rows, centers[valid], "rows vs v3")
+    assert (got[~valid] == np.float32(tpolar.RAY_EPS)).all()
+    # the wrapper takes the plain version for CPU tensors, launching nothing
+    before = tgt_rays.gt_rays_rows_fast.launches
+    np.testing.assert_array_equal(
+        tgt_rays.gt_rays_rows_fast(_t(contours), _t(centers), _t(valid)).numpy(), got)
+    assert tgt_rays.gt_rays_rows_fast.launches == before
+
+
+def test_gt_rays_pairs_plain_matches_pallas_v1_v2_interpret():
+    contours, centers = _ray_pairs(4, 21)  # not a multiple of the 8-pair blocks
+    rows = np.arange(21)
+    got = tgt_rays.gt_rays_pairs_plain(_t(contours), _t(centers)).numpy()
+    for fn in (jpallas_polar.gt_rays_pallas, jpallas_polar.gt_rays_pallas2):
+        want = np.asarray(fn(jnp.asarray(contours), jnp.asarray(centers), interpret=True))
+        _assert_rays_match(got, want, contours, rows, centers, fn.__name__)
+    before = tgt_rays.gt_rays_fast.launches
+    np.testing.assert_array_equal(tgt_rays.gt_rays_fast(_t(contours), _t(centers)).numpy(), got)
+    assert tgt_rays.gt_rays_fast.launches == before
+
+
+def test_gt_ray_wrappers_refuse_mixed_devices():
+    contours, centers, valid = ray_inputs(2, 4, seed=0)
+    with pytest.raises(ValueError):
+        tgt_rays.gt_rays_rows_fast(_t(contours), _t(centers).to("meta"), _t(valid))
+    with pytest.raises(ValueError):
+        tgt_rays.gt_rays_fast(_t(contours[:, 0:1].repeat(360, 1)).to("meta"),
+                              _t(centers[:, 0]).to("meta"))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_polar_geometry_matches(seed):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 200, (3, 50, 2)).astype(np.float32)
+    ctr = rng.uniform(50, 150, (3, 2)).astype(np.float32)
+    np.testing.assert_allclose(tpolar.point_angles_deg(_t(pts), _t(ctr)).numpy(),
+                               np.asarray(jpolar.point_angles_deg(jnp.asarray(pts),
+                                                                  jnp.asarray(ctr))),
+                               rtol=GEOM_TOL, atol=GEOM_TOL)
+    a = rng.uniform(-1, 40, (4, 9, 36)).astype(np.float32)
+    b = rng.uniform(1e-6, 40, (4, 9, 36)).astype(np.float32)
+    a[0, 0, :3] = tpolar.RAY_EPS  # at the clamp
+    w = rng.uniform(0, 1, (4, 9)).astype(np.float32)
+    np.testing.assert_allclose(tpolar.polar_mask_iou(_t(a), _t(b)).numpy(),
+                               np.asarray(jpolar.polar_mask_iou(jnp.asarray(a), jnp.asarray(b))),
+                               rtol=GEOM_TOL, atol=GEOM_TOL)
+    np.testing.assert_allclose(tpolar.polar_centerness(_t(b)).numpy(),
+                               np.asarray(jpolar.polar_centerness(jnp.asarray(b))),
+                               rtol=GEOM_TOL, atol=GEOM_TOL)
+    # the loss and its gradient w.r.t. the predicted rays (jnp.clip's and
+    # jnp.maximum's half-and-half split at equality included)
+    ta = _t(a).requires_grad_()
+    tl = tpolar.mask_iou_loss(ta, _t(b), _t(w), 3.0)
+    tl.backward()
+    jl, jg = jax.value_and_grad(lambda x: jpolar.mask_iou_loss(x, jnp.asarray(b), jnp.asarray(w),
+                                                                3.0))(jnp.asarray(a))
+    np.testing.assert_allclose(tl.item(), float(jl), rtol=GEOM_TOL)
+    np.testing.assert_allclose(ta.grad.numpy(), np.asarray(jg), rtol=GEOM_TOL, atol=GEOM_TOL)

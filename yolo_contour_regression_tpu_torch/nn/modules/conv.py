@@ -5,13 +5,15 @@ identity BN, unfused) and Concat.
 
 Attribute names follow the reference's state-dict keys (``conv``, ``bn``,
 ``cv2``, ``conv1.conv``, ``conv1.bn``, ...). BatchNorm matches flax's
-``momentum=0.97, epsilon=1e-3``, which is ``eps=1e-3, momentum=0.03`` here.
+``momentum=0.97, epsilon=1e-3``, which is ``eps=1e-3, momentum=0.03`` here,
+and updates its running statistics as flax does (``BatchNorm2d`` below).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
@@ -47,8 +49,25 @@ def autopad(k: int, p=None, d: int = 1):
     return (k - 1) // 2 if p is None else p
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running statistics: in train mode it
+    normalizes with the biased batch variance, as torch does, and updates
+    ``ra = (1 - momentum) * ra + momentum * batch`` with the **biased**
+    variance too (torch's own update takes the unbiased one). Eval mode is
+    torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def batch_norm(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class Conv(nn.Module):

@@ -4,7 +4,7 @@
 A ``.ckpt`` is one pickle of plain dicts of numpy arrays: ``params``,
 ``batch_stats``, ``ema_params``, ``model_yaml``, ``names``, ``train_args``, ...
 ``from_jax_variables`` inverts the name map of the JAX package's
-``utils/torch_convert.py``:
+``utils/torch_convert.py``, and ``to_jax_variables`` inverts it back:
 
   this port (reference .pt keys)       JAX tree
   -----------------------------------  ------------------------------------
@@ -21,7 +21,9 @@ from __future__ import annotations
 import pickle
 import re
 from collections import OrderedDict
-from typing import Any, Dict, Tuple
+from datetime import datetime
+from pathlib import Path
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +43,10 @@ _LEAF_MAP = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
+_REPCONV_INV = {("conv1", "conv"): "conv1", ("conv1", "bn"): "bn1",
+                ("conv2", "conv"): "conv2", ("conv2", "bn"): "bn2"}
+# the version string written into checkpoints, the JAX package's format
+CKPT_VERSION = "0.1.0"
 
 
 def load_checkpoint(path) -> Dict[str, Any]:
@@ -123,3 +129,96 @@ def load_jax_variables(model: torch.nn.Module, params: dict, batch_stats: dict):
         raise ValueError(f"shape mismatch for {bad[:5]}")
     model.load_state_dict(sd, strict=False)
     return model
+
+
+def _jax_module_path(tokens, keys) -> Tuple[str, ...]:
+    """Reference dotted module tokens (model.{i}[.{r}]...) -> JAX module
+    path, the inverse of ``_module_path``. ``keys`` (all keys of the state
+    dict) tells a RepConv's identity BN (``bn_id``) from a Conv's ``bn``."""
+    if len(tokens) < 2 or tokens[0] != "model" or not tokens[1].isdigit():
+        raise KeyError(f"not a graph layer: {'.'.join(tokens)}")
+    rest = list(tokens[2:])
+    layer = f"layer{tokens[1]}"
+    if rest and rest[0].isdigit():
+        layer += f"_{rest.pop(0)}"
+    out = []
+    while rest:
+        tok = rest.pop(0)
+        if re.fullmatch(r"cv\d", tok) and len(rest) >= 2 and rest[0].isdigit() and rest[1].isdigit():
+            tok = f"{tok}_{rest.pop(0)}_{rest.pop(0)}"
+        out.append(tok)
+    if tuple(out[-2:]) in _REPCONV_INV:
+        out = out[:-2] + [_REPCONV_INV[tuple(out[-2:])]]
+    elif out and out[-1] == "bn":
+        parent = ".".join(tokens[:-1])
+        if f"{parent}.conv1.conv.weight" in keys:
+            out[-1] = "bn_id"
+    return (layer, *out)
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
+    """A state dict with the reference's keys (or a dict of parameters
+    only, such as the EMA) -> JAX ``(params, batch_stats)`` numpy trees; the
+    exact inverse of ``from_jax_variables``. Conv kernels go OIHW -> HWIO;
+    BatchNorm's ``num_batches_tracked`` has no JAX counterpart and is
+    dropped."""
+    keys = set(state_dict)
+    trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for key, t in state_dict.items():
+        tokens = key.split(".")
+        leaf = tokens[-1]
+        if leaf == "num_batches_tracked":
+            continue
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if leaf == "running_mean":
+            coll, jleaf = "batch_stats", "mean"
+        elif leaf == "running_var":
+            coll, jleaf = "batch_stats", "var"
+        elif leaf == "bias":
+            coll, jleaf = "params", "bias"
+        elif leaf == "weight" and arr.ndim == 4:
+            coll, jleaf = "params", "kernel"
+            arr = arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and arr.ndim == 1:
+            coll, jleaf = "params", "scale"
+        else:
+            raise KeyError(f"no mapping for {key} {tuple(arr.shape)}")
+        node = trees[coll]
+        for tok in _jax_module_path(tokens[:-1], keys):
+            node = node.setdefault(tok, {})
+        if jleaf in node:
+            raise KeyError(f"two keys map to {coll}/{key}")
+        node[jleaf] = np.ascontiguousarray(arr)
+    return trees["params"], trees["batch_stats"]
+
+
+def save_checkpoint(path, params: dict, batch_stats: dict, ema_params: Optional[dict],
+                    step: int, epoch: int, best_fitness: float, train_args: Dict[str, Any],
+                    model_yaml: Dict[str, Any], names: Dict[int, str]):
+    """Write a checkpoint in the JAX package's format (the keys of its
+    ``save_checkpoint``; ``opt_state`` is None: the optimizer state of this
+    port has no JAX form). The trees are numpy, as ``to_jax_variables``
+    gives them. Written to a temporary file and renamed, so a crash never
+    leaves a half-written checkpoint."""
+    ckpt = {
+        "deploy": None,
+        "epoch": int(epoch),
+        "best_fitness": best_fitness,
+        "params": params,
+        "batch_stats": batch_stats,
+        "ema_params": ema_params,
+        "opt_state": None,
+        "step": int(step),
+        "train_args": dict(train_args),
+        "model_yaml": dict(model_yaml),
+        "names": dict(names),
+        "date": datetime.now().isoformat(),
+        "version": CKPT_VERSION,
+    }
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    with open(tmp, "wb") as fh:
+        pickle.dump(ckpt, fh, protocol=pickle.HIGHEST_PROTOCOL)
+    tmp.replace(path)
+    return path
