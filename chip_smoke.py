@@ -11,17 +11,19 @@ Phases, one timestamped line each (elapsed seconds):
      source, all started together (timed).
   3. kernels: each kernel's wrapper against its plain PyTorch version on the
      card, at the main paths' shapes, with its time, the plain version's
-     time and the card's least time for the same work (its bound): the
-     polygon fill at the predict path's masks; the GT rays, rows form, at
-     the trainer's two shapes (imgsz 640, batch 16, N_pad 8 -> K 128 and
-     N_pad 48 -> K 48), and per pair at P 16,384.
+     time and the card's least time for the same work (its bound): both
+     polygon fills (even-odd, and the facade's cv2 rule) at the predict
+     path's masks with the edge cases of ``raster_inputs``, each with the
+     device kernels one call launches (``torch.profiler``); the GT rays,
+     rows form, at the trainer's two shapes (imgsz 640, batch 16, N_pad 8
+     -> K 128 and N_pad 48 -> K 48), and per pair at P 16,384.
   4. predict: ``YOLO(runs/floor_seg160/best.ckpt).predict`` on synthetic
      circle/rectangle images at imgsz 160 (batch 1) and 640 (batch 8),
      reading every result's masks; launch counts are zeroed just before and
      read just after. Then the masks of the 640 phase are split into their
-     steps (copies, collapse, kernel, numpy), each timed apart, and the
-     card's head outputs and detections are held against the port on the
-     CPU at imgsz 160.
+     steps (copies, kernels, numpy), each timed apart, and the card's head
+     outputs and detections are held against the port on the CPU at imgsz
+     160.
   5. train: (a) the seg160 model at imgsz 160, batch 4: one loss, the
      assignment and every gradient on the card against the CPU; (b) the
      same model at full width, imgsz 640, batch 16: 3 warm-up steps of
@@ -271,19 +273,20 @@ def host_ms(fn) -> float:
 def mask_breakdown(results, reps: int = 5) -> dict:
     """ms per image of each step of ``Results.masks`` on the card, each step
     run apart from an idle card: the contours to the card (host clock), the
-    invalid-vertex collapse and the kernel alone (CUDA events), the wrapper
-    ``fill_polygons`` as a whole (collapse, checks and kernel; CUDA events),
-    the masks to the host (CUDA events, which span the host's side of the
-    synchronous copy too, and the host clock with the host allocation),
-    numpy's view and ``Masks`` (host clock), and ``contours_to_masks`` whole
-    (host clock), once per image with its masks dropped and once over all
-    images with every mask kept, as ``Results`` keeps them. Median of
-    ``reps`` passes over ``results``. It launches the kernel, so it runs
-    after the main path's launch count is read."""
+    kernels alone (the cv2 entry's fill and outline launches, called
+    straight through its C entry; CUDA events), the wrapper
+    ``fill_polygons_cv2`` as a whole (checks, allocation and kernels; CUDA
+    events), the masks to the host (CUDA events, which span the host's side
+    of the synchronous copy too, and the host clock with the host
+    allocation), numpy's view and ``Masks`` (host clock), and
+    ``contours_to_masks`` whole (host clock), once per image with its masks
+    dropped and once over all images with every mask kept, as ``Results``
+    keeps them. Median of ``reps`` passes over ``results``. It launches the
+    kernels, so it runs after the main path's launch count is read."""
     lib = raster._raster_lib()
     passes = []
     for _ in range(reps):
-        acc = dict.fromkeys(("to_card", "collapse", "kernel", "fill_polygons", "to_host_events",
+        acc = dict.fromkeys(("to_card", "kernels", "fill_polygons_cv2", "to_host_events",
                              "to_host", "numpy", "contours_to_masks",
                              "contours_to_masks_kept"), 0.0)
         for r in results:
@@ -297,16 +300,15 @@ def mask_breakdown(results, reps: int = 5) -> dict:
             acc["to_card"] += host_ms(to_card)
             pts, ok = box["pts"], box["ok"]
             n, v = ok.shape
-            acc["collapse"] += event_ms(lambda: raster.collapse_invalid_vertices(pts, ok))
-            col = raster.collapse_invalid_vertices(pts, ok).contiguous()
             out = torch.empty((n, h, w), dtype=torch.bool, device="cuda")
             stream = torch.cuda.current_stream().cuda_stream
             if n:
-                acc["kernel"] += event_ms(lambda: box.__setitem__("err", lib.raster_fill_polygons(
-                    col.data_ptr(), ok.data_ptr(), out.data_ptr(), n, v, h, w, stream)))
+                acc["kernels"] += event_ms(lambda: box.__setitem__(
+                    "err", lib.raster_fill_polygons_cv2(pts.data_ptr(), ok.data_ptr(),
+                                                        out.data_ptr(), n, v, h, w, stream)))
                 if box["err"] != 0:
                     raise RuntimeError(f"raster kernel launch failed: CUDA error {box['err']}")
-            acc["fill_polygons"] += event_ms(lambda: raster.fill_polygons(pts, ok, h, w))
+            acc["fill_polygons_cv2"] += event_ms(lambda: raster.fill_polygons_cv2(pts, ok, h, w))
             acc["to_host_events"] += event_ms(lambda: out.cpu())
             acc["to_host"] += host_ms(lambda: box.__setitem__("host", out.cpu()))
             acc["numpy"] += host_ms(lambda: Masks(box["host"].numpy(), (h, w)))
@@ -342,27 +344,42 @@ def raster_inputs(seed: int = 0, device="cuda"):
     return torch.from_numpy(pts).to(device), torch.from_numpy(valid).to(device)
 
 
-def raster_bound_ms(pts, valid, h: int, w: int):
-    """Least time for the polygon fill on this card, from this run's data,
-    and what sets it: max(bytes / HBM rate, ops / fp32 issue rate).
+def raster_bound_ms(pts, valid, h: int, w: int, rule: str = "even_odd"):
+    """Least time for a polygon fill on this card, from this run's data, and
+    what sets it: max(bytes / HBM rate, ops / fp32 issue rate).
 
-    Bytes: points and valid read once, masks written once. Ops: the work the
-    function needs, not what the kernel does. Whether an edge spans a row
-    (two compares and an inequality) is one value per (row, edge) of a
-    polygon with a valid vertex: 3 ops. Its crossing ``xi`` is one value per
-    spanning (row, edge): 3 subtractions, a division, a multiply and an add,
-    6 ops. Each (pixel, spanning edge) then takes a compare and a parity
-    flip: 2 ops. None of these is an FMA, so the rate is the data sheet's
-    fp32 rate halved (it counts an FMA as two operations)."""
+    Bytes, the same for both rules: points and valid read once, masks
+    written once. Ops: the work the function needs, not what the kernel
+    does. Even-odd: whether an edge spans a row (two compares and an
+    inequality) is one value per (row, edge) of a polygon with a valid
+    vertex: 3 ops. Its crossing ``xi`` is one value per spanning (row,
+    edge): 3 subtractions, a division, a multiply and an add, 6 ops. Each
+    (pixel, spanning edge) then takes a compare and a parity flip: 2 ops.
+    The cv2 rule, over its fixed-point edges: whether a live edge spans a
+    row, 2 compares per (row, edge); its x, a multiply and an add per
+    spanning (row, edge); a compare and an or per (pixel, spanning edge);
+    the outlines' pixels are bytes already counted. None of these is an
+    FMA, so the rate is the data sheet's fp32 rate halved (it counts an FMA
+    as two operations); the integer operations are counted at that rate
+    too, which no integer rate of the card exceeds, so the bound stays a
+    lower bound."""
     n, v = valid.shape
-    ok = valid.any(-1)
-    col = raster.collapse_invalid_vertices(pts, valid)
-    y0 = col[..., 1]
-    y1 = torch.roll(y0, -1, dims=-1)
-    rows = torch.arange(h, device=pts.device, dtype=pts.dtype)
-    spans = ((y0[..., None] > rows) != (y1[..., None] > rows)) & ok[:, None, None]
-    n_spans = int(spans.sum())
-    ops = 3 * int(ok.sum()) * v * h + 6 * n_spans + 2 * n_spans * w
+    rows = torch.arange(h, device=pts.device)
+    if rule == "even_odd":
+        ok = valid.any(-1)
+        col = raster.collapse_invalid_vertices(pts, valid)
+        y0 = col[..., 1]
+        y1 = torch.roll(y0, -1, dims=-1)
+        rows = rows.to(pts.dtype)
+        spans = ((y0[..., None] > rows) != (y1[..., None] > rows)) & ok[:, None, None]
+        n_spans = int(spans.sum())
+        ops = 3 * int(ok.sum()) * v * h + 6 * n_spans + 2 * n_spans * w
+    else:
+        live, _, (y0, y1, _, _) = raster._cv2_edges(pts, valid, h, w)
+        live = live & (y0 != y1)
+        spans = live[..., None] & (y0[..., None] <= rows) & (rows < y1[..., None])
+        n_spans = int(spans.sum())
+        ops = 2 * int(live.sum()) * h + 2 * n_spans + 2 * n_spans * w
     nbytes = pts.numel() * 4 + valid.numel() + n * h * w
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_INSTR_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -439,11 +456,81 @@ def check_gt_rays(kind: str, contours, centers, valid, card: str, seed_note: str
             "max_abs_err": float((got - want).abs().max()), "n_diff": n_diff}
 
 
+def launch_ms(entry: str, pts, valid, h: int, w: int, launches: int = 20) -> float:
+    """ms per launch of a C entry of ``csrc/raster.cu`` called straight, with
+    no wrapper: ``launches`` back-to-back calls between two CUDA events, so
+    the host's side of each call overlaps the card's work; median of
+    ``time_ms``'s repetitions."""
+    fn = getattr(raster._raster_lib(), entry)
+    n, v = valid.shape
+    out = torch.empty((n, h, w), dtype=torch.bool, device="cuda")
+    args = (pts.data_ptr(), valid.data_ptr(), out.data_ptr(), n, v, h, w,
+            torch.cuda.current_stream().cuda_stream)
+
+    def run():
+        for _ in range(launches):
+            err = fn(*args)
+            if err:
+                raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+    return time_ms(run) / launches
+
+
+def device_kernels(fn):
+    """The device kernels one call of ``fn`` launches, as ``torch.profiler``
+    records them: [(name, device µs)] in launch order; None where it
+    records no device activity (then they are not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    return [(e.name.split("::")[-1].split("(")[0], round(e.time_range.elapsed_us(), 1))
+            for e in events] or None
+
+
+def check_fill(name: str, entry: str, fast, plain, rule: str, n_kernels: int, card: str) -> dict:
+    """One polygon-fill entry against its plain version on the card, at the
+    predict path's masks and the edge cases of ``raster_inputs``: 0
+    differing pixels; the kernel's time per launch (``launch_ms``), the
+    wrapper's per call, the plain version's and the bound; the device
+    kernels of one call, which must be ``n_kernels`` where the profiler
+    records them."""
+    pts, valid = raster_inputs()
+    h, w = RASTER_HW
+    got, want = fast(pts, valid, h, w), plain(pts, valid, h, w)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    if n_diff or not want[1:].any() or want[0].any():
+        raise AssertionError(f"{name}: {n_diff} pixels differ from the plain version")
+    ms = launch_ms(entry, pts, valid, h, w)
+    call_ms = time_ms(lambda: fast(pts, valid, h, w))
+    plain_ms = time_ms(lambda: plain(pts, valid, h, w), reps=10)
+    bound_ms, bound_by = raster_bound_ms(pts, valid, h, w, rule)
+    try:
+        kernels = device_kernels(lambda: fast(pts, valid, h, w))
+    except Exception as e:  # the profiler's own failure is a gap in the report, not in the kernel
+        kernels = f"not measured ({type(e).__name__}: {e})"
+    if isinstance(kernels, list) and len(kernels) != n_kernels:
+        raise AssertionError(f"{name}: one call launched {kernels}, not {n_kernels} kernels")
+    log("kernels", f"{name} N={RASTER_N} V={RASTER_V} {h}x{w}: {n_diff} of {got.numel()} pixels "
+        f"differ from the plain version; kernel {ms:.4f} ms a launch ({bound_ms / ms:.1%} of the "
+        f"bound), wrapper {call_ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by}); device kernels of one call: {kernels if kernels else 'not measured'}; "
+        f"library ms: none (no PyTorch call fills polygons) | {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": float((got.int() - want.int()).abs().max())}
+
+
 def report_row(check: dict) -> dict:
     return {k: check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
 
 
 KERNEL_WRAPPERS = {"fill_polygons": raster.fill_polygons,
+                   "fill_polygons_cv2": raster.fill_polygons_cv2,
                    "gt_rays_rows": gt_rays.gt_rays_rows_fast,
                    "gt_rays_pairs": gt_rays.gt_rays_fast}
 
@@ -631,23 +718,13 @@ def main() -> int:
         f"| {card}")
 
     # 3. kernels against their plain versions
-    pts, valid = raster_inputs()
-    h, w = RASTER_HW
-    got = raster.fill_polygons(pts, valid, h, w)
-    want = raster.fill_polygons_plain(pts, valid, h, w)
-    torch.cuda.synchronize()
-    mismatches = int((got != want).sum())
-    if mismatches or not want[1:].any() or want[0].any():
-        raise AssertionError(f"raster kernel: {mismatches} pixels differ from the plain version")
-    ms = time_ms(lambda: raster.fill_polygons(pts, valid, h, w))
-    plain_ms = time_ms(lambda: raster.fill_polygons_plain(pts, valid, h, w))
-    bound_ms, bound_by = raster_bound_ms(pts, valid, h, w)
-    raster_err = float((got.int() - want.int()).abs().max())
-    log("kernels", f"fill_polygons N={RASTER_N} V={RASTER_V} {h}x{w}: 0 of {got.numel()} "
-        f"pixels differ; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}) | {card}")
-    raster_row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                  "max_abs_err": raster_err}
+    fill_rows = {
+        "fill_polygons": check_fill("fill_polygons", "raster_fill_polygons", raster.fill_polygons,
+                                    raster.fill_polygons_plain, "even_odd", 1, card),
+        "fill_polygons_cv2": check_fill("fill_polygons_cv2", "raster_fill_polygons_cv2",
+                                        raster.fill_polygons_cv2, raster.fill_polygons_cv2_plain,
+                                        "cv2", 2, card),
+    }
     rows_checks = {}
     for n_pad, k in RAY_SHAPES:
         r = TRAIN_B * n_pad
@@ -692,8 +769,8 @@ def main() -> int:
         runs = [run(images, imgsz, batch) for _ in range(10)]
         lat[imgsz] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     predict_counts = launch_counts()
-    if predict_counts["fill_polygons"] == 0:
-        raise AssertionError("the predict path never launched the raster kernel")
+    if predict_counts["fill_polygons_cv2"] == 0:
+        raise AssertionError("the predict path never launched the cv2 fill kernel")
     log("predict", f"imgsz 160: {n_det} detections, {n_px} mask pixels over {len(res160)} "
         f"images; imgsz 640 batch 8: {n_det640} detections, {n_px640} mask pixels; "
         f"launches {predict_counts} | {card}")
@@ -743,7 +820,12 @@ def main() -> int:
     kernels = [
         {"name": "fill_polygons", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_raster.py:58",
-         "launches": launches["fill_polygons"], **raster_row, "library_ms": None},
+         "launches": launches["fill_polygons"], **fill_rows["fill_polygons"], "library_ms": None},
+        {"name": "fill_polygons_cv2", "route": "cuda", "source": src + "raster.cu",
+         "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
+                     "no TPU kernel)",
+         "launches": launches["fill_polygons_cv2"], **fill_rows["fill_polygons_cv2"],
+         "library_ms": None},
         {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
          "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_K]),
@@ -753,7 +835,10 @@ def main() -> int:
          "launches": launches["gt_rays_pairs"], **report_row(pairs_check), "library_ms": None},
     ]
     log("report", f"launches on the main paths: predict {predict_counts}, train {train_counts}; "
-        "gt_rays_rows: ms, plain_ms and bound at the train path's R=128 K=128; gt_rays_pairs "
+        "fill_polygons (even-odd; the validator's and the segment_ori loss's rule, on neither "
+        "path yet) and fill_polygons_cv2 (the predict path's masks): ms a launch, at N=300 "
+        "480x640; gt_rays_rows: ms, plain_ms and bound at the train path's R=128 K=128; "
+        "gt_rays_pairs "
         "(also the counterpart of pallas_polar.py:101) at P=16,384 | wall "
         f"{time.perf_counter() - T0:.2f}s | {card}")
     print(card)

@@ -44,17 +44,75 @@ def test_raster_kernel_equals_plain(cuda, n, v, h, w):
     assert torch.equal(got.cpu(), raster.fill_polygons_plain(pts, valid, h, w))
 
 
+FILLS = {"even_odd": (raster.fill_polygons, raster.fill_polygons_plain),
+         "cv2": (raster.fill_polygons_cv2, raster.fill_polygons_cv2_plain)}
+
+
+def _fill_case(name):
+    """(points, valid, H, W) of one edge case of the scanline kernels."""
+    if name == "w_not_16":  # rows not 16-byte aligned: byte head and tail
+        return (*_polygons(11, 7, 36, 61, 83), 61, 83)
+    if name == "h1":
+        return (*_polygons(12, 3, 5, 1, 1000), 1, 1000)
+    if name == "v1":
+        return (*_polygons(13, 5, 1, 40, 50), 40, 50)
+    if name == "all_invalid":
+        pts, valid = _polygons(14, 4, 12, 32, 48)
+        return pts, torch.zeros_like(valid), 32, 48
+    if name == "off_image":  # each polygon wholly off one side, or around the image
+        pts, valid = _polygons(15, 5, 36, 40, 64)
+        pts = pts - pts.mean(1, keepdim=True) + torch.tensor([32.0, 20.0])
+        shifts = torch.tensor([[-100.0, 0], [200, 0], [0, -90], [0, 150], [0, 0]])
+        pts = pts + shifts[:, None]
+        pts[4] = (pts[4] - torch.tensor([32.0, 20.0])) * 40 + torch.tensor([32.0, 20.0])
+        return pts.contiguous(), torch.ones_like(valid), 40, 64
+    if name == "n_and_h_ragged":  # N odd, H not a multiple of the 32-row tile
+        return (*_polygons(16, 37, 36, 45, 96), 45, 96)
+    if name == "v_max":  # the most vertices the kernels take: above 48 KB of shared memory
+        return (*_polygons(17, 3, raster.MAX_VERTICES, 64, 80), 64, 80)
+    if name == "main_path":  # the predict path's masks
+        from chip_smoke import raster_inputs
+        pts, valid = raster_inputs(device="cpu")
+        return pts, valid, 480, 640
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("entry", sorted(FILLS))
+@pytest.mark.parametrize("case", ["w_not_16", "h1", "v1", "all_invalid", "off_image",
+                                  "n_and_h_ragged", "v_max", "main_path"])
+def test_fill_kernels_equal_plain_on_edge_cases(cuda, entry, case):
+    """Each entry, one launch, against its plain version on the card and on
+    the CPU: 0 differing pixels."""
+    fast, plain = FILLS[entry]
+    pts, valid, h, w = _fill_case(case)
+    before = fast.launches
+    got = fast(pts.to(cuda), valid.to(cuda), h, w)
+    torch.cuda.synchronize()
+    assert fast.launches == before + 1
+    assert torch.equal(got, plain(pts.to(cuda), valid.to(cuda), h, w))
+    assert torch.equal(got.cpu(), plain(pts, valid, h, w))
+    if case in ("all_invalid", "off_image"):
+        assert not got[:4].any()
+
+
 def test_raster_kernel_rejects_what_it_cannot_take(cuda):
     pts, valid = _polygons(0, 4, 12, 32, 32)
     pts, valid = pts.to(cuda), valid.to(cuda)
-    with pytest.raises(TypeError):
-        raster.fill_polygons(pts.double(), valid, 32, 32)
-    with pytest.raises(ValueError):
-        raster.fill_polygons(pts, valid.int(), 32, 32)
-    with pytest.raises(ValueError):
-        raster.fill_polygons(pts.transpose(0, 1), valid.t(), 32, 32)
-    with pytest.raises(ValueError):
-        raster.fill_polygons(pts, valid.cpu(), 32, 32)
+    big = torch.zeros((1, raster.MAX_VERTICES + 1, 2), device=cuda)
+    for fill in (raster.fill_polygons, raster.fill_polygons_cv2):
+        before = fill.launches
+        with pytest.raises(TypeError):
+            fill(pts.double(), valid, 32, 32)
+        with pytest.raises(ValueError):
+            fill(pts, valid.int(), 32, 32)
+        with pytest.raises(ValueError):
+            fill(pts.transpose(0, 1), valid.t(), 32, 32)
+        with pytest.raises(ValueError):
+            fill(pts, valid.cpu(), 32, 32)
+        with pytest.raises(ValueError):
+            fill(big, torch.ones(big.shape[:2], dtype=torch.bool, device=cuda), 32, 32)
+        assert fill.launches == before
+        assert fill(pts[:0], valid[:0], 32, 32).shape == (0, 32, 32)
 
 
 # The plain version on the CPU takes PyTorch's vectorized CPU sqrt, which is

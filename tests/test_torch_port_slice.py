@@ -111,9 +111,9 @@ def test_slice_matches_jax_predictor(models):
 
 def test_yolo_predict_end_to_end_cpu(models):
     """The port's own letterbox and batching: the same detections as the JAX
-    facade, and masks from the plain fill close to the JAX cv2 masks (the
-    two fills differ only along the boundary: integer-coordinate crossing
-    number here, cv2.fillPoly with subpixel vertices there)."""
+    facade, boxes within the slice's 0.05 px, and the same masks pixel for
+    pixel (both letterboxes resize as cv2 does, and the port's facade fills
+    by the JAX facade's cv2.fillPoly rule)."""
     jy, ty = models
     images = shape_images(3, 120, 200, seed=5)
     tres = ty.predict(images, batch=2)  # imgsz 160 from the checkpoint's train args
@@ -121,11 +121,7 @@ def test_yolo_predict_end_to_end_cpu(models):
     assert [len(r) for r in tres] == [len(r) for r in jres]
     for t, j in zip(tres, jres):
         np.testing.assert_array_equal(t.boxes.cls, j.boxes.cls)
-        # the letterbox resize rounds differently (cv2 fixed point vs float):
-        # pixel values within 2 levels move boxes by hundredths of a pixel
-        np.testing.assert_allclose(t.boxes.xyxy, j.boxes.xyxy, atol=0.25)
+        np.testing.assert_allclose(t.boxes.xyxy, j.boxes.xyxy, atol=PX_ATOL)
         tm, jm = t.masks.data, j.masks.data
         assert tm.shape == jm.shape == (len(t),) + images[0].shape[:2]
-        inter = (tm & jm).sum((1, 2))
-        union = (tm | jm).sum((1, 2))
-        assert (inter / np.maximum(union, 1) > 0.9).all()
+        np.testing.assert_array_equal(tm, jm)

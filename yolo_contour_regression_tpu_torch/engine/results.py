@@ -2,11 +2,11 @@
 ``engine/results.py``), numpy-backed.
 
 ``Results.masks`` is lazy: the first read rasterizes the polar contours at
-the original image size through ``ops.raster.fill_polygons`` on the
+the original image size through ``ops.raster.fill_polygons_cv2`` on the
 predictor's device (the CUDA kernel on a card, the plain version on the
-CPU). That is the crossing-number fill of ``ops/raster.py``, sampled at
-integer pixel coordinates, and not the JAX host path's ``cv2.fillPoly``, so
-boundary pixels can differ from it.
+CPU). Its rule is the JAX facade's, ``cv2.fillPoly`` of the valid vertices
+at 3-bit subpixel precision (JAX ``contours_to_masks_host``), reproduced
+without cv2: the masks are the JAX facade's, pixel for pixel.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..ops.raster import fill_polygons
+from ..ops.raster import fill_polygons_cv2
 
 
 class Boxes:
@@ -67,10 +67,11 @@ class Contours:
 def contours_to_masks(points: np.ndarray, valid: np.ndarray, height: int, width: int,
                       device="cuda") -> np.ndarray:
     """(n, V, 2) px contours + validity -> (n, H, W) bool masks, filled on
-    ``device``."""
+    ``device`` as the JAX facade fills them (``cv2.fillPoly`` at
+    ``shift=3``; fewer than 3 valid vertices give an empty mask)."""
     pts = torch.as_tensor(points, dtype=torch.float32).to(device).contiguous()
     ok = torch.as_tensor(valid, dtype=torch.bool).to(device).contiguous()
-    return fill_polygons(pts, ok, height, width).cpu().numpy()
+    return fill_polygons_cv2(pts, ok, height, width).cpu().numpy()
 
 
 class Results:

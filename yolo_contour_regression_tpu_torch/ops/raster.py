@@ -1,13 +1,21 @@
-"""Polygon rasterization: contour -> binary mask by the even-odd rule
-(counterpart of the JAX package's ``ops/raster.py`` and, for the kernel,
-``ops/pallas_raster.py``).
+"""Polygon rasterization: contour -> binary mask, by two rules.
 
-``fill_polygons`` is the entry point. For CPU tensors it takes the plain
-PyTorch version ``fill_polygons_plain``; for CUDA tensors it launches the
-hand-written kernel in ``csrc/raster.cu`` or raises. Both sample pixels at
-integer coordinates and collapse each invalid vertex onto the previous valid
-one (zero-length edges add no crossings, so the fill equals the polygon over
-the valid vertices); a polygon with no valid vertex gives an empty mask.
+- ``fill_polygons``: the even-odd rule of the JAX package's ``ops/raster.py``
+  and, for the kernel, ``ops/pallas_raster.py``. Pixels are sampled at
+  integer coordinates; each invalid vertex collapses onto the previous valid
+  one (zero-length edges add no crossings, so the fill equals the polygon
+  over the valid vertices); a polygon with no valid vertex gives an empty
+  mask. The validator and the segment_ori loss use this rule.
+- ``fill_polygons_cv2``: the rule of the JAX facade's ``Results.masks``
+  (``engine/results.py:contours_to_masks_host``), which is
+  ``cv2.fillPoly(mask, [round(valid_points * 8)], 1, shift=3)`` with
+  LINE_8, reproduced without cv2; fewer than 3 valid vertices give an empty
+  mask. See ``fill_polygons_cv2_plain`` for the rule itself.
+
+Each entry takes its plain PyTorch version for CPU tensors and launches its
+hand-written kernel in ``csrc/raster.cu`` for CUDA tensors, or raises. The
+kernels compact the valid vertices themselves; the plain versions are their
+oracles.
 """
 from __future__ import annotations
 
@@ -18,8 +26,17 @@ import torch
 
 from ..utils import cuda_build
 
-MAX_VERTICES = 6144  # 2 * V floats of shared memory stay within 48 KB
+# the kernels keep a polygon's vertices and a row's crossings per warp in
+# shared memory; above 48 KB the launch opts in to more
+MAX_VERTICES = 1024
 MAX_GRID_Y = 65535
+
+# cv2.fillPoly's fixed point: the facade's vertices carry SUBPIXEL_SHIFT
+# fraction bits; OpenCV's edges carry XY_SHIFT
+SUBPIXEL_SHIFT = 3
+XY_SHIFT = 16
+XY_ONE = 1 << XY_SHIFT
+_FAR = 1 << 62  # sorts after every crossing
 
 
 def collapse_invalid_vertices(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -71,17 +88,169 @@ def fill_polygon(points: torch.Tensor, valid: torch.Tensor, height: int, width: 
 
 def fill_polygons_plain(points: torch.Tensor, valid: torch.Tensor, height: int, width: int):
     """The plain PyTorch version: points (N, V, 2), valid (N, V) ->
-    (N, height, width) bool. The oracle of the CUDA kernel."""
+    (N, height, width) bool. The oracle of the even-odd kernel."""
     pts = collapse_invalid_vertices(points, valid)
     return _fill_rows(pts, height, width) & valid.any(-1)[:, None, None]
+
+
+# --- cv2.fillPoly's rule ------------------------------------------------------
+
+
+def _clip_lines(width: int, height: int, x1, y1, x2, y2):
+    """OpenCV's ``clipLine`` on int64 tensors, elementwise: each segment cut
+    to the image [0, width-1] x [0, height-1], the intercepts truncated from
+    double as OpenCV truncates them. Returns (inside, x1, y1, x2, y2); a
+    segment wholly outside comes back unchanged with inside False."""
+    right, bottom = width - 1, height - 1
+
+    def code(x, y):
+        return (x < 0).long() + (x > right).long() * 2 + (y < 0).long() * 4 + (y > bottom).long() * 8
+
+    def step(num, a, b):  # (int64)((double)num * a / b)
+        b = torch.where(b == 0, torch.ones_like(b), b)
+        return torch.trunc(num.double() * a.double() / b.double()).long()
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    go = ((c1 & c2) == 0) & ((c1 | c2) != 0)
+    s = go & ((c1 & 12) != 0)
+    a = torch.where(c1 < 8, 0, bottom)
+    x1 = torch.where(s, x1 + step(a - y1, x2 - x1, y2 - y1), x1)
+    y1 = torch.where(s, a, y1)
+    c1 = torch.where(s, (x1 < 0).long() + (x1 > right).long() * 2, c1)
+    s = go & ((c2 & 12) != 0)
+    a = torch.where(c2 < 8, 0, bottom)
+    x2 = torch.where(s, x2 + step(a - y2, x2 - x1, y2 - y1), x2)
+    y2 = torch.where(s, a, y2)
+    c2 = torch.where(s, (x2 < 0).long() + (x2 > right).long() * 2, c2)
+    go = go & ((c1 & c2) == 0) & ((c1 | c2) != 0)
+    s = go & (c1 != 0)
+    a = torch.where(c1 == 1, 0, right)
+    y1 = torch.where(s, y1 + step(a - x1, y2 - y1, x2 - x1), y1)
+    x1 = torch.where(s, a, x1)
+    c1 = torch.where(s, 0, c1)
+    s = go & (c2 != 0)
+    a = torch.where(c2 == 1, 0, right)
+    y2 = torch.where(s, y2 + step(a - x2, y2 - y1, x2 - x1), y2)
+    x2 = torch.where(s, a, x2)
+    c2 = torch.where(s, 0, c2)
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _cv2_edges(points: torch.Tensor, valid: torch.Tensor, height: int, width: int):
+    """The edges of each polygon over its valid vertices, in OpenCV's fixed
+    point: edge i runs from valid vertex i-1 (cyclic) to valid vertex i.
+    Returns ``live`` (N, V), the outline endpoints (t0x, t0y, t1x, t1y) and
+    the fill edges (y0, y1, x, dx), all int64 (N, V)."""
+    n, v = valid.shape
+    order = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
+    pts = torch.gather(points, 1, order[..., None].expand(n, v, 2))
+    cnt = valid.sum(-1, keepdim=True)
+    idx = torch.arange(v, device=points.device).expand(n, v)
+    prev = torch.where(idx == 0, cnt - 1, idx - 1).clamp_min(0)
+    q1 = torch.round(pts * (1 << SUBPIXEL_SHIFT)).long()
+    q0 = torch.gather(q1, 1, prev[..., None].expand(n, v, 2))
+    live = (idx < cnt) & (cnt >= 3)
+    half = 1 << (SUBPIXEL_SHIFT - 1)
+    X0, X1 = q0[..., 0] << (XY_SHIFT - SUBPIXEL_SHIFT), q1[..., 0] << (XY_SHIFT - SUBPIXEL_SHIFT)
+    Y0, Y1 = (q0[..., 1] + half) >> SUBPIXEL_SHIFT, (q1[..., 1] + half) >> SUBPIXEL_SHIFT
+    t0x, t1x = (X0 + XY_ONE // 2) >> XY_SHIFT, (X1 + XY_ONE // 2) >> XY_SHIFT
+    # an edge whose rounded outline leaves the image takes its x from the
+    # clipped outline's integer endpoints, and its y from them too unless
+    # they coincide (OpenCV's CollectPolyEdges)
+    out = ((t0x < 0) | (t0x >= width) | (t1x < 0) | (t1x >= width)
+           | (Y0 < 0) | (Y0 >= height) | (Y1 < 0) | (Y1 >= height))
+    _, u0x, u0y, u1x, u1y = _clip_lines(width, height, t0x, Y0, t1x, Y1)
+    cx0, cx1 = torch.where(out, u0x << XY_SHIFT, X0), torch.where(out, u1x << XY_SHIFT, X1)
+    apart = out & (u0y != u1y)
+    cy0, cy1 = torch.where(apart, u0y, Y0), torch.where(apart, u1y, Y1)
+    den = cy1 - cy0
+    dx = torch.div(cx1 - cx0, torch.where(den == 0, torch.ones_like(den), den),
+                   rounding_mode="trunc")
+    down = Y0 < Y1
+    y0, y1 = torch.where(down, Y0, Y1), torch.where(down, Y1, Y0)
+    x = torch.where(down, cx0 + (Y0 - cy0) * dx, cx1 + (Y1 - cy1) * dx)
+    return live, (t0x, Y0, t1x, Y1), (y0, y1, x, dx)
+
+
+def _cv2_outlines(out: torch.Tensor, live, t0x, t0y, t1x, t1y):
+    """OR each live edge's outline into ``out`` (N, H, W): OpenCV's 8-connected
+    ``LineIterator`` from (t0x, t0y) to (t1x, t1y), clipped to the image and
+    run left to right. Its pixel k (major axis) steps the minor axis
+    ceil((2 minor k - major) / (2 major)) times, the closed form of its
+    error term."""
+    n, h, w = out.shape
+    ok, x1, y1, x2, y2 = _clip_lines(w, h, t0x, t0y, t1x, t1y)
+    flip = x2 < x1
+    x1, x2 = torch.where(flip, x2, x1), torch.where(flip, x1, x2)
+    y1, y2 = torch.where(flip, y2, y1), torch.where(flip, y1, y2)
+    ddx, ddy = x2 - x1, y2 - y1
+    sy = torch.where(ddy < 0, -1, 1)
+    vert = ddy.abs() > ddx
+    major = torch.where(vert, ddy.abs(), ddx)
+    minor = torch.where(vert, ddx, ddy.abs())
+    draw = live & ok
+    if not bool(draw.any()):
+        return out
+    k = torch.arange(int(major[draw].max()) + 1, device=out.device)
+    major, minor = major[..., None], minor[..., None]
+    m = torch.div(2 * minor * k + major - 1, (2 * major).clamp_min(1), rounding_mode="floor")
+    m = torch.where(major == 0, 0, m)
+    x = torch.where(vert[..., None], x1[..., None] + m, x1[..., None] + k)
+    y = torch.where(vert[..., None], y1[..., None] + sy[..., None] * k,
+                    y1[..., None] + sy[..., None] * m)
+    on = draw[..., None] & (k <= major)
+    poly = torch.arange(n, device=out.device)[:, None, None].expand_as(x)
+    out.view(-1)[((poly * h + y) * w + x)[on]] = True
+    return out
+
+
+def fill_polygons_cv2_plain(points: torch.Tensor, valid: torch.Tensor, height: int,
+                            width: int) -> torch.Tensor:
+    """The plain PyTorch version of the facade's rule: points (N, V, 2) f32,
+    valid (N, V) bool -> (N, height, width) bool. The oracle of the cv2
+    kernel.
+
+    For each polygon with at least 3 valid vertices, as ``cv2.fillPoly``
+    draws ``round(valid_points * 8)`` at ``shift=3`` with LINE_8 (OpenCV's
+    ``CollectPolyEdges`` and ``FillEdgeCollection``):
+    - vertices in fixed point: ``X = x8 << 13``, ``Y = (y8 + 4) >> 3``;
+    - an edge with Y0 != Y1 spans rows Y in [y0, y1) of its upper and lower
+      ends, with ``dx = trunc((X1 - X0) / (Y1 - Y0))`` and x at its upper
+      end; on row y its x is ``x + (y - y0) * dx``. An edge whose outline
+      leaves the image takes X and dx from the clipped outline
+      (``_cv2_edges``);
+    - on each row the xs sorted and paired fill the columns
+      ``(a + 0xFFFF) >> 16`` through ``b >> 16``, clipped to the image;
+    - every edge's outline is drawn too (``_cv2_outlines``)."""
+    n, v = valid.shape
+    out = torch.zeros((n, height, width), dtype=torch.bool, device=points.device)
+    if n == 0 or v == 0:
+        return out
+    live, ends, (y0, y1, x, dx) = _cv2_edges(points, valid, height, width)
+    rows = torch.arange(height, device=points.device)[None, :, None]
+    act = (live & (y0 != y1))[:, None, :] & (y0[:, None, :] <= rows) & (rows < y1[:, None, :])
+    xs = torch.where(act, x[:, None, :] + (rows - y0[:, None, :]) * dx[:, None, :], _FAR)
+    xs = xs.sort(-1).values[..., : v - v % 2]  # (N, H, 2k): the active count is even
+    lo = (xs[..., 0::2] + (XY_ONE - 1)) >> XY_SHIFT
+    hi = xs[..., 1::2] >> XY_SHIFT
+    px = torch.arange(width, device=points.device)
+    for k in range(lo.shape[-1]):
+        if not bool((lo[..., k] < width).any()):
+            break
+        out |= (lo[..., k, None] <= px) & (px <= hi[..., k, None])
+    return _cv2_outlines(out, live, *ends)
+
+
+# --- the kernels --------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)
 def _raster_lib():
     lib = cuda_build.load("raster")
-    fn = lib.raster_fill_polygons
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name in ("raster_fill_polygons", "raster_fill_polygons_cv2"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.raster_tile_rows.argtypes = []
     lib.raster_tile_rows.restype = ctypes.c_int
     return lib
@@ -110,35 +279,57 @@ def _check(points: torch.Tensor, valid: torch.Tensor, height: int, width: int, t
         raise ValueError(f"grid too large for N={n}, H={height}")
 
 
-def fill_polygons(points: torch.Tensor, valid: torch.Tensor, height: int, width: int):
-    """Batch fill: points (N, V, 2) f32 pixel coords, valid (N, V) bool ->
-    (N, height, width) bool masks, on the tensors' device.
-
-    CPU tensors take ``fill_polygons_plain``; CUDA tensors launch the kernel
-    of ``csrc/raster.cu`` on the current stream, and count the launch in
-    ``fill_polygons.launches``. Any other device raises.
-    """
+def _launch(wrapper, entry: str, plain, points, valid, height: int, width: int):
+    """CPU tensors take ``plain``; CUDA tensors launch the C entry ``entry``
+    of ``csrc/raster.cu`` on the current stream and count it in
+    ``wrapper.launches``; any other device raises."""
     height, width = int(height), int(width)
     if points.device.type == "cpu":
-        return fill_polygons_plain(points, valid, height, width)
+        return plain(points, valid, height, width)
     if points.device.type != "cuda":
-        raise ValueError(f"fill_polygons runs on cpu or cuda, not {points.device}")
+        raise ValueError(f"the polygon fill runs on cpu or cuda, not {points.device}")
     lib = _raster_lib()
     _check(points, valid, height, width, lib.raster_tile_rows())
     n, v = points.shape[:2]
     out = torch.empty((n, height, width), dtype=torch.bool, device=points.device)
     if n == 0:
         return out
-    pts = collapse_invalid_vertices(points, valid).contiguous()
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = lib.raster_fill_polygons(
-            pts.data_ptr(), valid.data_ptr(), out.data_ptr(), n, v, height, width, stream
-        )
+        err = getattr(lib, entry)(points.data_ptr(), valid.data_ptr(), out.data_ptr(), n, v,
+                                  height, width, stream)
     if err != 0:
-        raise RuntimeError(f"raster kernel launch failed: CUDA error {err}")
-    fill_polygons.launches += 1
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    wrapper.launches += 1
     return out
 
 
+def fill_polygons(points: torch.Tensor, valid: torch.Tensor, height: int, width: int):
+    """Even-odd batch fill: points (N, V, 2) f32 pixel coords, valid (N, V)
+    bool -> (N, height, width) bool masks, on the tensors' device.
+
+    CPU tensors take ``fill_polygons_plain``; CUDA tensors launch the
+    even-odd kernel of ``csrc/raster.cu`` (one launch, the collapse of
+    invalid vertices folded in) on the current stream, and count it in
+    ``fill_polygons.launches``. Any other device raises.
+    """
+    return _launch(fill_polygons, "raster_fill_polygons", fill_polygons_plain, points, valid,
+                   height, width)
+
+
+def fill_polygons_cv2(points: torch.Tensor, valid: torch.Tensor, height: int, width: int):
+    """The facade's fill, ``cv2.fillPoly`` at ``shift=3`` (see
+    ``fill_polygons_cv2_plain``): points (N, V, 2) f32, valid (N, V) bool ->
+    (N, height, width) bool masks, on the tensors' device.
+
+    CPU tensors take ``fill_polygons_cv2_plain``; CUDA tensors launch the
+    cv2 entry of ``csrc/raster.cu`` on the current stream (the scanline
+    fill, then the outlines) and count the call in
+    ``fill_polygons_cv2.launches``. Any other device raises.
+    """
+    return _launch(fill_polygons_cv2, "raster_fill_polygons_cv2", fill_polygons_cv2_plain, points,
+                   valid, height, width)
+
+
 fill_polygons.launches = 0
+fill_polygons_cv2.launches = 0
