@@ -16,7 +16,11 @@ Phases, one timestamped line each (elapsed seconds):
      path's masks with the edge cases of ``raster_inputs``, each with the
      device kernels one call launches (``torch.profiler``); the GT rays,
      rows form, at the trainer's two shapes (imgsz 640, batch 16, N_pad 8
-     -> K 128 and N_pad 48 -> K 48), and per pair at P 16,384.
+     -> K 128 and N_pad 48 -> K 48), and per pair at P 16,384, each with
+     its device kernels, then both entries on ``ray_scenes``' hard cases
+     and the GT-ray kernel's own per-phase clock (``gt_rays_phases``);
+     atan2f's instruction count from ``cuobjdump -sass`` (a probe built with
+     the kernels' flags) and the share of the GT-ray bound it leaves.
   4. predict: ``YOLO(runs/floor_seg160/best.ckpt).predict`` on synthetic
      circle/rectangle images at imgsz 160 (batch 1) and 640 (batch 8),
      reading every result's masks; launch counts are zeroed just before and
@@ -40,8 +44,10 @@ Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -204,6 +210,91 @@ def ray_inputs(rows: int, k: int, seed: int):
     n_valid[0], n_valid[-1] = k, 0
     valid = np.arange(k)[None] < n_valid[:, None]
     return contours, centers.astype(np.float32), valid
+
+
+RAY_SCENES = ("circle_ties", "rect_repeated_corners", "one_point", "center_on_point",
+              "far_outside", "gate_exact", "wrap_and_sector_edges", "concave_star")
+
+
+def _polar_points(center, deg, rad):
+    """Points at angles ``deg`` (degrees, y-down frame) and radii ``rad``
+    about ``center``, in float64."""
+    t = np.radians(np.asarray(deg, np.float64))
+    return np.asarray(center, np.float64) + np.stack([rad * np.cos(t), rad * np.sin(t)], -1)
+
+
+def ray_scenes():
+    """The GT-ray search's hard cases, one 360-point contour and 8 centers
+    each (numpy f32 (S, 360, 2), (S, 8, 2)), in ``RAY_SCENES``'
+    order: a circle about its own center, whose 4th and 5th nearest points
+    tie on every ray; a rectangle whose corners repeat; 360 copies of one
+    point; centers on contour points (atan2(0, 0) and a distance of 0); a
+    shape 3,000 px away; points at exactly 3 degrees (and 3 +- 1e-4) from
+    the rays; angles within 1e-4 degrees of 0/360 and of the sector edges
+    at ray +- 5; a concave star whose 10-degree sectors hold 0 or 30+
+    points. Each scene's first center is the one the case is built about."""
+    rng = np.random.default_rng(7)
+    idx = np.arange(360)
+    contours, centers = [], []
+    # circle about its own center, distinct radii so a pick shows
+    rad = 10.0 + idx * 0.01
+    contours.append(_polar_points((50, 50), idx, rad))
+    centers.append([[50, 50], [50.5, 50], [50, 49.5], [53, 53], [46, 52], [58, 49], [41, 41],
+                    [80, 50]])
+    # rectangle: 80 points along each side, its first corner repeated 10 times
+    corners = np.array([[100, 80], [300, 80], [300, 200], [100, 200], [100, 80]], np.float64)
+    along = np.arange(80)[:, None] / 80
+    sides = [np.concatenate([np.repeat(corners[s:s + 1], 10, 0),
+                             corners[s] + along * (corners[s + 1] - corners[s])]) for s in range(4)]
+    contours.append(np.concatenate(sides))
+    centers.append([[200, 140], [100, 80], [300, 200], [200, 80], [105, 85], [400, 140],
+                    [200, 300], [299.5, 80.5]])
+    # 360 copies of one point
+    contours.append(np.repeat([[200.0, 150.0]], 360, 0))
+    centers.append([[200, 150], [210, 150], [190, 140], [200, 100], [200, 160], [150, 150],
+                    [200.0001, 150], [230, 120]])
+    # centers on contour points of a 5-lobed shape
+    t = np.radians(idx)
+    r5 = 60 * (1 + 0.4 * np.cos(5 * t))
+    lobes = np.stack([320 + r5 * np.cos(t), 240 + r5 * np.sin(t)], -1)
+    contours.append(lobes)
+    centers.append(lobes.astype(np.float32)[::45])
+    # a circle of radius 20 seen from 3,000 px away in 8 directions
+    contours.append(_polar_points((320, 320), idx, 20.0))
+    centers.append(_polar_points((320, 320), np.arange(8) * 45.0 + 1.5, 3000.0))
+    # points at 3 degrees exactly (ray r % 3 == 0), 3 + 1e-4 (1) and 3 - 1e-4
+    # (2) on both sides of each ray, then 3.5, 4.9999, 5.0001 and 5 (sector edges)
+    base = np.array([3.0, 3.0001, 2.9999])[np.arange(36) % 3]
+    offs = np.stack([base, -base, base + 0.5, -base - 0.5, np.full(36, 4.9999),
+                     np.full(36, -4.9999), np.full(36, 5.0001), np.full(36, -5.0001),
+                     np.full(36, 5.0), np.full(36, -5.0)], -1)
+    deg = (np.arange(36)[:, None] * 10.0 + offs).reshape(-1)
+    contours.append(_polar_points((300, 300), deg, 100.0 + (idx % 17) * 3.0))
+    centers.append([[300, 300], [300.001, 300], [300, 300.001], [299.999, 299.999],
+                    [300.0005, 299.9995], [300.01, 300], [300, 299.99], [299.99, 300.01]])
+    # angles within 1e-4 degrees of 0/360, of each ray and of each sector edge
+    wrap = np.array([-1e-4, -5e-5, -1e-5, 0.0, 1e-5, 5e-5, 1e-4])
+    edges = (np.arange(36)[:, None] * 10.0 + 5.0 + np.array([-1e-4, 0.0, 1e-4])).reshape(-1)
+    rays = (np.arange(36)[:, None] * 10.0 + np.array([-1e-4, 1e-4])).reshape(-1)
+    deg = np.concatenate([np.tile(wrap, 4), edges, rays])
+    deg = np.concatenate([deg, rng.uniform(0, 360, 360 - len(deg))])
+    contours.append(_polar_points((250, 250), deg, 80.0 + (idx % 23) * 2.0))
+    centers.append([[250, 250], [250.0001, 250], [250, 249.9999], [250.001, 250.001],
+                    [249.999, 250], [250, 250.0003], [260, 250], [250, 240]])
+    # concave star: 4 long thin spikes, 360 points evenly along its outline
+    vert = _polar_points((320, 320), np.arange(8) * 45.0,
+                         np.where(np.arange(8) % 2 == 0, 200.0, 5.0))
+    vert = np.concatenate([vert, vert[:1]])
+    seg = np.linalg.norm(np.diff(vert, axis=0), axis=-1)
+    s = np.arange(360) * seg.sum() / 360
+    e = np.searchsorted(np.cumsum(seg), s, side="right")
+    f = (s - np.concatenate([[0], np.cumsum(seg)])[e]) / seg[e]
+    contours.append(vert[e] + f[:, None] * (vert[e + 1] - vert[e]))
+    centers.append([[320, 320], [321, 320], [319, 322], [318, 318], [400, 320], [320, 250],
+                    [600, 600], [323, 317]])
+    contours = np.stack(contours).astype(np.float32)
+    centers = np.stack([np.asarray(c, np.float64) for c in centers]).astype(np.float32)
+    return np.ascontiguousarray(contours), np.ascontiguousarray(centers)
 
 
 def ray_mismatches(got, want, contours, rows, centers, rtol: float = 0.0):
@@ -413,9 +504,162 @@ def gt_rays_bound_ms(n_rows: int, n_pairs: int, n_valid: int, with_valid: bool =
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_gt_rays(kind: str, contours, centers, valid, card: str, seed_note: str) -> dict:
+# atan2f alone, and a kernel of the same shape with one subtraction in its
+# place, built as the kernels are, for atan2f's instruction count
+ATAN2F_PROBE = r"""
+extern "C" __global__ void probe_atan2f(const float* y, const float* x, float* o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  o[i] = atan2f(y[i], x[i]);
+}
+extern "C" __global__ void probe_sub(const float* y, const float* x, float* o) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  o[i] = __fsub_rn(y[i], x[i]);
+}
+"""
+SASS_LINE = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass(lib: Path) -> dict:
+    """{kernel: [(predicated, opcode)]} from ``cuobjdump -sass`` of a built
+    library, NOPs left out."""
+    tool = Path(cuda_build.find_nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=120, check=True)
+    out, name = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name and (m := SASS_LINE.match(line)) and m.group(2) != "NOP":
+            out[name].append((bool(m.group(1)), m.group(2)))
+    return out
+
+
+def to_exit(ops) -> int:
+    """Instructions up to the first unpredicated EXIT: the kernel's own path,
+    without the subroutines placed after it (a division's slow path)."""
+    return next((i + 1 for i, (pred, op) in enumerate(ops) if op == "EXIT" and not pred),
+                len(ops))
+
+
+def gt_rays_sass(lib: Path, card: str):
+    """atan2f's SASS instructions (the probe less the subtraction probe,
+    plus the subtraction), built with the kernels' flags, and each GT-ray
+    kernel's; None (not measured) where the toolkit has no cuobjdump."""
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            src, so = Path(d) / "atan2f_probe.cu", Path(d) / "atan2f_probe.so"
+            src.write_text(ATAN2F_PROBE)
+            subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
+                            str(src)], capture_output=True, text=True, timeout=300, check=True)
+            probe = sass(so)
+        kernels = sass(lib)
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        log("kernels", f"SASS: not measured ({type(e).__name__}: {e}) | {card}")
+        return None
+    a, b = probe["probe_atan2f"], probe["probe_sub"]
+    path, total = to_exit(a) - to_exit(b) + 1, len(a) - len(b) + 1
+    sizes = {("rows" if "ILb1E" in name else "pairs"): (to_exit(ops), len(ops))
+             for name, ops in kernels.items() if "gt_rays_kernel" in name}
+    log("kernels", f"SASS (cuobjdump -sass, nvcc {' '.join(cuda_build.NVCC_FLAGS)}): atan2f "
+        f"{path} instructions on its path to EXIT, {total} with its subroutines; GT-ray kernels "
+        f"(to EXIT, all): {sizes} | {card}")
+    return path
+
+
+def atan2f_floor(check: dict, kind: str, atan2f_instr, card: str):
+    """The bound with atan2f at its SASS count instead of one operation, and
+    the share of the bound that leaves the kernel at most."""
+    if atan2f_instr is None:
+        return
+    extra = check["n_valid"] * polar.NUM_CONTOUR_POINTS * (atan2f_instr - 1)
+    ops_ms = gt_rays_bound_ms(0, 0, check["n_valid"])[0] + extra / PEAK_FP32_INSTR_PER_S * 1e3
+    floor_ms = max(check["bound_ms"], ops_ms)
+    log("kernels", f"gt_rays_{kind}: with atan2f at {atan2f_instr} instructions the bound "
+        f"{check['bound_ms']:.4f} ms becomes {floor_ms:.4f} ms, so the kernel can reach at most "
+        f"{check['bound_ms'] / floor_ms:.1%} of the bound; it is at "
+        f"{check['bound_ms'] / check['ms']:.1%} of the bound, {floor_ms / check['ms']:.1%} of "
+        f"that floor | {card}")
+
+
+def gt_rays_phases(inputs: dict, card: str):
+    """The GT-ray kernel's own clock (``csrc/gt_rays.cu`` built with
+    ``-DGT_RAYS_PROFILE`` into a scratch library): per live block, its
+    clock64 cycles in phases 1-2 (angles, counting sort), in phase 3's order
+    and in its search; per SM the blocks resident on average (their summed
+    time over the SM's span) against the most it can hold. ``inputs`` maps a
+    label to (entry, contours, centers, valid). Not measured where it does
+    not build."""
+    with tempfile.TemporaryDirectory() as d:
+        so = Path(d) / "gt_rays_profile.so"
+        try:
+            subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-DGT_RAYS_PROFILE",
+                            "-o", str(so), str(cuda_build.CSRC_DIR / "gt_rays.cu")],
+                           capture_output=True, text=True, timeout=300, check=True)
+            lib = ctypes.CDLL(str(so))
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            log("kernels", f"gt_rays phases: not measured ({type(e).__name__}: {e}) | {card}")
+            return
+        for fn, args in ((lib.gt_rays_rows, [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                          + [ctypes.c_void_p]),
+                         (lib.gt_rays_pairs, [ctypes.c_void_p] * 3
+                          + [ctypes.c_int, ctypes.c_void_p]),
+                         (lib.gt_rays_set_profile, [ctypes.c_void_p]),
+                         (lib.gt_rays_blocks_per_sm, [ctypes.c_int])):
+            fn.argtypes, fn.restype = args, ctypes.c_int
+        stream = torch.cuda.current_stream().cuda_stream
+        for label, (kind, c, x, v) in inputs.items():
+            out = torch.empty(x.shape[:-1] + (polar.NUM_RAYS,), device="cuda")
+            blocks = x.shape[0] * -(-x.shape[1] // 8) if kind == "rows" else -(-len(x) // 8)
+            rec = torch.zeros((blocks, 5), dtype=torch.int64, device="cuda")
+            if lib.gt_rays_set_profile(rec.data_ptr()):
+                raise RuntimeError("gt_rays_set_profile failed")
+            for _ in range(2):  # the second launch is read
+                rec.zero_()
+                err = (lib.gt_rays_rows(c.data_ptr(), x.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                        *x.shape[:2], stream) if kind == "rows" else
+                       lib.gt_rays_pairs(c.data_ptr(), x.data_ptr(), out.data_ptr(), len(x),
+                                         stream))
+                if err:
+                    raise RuntimeError(f"profile launch failed: CUDA error {err}")
+                torch.cuda.synchronize()
+            r = rec.cpu().numpy()
+            r = r[r[:, 0] > 0]
+            sm, t0, t1, t2, t3 = r[:, 0] - 1, r[:, 1], r[:, 2], r[:, 3], r[:, 4]
+            resident = [float((t3[on] - t0[on]).sum() / (t3[on].max() - t0[on].min()))
+                        for on in (sm == k for k in np.unique(sm))]
+            parts = {"phases 1-2": t1 - t0, "order": t2 - t1, "search": t3 - t2}
+            cyc = ", ".join(f"{k} {np.median(a):.0f} (p90 {np.percentile(a, 90):.0f})"
+                            for k, a in parts.items())
+            log("kernels", f"gt_rays_{kind} {label} phases (the kernel's clock64, "
+                f"-DGT_RAYS_PROFILE): {len(r)} live blocks on {len(np.unique(sm))} SMs; cycles "
+                f"per block, median: {cyc}; the search's share of a block's cycles "
+                f"{(t3 - t2).sum() / (t3 - t0).sum():.1%}; blocks resident per SM "
+                f"{statistics.fmean(resident):.2f} of "
+                f"{lib.gt_rays_blocks_per_sm(int(kind == 'rows'))} | {card}")
+
+
+def ray_entry(kind: str, c, x, v, out):
+    """A call of the C entry of ``csrc/gt_rays.cu`` straight, with no
+    wrapper, on the wrapper's inputs; it returns the CUDA error."""
+    lib, stream = gt_rays._lib(), torch.cuda.current_stream().cuda_stream
+    if kind == "rows":
+        fn, args = lib.gt_rays_rows, (c.data_ptr(), x.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      *x.shape[:2], stream)
+    else:
+        fn, args = lib.gt_rays_pairs, (c.data_ptr(), x.data_ptr(), out.data_ptr(), len(x), stream)
+    return lambda: fn(*args)
+
+
+def check_gt_rays(kind: str, contours, centers, valid, card: str, seed_note: str,
+                  timed: bool = True) -> dict:
     """One GT-ray entry against its plain version on the card: differing
-    rays (each named, and required to sit at a gate or tie), times, bound."""
+    rays (each named, and required to sit at a gate or tie) and the device
+    kernels of one call (one, where the profiler records them); if
+    ``timed``, the kernel's time per launch (``back_to_back_ms`` of the C
+    entry), the wrapper's per call (``time_ms``, the host's side of the
+    call included), the plain version's, and the bound."""
     c = torch.from_numpy(contours).cuda()
     x = torch.from_numpy(centers).cuda()
     if kind == "rows":
@@ -426,6 +670,7 @@ def check_gt_rays(kind: str, contours, centers, valid, card: str, seed_note: str
         pair_centers = centers[valid]
         n_rows, n_pairs, n_valid = valid.shape[0], valid.size, int(valid.sum())
     else:
+        v = None
         fast, plain = (lambda: gt_rays.gt_rays_fast(c, x), lambda: gt_rays.gt_rays_pairs_plain(c, x))
         rows, pair_centers = np.arange(len(centers)), centers
         n_rows = n_pairs = n_valid = len(centers)
@@ -446,34 +691,59 @@ def check_gt_rays(kind: str, contours, centers, valid, card: str, seed_note: str
     if not all(item[4] for item in named):
         raise AssertionError(f"GT-ray {kind} kernel: {n_diff} rays differ from the plain "
                              f"version, some away from any gate or tie")
-    ms, plain_ms = time_ms(fast), time_ms(plain)
+    kernels = kernels_of_one_call(f"gt_rays_{kind}", fast, 1)
+    res = {"max_abs_err": float((got - want).abs().max()), "n_diff": n_diff, "kernels": kernels}
+    note = (f"gt_rays_{kind} {seed_note}: {n_valid} valid of {n_pairs} pairs, {n_rows} contours; "
+            f"{n_diff} of {got.numel()} rays differ from the plain version; device kernels of "
+            f"one call: {kernels if kernels else 'not measured'}")
+    if not timed:
+        log("kernels", f"{note} | {card}")
+        return res
+    ms = back_to_back_ms(ray_entry(kind, c, x, v, torch.empty_like(got)))
+    call_ms, plain_ms = time_ms(fast), time_ms(plain)
     bound_ms, bound_by = gt_rays_bound_ms(n_rows, n_pairs, n_valid, kind == "rows")
-    log("kernels", f"gt_rays_{kind} {seed_note}: {n_valid} valid of {n_pairs} pairs, {n_rows} "
-        f"contours; {n_diff} of {got.numel()} rays differ from the plain version; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"library ms: none (no PyTorch call computes GT rays) | {card}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": float((got - want).abs().max()), "n_diff": n_diff}
+    log("kernels", f"{note}; kernel {ms:.4f} ms a launch ({bound_ms / ms:.1%} of the bound), "
+        f"wrapper {call_ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), library ms: none (no PyTorch call computes GT rays) | {card}")
+    return {**res, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "n_valid": n_valid}
 
 
-def launch_ms(entry: str, pts, valid, h: int, w: int, launches: int = 20) -> float:
-    """ms per launch of a C entry of ``csrc/raster.cu`` called straight, with
-    no wrapper: ``launches`` back-to-back calls between two CUDA events, so
+def check_ray_scenes(card: str):
+    """Both GT-ray entries on ``ray_scenes``' hard cases: the rows entry with
+    each scene's contour as a row of 8 candidates, the per-pair entry on the
+    same 64 pairs."""
+    contours, centers = ray_scenes()
+    s, k = centers.shape[:2]
+    note = f"scenes ({', '.join(RAY_SCENES)})"
+    check_gt_rays("rows", contours, centers, np.ones((s, k), bool), card, note, timed=False)
+    check_gt_rays("pairs", np.ascontiguousarray(np.repeat(contours, k, 0)),
+                  np.ascontiguousarray(centers.reshape(-1, 2)), None, card, note, timed=False)
+
+
+def back_to_back_ms(call, launches: int = 20) -> float:
+    """ms per launch of ``call`` (a C entry called straight, returning its
+    CUDA error): ``launches`` back-to-back calls between two CUDA events, so
     the host's side of each call overlaps the card's work; median of
     ``time_ms``'s repetitions."""
+    def run():
+        for _ in range(launches):
+            err = call()
+            if err:
+                raise RuntimeError(f"kernel launch failed: CUDA error {err}")
+
+    return time_ms(run) / launches
+
+
+def launch_ms(entry: str, pts, valid, h: int, w: int) -> float:
+    """ms per launch of a C entry of ``csrc/raster.cu`` called straight, with
+    no wrapper (``back_to_back_ms``)."""
     fn = getattr(raster._raster_lib(), entry)
     n, v = valid.shape
     out = torch.empty((n, h, w), dtype=torch.bool, device="cuda")
     args = (pts.data_ptr(), valid.data_ptr(), out.data_ptr(), n, v, h, w,
             torch.cuda.current_stream().cuda_stream)
-
-    def run():
-        for _ in range(launches):
-            err = fn(*args)
-            if err:
-                raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-
-    return time_ms(run) / launches
+    return back_to_back_ms(lambda: fn(*args))
 
 
 def device_kernels(fn):
@@ -490,6 +760,20 @@ def device_kernels(fn):
                     key=lambda e: e.time_range.start)
     return [(e.name.split("::")[-1].split("(")[0], round(e.time_range.elapsed_us(), 1))
             for e in events] or None
+
+
+def kernels_of_one_call(name: str, fn, n_kernels: int):
+    """``device_kernels(fn)``, which must be ``n_kernels`` where the profiler
+    records them (a second session where the first records no device
+    activity); the profiler's own failure is a gap in the report ("not
+    measured"), not in the kernel."""
+    try:
+        kernels = device_kernels(fn) or device_kernels(fn)
+    except Exception as e:
+        kernels = f"not measured ({type(e).__name__}: {e})"
+    if isinstance(kernels, list) and len(kernels) != n_kernels:
+        raise AssertionError(f"{name}: one call launched {kernels}, not {n_kernels} kernels")
+    return kernels
 
 
 def check_fill(name: str, entry: str, fast, plain, rule: str, n_kernels: int, card: str) -> dict:
@@ -510,12 +794,7 @@ def check_fill(name: str, entry: str, fast, plain, rule: str, n_kernels: int, ca
     call_ms = time_ms(lambda: fast(pts, valid, h, w))
     plain_ms = time_ms(lambda: plain(pts, valid, h, w), reps=10)
     bound_ms, bound_by = raster_bound_ms(pts, valid, h, w, rule)
-    try:
-        kernels = device_kernels(lambda: fast(pts, valid, h, w))
-    except Exception as e:  # the profiler's own failure is a gap in the report, not in the kernel
-        kernels = f"not measured ({type(e).__name__}: {e})"
-    if isinstance(kernels, list) and len(kernels) != n_kernels:
-        raise AssertionError(f"{name}: one call launched {kernels}, not {n_kernels} kernels")
+    kernels = kernels_of_one_call(name, lambda: fast(pts, valid, h, w), n_kernels)
     log("kernels", f"{name} N={RASTER_N} V={RASTER_V} {h}x{w}: {n_diff} of {got.numel()} pixels "
         f"differ from the plain version; kernel {ms:.4f} ms a launch ({bound_ms / ms:.1%} of the "
         f"bound), wrapper {call_ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
@@ -734,6 +1013,16 @@ def main() -> int:
     centers = (c + np.random.default_rng(5).uniform(-1.5, 1.5, (RAY_PAIRS, 2)) * rad[:, None])
     pairs_check = check_gt_rays("pairs", contours, centers.astype(np.float32), None, card,
                                 f"P={RAY_PAIRS}")
+    check_ray_scenes(card)
+    phase_inputs = {f"R={TRAIN_B * n_pad} K={k}": ("rows", *(
+        torch.from_numpy(a).cuda() for a in ray_inputs(TRAIN_B * n_pad, k, seed=k)))
+        for n_pad, k in RAY_SHAPES}
+    phase_inputs[f"P={RAY_PAIRS}"] = ("pairs", torch.from_numpy(contours).cuda(),
+                                      torch.from_numpy(centers.astype(np.float32)).cuda(), None)
+    gt_rays_phases(phase_inputs, card)
+    atan2f_instr = gt_rays_sass(built["gt_rays"][0], card)
+    atan2f_floor(rows_checks[TRAIN_K], "rows", atan2f_instr, card)
+    atan2f_floor(pairs_check, "pairs", atan2f_instr, card)
 
     # 4. the main path: predict on the card
     model = YOLO(CKPT, device="cuda")

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ray_contours, ray_inputs, ray_mismatches
+from chip_smoke import device_kernels, ray_contours, ray_inputs, ray_mismatches, ray_scenes
 from yolo_contour_regression_tpu_torch.ops import gt_rays, raster
 
 pytestmark = pytest.mark.cuda
@@ -132,15 +132,38 @@ def _assert_same_rays(got, want, contours, rows, centers, rtol=0.0):
     assert all(d[4] for d in diffs)
 
 
-@pytest.mark.parametrize("R,K", [(128, 128), (768, 48), (5, 1), (7, 13), (3, 9), (1, 300)])
-def test_gt_rays_rows_kernel_equals_plain(cuda, R, K):
-    """The main path's shapes (640, batch 16: R 128 x K 128 and R 768 x K 48),
-    K = 1, R * K not a multiple of the 8-pair block, all-invalid rows (the
-    last row of ``ray_inputs``, and row 1 here) and a non-prefix pattern."""
+def _rows_case(R, K):
+    if R == "scenes":  # each hard case's contour as a row of 8 candidates
+        contours, centers = ray_scenes()
+        valid = np.ones(centers.shape[:2], bool)
+        valid[2, 5] = False
+        return contours, centers, valid
     contours, centers, valid = ray_inputs(R, K, seed=R + K)
     if R > 2:
         valid[1] = False
         valid[2] = np.arange(K) % 3 == 1
+    return contours, centers, valid
+
+
+def _pairs_case(P):
+    if P == "scenes":  # each hard case's contour with each of its 8 centers
+        contours, centers = ray_scenes()
+        k = centers.shape[1]
+        return (np.ascontiguousarray(np.repeat(contours, k, 0)),
+                np.ascontiguousarray(centers.reshape(-1, 2)))
+    contours, c, r = ray_contours(P, seed=P)
+    centers = (c + np.random.default_rng(P).uniform(-1.5, 1.5, (P, 2)) * r[:, None])
+    return contours, centers.astype(np.float32)
+
+
+@pytest.mark.parametrize("R,K", [(128, 128), (768, 48), (5, 1), (7, 13), (3, 9), (1, 300),
+                                 ("scenes", 8)])
+def test_gt_rays_rows_kernel_equals_plain(cuda, R, K):
+    """The main path's shapes (640, batch 16: R 128 x K 128 and R 768 x K 48),
+    K = 1, R * K not a multiple of the 8-pair block, all-invalid rows (the
+    last row of ``ray_inputs``, and row 1 here), a non-prefix pattern, and
+    the search's hard cases (``chip_smoke.ray_scenes``)."""
+    contours, centers, valid = _rows_case(R, K)
     c, x, v = (torch.from_numpy(a).to(cuda) for a in (contours, centers, valid))
     before = gt_rays.gt_rays_rows_fast.launches
     got = gt_rays.gt_rays_rows_fast(c, x, v)
@@ -156,11 +179,10 @@ def test_gt_rays_rows_kernel_equals_plain(cuda, R, K):
                       rtol=CPU_SQRT_RTOL)
 
 
-@pytest.mark.parametrize("P", [16384, 21, 1])
+@pytest.mark.parametrize("P", [16384, 21, 1, "scenes"])
 def test_gt_rays_pairs_kernel_equals_plain(cuda, P):
-    contours, c, r = ray_contours(P, seed=P)
-    centers = (c + np.random.default_rng(P).uniform(-1.5, 1.5, (P, 2)) * r[:, None])
-    centers = centers.astype(np.float32)
+    contours, centers = _pairs_case(P)
+    P = len(centers)
     ct, xt = torch.from_numpy(contours).to(cuda), torch.from_numpy(centers).to(cuda)
     before = gt_rays.gt_rays_fast.launches
     got = gt_rays.gt_rays_fast(ct, xt)
@@ -191,10 +213,32 @@ def test_gt_rays_kernels_reject_what_they_cannot_take(cuda):
         gt_rays.gt_rays_fast(c, x[:, 0])  # not contiguous
     with pytest.raises(ValueError):
         gt_rays.gt_rays_fast(c, x[:3, 0].contiguous())
+    misaligned = torch.empty(c.numel() + 1, device=cuda)[1:].view(c.shape)  # float2 loads
+    misaligned.copy_(c)
+    with pytest.raises(ValueError):
+        gt_rays.gt_rays_rows_fast(misaligned, x, v)
+    with pytest.raises(ValueError):
+        gt_rays.gt_rays_fast(misaligned, x[:, 0].contiguous())
     assert before == (gt_rays.gt_rays_rows_fast.launches, gt_rays.gt_rays_fast.launches)
     # empty inputs launch nothing and give empty outputs
     assert gt_rays.gt_rays_rows_fast(c[:0], x[:0], v[:0]).shape == (0, 8, 36)
     assert gt_rays.gt_rays_fast(c[:0], x[:0, 0].contiguous()).shape == (0, 36)
+
+
+@pytest.mark.parametrize("entry", ["rows", "pairs"])
+def test_gt_rays_one_device_kernel_per_call(cuda, entry):
+    """One call of each wrapper launches one device kernel (``torch.profiler``),
+    at the main path's R 128 x K 128 and at P 16,384."""
+    if entry == "rows":
+        c, x, v = (torch.from_numpy(a).to(cuda) for a in ray_inputs(128, 128, seed=128))
+        call = lambda: gt_rays.gt_rays_rows_fast(c, x, v)  # noqa: E731
+    else:
+        c, x = (torch.from_numpy(a).to(cuda) for a in _pairs_case(16384))
+        call = lambda: gt_rays.gt_rays_fast(c, x)  # noqa: E731
+    call()
+    kernels = device_kernels(call)
+    assert kernels is not None and len(kernels) == 1, kernels
+    assert "gt_rays_kernel" in kernels[0][0]
 
 
 def test_train_state_defaults_to_the_card(cuda):

@@ -82,6 +82,8 @@ def _check_contours(contour: torch.Tensor, rows: int):
     if tuple(contour.shape) != (rows, NUM_CONTOUR_POINTS, 2):
         raise ValueError(f"contours must be ({rows}, {NUM_CONTOUR_POINTS}, 2), "
                          f"got {tuple(contour.shape)}")
+    if contour.data_ptr() % 8:  # the kernel reads each point as one float2
+        raise ValueError("contours must be 8-byte aligned")
 
 
 def _launch(fn, out: torch.Tensor, *args):
@@ -107,6 +109,7 @@ def gt_rays_rows_fast(contour_rows: torch.Tensor, centers: torch.Tensor, valid: 
     if not (contour_rows.is_contiguous() and centers.is_contiguous() and valid.is_contiguous()):
         raise ValueError("contour_rows, centers and valid must be contiguous")
     lib = _lib()
+    # a block takes gt_rays_max_warps() (8) pairs of a row: ceil(K / 8) blocks a row
     if R >= 2**31 or R * K >= 2**31 or -(-K // lib.gt_rays_max_warps()) > MAX_GRID_Y:
         raise ValueError(f"grid too large for R={R}, K={K}")
     out = torch.empty((R, K, NUM_RAYS), dtype=torch.float32, device=centers.device)
