@@ -13,7 +13,8 @@ Phases, one timestamped line each (elapsed seconds):
      card, at the main paths' shapes, with its time, the plain version's
      time and the card's least time for the same work (its bound): both
      polygon fills (even-odd, and the facade's cv2 rule) at the predict
-     path's masks with the edge cases of ``raster_inputs``, each with the
+     path's masks, the even-odd one also on the validator's 640x640 grid,
+     with the edge cases of ``raster_inputs``, each with the
      device kernels one call launches (``torch.profiler``); the GT rays,
      rows form, at the trainer's two shapes (imgsz 640, batch 16, N_pad 8
      -> K 128 and N_pad 48 -> K 48), and per pair at P 16,384, each with
@@ -28,7 +29,17 @@ Phases, one timestamped line each (elapsed seconds):
      steps (copies, kernels, numpy), each timed apart, and the card's head
      outputs and detections are held against the port on the CPU at imgsz
      160.
-  5. train: (a) the seg160 model at imgsz 160, batch 4: one loss, the
+  5. validate: (a) ``YOLO(runs/floor_seg160/best.ckpt).val`` on the seg160
+     floor set (16 decoded val images, ``tests/data/``) at imgsz 160, batch
+     4: its mask and box mAP50-95 must meet ``floor.json``; the first
+     batch's eval outputs on the card against the port on the CPU
+     (``compare_eval``), and ``polygon_mask_iou`` (the even-odd fill kernel
+     and a product) against its plain version: 0 differing IoUs. (b) The
+     validator at full width, imgsz 640, batch 16, on 32 480x640 frames:
+     launches, peak device memory and ms per image split into host
+     preprocess, forward + NMS, scale + box IoU, mask IoU and host matching.
+     Launch counts are zeroed just before each run and read just after.
+  6. train: (a) the seg160 model at imgsz 160, batch 4: one loss, the
      assignment and every gradient on the card against the CPU; (b) the
      same model at full width, imgsz 640, batch 16: 3 warm-up steps of
      ``make_train_step`` with AdamW, then 20 timed steps on one repeated
@@ -37,9 +48,9 @@ Phases, one timestamped line each (elapsed seconds):
      own stage marks into forward, assigner (and the GT-ray kernel in it),
      loss, backward and clip + optimizer + EMA; (c) ``save_checkpoint`` of
      the trained state and ``YOLO(path).predict`` from it.
-  6. report: a JSON line of the kernels (launches summed over the predict
-     and train runs), the card's line, and last ``{"ok": true, "device":
-     {...}}``.
+  7. report: a JSON line of the kernels (launches summed over the predict,
+     validate and train runs), the card's line, and last ``{"ok": true,
+     "device": {...}}``.
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -61,11 +72,15 @@ import numpy as np
 import torch
 
 from yolo_contour_regression_tpu_torch import YOLO
+from yolo_contour_regression_tpu_torch.data.dataset import parse_label_lines
 from yolo_contour_regression_tpu_torch.engine.predictor import SegmentationPredictor
 from yolo_contour_regression_tpu_torch.engine.results import Masks, contours_to_masks
 from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
+from yolo_contour_regression_tpu_torch.engine.validator import (
+    EVAL_KEYS, SegmentationValidator, grid_scale)
 from yolo_contour_regression_tpu_torch.nn.tasks import SegmentationModel
 from yolo_contour_regression_tpu_torch.ops import gt_rays, polar, raster
+from yolo_contour_regression_tpu_torch.ops.boxes import box_iou, scale_coords
 from yolo_contour_regression_tpu_torch.utils import cuda_build, optim
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     checkpoint_variables, load_checkpoint, load_jax_variables, save_checkpoint, to_jax_variables)
@@ -80,9 +95,10 @@ T0 = time.perf_counter()
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_INSTR_PER_S = 67e12 / 2
 
-# mask shape of the main path's 640 phase (a 480x640 camera frame) and the
-# most polygons one image can give (max_det)
+# mask shape of the predict path's 640 phase (a 480x640 camera frame), of
+# the validator's 640 grid, and the most polygons one image can give (max_det)
 RASTER_N, RASTER_V, RASTER_HW = 300, 36, (480, 640)
+VAL_GRID_HW = (640, 640)
 # the card against the port on the CPU, both in float32
 HEAD_ATOL = 1e-3  # raw head outputs: cuDNN and CPU conv sum orders differ
 BOX_ATOL = 0.05  # px
@@ -90,6 +106,23 @@ BOX_ATOL = 0.05  # px
 # tensor's largest entry); f32 convs and BatchNorm summed in other orders
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
+
+# validate: (a) the 16 val images of the seg160 floor set, decoded, with
+# their label lines (tests/test_torch_port_val.py regenerates them), held to
+# the committed floor; (b) full width at imgsz 640, batch 16, on 32 camera
+# frames (480x640: the long side is imgsz, so no pre-resize)
+FLOOR_VAL = ROOT / "tests" / "data" / "torch_port_floor_seg160_val16.npz"
+FLOOR_JSON = ROOT / "runs" / "floor_seg160" / "floor.json"
+VAL_IMGSZ, VAL_B = 160, 4
+VAL640_N, VAL640_HW, VAL640_B = 32, (480, 640), 16
+VAL_CONF, VAL_IOU = 0.001, 0.7
+METRIC_KEYS = tuple(f"metrics/{m}({t})" for t in "BM"
+                    for m in ("precision", "recall", "mAP50", "mAP50-95"))
+# the card's eval outputs against the CPU port's on the first floor batch: a
+# detection may be on one side only where its score is this close to the
+# gate, or its suppressing IoU this close to ``iou``
+VAL_GATE_TOL, VAL_IOU_TOL = 1e-4, 1e-3
+VAL_SCORE_ATOL, VAL_BOX_IOU_ATOL, VAL_MASK_IOU_ATOL = 1e-4, 1e-3, 0.02
 
 KERNEL_SOURCES = ("raster", "gt_rays")
 # the trainer at imgsz 640, batch 16, cand_per_gt 128 with cand_balance:
@@ -139,13 +172,29 @@ def circle_contour(cx: float, cy: float, r: float, n: int = 360):
     return np.stack([cx + r * np.cos(t), cy + r * np.sin(t)], -1)
 
 
+def draw_shape(img, rng, yy, xx):
+    """Draw one filled circle (class 0) or rectangle (class 1) of seeded
+    place, size and color into ``img`` (H, W, 3) uint8, as ``shape_images``
+    draws them; returns (class, its exact 360-point contour in pixels)."""
+    h, w = img.shape[:2]
+    cx, cy = rng.uniform(0.3, 0.7, 2) * np.array([w, h])
+    r = rng.uniform(0.08, 0.2) * min(h, w)
+    color = rng.integers(100, 256, 3).astype(np.uint8)
+    if rng.integers(2) == 0:
+        img[(xx - cx) ** 2 + (yy - cy) ** 2 <= r * r] = color
+        return 0, circle_contour(cx, cy, r)
+    x0, y0, x1, y1 = int(cx - r), int(cy - r), int(cx + r), int(cy + r)
+    img[y0:y1, x0:x1] = color
+    return 1, rect_contour(x0, y0, x1, y1)
+
+
 def shape_batch(n: int, imgsz: int, n_pad: int, seed: int):
     """A train batch of n square images of filled circles (class 0) and
-    rectangles (class 1), drawn as ``shape_images`` draws them, with exact
-    360-point contours, in the train step's layout (numpy): images (n,
-    imgsz, imgsz, 3) f32 in [0, 1]; cls (n, n_pad) int32, bboxes (n, n_pad,
-    4) normalized xywh, segments (n, n_pad, 360, 2) normalized, mask_gt (n,
-    n_pad) bool. Each image holds 1 to min(3, n_pad) shapes."""
+    rectangles (class 1), drawn by ``draw_shape``, with exact 360-point
+    contours, in the train step's layout (numpy): images (n, imgsz, imgsz,
+    3) f32 in [0, 1]; cls (n, n_pad) int32, bboxes (n, n_pad, 4) normalized
+    xywh, segments (n, n_pad, 360, 2) normalized, mask_gt (n, n_pad) bool.
+    Each image holds 1 to min(3, n_pad) shapes."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:imgsz, :imgsz]
     imgs = np.full((n, imgsz, imgsz, 3), 40, np.uint8)
@@ -155,22 +204,32 @@ def shape_batch(n: int, imgsz: int, n_pad: int, seed: int):
              "mask_gt": np.zeros((n, n_pad), bool)}
     for i in range(n):
         for j in range(rng.integers(1, min(3, n_pad) + 1)):
-            cx, cy = rng.uniform(0.3, 0.7, 2) * imgsz
-            r = rng.uniform(0.08, 0.2) * imgsz
-            color = rng.integers(100, 256, 3).astype(np.uint8)
-            if rng.integers(2) == 0:
-                imgs[i][(xx - cx) ** 2 + (yy - cy) ** 2 <= r * r] = color
-                contour = circle_contour(cx, cy, r)
-            else:
-                x0, y0, x1, y1 = int(cx - r), int(cy - r), int(cx + r), int(cy + r)
-                imgs[i, y0:y1, x0:x1] = color
-                contour = rect_contour(x0, y0, x1, y1)
-                batch["cls"][i, j] = 1
+            batch["cls"][i, j], contour = draw_shape(imgs[i], rng, yy, xx)
             lo, hi = contour.min(0), contour.max(0)
             batch["bboxes"][i, j] = np.concatenate([(lo + hi) / 2, hi - lo]) / imgsz
             batch["segments"][i, j] = contour / imgsz
             batch["mask_gt"][i, j] = True
     return imgs.astype(np.float32) / 255.0, batch
+
+
+def shape_val_set(n: int, h: int, w: int, seed: int):
+    """n HWC uint8 BGR images (h, w) of 1 to 3 shapes each, drawn by
+    ``draw_shape``, and their exact labels as ``parse_label_file`` gives
+    them: (cls (k,) int32, bboxes (k, 4) normalized xywh, segments (k, 360,
+    2) normalized)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    images, labels = [], []
+    for _ in range(n):
+        img = np.full((h, w, 3), 40, np.uint8)
+        drawn = [draw_shape(img, rng, yy, xx) for _ in range(rng.integers(1, 4))]
+        segs = np.stack([c for _, c in drawn]) / np.array([w, h])
+        lo, hi = segs.min(1), segs.max(1)
+        boxes = np.concatenate([(lo + hi) / 2, hi - lo], -1)
+        images.append(img)
+        labels.append((np.array([k for k, _ in drawn], np.int32), boxes.astype(np.float32),
+                       segs.astype(np.float32)))
+    return images, labels
 
 
 def ray_contours(n: int, seed: int, size: float = 640.0):
@@ -413,12 +472,12 @@ def mask_breakdown(results, reps: int = 5) -> dict:
     return {k: statistics.median(p[k] for p in passes) for k in passes[0]}
 
 
-def raster_inputs(seed: int = 0, device="cuda"):
-    """Seeded star-shaped polygons at the path's shapes, plus edge cases:
-    an all-invalid polygon, invalid runs at the start and the end,
-    horizontal edges, vertices on integer pixel rows, a polygon that leaves
-    the image and a degenerate one."""
-    n, v, (h, w) = RASTER_N, RASTER_V, RASTER_HW
+def raster_inputs(seed: int = 0, device="cuda", hw=RASTER_HW):
+    """Seeded star-shaped polygons at the path's shapes (masks ``hw``), plus
+    edge cases: an all-invalid polygon, invalid runs at the start and the
+    end, horizontal edges, vertices on integer pixel rows, a polygon that
+    leaves the image and a degenerate one."""
+    n, v, (h, w) = RASTER_N, RASTER_V, hw
     rng = np.random.default_rng(seed)
     t = np.sort(rng.uniform(0, 2 * np.pi, (n, v)), axis=1)
     r = rng.uniform(3, 0.4 * min(h, w), (n, v))
@@ -762,29 +821,42 @@ def device_kernels(fn):
             for e in events] or None
 
 
-def kernels_of_one_call(name: str, fn, n_kernels: int):
+def kernels_of_one_call(name: str, fn, n_kernels: int, tries: int = 3):
     """``device_kernels(fn)``, which must be ``n_kernels`` where the profiler
-    records them (a second session where the first records no device
-    activity); the profiler's own failure is a gap in the report ("not
-    measured"), not in the kernel."""
-    try:
-        kernels = device_kernels(fn) or device_kernels(fn)
-    except Exception as e:
-        kernels = f"not measured ({type(e).__name__}: {e})"
-    if isinstance(kernels, list) and len(kernels) != n_kernels:
-        raise AssertionError(f"{name}: one call launched {kernels}, not {n_kernels} kernels")
-    return kernels
+    records them. The profiler may drop a kernel's record (a run saw the cv2
+    entry's outline without its fill) but adds none, so up to ``tries``
+    profiles are read and the first that records ``n_kernels`` proves the
+    count; more kernels, or fewer in every profile that recorded any, fail.
+    No device activity in any profile, or the profiler's own failure, is a
+    gap in the report ("not measured"), not in the kernel."""
+    seen = []
+    for _ in range(tries):
+        try:
+            kernels = device_kernels(fn)
+        except Exception as e:
+            return f"not measured ({type(e).__name__}: {e})"
+        if kernels is None:
+            continue
+        if len(kernels) > n_kernels:
+            raise AssertionError(f"{name}: one call launched {kernels}, not {n_kernels} kernels")
+        if len(kernels) == n_kernels:
+            return kernels
+        seen.append(kernels)
+    if seen:
+        raise AssertionError(f"{name}: one call launched {seen}, not {n_kernels} kernels")
+    return None
 
 
-def check_fill(name: str, entry: str, fast, plain, rule: str, n_kernels: int, card: str) -> dict:
-    """One polygon-fill entry against its plain version on the card, at the
-    predict path's masks and the edge cases of ``raster_inputs``: 0
-    differing pixels; the kernel's time per launch (``launch_ms``), the
-    wrapper's per call, the plain version's and the bound; the device
-    kernels of one call, which must be ``n_kernels`` where the profiler
-    records them."""
-    pts, valid = raster_inputs()
-    h, w = RASTER_HW
+def check_fill(name: str, entry: str, fast, plain, rule: str, n_kernels: int, card: str,
+               hw=RASTER_HW) -> dict:
+    """One polygon-fill entry against its plain version on the card, at
+    masks of shape ``hw`` (the predict path's by default) and the edge cases
+    of ``raster_inputs``: 0 differing pixels; the kernel's time per launch
+    (``launch_ms``), the wrapper's per call, the plain version's and the
+    bound; the device kernels of one call, which must be ``n_kernels`` where
+    the profiler records them."""
+    pts, valid = raster_inputs(hw=hw)
+    h, w = hw
     got, want = fast(pts, valid, h, w), plain(pts, valid, h, w)
     torch.cuda.synchronize()
     n_diff = int((got != want).sum())
@@ -873,10 +945,13 @@ def train_card_vs_cpu(ckpt, card: str):
 
 
 class StageTimer:
-    """The ``mark`` hook of ``make_train_step``: a CUDA event as each stage
-    of the step starts. ``split()`` reads the step just run, ms per stage:
-    forward, assigner (the GT-ray kernel's wrapper included), gt_rays_kernel
-    (that wrapper alone), loss, backward, clip_optimizer_ema, total."""
+    """A ``mark`` hook (of ``make_train_step`` or ``SegmentationValidator``):
+    a CUDA event as each stage starts. ``totals()`` reads the marks since the
+    last read, ms per stage, summed where a stage recurs; the span after an
+    "end" mark (outside the timed code) is left out. ``split()`` reads one
+    train step: forward, assigner (the GT-ray kernel's wrapper included),
+    gt_rays_kernel (that wrapper alone), loss, backward, clip_optimizer_ema,
+    total."""
 
     def __init__(self):
         self.marks = []
@@ -886,16 +961,23 @@ class StageTimer:
         ev.record()
         self.marks.append((stage, ev))
 
-    def split(self) -> dict:
+    def totals(self) -> dict:
         marks, self.marks = self.marks, []
         marks[-1][1].synchronize()
+        out = {}
+        for (stage, a), (_, b) in zip(marks, marks[1:]):
+            if stage != "end":
+                out[stage] = out.get(stage, 0.0) + a.elapsed_time(b)
+        return out
+
+    def split(self) -> dict:
+        first, last = self.marks[0][1], self.marks[-1][1]
         out = dict.fromkeys(("forward", "assigner", "gt_rays", "loss", "backward",
                              "clip_optimizer_ema"), 0.0)
-        for (stage, a), (_, b) in zip(marks, marks[1:]):
-            out[stage] += a.elapsed_time(b)
+        out.update(self.totals())
         out["gt_rays_kernel"] = out.pop("gt_rays")
         out["assigner"] += out["gt_rays_kernel"]
-        out["total"] = marks[0][1].elapsed_time(marks[-1][1])
+        out["total"] = first.elapsed_time(last)
         return out
 
 
@@ -969,6 +1051,232 @@ def save_and_predict(ckpt, state, images, card: str):
         f".predict on {len(images)} images: {sum(len(r) for r in res)} detections | {card}")
 
 
+def floor_val_set():
+    """The 16 val images of the seg160 floor set (``make_shape_dataset(n_train=64,
+    n_val=16, imgsz=160, seed=0)``, decoded by cv2) and their labels, parsed
+    from the committed label lines."""
+    z = np.load(FLOOR_VAL)
+    return list(z["images"]), [parse_label_lines(str(t).splitlines()) for t in z["labels"]]
+
+
+def eval_np(validator, model, batch: dict, device) -> dict:
+    """``validator.eval_batch`` of one collated batch on ``device``, as numpy."""
+    dev = {k: torch.from_numpy(batch[k]).to(device) for k in EVAL_KEYS}
+    return {k: v.cpu().numpy() for k, v in validator.eval_batch(model, dev).items()}
+
+
+def compare_eval(got: dict, want: dict, conf: float = VAL_CONF, iou: float = VAL_IOU) -> dict:
+    """Two eval outputs of one batch (numpy dicts of ``eval_batch``), held
+    detection by detection. Detections pair up by class and box (each box
+    within ``BOX_ATOL`` px, each detection once). A detection found on one
+    side only is named, with its cause, and must have one: "gate", its
+    score within ``VAL_GATE_TOL`` of ``conf``; "iou", on the other side a
+    kept detection of its class ranked above it overlaps it by an IoU
+    within ``VAL_IOU_TOL`` of ``iou``; "rank", on the other side a
+    detection of its class within ``VAL_SCORE_ATOL`` of its score overlaps
+    it by more than ``iou - VAL_IOU_TOL`` (the two swapped ranks, so the
+    other suppressed it there); "knock-on", its suppressor on the other
+    side (ranked above it, the same overlap) is itself a detection found
+    on one side only, with a cause; "max_det", the other side is full and
+    its score is within ``VAL_SCORE_ATOL`` of that side's last. Overlaps are
+    of the boxes NMS compared: each detection's 36 contour points' extent,
+    unclipped. Pairs: scores within ``VAL_SCORE_ATOL``, box IoUs with every
+    GT within ``VAL_BOX_IOU_ATOL``, mask IoUs within ``VAL_MASK_IOU_ATOL``.
+    Returns the worst differences, the named detections and ``ok``."""
+    sides = (got, want)
+    res = {"pairs": 0, "box": 0.0, "score": 0.0, "ious_box": 0.0, "ious_mask": 0.0,
+           "gt_boxes": float(np.abs(got["gt_boxes"] - want["gt_boxes"]).max()), "named": []}
+    for bi in range(got["valid"].shape[0]):
+        dets = [np.nonzero(o["valid"][bi])[0] for o in sides]
+        pairs, used = [], set()
+        for i in dets[0]:
+            d = np.abs(want["boxes"][bi, dets[1]] - got["boxes"][bi, i]).max(-1, initial=0.0)
+            ok = [(d[n], j) for n, j in enumerate(dets[1]) if j not in used and d[n] <= BOX_ATOL
+                  and want["classes"][bi, j] == got["classes"][bi, i]]
+            if ok:
+                j = min(ok)[1]
+                used.add(j)
+                pairs.append((i, j))
+        for i, j in pairs:
+            res["box"] = max(res["box"], float(np.abs(got["boxes"][bi, i] - want["boxes"][bi, j]).max()))
+            res["score"] = max(res["score"], abs(float(got["scores"][bi, i] - want["scores"][bi, j])))
+            for key in ("ious_box", "ious_mask"):
+                diff = np.abs(got[key][bi][:, i] - want[key][bi][:, j]).max(initial=0.0)
+                res[key] = max(res[key], float(diff))
+        res["pairs"] += len(pairs)
+        paired = ({i for i, _ in pairs}, {j for _, j in pairs})
+        alone = [(s, k) for s in (0, 1) for k in dets[s] if k not in paired[s]]
+        box = [torch.from_numpy(np.concatenate([o["pred_pts"][bi].min(-2),
+                                                o["pred_pts"][bi].max(-2)], -1)) for o in sides]
+        cause = {}
+        for s, k in alone:
+            o, q = sides[s], 1 - s
+            cls, score = o["classes"][bi, k], float(o["scores"][bi, k])
+            other = [j for j in dets[q] if sides[q]["classes"][bi, j] == cls]
+            ov = box_iou(box[s][k][None], box[q][other])[0].numpy()
+            sc = sides[q]["scores"][bi, other]
+            if abs(score - conf) <= VAL_GATE_TOL:
+                cause[(s, k)] = "gate"
+            elif np.any((sc >= score - VAL_SCORE_ATOL) & (np.abs(ov - iou) <= VAL_IOU_TOL)):
+                cause[(s, k)] = "iou"
+            elif np.any((np.abs(sc - score) <= VAL_SCORE_ATOL) & (ov > iou - VAL_IOU_TOL)):
+                cause[(s, k)] = "rank"
+            elif (len(dets[q]) == got["valid"].shape[1]
+                  and score <= float(sides[q]["scores"][bi, dets[q]].min()) + VAL_SCORE_ATOL):
+                cause[(s, k)] = "max_det"
+        grew = True
+        while grew:  # knock-on, to a fixpoint
+            grew = False
+            for s, k in alone:
+                if (s, k) in cause:
+                    continue
+                o, q = sides[s], 1 - s
+                score = float(o["scores"][bi, k])
+                for j in dets[q]:
+                    if ((q, j) in cause and sides[q]["classes"][bi, j] == o["classes"][bi, k]
+                            and sides[q]["scores"][bi, j] >= score - VAL_SCORE_ATOL
+                            and float(box_iou(box[s][k][None], box[q][j][None])) > iou - VAL_IOU_TOL):
+                        cause[(s, k)] = f"knock-on of {('card', 'cpu')[q]} slot {j}"
+                        grew = True
+                        break
+        for s, k in alone:
+            o = sides[s]
+            res["named"].append((("card", "cpu")[s], int(bi), int(k), int(o["classes"][bi, k]),
+                                 float(o["scores"][bi, k]), cause.get((s, k))))
+    res["ok"] = (all(n[-1] for n in res["named"]) and res["box"] <= BOX_ATOL
+                 and res["score"] <= VAL_SCORE_ATOL and res["ious_box"] <= VAL_BOX_IOU_ATOL
+                 and res["ious_mask"] <= VAL_MASK_IOU_ATOL and res["gt_boxes"] <= BOX_ATOL)
+    return res
+
+
+def grid_polygons(out: dict, batch: dict, grid: int):
+    """The polygons ``eval_batch`` compares on its grid, from its outputs
+    and batch (numpy): per image (GT points, GT valid, predicted points,
+    predicted valid), all scaled onto the ``grid`` x ``grid`` mask grid."""
+    h, w = batch["img"].shape[1:3]
+    ratio_pad = torch.from_numpy(batch["ratio_pad"])
+    gpts = scale_coords(torch.from_numpy(batch["segments"]) * torch.tensor([w, h], dtype=torch.float32),
+                        ratio_pad)
+    s = grid_scale(torch.from_numpy(batch["ori_shape"]), grid)[:, None, None, None]
+    gpts, ppts = gpts * s, torch.from_numpy(out["pred_pts"]) * s
+    gvalid = torch.from_numpy(batch["mask_gt"])[..., None].expand(gpts.shape[:-1])
+    pvalid = torch.from_numpy(out["pred_pts_valid"])
+    return [(gpts[b], gvalid[b], ppts[b], pvalid[b]) for b in range(len(gpts))]
+
+
+def validate_floor(model, cpu, card: str):
+    """(a) ``YOLO.val`` on the card over the seg160 floor set at imgsz 160,
+    batch 4 (launch counts zeroed just before, read just after): the floor
+    of ``runs/floor_seg160/floor.json`` must hold. Then the first batch's
+    eval outputs, card against the port on the CPU (``compare_eval``), and
+    ``polygon_mask_iou`` on the card (the fill kernel and the product)
+    against its plain version on the card and on the CPU, on the CPU run's
+    polygons: 0 differing IoUs."""
+    images, labels = floor_val_set()
+    record = json.loads(FLOOR_JSON.read_text())
+    zero_launch_counts()
+    res = model.val(images, labels, imgsz=VAL_IMGSZ, batch=VAL_B, conf=VAL_CONF, iou=VAL_IOU)
+    counts = launch_counts()
+    speed = model.validator.speed
+    metrics = ", ".join(f"{k.split('/')[1]} {res[k]:.4f}" for k in METRIC_KEYS)
+    log("validate", f"floor set, {len(images)} images at imgsz {VAL_IMGSZ} batch {VAL_B} on the "
+        f"card: {metrics}; ms per image (host clock) "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in speed.items())}; launches {counts} | {card}")
+    below = {k: (res[k], record["floor"][n]) for k, n in record["floor_keys"].items()
+             if not res[k] >= record["floor"][n]}
+    if below:
+        raise AssertionError(f"validate on the card below the seg160 floor: {below}")
+    if counts["fill_polygons"] == 0:
+        raise AssertionError("the validate path never launched the even-odd fill kernel")
+
+    v = SegmentationValidator(imgsz=VAL_IMGSZ, batch=VAL_B, conf=VAL_CONF, iou=VAL_IOU)
+    batch = next(iter(v.loader(images, labels)))
+    got, want = eval_np(v, model.model, batch, "cuda"), eval_np(v, cpu.model, batch, "cpu")
+    cmp = compare_eval(got, want)
+    for side, bi, k, c, score, why in cmp["named"]:
+        log("validate", f"  on the {side} only: image {bi} slot {k} class {c} score {score:.6f}: "
+            f"{why or 'NOT EXPLAINED'}")
+    log("validate", f"card vs CPU, first batch of {VAL_B}: {int(got['valid'].sum())} and "
+        f"{int(want['valid'].sum())} detections, {cmp['pairs']} paired, {len(cmp['named'])} on one "
+        f"side only; worst: boxes {cmp['box']:.2e} px (limit {BOX_ATOL}), scores "
+        f"{cmp['score']:.2e} (limit {VAL_SCORE_ATOL}), ious_box {cmp['ious_box']:.2e} (limit "
+        f"{VAL_BOX_IOU_ATOL}), ious_mask {cmp['ious_mask']:.2e} (limit {VAL_MASK_IOU_ATOL}), GT "
+        f"boxes {cmp['gt_boxes']:.2e} px | {card}")
+    if not cmp["ok"]:
+        raise AssertionError("validate: the card's eval outputs differ from the CPU port's")
+
+    n_diff = n_all = 0
+    for g, gv, p, pv in grid_polygons(want, batch, v.grid):
+        kernel = raster.polygon_mask_iou(g.cuda(), gv.cuda(), p.cuda(), pv.cuda(), v.grid, v.grid)
+        plain = raster.polygon_mask_iou_plain(g.cuda(), gv.cuda(), p.cuda(), pv.cuda(), v.grid,
+                                              v.grid)
+        host = raster.polygon_mask_iou_plain(g, gv, p, pv, v.grid, v.grid)
+        n_diff += int((kernel != plain).sum()) + int((kernel.cpu() != host).sum())
+        n_all += kernel.numel()
+    log("validate", f"polygon_mask_iou on the card (fill kernel + product) vs its plain version "
+        f"on the card and on the CPU, the CPU run's polygons on {v.grid}x{v.grid}: {n_diff} of "
+        f"{2 * n_all} IoUs differ | {card}")
+    if n_diff:
+        raise AssertionError(f"polygon_mask_iou: {n_diff} IoUs differ from the plain version")
+    return res, counts
+
+
+def validate_full_width(model, card: str, passes: int = 3):
+    """(b) The validator at imgsz 640, batch 16, over ``VAL640_N`` 480x640
+    frames with exact labels (``shape_val_set``): one pass with the launch
+    counts zeroed just before and read just after and the peak device
+    memory, then ``passes`` timed passes, ms per image (median): host
+    preprocess, then by CUDA events at the validator's marks forward + NMS,
+    scale + box IoU, and ``polygon_mask_iou`` (fills and product), then
+    host matching + metrics; and the device eval on the host clock."""
+    images, labels = shape_val_set(VAL640_N, *VAL640_HW, seed=6)
+    timer = StageTimer()
+    v = SegmentationValidator(imgsz=640, batch=VAL640_B, conf=VAL_CONF, iou=VAL_IOU, mark=timer)
+    v(model.model, images, labels)  # warm-up
+    timer.marks = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    res = v(model.model, images, labels)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    timer.marks = []
+    splits = []
+    for _ in range(passes):
+        v(model.model, images, labels)
+        dev = {k: x / len(images) for k, x in timer.totals().items()}
+        splits.append({"preprocess": v.speed["preprocess"], **dev,
+                       "matching": v.speed["matching"], "eval (host clock)": v.speed["eval"]})
+    med = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
+    if counts["fill_polygons"] == 0:
+        raise AssertionError("the validate path at 640 never launched the even-odd fill kernel")
+    metrics = ", ".join(f"{k.split('/')[1]} {res[k]:.4f}" for k in METRIC_KEYS)
+    log("validate", f"full width, {VAL640_N} images {VAL640_HW[0]}x{VAL640_HW[1]} at imgsz 640 "
+        f"batch {VAL640_B} (printed, not held: the model was trained at 160): {metrics}; "
+        f"launches of one pass {counts}; peak device memory {peak / 2**30:.3f} GiB | {card}")
+    log("validate", f"imgsz 640 batch {VAL640_B}, ms per image (median of {passes} passes): "
+        f"{', '.join(f'{k} {x:.3f}' for k, x in med.items())} | {card}")
+    batch = next(iter(v.loader(images, labels)))
+    g, gv, p, pv = (t.cuda() for t in grid_polygons(eval_np(v, model.model, batch, "cuda"), batch,
+                                                    v.grid)[0])
+    call = lambda: raster.polygon_mask_iou(g, gv, p, pv, v.grid, v.grid)  # noqa: E731
+    call()
+    ms = time_ms(call, reps=10)
+    try:
+        kernels = device_kernels(call) or device_kernels(call)
+    except Exception as e:
+        kernels = f"not measured ({type(e).__name__}: {e})"
+    by_name = {}
+    for name, us in kernels if isinstance(kernels, list) else ():
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, round(t + us, 1))
+    log("validate", f"polygon_mask_iou of one image ({len(g)} GT slots of 360 points, {len(p)} "
+        f"detection slots of 36, {v.grid}x{v.grid}): {ms:.4f} ms a call (CUDA events, median of "
+        f"10); device kernels by name (launches, µs summed, torch.profiler): "
+        f"{by_name if by_name else kernels} | {card}")
+    return res, counts, med, peak
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -999,7 +1307,11 @@ def main() -> int:
     # 3. kernels against their plain versions
     fill_rows = {
         "fill_polygons": check_fill("fill_polygons", "raster_fill_polygons", raster.fill_polygons,
-                                    raster.fill_polygons_plain, "even_odd", 1, card),
+                                    raster.fill_polygons_plain, "even_odd", 1, card,
+                                    hw=VAL_GRID_HW),
+        "fill_polygons_480x640": check_fill("fill_polygons", "raster_fill_polygons",
+                                            raster.fill_polygons, raster.fill_polygons_plain,
+                                            "even_odd", 1, card),
         "fill_polygons_cv2": check_fill("fill_polygons_cv2", "raster_fill_polygons_cv2",
                                         raster.fill_polygons_cv2, raster.fill_polygons_cv2_plain,
                                         "cv2", 2, card),
@@ -1097,19 +1409,28 @@ def main() -> int:
     log("predict", f"card vs CPU at imgsz 160: head max abs {worst_head:.2e} (limit {HEAD_ATOL}), "
         f"same detections, boxes max abs {worst_box:.2e} px (limit {BOX_ATOL}) | {card}")
 
-    # 5. the main path: the train step on the card
+    # 5. the main path: validate on the card
+    _, val_counts = validate_floor(model, cpu, card)
+    _, val640_counts, _, _ = validate_full_width(model, card)
+    validate_counts = {k: val_counts[k] + val640_counts[k] for k in KERNEL_WRAPPERS}
+
+    # 6. the main path: the train step on the card
     ckpt = load_checkpoint(CKPT)
     train_card_vs_cpu(ckpt, card)
     state, train_counts, _, _ = train_full_width(ckpt, card)
     save_and_predict(ckpt, state, imgs160, card)
 
-    # 6. report: launches summed over the two main paths' runs
-    launches = {k: predict_counts[k] + train_counts[k] for k in KERNEL_WRAPPERS}
+    # 7. report: launches summed over the three main paths' runs
+    launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k]
+                for k in KERNEL_WRAPPERS}
+    at_480 = fill_rows["fill_polygons_480x640"]
     src = "yolo_contour_regression_tpu_torch/csrc/"
     kernels = [
         {"name": "fill_polygons", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_raster.py:58",
-         "launches": launches["fill_polygons"], **fill_rows["fill_polygons"], "library_ms": None},
+         "launches": launches["fill_polygons"], **fill_rows["fill_polygons"], "library_ms": None,
+         "ms_480x640": at_480["ms"], "plain_ms_480x640": at_480["plain_ms"],
+         "bound_ms_480x640": at_480["bound_ms"]},
         {"name": "fill_polygons_cv2", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
                      "no TPU kernel)",
@@ -1123,11 +1444,12 @@ def main() -> int:
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:333",
          "launches": launches["gt_rays_pairs"], **report_row(pairs_check), "library_ms": None},
     ]
-    log("report", f"launches on the main paths: predict {predict_counts}, train {train_counts}; "
-        "fill_polygons (even-odd; the validator's and the segment_ori loss's rule, on neither "
-        "path yet) and fill_polygons_cv2 (the predict path's masks): ms a launch, at N=300 "
-        "480x640; gt_rays_rows: ms, plain_ms and bound at the train path's R=128 K=128; "
-        "gt_rays_pairs "
+    log("report", f"launches on the main paths: predict {predict_counts}, validate "
+        f"{validate_counts} (floor set at 160 and one pass at 640), train {train_counts}; "
+        "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
+        "validator's 640x640 grid, and at 480x640 (the *_480x640 keys); fill_polygons_cv2 (the "
+        "predict path's masks): ms a launch at N=300 480x640; gt_rays_rows: ms, plain_ms and "
+        "bound at the train path's R=128 K=128; gt_rays_pairs "
         "(also the counterpart of pallas_polar.py:101) at P=16,384 | wall "
         f"{time.perf_counter() - T0:.2f}s | {card}")
     print(card)

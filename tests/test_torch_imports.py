@@ -2,7 +2,8 @@
 numpy and the standard library lacks: in a fresh interpreter that refuses
 jax, flax, optax, cv2, PIL, yaml, torchvision, triton and the JAX package,
 every module of the port and ``chip_smoke`` import, the CPU predict runs
-on the committed seg160 checkpoint, and one CPU train step runs on it."""
+on the committed seg160 checkpoint, the CPU validator runs on two images
+of the floor set with it, and one CPU train step runs on it."""
 import subprocess
 import sys
 from pathlib import Path
@@ -37,6 +38,9 @@ model = pkg.YOLO("runs/floor_seg160/best.ckpt", device="cpu")
 res = model.predict(chip_smoke.shape_images(2, 120, 200, seed=0), imgsz=160)
 assert sum(len(r) for r in res) > 0
 assert all(r.masks.data.shape[1:] == (120, 200) for r in res)
+images, labels = chip_smoke.floor_val_set()
+val = model.val(images[:2], labels[:2], imgsz=160, batch=2)
+assert 0.0 < val["metrics/mAP50-95(M)"] <= 1.0 and 0.0 < val["metrics/mAP50-95(B)"] <= 1.0, val
 import torch
 from types import SimpleNamespace
 from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
@@ -55,7 +59,8 @@ assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;",
-      "train step loss", float(metrics["loss"]))
+      "val mask mAP50-95", val["metrics/mAP50-95(M)"], ";", "train step loss",
+      float(metrics["loss"]))
 """
 
 
@@ -66,5 +71,6 @@ def test_port_imports_and_predicts_without_jax_cv2_yaml_triton():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert "detections" in res.stdout and "train step loss" in res.stdout
+    assert "val mask mAP50-95" in res.stdout
     n_mods = int(res.stdout.split("imported ")[1].split()[0])
     assert n_mods >= 20  # ops, nn, utils, engine, data modules of the port

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import device_kernels, ray_contours, ray_inputs, ray_mismatches, ray_scenes
+from chip_smoke import (kernels_of_one_call, ray_contours, ray_inputs, ray_mismatches,
+                        ray_scenes)
 from yolo_contour_regression_tpu_torch.ops import gt_rays, raster
 
 pytestmark = pytest.mark.cuda
@@ -227,8 +228,9 @@ def test_gt_rays_kernels_reject_what_they_cannot_take(cuda):
 
 @pytest.mark.parametrize("entry", ["rows", "pairs"])
 def test_gt_rays_one_device_kernel_per_call(cuda, entry):
-    """One call of each wrapper launches one device kernel (``torch.profiler``),
-    at the main path's R 128 x K 128 and at P 16,384."""
+    """One call of each wrapper launches one device kernel (``torch.profiler``,
+    read by ``kernels_of_one_call``: a profile that drops a kernel's record
+    is taken again), at the main path's R 128 x K 128 and at P 16,384."""
     if entry == "rows":
         c, x, v = (torch.from_numpy(a).to(cuda) for a in ray_inputs(128, 128, seed=128))
         call = lambda: gt_rays.gt_rays_rows_fast(c, x, v)  # noqa: E731
@@ -236,8 +238,8 @@ def test_gt_rays_one_device_kernel_per_call(cuda, entry):
         c, x = (torch.from_numpy(a).to(cuda) for a in _pairs_case(16384))
         call = lambda: gt_rays.gt_rays_fast(c, x)  # noqa: E731
     call()
-    kernels = device_kernels(call)
-    assert kernels is not None and len(kernels) == 1, kernels
+    kernels = kernels_of_one_call(f"gt_rays_{entry}", call, 1)
+    assert isinstance(kernels, list) and len(kernels) == 1, kernels
     assert "gt_rays_kernel" in kernels[0][0]
 
 
@@ -266,3 +268,78 @@ def test_train_state_defaults_to_the_card(cuda):
         state, torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in batch.items()})
     assert metrics["loss"].is_cuda and torch.isfinite(metrics["loss"])
     assert gt_rays.gt_rays_rows_fast.launches == before + 1
+
+
+def _iou_sets(seed, n, m, grid):
+    """GT-like 360-gons and prediction-like 36-gons on a grid x grid mask
+    grid, some partly off it, with invalid runs; the first GT and the first
+    prediction have no valid vertex."""
+    ga, va = _polygons(seed, n, 360, grid, grid)
+    pb, vb = _polygons(seed + 1, m, 36, grid, grid)
+    vb[1, :10] = False
+    return ga, va, pb, vb
+
+
+@pytest.mark.parametrize("grid,n,m", [(160, 8, 300), (640, 32, 300), (160, 0, 300), (640, 5, 0),
+                                      (37, 3, 11), (40, 1, 1), (33, 17, 17)])
+def test_polygon_mask_iou_kernel_equals_plain(cuda, grid, n, m):
+    """``polygon_mask_iou`` on the card (two fill launches and a product of
+    the masks in float32 row blocks) equals its plain version on the card
+    and on the CPU: 0 differing IoUs, also with all-invalid sets, empty sets
+    and a grid whose size is not a multiple of 8."""
+    ga, va, pb, vb = _iou_sets(grid + n + m, max(n, 2), max(m, 2), grid)
+    ga, va, pb, vb = ga[:n], va[:n], pb[:m], vb[:m]
+    before = raster.fill_polygons.launches
+    got = raster.polygon_mask_iou(ga.to(cuda), va.to(cuda), pb.to(cuda), vb.to(cuda), grid, grid)
+    torch.cuda.synchronize()
+    assert raster.fill_polygons.launches == before + (n > 0) + (m > 0)
+    want = raster.polygon_mask_iou_plain(ga.to(cuda), va.to(cuda), pb.to(cuda), vb.to(cuda), grid,
+                                         grid)
+    assert got.shape == (n, m) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), raster.polygon_mask_iou_plain(ga, va, pb, vb, grid, grid))
+    if n > 1 and m > 1:  # the first of each set has no valid vertex
+        assert bool((got[0] == 0).all()) and bool((got[:, 0] == 0).all()) and bool(got.any())
+
+
+def test_multilabel_nms_card_equals_cpu(cuda):
+    """Multi-label NMS on logits, the val protocol (conf 0.001, pre_nms 1024,
+    max_det 300), at imgsz 640's 8,400 anchors and 2 classes: the card keeps
+    the detections the CPU keeps, boxes and extras exactly, scores within
+    1e-6."""
+    from yolo_contour_regression_tpu_torch.ops.nms import non_max_suppression_parts
+
+    rng = np.random.default_rng(0)
+    B, A, nc = 2, 8400, 2
+    xy = rng.uniform(0, 600, (B, A, 2))
+    wh = rng.uniform(4, 80, (B, A, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32))
+    logits = torch.from_numpy(rng.normal(-6, 2, (B, A, nc)).astype(np.float32))
+    logits[0, :7, 1] = logits[0, :7, 0]  # ties across classes
+    extras = torch.from_numpy(rng.uniform(0, 50, (B, A, 38)).astype(np.float32))
+    kw = dict(conf_thres=0.001, iou_thres=0.7, pre_nms=1024, max_det=300, multi_label=True,
+              scores_are_logits=True)
+    got = non_max_suppression_parts(boxes.to(cuda), logits.to(cuda), extras.to(cuda), **kw)
+    want = non_max_suppression_parts(boxes, logits, extras, **kw)
+    assert torch.equal(got["valid"].cpu(), want["valid"]) and bool(want["valid"].any())
+    for k in ("boxes", "classes", "extras"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+    torch.testing.assert_close(got["scores"].cpu(), want["scores"], atol=1e-6, rtol=0)
+
+
+def test_yolo_val_defaults_to_the_card(cuda):
+    """``YOLO(ckpt).val`` with no device runs on the card: the model is
+    there, and the mask IoU launches the even-odd fill kernel."""
+    from pathlib import Path
+
+    from chip_smoke import floor_val_set
+    from yolo_contour_regression_tpu_torch import YOLO
+
+    ckpt = Path(__file__).resolve().parent.parent / "runs" / "floor_seg160" / "best.ckpt"
+    model = YOLO(ckpt)
+    assert all(p.is_cuda for p in model.model.parameters())
+    images, labels = floor_val_set()
+    before = raster.fill_polygons.launches
+    res = model.val(images[:4], labels[:4], imgsz=160, batch=2)
+    assert raster.fill_polygons.launches == before + 8
+    assert 0.0 <= res["metrics/mAP50-95(M)"] <= 1.0 and 0.0 <= res["metrics/mAP50-95(B)"] <= 1.0

@@ -1,5 +1,6 @@
-"""Letterbox for predict-time preprocessing (counterpart of ``letterbox``
-in the JAX package's ``data/augment.py``), without cv2.
+"""Letterbox and the val-time sample pipeline (counterparts of ``letterbox``,
+``Sample``, ``letterbox_sample``, ``format_sample`` and ``collate`` in the
+JAX package's ``data/augment.py``), without cv2.
 
 The resize reproduces ``cv2.resize(..., interpolation=cv2.INTER_LINEAR)`` on
 uint8 images bit for bit, in numpy integer arithmetic: OpenCV's 11-bit
@@ -8,9 +9,12 @@ and its vertical pass as its vector code rounds it (``_resize_linear_u8``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
+
+from ..ops.polar import NUM_CONTOUR_POINTS
+from .instance import Instances
 
 PAD_VALUE = 114
 COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
@@ -58,12 +62,15 @@ def _resize_linear_u8(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def letterbox(img: np.ndarray, new_shape: Tuple[int, int]
+def letterbox(img: np.ndarray, new_shape: Tuple[int, int], scaleup: bool = True
               ) -> Tuple[np.ndarray, float, Tuple[float, float]]:
-    """Aspect-preserving resize (up or down) of an HWC (or HW) uint8 image,
-    centered on a ``PAD_VALUE`` canvas. Returns (img, gain, (pad_x, pad_y))."""
+    """Aspect-preserving resize of an HWC (or HW) uint8 image, centered on a
+    ``PAD_VALUE`` canvas; with ``scaleup=False`` it only shrinks. Returns
+    (img, gain, (pad_x, pad_y))."""
     h, w = img.shape[:2]
     r = min(new_shape[0] / h, new_shape[1] / w)
+    if not scaleup:
+        r = min(r, 1.0)
     nh, nw = round(h * r), round(w * r)
     img = img.reshape(h, w, -1)
     if (nh, nw) != (h, w):
@@ -73,3 +80,87 @@ def letterbox(img: np.ndarray, new_shape: Tuple[int, int]
     out = np.full((new_shape[0], new_shape[1], img.shape[2]), PAD_VALUE, np.uint8)
     out[top : top + nh, left : left + nw] = img
     return out, r, (float(left), float(top))
+
+
+def bgr_to_rgb(img: np.ndarray) -> np.ndarray:
+    """A contiguous copy of an HWC image with its channels reversed (cv2's
+    BGR2RGB), one strided copy per channel: several times faster in numpy
+    than copying ``img[..., ::-1]`` whole."""
+    out = np.empty_like(img)
+    for c in range(img.shape[-1]):
+        out[..., c] = img[..., -1 - c]
+    return out
+
+
+class Sample:
+    """One image and its labels mid-pipeline: img HWC uint8 BGR, inst in
+    pixels. ``ori_shape`` (h0, w0) and ``ratio_pad`` (gain, pad_x, pad_y)
+    record the letterbox, so a validator can map predictions back to the
+    image's own frame; ``letterbox_sample`` sets them."""
+
+    __slots__ = ("img", "inst", "ori_shape", "ratio_pad")
+
+    def __init__(self, img: np.ndarray, inst: Instances, ori_shape=None, ratio_pad=None):
+        self.img = img
+        self.inst = inst
+        self.ori_shape = ori_shape
+        self.ratio_pad = ratio_pad
+
+
+def letterbox_sample(s: Sample, imgsz, scaleup: bool = True) -> Sample:
+    """Letterbox a sample to ``imgsz`` (an int, square, or an (h, w) tuple),
+    moving its labels with the image."""
+    h0, w0 = s.img.shape[:2]
+    shape = (imgsz, imgsz) if isinstance(imgsz, int) else tuple(imgsz)
+    img, r, (px, py) = letterbox(s.img, shape, scaleup=scaleup)
+    inst = s.inst.copy()
+    inst.scale(r, r)
+    inst.translate(px, py)
+    return Sample(img, inst, ori_shape=(h0, w0), ratio_pad=(r, px, py))
+
+
+def format_sample(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
+    """Sample -> the dense per-image dict, labels normalized to the image and
+    padded to ``max_instances``. The image stays uint8, flipped BGR -> RGB on
+    the host; the device's ``.float() / 255`` then equals the JAX package's
+    float32 image bit for bit. ``ori_shape`` and ``ratio_pad`` are float32,
+    as the JAX package stores them."""
+    h, w = s.img.shape[:2]
+    n = min(len(s.inst), max_instances)
+    cls = np.zeros((max_instances,), np.int32)
+    bboxes = np.zeros((max_instances, 4), np.float32)
+    segments = np.zeros((max_instances, NUM_CONTOUR_POINTS, 2), np.float32)
+    mask = np.zeros((max_instances,), bool)
+    if n:
+        inst = s.inst
+        cls[:n] = inst.cls[:n].astype(np.int32)
+        xyxy = inst.bboxes[:n]
+        xywh = np.concatenate([(xyxy[:, :2] + xyxy[:, 2:]) / 2, xyxy[:, 2:] - xyxy[:, :2]], -1)
+        bboxes[:n] = xywh / np.array([w, h, w, h], np.float32)
+        segments[:n] = inst.segments[:n] / np.array([w, h], np.float32)
+        mask[:n] = True
+    return {
+        "img": bgr_to_rgb(s.img),
+        "cls": cls,
+        "bboxes": bboxes,
+        "segments": segments,
+        "mask_gt": mask,
+        "ori_shape": np.asarray(s.ori_shape if s.ori_shape else (h, w), np.float32),
+        "ratio_pad": np.asarray(s.ratio_pad if s.ratio_pad else (1.0, 0.0, 0.0), np.float32),
+    }
+
+
+INSTANCE_BUCKETS = (8, 16, 32)
+
+
+def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    """Stack per-image dicts, and trim the padded instance axis to the
+    smallest bucket of ``INSTANCE_BUCKETS`` that holds the batch's most
+    instances (else keep the pad)."""
+    out = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    n_pad = out["mask_gt"].shape[1]
+    n_act = int(out["mask_gt"].sum(axis=1).max())
+    cap = next((b for b in INSTANCE_BUCKETS if n_act <= b < n_pad), n_pad)
+    for k in ("cls", "bboxes", "segments", "mask_gt"):
+        out[k] = out[k][:, :cap]
+    return out

@@ -1,0 +1,157 @@
+"""YOLO-format labels and the val dataset (counterparts of ``img2label_path``,
+``parse_label_file`` and the val side of ``YOLODataset`` in the JAX
+package's ``data/dataset.py``), in pure Python and numpy.
+
+The port decodes no image files: ``ValDataset`` takes decoded HWC uint8 BGR
+arrays, each with a YOLO label file or its parsed arrays.
+"""
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from ..ops.polar import NUM_CONTOUR_POINTS
+from .augment import Sample, _resize_linear_u8, format_sample, letterbox_sample
+from .instance import Instances, resample_segment, segments2boxes
+
+Labels = Tuple[np.ndarray, np.ndarray, np.ndarray]  # cls, xywh boxes, segments
+
+
+def img2label_path(img_path: str) -> str:
+    """``.../images/x.jpg`` -> ``.../labels/x.txt`` (the last ``images``
+    directory of the path)."""
+    sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
+    return sb.join(img_path.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt"
+
+
+def parse_label_lines(lines: Iterable[str], nc: Optional[int] = None, kpt_shape=None):
+    """YOLO label lines -> (cls (n,) int32, bboxes (n, 4) normalized xywh,
+    segments (n, 360, 2) normalized [, keypoints (n, K, 3)]). Lines of fewer
+    than 5 numbers, and with ``nc`` given classes ``c >= nc``, are skipped.
+
+    Line formats:
+      - 5 numbers: class and an xywh box (the contour stays zero);
+      - 5 + K * 2 or 5 + K * 3 with ``kpt_shape`` (K, 2 or 3): a box and
+        keypoints (2 columns get a visibility of 1);
+      - more than 5 otherwise: class and a polygon, resampled to 360 points,
+        its box taken from the resampled contour.
+    """
+    cls, boxes, segs, kpts = [], [], [], []
+    nk = kpt_shape[0] if kpt_shape else 0
+    nd = kpt_shape[1] if kpt_shape else 0
+    for line in lines:
+        parts = line.split()
+        if len(parts) < 5:
+            continue
+        c = int(float(parts[0]))
+        if nc is not None and c >= nc:
+            continue
+        vals = np.asarray([float(v) for v in parts[1:]], np.float32)
+        if kpt_shape and len(vals) == 4 + nk * nd:
+            cls.append(c)
+            boxes.append(vals[:4])
+            segs.append(np.zeros((NUM_CONTOUR_POINTS, 2), np.float32))
+            k = vals[4:].reshape(nk, nd)
+            if nd == 2:
+                k = np.concatenate([k, np.ones((nk, 1), np.float32)], -1)
+            kpts.append(k)
+        elif len(vals) == 4:
+            cls.append(c)
+            boxes.append(vals)
+            segs.append(np.zeros((NUM_CONTOUR_POINTS, 2), np.float32))
+            kpts.append(np.zeros((max(nk, 1), 3), np.float32))
+        else:
+            seg = resample_segment(vals.reshape(-1, 2))
+            cls.append(c)
+            boxes.append(segments2boxes(seg[None])[0])
+            segs.append(seg)
+            kpts.append(np.zeros((max(nk, 1), 3), np.float32))
+    if not cls:
+        out = (
+            np.zeros((0,), np.int32),
+            np.zeros((0, 4), np.float32),
+            np.zeros((0, NUM_CONTOUR_POINTS, 2), np.float32),
+        )
+        return out + ((np.zeros((0, max(nk, 1), 3), np.float32),) if kpt_shape else ())
+    out = (np.asarray(cls, np.int32), np.stack(boxes), np.stack(segs))
+    return out + ((np.stack(kpts),) if kpt_shape else ())
+
+
+def parse_label_file(path: str, nc: Optional[int] = None, kpt_shape=None):
+    """``parse_label_lines`` of a YOLO txt file; a missing file has no
+    labels."""
+    if not os.path.isfile(path):
+        return parse_label_lines((), nc, kpt_shape)
+    with open(path) as fh:
+        return parse_label_lines(fh, nc, kpt_shape)
+
+
+class ValDataset:
+    """Val samples over decoded images.
+
+    ``images``: HWC uint8 BGR arrays. ``labels``: one per image, a path to a
+    YOLO label file or the ``(cls, bboxes, segments)`` arrays
+    ``parse_label_file`` gives (normalized to the image). Each image is first
+    resized so its long side is ``imgsz``, as the JAX dataset caches it, and
+    ``ori_shape`` is that resized image's shape: the metrics are in its
+    frame. Then it is letterboxed without upscaling and formatted with its
+    labels padded to ``max_instances``.
+    """
+
+    def __init__(self, images: Sequence[np.ndarray], labels: Sequence[Union[str, Path, Labels]],
+                 imgsz: int = 640, max_instances: int = 48):
+        if len(images) != len(labels):
+            raise ValueError(f"{len(images)} images but {len(labels)} labels")
+        for i, img in enumerate(images):
+            if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3):
+                raise TypeError(f"image {i}: expected an HWC uint8 numpy array")
+        self.images = list(images)
+        self.labels = [self._labels(lab) for lab in labels]
+        self.imgsz = int(imgsz)
+        self.max_instances = int(max_instances)
+
+    @staticmethod
+    def _labels(lab) -> Dict[str, np.ndarray]:
+        if isinstance(lab, (str, Path)):
+            lab = parse_label_file(str(lab))
+        c, b, s = lab
+        return {"cls": np.asarray(c, np.int32).reshape(-1),
+                "bboxes": np.asarray(b, np.float32).reshape(-1, 4),
+                "segments": np.asarray(s, np.float32).reshape(-1, NUM_CONTOUR_POINTS, 2)}
+
+    def __len__(self):
+        return len(self.images)
+
+    def resized(self, i: int) -> np.ndarray:
+        """The image with its long side at ``imgsz``: enlarged by cv2's
+        INTER_LINEAR, exactly (``data/augment.py:_resize_linear_u8``).
+        Shrinking takes cv2's INTER_AREA in the JAX package, which the port
+        does not have yet."""
+        img = self.images[i]
+        h, w = img.shape[:2]
+        r = self.imgsz / max(h, w)
+        if r == 1.0:
+            return img
+        if r < 1.0:
+            raise NotImplementedError(
+                f"image {i} is {h}x{w}, larger than imgsz {self.imgsz}: shrinking it takes "
+                "cv2.INTER_AREA, which the port does not have; pass images whose long side is "
+                "at most imgsz")
+        return _resize_linear_u8(img, min(int(round(h * r)), self.imgsz),
+                                 min(int(round(w * r)), self.imgsz))
+
+    def load_raw(self, i: int) -> Sample:
+        img = self.resized(i)
+        h, w = img.shape[:2]
+        lab = self.labels[i]
+        xywh = lab["bboxes"] * np.array([w, h, w, h], np.float32)
+        xyxy = np.concatenate([xywh[:, :2] - xywh[:, 2:] / 2, xywh[:, :2] + xywh[:, 2:] / 2], -1)
+        segs = lab["segments"] * np.array([w, h], np.float32)
+        return Sample(img, Instances(lab["cls"].astype(np.float32), xyxy, segs))
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        s = letterbox_sample(self.load_raw(i), self.imgsz, scaleup=False)
+        return format_sample(s, self.max_instances)

@@ -1,0 +1,61 @@
+"""Label geometry (a numpy copy of the parts of the JAX package's
+``data/instance.py`` that validation uses): boxes and 360-point contours
+scaled and translated together, so the letterbox cannot desync them."""
+from __future__ import annotations
+
+import numpy as np
+
+from ..ops.polar import NUM_CONTOUR_POINTS
+
+
+def resample_segment(seg: np.ndarray, n: int = NUM_CONTOUR_POINTS) -> np.ndarray:
+    """(m, 2) polygon -> (n, 2) closed polyline resampled uniformly in vertex
+    index (every label is resampled to 360 points at load)."""
+    seg = np.asarray(seg, np.float32).reshape(-1, 2)
+    if seg.shape[0] == 0:
+        return np.zeros((n, 2), np.float32)
+    s = np.concatenate([seg, seg[0:1]], 0)
+    x = np.linspace(0, s.shape[0] - 1, n)
+    xp = np.arange(s.shape[0])
+    return np.stack([np.interp(x, xp, s[:, i]) for i in range(2)], -1).astype(np.float32)
+
+
+def segments2boxes(segments: np.ndarray) -> np.ndarray:
+    """(N, P, 2) -> (N, 4) xywh of each contour's extent."""
+    if segments.shape[0] == 0:
+        return np.zeros((0, 4), np.float32)
+    x1 = segments[..., 0].min(1)
+    y1 = segments[..., 1].min(1)
+    x2 = segments[..., 0].max(1)
+    y2 = segments[..., 1].max(1)
+    return np.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
+class Instances:
+    """cls (N,), bboxes (N, 4) xyxy and segments (N, 360, 2), in pixels,
+    float32."""
+
+    def __init__(self, cls: np.ndarray, bboxes: np.ndarray, segments: np.ndarray):
+        self.cls = np.asarray(cls, np.float32).reshape(-1)
+        self.bboxes = np.asarray(bboxes, np.float32).reshape(-1, 4)
+        if segments.size == 0:
+            segments = np.zeros((len(self.cls), NUM_CONTOUR_POINTS, 2), np.float32)
+        self.segments = np.asarray(segments, np.float32)
+
+    def __len__(self):
+        return self.cls.shape[0]
+
+    def copy(self) -> "Instances":
+        return Instances(self.cls.copy(), self.bboxes.copy(), self.segments.copy())
+
+    def scale(self, sx: float, sy: float):
+        self.bboxes[:, [0, 2]] *= sx
+        self.bboxes[:, [1, 3]] *= sy
+        self.segments[..., 0] *= sx
+        self.segments[..., 1] *= sy
+
+    def translate(self, dx: float, dy: float):
+        self.bboxes[:, [0, 2]] += dx
+        self.bboxes[:, [1, 3]] += dy
+        self.segments[..., 0] += dx
+        self.segments[..., 1] += dy

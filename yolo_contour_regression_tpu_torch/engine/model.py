@@ -3,6 +3,7 @@ the JAX package's ``engine/model.py``)::
 
     model = YOLO("runs/floor_seg160/best.ckpt", device="cuda")
     results = model.predict([img_bgr_u8, ...], imgsz=160)
+    metrics = model.val([img_bgr_u8, ...], ["a.txt", ...], imgsz=160, batch=4)
 
 Only checkpoints of the JAX package's polar ``segment`` task, in their
 training (unfused) form, are ported.
@@ -15,6 +16,7 @@ from typing import Union
 from ..nn.tasks import SegmentationModel
 from ..utils.checkpoint import checkpoint_variables, load_checkpoint, load_jax_variables
 from .predictor import SegmentationPredictor
+from .validator import SegmentationValidator
 
 
 class YOLO:
@@ -47,3 +49,16 @@ class YOLO:
             pre_nms=pre_nms, batch=batch,
         )
         return predictor(self.model, source, names=self.names)
+
+    def val(self, images, labels, imgsz=None, batch: int = 16, conf: float = 0.001,
+            iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024, mask_ratio: int = 1):
+        """Box and mask mAP on decoded images (HWC uint8 BGR numpy) with their
+        labels (YOLO label-file paths, or the ``(cls, bboxes, segments)``
+        arrays ``data/dataset.py:parse_label_file`` gives), on the model's
+        device -> the JAX ``results_dict`` keys. The validator, with its
+        ``speed``, stays at ``self.validator``."""
+        self.validator = SegmentationValidator(
+            imgsz=imgsz or self.imgsz, batch=batch, conf=conf, iou=iou, max_det=max_det,
+            pre_nms=pre_nms, mask_ratio=mask_ratio,
+        )
+        return self.validator(self.model, images, labels, names=self.names)

@@ -15,7 +15,7 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
-from ..data.augment import letterbox
+from ..data.augment import bgr_to_rgb, letterbox
 from ..nn.modules.head import finalize_polar_extras
 from ..ops.nms import non_max_suppression_parts
 from .results import Results
@@ -54,7 +54,7 @@ class SegmentationPredictor:
     def preprocess_u8(self, img: np.ndarray, imgsz: int):
         """Letterbox to imgsz and flip BGR -> RGB, staying uint8."""
         lb, gain, pad = letterbox(img, (imgsz, imgsz))
-        return np.ascontiguousarray(lb[..., ::-1]), gain, pad
+        return bgr_to_rgb(lb), gain, pad
 
     @torch.inference_mode()
     def eval_batch(self, model, images: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""Box geometry used at predict time (counterpart of the JAX package's
+"""Box geometry of the predict and val paths (counterpart of the JAX package's
 ``ops/boxes.py``). Vectorized over any leading dims."""
 from __future__ import annotations
 
@@ -29,3 +29,29 @@ def box_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = EPS) -> torch.T
     inter = wh[..., 0] * wh[..., 1]
     union = box_area(box1)[..., :, None] + box_area(box2)[..., None, :] - inter
     return inter / (union + eps)
+
+
+def scale_boxes(boxes: torch.Tensor, ratio_pad: torch.Tensor, ori_shape: torch.Tensor
+                ) -> torch.Tensor:
+    """Inverse letterbox: xyxy boxes (..., M, 4) in letterbox pixels -> the
+    image's own frame, clipped to it. ratio_pad (..., 3) = (gain, pad_x,
+    pad_y), ori_shape (..., 2) = (h0, w0), float32, over the same leading
+    dims."""
+    gain = ratio_pad[..., 0][..., None, None]
+    pad = ratio_pad[..., 1:3]
+    pad4 = torch.cat([pad, pad], -1)[..., None, :]
+    out = (boxes - pad4) / gain
+    wh0 = ori_shape.flip(-1)
+    lim = torch.cat([wh0, wh0], -1)[..., None, :]
+    return torch.minimum(out.clamp_min(0.0), lim)
+
+
+def scale_coords(coords: torch.Tensor, ratio_pad: torch.Tensor) -> torch.Tensor:
+    """Inverse letterbox of point sets (..., P, 2), not clipped: a contour's
+    vertices may lie off the image. ratio_pad (..., 3) broadcasts over the
+    leading dims of ``coords`` (a (B, 3) batch pairs with (B, N, P, 2))."""
+    extra = coords.dim() - ratio_pad.dim() - 1
+    lead = ratio_pad.shape[:-1]
+    gain = ratio_pad[..., 0].reshape(lead + (1,) * (extra + 2))
+    pad = ratio_pad[..., 1:3].reshape(lead + (1,) * (extra + 1) + (2,))
+    return (coords - pad) / gain

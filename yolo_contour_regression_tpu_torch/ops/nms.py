@@ -1,13 +1,16 @@
 """Batched fixed-shape NMS in plain PyTorch (counterpart of the JAX
 package's ``ops/nms.py``; there is no torchvision here).
 
-Per image: best class per anchor, confidence gate, top-``pre_nms``
-candidates, class-offset boxes (``MAX_WH`` trick), then exact greedy
-suppression solved as a fixpoint over the (k, k) IoU matrix, and the top
-``max_det`` survivors, padded, with a ``valid`` mask. Rankings use a stable
-descending sort, so ties go to the lower index as ``lax.top_k`` does.
+Per image: best class per anchor (or, for val, every class above the gate:
+``multi_label``), confidence gate, top-``pre_nms`` candidates, class-offset
+boxes (``MAX_WH`` trick), then exact greedy suppression solved as a
+fixpoint over the (k, k) IoU matrix, and the top ``max_det`` survivors,
+padded, with a ``valid`` mask. Rankings use a stable descending sort, so
+ties go to the lower index as ``lax.top_k`` does.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -89,6 +92,16 @@ def batched_nms(
     return out
 
 
+def logit_threshold(conf_thres: float, device=None) -> torch.Tensor:
+    """The confidence gate on logits: ``logit(c)`` in float32 with ``c``
+    clipped to [1e-12, 1 - 1e-7], and ``-inf`` when ``conf_thres <= 0`` (then
+    every score passes)."""
+    c = torch.tensor(conf_thres, dtype=torch.float32, device=device)
+    safe = c.clamp(1e-12, 1.0 - 1e-7)
+    thr = torch.log(safe) - torch.log1p(-safe)
+    return torch.where(c > 0, thr, thr.new_tensor(-math.inf))
+
+
 def non_max_suppression_parts(
     boxes: torch.Tensor,
     cls_scores: torch.Tensor,
@@ -98,17 +111,45 @@ def non_max_suppression_parts(
     pre_nms: int = 1024,
     max_det: int = 300,
     agnostic: bool = False,
+    multi_label: bool = False,
     scores_are_logits: bool = False,
 ):
-    """NMS over unconcatenated (B, A, .) components, best class per anchor.
+    """NMS over unconcatenated (B, A, .) components.
+
+    Best class per anchor by default. ``multi_label`` (the val protocol):
+    every (anchor, class) pair above the gate is a candidate; the top
+    ``k = min(pre_nms, A * nc)`` of the flattened (B, A * nc) scores (a
+    stable descending sort, so ties go to the lower flat index) give
+    ``anchor = idx // nc`` and ``class = idx % nc``, and the boxes and
+    extras are gathered by anchor. With one class it is the best-class path.
 
     ``scores_are_logits``: cls_scores are raw logits and the sigmoid runs
-    after the per-anchor max, on (B, A) instead of (B, A, nc); sigmoid is
-    monotonic, so the selection is the same.
+    after the reduction (the per-anchor max, or the top-k), on (B, A) or
+    (B, k) instead of (B, A, nc); sigmoid is monotonic, so the selection is
+    the same. Multi-label gates the logits themselves at
+    ``logit_threshold(conf_thres)``, gated entries becoming ``-inf``.
     """
-    scores, classes = cls_scores.max(-1)  # first index wins ties
-    if scores_are_logits:
-        scores = torch.sigmoid(scores)
+    nc = cls_scores.shape[-1]
+    if multi_label and nc > 1:
+        B, A = cls_scores.shape[:2]
+        k = min(pre_nms, A * nc)
+        flat = cls_scores.reshape(B, A * nc)
+        if scores_are_logits:
+            thr = logit_threshold(conf_thres, flat.device)
+            gated = torch.where(flat > thr, flat, flat.new_tensor(-math.inf))
+            scores, idx = _top(gated, k)
+            scores = torch.sigmoid(scores)  # sigmoid(-inf) == 0: stays gated
+        else:
+            gated = torch.where(flat > conf_thres, flat, flat.new_tensor(-1.0))
+            scores, idx = _top(gated, k)
+        anchor = torch.div(idx, nc, rounding_mode="floor")
+        classes = idx % nc
+        boxes = torch.gather(boxes, 1, anchor[..., None].expand(B, k, boxes.shape[-1]))
+        extras = torch.gather(extras, 1, anchor[..., None].expand(B, k, extras.shape[-1]))
+    else:
+        scores, classes = cls_scores.max(-1)  # first index wins ties
+        if scores_are_logits:
+            scores = torch.sigmoid(scores)
     return batched_nms(
         boxes, scores, classes, extras, conf_thres=conf_thres, iou_thres=iou_thres,
         pre_nms=pre_nms, max_det=max_det, agnostic=agnostic,

@@ -5,7 +5,8 @@
   integer coordinates; each invalid vertex collapses onto the previous valid
   one (zero-length edges add no crossings, so the fill equals the polygon
   over the valid vertices); a polygon with no valid vertex gives an empty
-  mask. The validator and the segment_ori loss use this rule.
+  mask. The validator's ``polygon_mask_iou`` and the segment_ori loss use
+  this rule.
 - ``fill_polygons_cv2``: the rule of the JAX facade's ``Results.masks``
   (``engine/results.py:contours_to_masks_host``), which is
   ``cv2.fillPoly(mask, [round(valid_points * 8)], 1, shift=3)`` with
@@ -62,22 +63,31 @@ def collapse_invalid_vertices(points: torch.Tensor, valid: torch.Tensor) -> torc
     return torch.gather(points, -2, src[..., None].expand(points.shape))
 
 
-def _fill_rows(pts: torch.Tensor, height: int, width: int) -> torch.Tensor:
-    """Even-odd fill of collapsed polygons pts (N, V, 2) at rows 0..height-1
-    and columns 0..width-1 -> (N, height, width) bool."""
+# elements of the (polygons, edges, rows, columns) crossing tests that
+# ``_fill_rows`` takes at once
+FILL_BLOCK_ELEMS = 1 << 24
+
+
+def _fill_rows(pts: torch.Tensor, rows: torch.Tensor, width: int) -> torch.Tensor:
+    """Even-odd fill of collapsed polygons pts (N, V, 2) sampled at the rows
+    ``rows`` (R,) (float, the points' dtype) and columns 0..width-1 ->
+    (N, R, width) bool. Each edge's span test and crossing ``xi`` per row
+    are computed for all edges at once; the crossings left of each pixel
+    are then counted in blocks of edges, a pixel being inside where the
+    count is odd."""
     N, V = pts.shape[:2]
-    py = torch.arange(height, dtype=pts.dtype, device=pts.device)[None, :, None]  # (1, H, 1)
-    px = torch.arange(width, dtype=pts.dtype, device=pts.device)[None, None, :]  # (1, 1, W)
-    x0, y0 = pts[..., 0], pts[..., 1]
-    x1, y1 = torch.roll(x0, -1, dims=-1), torch.roll(y0, -1, dims=-1)
-    inside = torch.zeros((N, height, width), dtype=torch.bool, device=pts.device)
-    for e in range(V):
-        ex0, ey0 = x0[:, e, None, None], y0[:, e, None, None]
-        ex1, ey1 = x1[:, e, None, None], y1[:, e, None, None]
-        cond = (ey0 > py) != (ey1 > py)  # (N, H, 1)
-        t = (py - ey0) / torch.where(ey1 == ey0, torch.ones_like(ey0), ey1 - ey0)
-        xi = ex0 + t * (ex1 - ex0)  # (N, H, 1)
-        inside ^= cond & (px < xi)
+    px = torch.arange(width, dtype=pts.dtype, device=pts.device)
+    x0, y0 = pts[..., 0, None], pts[..., 1, None]  # (N, V, 1)
+    x1, y1 = torch.roll(x0, -1, dims=1), torch.roll(y0, -1, dims=1)
+    cond = (y0 > rows) != (y1 > rows)  # (N, V, R)
+    t = (rows - y0) / torch.where(y1 == y0, torch.ones_like(y0), y1 - y0)
+    xi = x0 + t * (x1 - x0)  # (N, V, R)
+    inside = torch.zeros((N, rows.shape[0], width), dtype=torch.bool, device=pts.device)
+    step = max(1, FILL_BLOCK_ELEMS // max(N * rows.shape[0] * width, 1))
+    for e0 in range(0, V, step):
+        cross = cond[:, e0:e0 + step, :, None] & (px < xi[:, e0:e0 + step, :, None])
+        # a uint8 count wraps at 256, which keeps its parity
+        inside ^= cross[:, 0] if step == 1 else (cross.sum(1, dtype=torch.uint8) & 1).bool()
     return inside
 
 
@@ -90,7 +100,36 @@ def fill_polygons_plain(points: torch.Tensor, valid: torch.Tensor, height: int, 
     """The plain PyTorch version: points (N, V, 2), valid (N, V) ->
     (N, height, width) bool. The oracle of the even-odd kernel."""
     pts = collapse_invalid_vertices(points, valid)
-    return _fill_rows(pts, height, width) & valid.any(-1)[:, None, None]
+    rows = torch.arange(height, dtype=points.dtype, device=points.device)
+    return _fill_rows(pts, rows, width) & valid.any(-1)[:, None, None]
+
+
+def polygon_mask_iou_plain(pts_a: torch.Tensor, valid_a: torch.Tensor, pts_b: torch.Tensor,
+                           valid_b: torch.Tensor, height: int, width: int, block: int = 32,
+                           eps: float = 1e-7) -> torch.Tensor:
+    """The plain PyTorch version of ``polygon_mask_iou``, as the JAX package
+    streams it: rows in blocks of ``block`` (rows past ``height`` masked),
+    each block of both sets filled by the even-odd rule, and the
+    intersections and areas summed in float32. The sums are pixel counts
+    below 2^24, exact in any order, so this is the kernel path's oracle."""
+    pa = collapse_invalid_vertices(pts_a, valid_a)
+    pb = collapse_invalid_vertices(pts_b, valid_b)
+    ok_a = valid_a.any(-1)[:, None, None]
+    ok_b = valid_b.any(-1)[:, None, None]
+    block = min(block, height)
+    f = torch.float32
+    inter = torch.zeros((pts_a.shape[0], pts_b.shape[0]), dtype=f, device=pts_a.device)
+    aa = torch.zeros(pts_a.shape[0], dtype=f, device=pts_a.device)
+    ab = torch.zeros(pts_b.shape[0], dtype=f, device=pts_a.device)
+    for r0 in range(0, height, block):
+        py = torch.arange(r0, r0 + block, device=pts_a.device).to(pts_a.dtype)
+        row_ok = (py < height)[None, :, None]
+        ma = (_fill_rows(pa, py, width) & row_ok & ok_a).to(f)
+        mb = (_fill_rows(pb, py, width) & row_ok & ok_b).to(f)
+        inter = inter + torch.einsum("nrw,mrw->nm", ma, mb)
+        aa = aa + ma.sum((1, 2))
+        ab = ab + mb.sum((1, 2))
+    return inter / (aa[:, None] + ab[None, :] - inter + eps)
 
 
 # --- cv2.fillPoly's rule ------------------------------------------------------
@@ -333,3 +372,60 @@ def fill_polygons_cv2(points: torch.Tensor, valid: torch.Tensor, height: int, wi
 
 fill_polygons.launches = 0
 fill_polygons_cv2.launches = 0
+
+# elements of the 0/1 float32 blocks that ``polygon_mask_iou`` widens at
+# once (64 MB)
+IOU_BLOCK_ELEMS = 1 << 24
+
+
+def _mask_products(ma: torch.Tensor, mb: torch.Tensor):
+    """Masks ma (N, H, W) and mb (M, H, W) bool -> (inter (N, M), area_a
+    (N,), area_b (M,)), float32 pixel counts, exact below 2^24 in any order
+    of the sums. The masks are widened to float32 in row blocks of at most
+    ``IOU_BLOCK_ELEMS`` elements, each block cast once from its strided
+    slice; a row of ones under A's block gives B's areas from the same
+    product."""
+    n, m, h, w = ma.shape[0], mb.shape[0], ma.shape[1], ma.shape[2]
+    f = torch.float32
+    rows = max(1, min(h, IOU_BLOCK_ELEMS // ((n + m + 1) * w)))
+    acc = torch.zeros((n + 1, m), dtype=f, device=ma.device)
+    area_a = torch.zeros(n, dtype=f, device=ma.device)
+    ones = torch.ones((1, rows * w), dtype=f, device=ma.device)
+    for r0 in range(0, h, rows):
+        a = ma[:, r0:r0 + rows].to(f).reshape(n, -1)
+        b = mb[:, r0:r0 + rows].to(f).reshape(m, -1)
+        area_a += a.sum(1)
+        acc += torch.cat([a, ones[:, :a.shape[1]]]) @ b.T
+    return acc[:n], area_a, acc[n]
+
+
+def polygon_mask_iou(pts_a: torch.Tensor, valid_a: torch.Tensor, pts_b: torch.Tensor,
+                     valid_b: torch.Tensor, height: int, width: int,
+                     eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise mask IoU of polygon sets A (N, Va, 2) / (N, Va) and B
+    (M, Vb, 2) / (M, Vb) filled by the even-odd rule on a (height, width)
+    grid (pixels at integer rows and columns; each invalid vertex collapsed
+    onto the previous valid one; a set with no valid vertex has area 0) ->
+    (N, M) float32, ``inter / (area_a + area_b - inter + eps)``.
+
+    CPU tensors take ``polygon_mask_iou_plain``. CUDA tensors fill both sets
+    with ``fill_polygons`` (the even-odd kernel, two launches counted in
+    ``fill_polygons.launches``), then take the intersections and areas as a
+    product of the 0/1 masks widened to float32 in row blocks
+    (``_mask_products``). The counts are exact in float32 (and in TF32), so
+    the result equals the plain version's. The masks of one call are
+    (N + M) * height * width bytes; a caller with many images calls once per
+    image. Any other device raises.
+    """
+    height, width = int(height), int(width)
+    if pts_a.device.type == "cpu":
+        return polygon_mask_iou_plain(pts_a, valid_a, pts_b, valid_b, height, width, eps=eps)
+    if pts_a.device.type != "cuda":
+        raise ValueError(f"polygon_mask_iou runs on cpu or cuda, not {pts_a.device}")
+    ma = fill_polygons(pts_a.contiguous(), valid_a.contiguous(), height, width)
+    mb = fill_polygons(pts_b.contiguous(), valid_b.contiguous(), height, width)
+    n, m = ma.shape[0], mb.shape[0]
+    if not (n and m):
+        return torch.zeros((n, m), dtype=torch.float32, device=ma.device)
+    inter, aa, ab = _mask_products(ma, mb)
+    return inter / (aa[:, None] + ab[None, :] - inter + eps)
