@@ -16,8 +16,9 @@ Phases, one timestamped line each (elapsed seconds):
      path's masks, the even-odd one also on the validator's 640x640 grid,
      with the edge cases of ``raster_inputs``, each with the
      device kernels one call launches (``torch.profiler``); the GT rays,
-     rows form, at the trainer's two shapes (imgsz 640, batch 16, N_pad 8
-     -> K 128 and N_pad 48 -> K 48), and per pair at P 16,384, each with
+     rows form, at the train path's shapes (imgsz 640, batch 16, N_pad 8
+     -> K 128 and N_pad 48 -> K 48; the trainer's augmented batches, N_pad
+     32 -> K 48), and per pair at P 16,384, each with
      its device kernels, then both entries on ``ray_scenes``' hard cases
      and the GT-ray kernel's own per-phase clock (``gt_rays_phases``);
      atan2f's instruction count from ``cuobjdump -sass`` (a probe built with
@@ -48,13 +49,26 @@ Phases, one timestamped line each (elapsed seconds):
      own stage marks into forward, assigner (and the GT-ray kernel in it),
      loss, backward and clip + optimizer + EMA; (c) ``save_checkpoint`` of
      the trained state and ``YOLO(path).predict`` from it.
-  7. report: a JSON line of the kernels (launches summed over the predict,
-     validate and train runs), the card's line, and last ``{"ok": true,
-     "device": {...}}``.
+  7. the trainer: (a) ``train_floor``: ``YOLO("yolov8n-seg.yaml").train``
+     from scratch on the seg160 floor set (64 train, 16 val images,
+     ``tests/data/``) at the ``floor.json`` config, 120 epochs at imgsz 160
+     batch 16 with the augmentation on the card; the stripped
+     ``best.ckpt`` must meet the floor, and predict from it must find
+     detections; (b) ``train_640``: the default config at imgsz 640 batch
+     16 for 2 epochs on 64 480x640 frames. Each prints its metrics, wall
+     time, the epoch split on the host clock (train steps, loader wait,
+     validation, save) and the step split by CUDA events at the step's
+     marks (copy, augment, forward, assigner, GT rays, loss, backward,
+     clip + optimizer + EMA); launch counts zeroed just before each, read
+     just after.
+  8. report: a JSON line of the kernels (launches summed over the predict,
+     validate, train-step and trainer runs), the card's line, and last
+     ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
+import csv
 import ctypes
 import json
 import math
@@ -112,6 +126,7 @@ TRAIN_GRAD_TOL = 1e-3
 # the committed floor; (b) full width at imgsz 640, batch 16, on 32 camera
 # frames (480x640: the long side is imgsz, so no pre-resize)
 FLOOR_VAL = ROOT / "tests" / "data" / "torch_port_floor_seg160_val16.npz"
+FLOOR_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_seg160_train64.npz"
 FLOOR_JSON = ROOT / "runs" / "floor_seg160" / "floor.json"
 VAL_IMGSZ, VAL_B = 160, 4
 VAL640_N, VAL640_HW, VAL640_B = 32, (480, 640), 16
@@ -128,9 +143,18 @@ KERNEL_SOURCES = ("raster", "gt_rays")
 # the trainer at imgsz 640, batch 16, cand_per_gt 128 with cand_balance:
 # GT rows padded to N_pad 8 give K = 128 candidates a row, to N_pad 48 K = 48
 TRAIN_IMGSZ, TRAIN_B, TRAIN_NPAD, TRAIN_K = 640, 16, 8, 128
-RAY_SHAPES = ((8, 128), (48, 48))
+RAY_SHAPES = ((8, 128), (48, 48), (32, 48))
+# the trainer's batches after the augmentation: N_pad 32 (4 tiles of the 8
+# bucket), so K = 48 with cand_balance, R = 16 x 32
+TRAINER_NPAD = 32
 RAY_PAIRS = 16384  # the per-pair entry, as many pairs as the rows form at K 128
 TRAIN_STEPS = 20
+# train_floor: the floor.json config, from the seg160 checkpoint's train_args
+# (the rest are the defaults; optimizer 'auto' picks AdamW and its lr)
+FLOOR_TRAIN_KEYS = ("epochs", "imgsz", "batch", "nbs", "seed", "amp", "close_mosaic", "patience",
+                    "workers", "mixup")
+# train_640: the default config at the size users train
+TRAIN640_N, TRAIN640_VAL, TRAIN640_EPOCHS = 256, 16, 9  # 4 optimizer steps an epoch
 
 
 def log(phase: str, msg: str):
@@ -1051,12 +1075,190 @@ def save_and_predict(ckpt, state, images, card: str):
         f".predict on {len(images)} images: {sum(len(r) for r in res)} detections | {card}")
 
 
+class TrainTotals(StageTimer):
+    """A ``StageTimer`` for a whole training run: every ``every`` steps (at
+    a step's "end" mark, one wait for the card) its marks are folded into
+    per-stage sums, so it holds a bounded number of events; the first
+    ``skip`` optimizer steps (the first epoch: kernels load, cuDNN picks its
+    algorithms) are dropped. ``per_step()`` gives device ms per optimizer
+    step by stage over ``steps``."""
+
+    def __init__(self, skip: int, every: int = 50):
+        super().__init__()
+        self.sums, self.seen, self.skip, self.every = {}, 0, skip, every
+
+    @property
+    def steps(self) -> int:
+        return max(self.seen - self.skip, 0)
+
+    def __call__(self, stage: str):
+        super().__call__(stage)
+        if stage == "end":
+            self.seen += 1
+            if self.seen <= self.skip:
+                self.totals()  # dropped
+            elif self.steps % self.every == 0:
+                self.fold()
+
+    def fold(self):
+        if self.marks:
+            for k, v in self.totals().items():
+                self.sums[k] = self.sums.get(k, 0.0) + v
+
+    def per_step(self) -> dict:
+        self.fold()
+        out = {k: v / max(self.steps, 1) for k, v in self.sums.items()}
+        out["assigner"] = out.get("assigner", 0.0) + out.get("gt_rays", 0.0)
+        out["gt_rays_kernel"] = out.pop("gt_rays", 0.0)
+        out["total"] = sum(v for k, v in out.items() if k != "gt_rays_kernel")
+        return out
+
+
+def epoch_split(trainer) -> dict:
+    """Host-clock seconds of the trainer's epochs (``epoch_times``): the
+    median per epoch of the train steps, the loader wait in them, the
+    validation and the save, and their sums."""
+    keys = ("train_s", "loader_wait_s", "val_s", "save_s")
+    times = trainer.epoch_times
+    return {"median": {k: statistics.median(t[k] for t in times) for k in keys},
+            "sum": {k: sum(t[k] for t in times) for k in keys}}
+
+
+def train_floor(card: str):
+    """``YOLO("yolov8n-seg.yaml", device="cuda").train`` from scratch on the
+    seg160 floor set (64 train and 16 val images, decoded) at the
+    ``floor.json`` config with the seg160 checkpoint's train_args (launch
+    counts zeroed just before, read just after): the final validation of
+    the stripped ``best.ckpt`` must meet the floor. Prints the eight
+    metrics, every 10th epoch's train loss beside the JAX run's
+    ``results.csv``, the wall time, the epoch and step splits and the peak
+    memory; then ``YOLO(best.ckpt).predict`` on the val images must find
+    detections."""
+    record = json.loads(FLOOR_JSON.read_text())
+    ckpt_args = load_checkpoint(CKPT)["train_args"]
+    over = {k: ckpt_args[k] for k in FLOOR_TRAIN_KEYS}
+    train, val = floor_train_set(), floor_val_set()
+    data = {"train": train, "val": val, "names": load_checkpoint(CKPT)["names"]}
+    timer = TrainTotals(skip=len(train[0]) // over["batch"])
+    with tempfile.TemporaryDirectory() as d:
+        model = YOLO("yolov8n-seg.yaml", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t = time.perf_counter()
+        res = model.train(data=data, mark=timer, project=d, name="floor", **over)
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        trainer = model.trainer
+        with open(trainer.csv) as fh:
+            rows = list(csv.DictReader(fh))
+        best = YOLO(trainer.wdir / "best.ckpt", device="cuda")
+        pred = best.predict(val[0], imgsz=over["imgsz"])
+    metrics = ", ".join(f"{k.split('/')[1]} {res[k]:.4f}" for k in METRIC_KEYS)
+    n_ep = len(trainer.epoch_times)
+    split = epoch_split(trainer)
+    steps = timer.seen
+    log("train_floor", f"yolov8n-seg from scratch on the seg160 floor set ({len(train[0])} train, "
+        f"{len(val[0])} val images), {over}: {n_ep} epochs, {steps} steps in {wall:.2f}s wall "
+        f"({wall / n_ep:.3f}s an epoch); final eval of the stripped best.ckpt: {metrics}; floor "
+        f"mask {record['floor']['mask_mAP50-95']} box {record['floor']['box_mAP50-95']}; "
+        f"launches {counts}; peak memory {peak / 2**30:.3f} GiB | {card}")
+    with open(CKPT.parent / "results.csv") as fh:
+        jax_rows = list(csv.DictReader(fh))
+    pairs = [f"{e}: {float(rows[e]['train/loss']):.3f} vs {float(jax_rows[e]['train/loss']):.3f}"
+             for e in range(9, min(len(rows), len(jax_rows)), 10)]
+    log("train_floor", f"train loss every 10th epoch, this run vs the JAX run's results.csv "
+        f"(host augmentation, bf16 on a TPU; a yardstick, not a gate): {'; '.join(pairs)} | "
+        f"{card}")
+    med, tot = split["median"], split["sum"]
+    per_step = timer.per_step()
+    log("train_floor", "host clock, s an epoch (median of the epochs): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in med.items()) + "; summed over the run: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in tot.items())
+        + f"; ms per step by the host clock {1e3 * tot['train_s'] / max(steps, 1):.3f} | {card}")
+    log("train_floor", f"device ms per step by CUDA events at the marks (mean of the "
+        f"{timer.steps} steps after the first epoch; copy includes waiting for the card to "
+        f"take it): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items()) + f" | {card}")
+    below = {k: (res[k], record["floor"][n]) for k, n in record["floor_keys"].items()
+             if not res[k] >= record["floor"][n]}
+    if below:
+        raise AssertionError(f"train_floor: the port-trained best.ckpt is below the seg160 floor: "
+                             f"{below}")
+    if counts["gt_rays_rows"] == 0 or counts["fill_polygons"] == 0:
+        raise AssertionError(f"train_floor: a kernel of the path never launched: {counts}")
+    n_det = sum(len(r) for r in pred)
+    log("train_floor", f"YOLO(best.ckpt).predict on the {len(pred)} val images: {n_det} "
+        f"detections | {card}")
+    if n_det == 0:
+        raise AssertionError("train_floor: predict from the trained best.ckpt found nothing")
+    return counts
+
+
+def train_640(card: str):
+    """The trainer at the size users train: ``YOLO("yolov8n-seg.yaml")``
+    with the default config (nbs 64, so 4 micro-batches an optimizer step,
+    and MixUp on) at imgsz 640 batch 16 for ``TRAIN640_EPOCHS`` epochs on
+    ``TRAIN640_N`` 480x640 frames with exact labels, validating on
+    ``TRAIN640_VAL`` (launch counts zeroed just before, read just after):
+    images per second, over all epochs and over those after the first (32
+    optimizer steps), and the same splits as ``train_floor``."""
+    train = shape_val_set(TRAIN640_N, *VAL640_HW, seed=7)
+    val = shape_val_set(TRAIN640_VAL, *VAL640_HW, seed=8)
+    data = {"train": train, "val": val, "names": {0: "circle", 1: "rect"}}
+    timer = TrainTotals(skip=TRAIN640_N // 64)  # the first epoch: 64 images (nbs) a step
+    with tempfile.TemporaryDirectory() as d:
+        model = YOLO("yolov8n-seg.yaml", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t = time.perf_counter()
+        res = model.train(data=data, mark=timer, project=d, name="train640", epochs=TRAIN640_EPOCHS,
+                          imgsz=640, batch=16)
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+    trainer = model.trainer
+    split = epoch_split(trainer)
+    tot = split["sum"]
+    n_img = TRAIN640_N * len(trainer.epoch_times)
+    later_s = sum(t["train_s"] for t in trainer.epoch_times[1:])
+    n_later = TRAIN640_N * (len(trainer.epoch_times) - 1)
+    per_step = timer.per_step()
+    metrics = ", ".join(f"{k.split('/')[1]} {res[k]:.4f}" for k in METRIC_KEYS)
+    log("train_640", f"yolov8n-seg from scratch, default config, imgsz 640 batch 16, accumulate "
+        f"{trainer.args.accumulate}, {len(trainer.epoch_times)} epochs of {TRAIN640_N} 480x640 "
+        f"frames: {n_img / tot['train_s']:.1f} images/s in the train steps "
+        f"({n_later / later_s:.1f} after the first epoch, {timer.steps} optimizer steps), "
+        f"{n_img / wall:.1f} images/s over the {wall:.2f}s wall; {metrics} (printed, not held); "
+        f"launches {counts}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"| {card}")
+    log("train_640", "host clock, s summed over the epochs: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in tot.items())
+        + f"; epochs (host clock, s) {[round(t['train_s'], 3) for t in trainer.epoch_times]}"
+        + f"; device ms per optimizer step by CUDA events after the first epoch ({timer.steps} "
+        f"steps of {trainer.args.accumulate} micro-batches): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items()) + f" | {card}")
+    if counts["gt_rays_rows"] == 0 or counts["fill_polygons"] == 0:
+        raise AssertionError(f"train_640: a kernel of the path never launched: {counts}")
+    return counts
+
+
+def _decoded_set(path):
+    z = np.load(path)
+    return list(z["images"]), [parse_label_lines(str(t).splitlines()) for t in z["labels"]]
+
+
 def floor_val_set():
     """The 16 val images of the seg160 floor set (``make_shape_dataset(n_train=64,
     n_val=16, imgsz=160, seed=0)``, decoded by cv2) and their labels, parsed
     from the committed label lines."""
-    z = np.load(FLOOR_VAL)
-    return list(z["images"]), [parse_label_lines(str(t).splitlines()) for t in z["labels"]]
+    return _decoded_set(FLOOR_VAL)
+
+
+def floor_train_set():
+    """The 64 train images of the same floor set, decoded the same way."""
+    return _decoded_set(FLOOR_TRAIN)
 
 
 def eval_np(validator, model, batch: dict, device) -> dict:
@@ -1290,6 +1492,7 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}")
 
     # 2. build: one nvcc per source, all started together
+    phase_start = {"build": time.perf_counter()}
     t = time.perf_counter()
 
     def build(name):
@@ -1305,6 +1508,7 @@ def main() -> int:
         f"| {card}")
 
     # 3. kernels against their plain versions
+    phase_start["kernels"] = time.perf_counter()
     fill_rows = {
         "fill_polygons": check_fill("fill_polygons", "raster_fill_polygons", raster.fill_polygons,
                                     raster.fill_polygons_plain, "even_odd", 1, card,
@@ -1319,7 +1523,7 @@ def main() -> int:
     rows_checks = {}
     for n_pad, k in RAY_SHAPES:
         r = TRAIN_B * n_pad
-        rows_checks[k] = check_gt_rays("rows", *ray_inputs(r, k, seed=k), card,
+        rows_checks[n_pad] = check_gt_rays("rows", *ray_inputs(r, k, seed=k), card,
                                        f"R={r} (batch {TRAIN_B} x N_pad {n_pad}) K={k}")
     contours, c, rad = ray_contours(RAY_PAIRS, seed=5)
     centers = (c + np.random.default_rng(5).uniform(-1.5, 1.5, (RAY_PAIRS, 2)) * rad[:, None])
@@ -1333,10 +1537,11 @@ def main() -> int:
                                       torch.from_numpy(centers.astype(np.float32)).cuda(), None)
     gt_rays_phases(phase_inputs, card)
     atan2f_instr = gt_rays_sass(built["gt_rays"][0], card)
-    atan2f_floor(rows_checks[TRAIN_K], "rows", atan2f_instr, card)
+    atan2f_floor(rows_checks[TRAIN_NPAD], "rows", atan2f_instr, card)
     atan2f_floor(pairs_check, "pairs", atan2f_instr, card)
 
     # 4. the main path: predict on the card
+    phase_start["predict"] = time.perf_counter()
     model = YOLO(CKPT, device="cuda")
     imgs160 = shape_images(4, 120, 200, seed=1)
     imgs640 = shape_images(8, *RASTER_HW, seed=2)
@@ -1410,18 +1615,27 @@ def main() -> int:
         f"same detections, boxes max abs {worst_box:.2e} px (limit {BOX_ATOL}) | {card}")
 
     # 5. the main path: validate on the card
+    phase_start["validate"] = time.perf_counter()
     _, val_counts = validate_floor(model, cpu, card)
     _, val640_counts, _, _ = validate_full_width(model, card)
     validate_counts = {k: val_counts[k] + val640_counts[k] for k in KERNEL_WRAPPERS}
 
     # 6. the main path: the train step on the card
+    phase_start["train"] = time.perf_counter()
     ckpt = load_checkpoint(CKPT)
     train_card_vs_cpu(ckpt, card)
     state, train_counts, _, _ = train_full_width(ckpt, card)
     save_and_predict(ckpt, state, imgs160, card)
 
-    # 7. report: launches summed over the three main paths' runs
-    launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k]
+    # 7. the main path: the trainer, from scratch to the seg160 floor, then at 640
+    phase_start["trainer"] = time.perf_counter()
+    floor_counts = train_floor(card)
+    t640_counts = train_640(card)
+    trainer_counts = {k: floor_counts[k] + t640_counts[k] for k in KERNEL_WRAPPERS}
+
+    # 8. report: launches summed over the main paths' runs
+    phase_start["report"] = time.perf_counter()
+    launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k] + trainer_counts[k]
                 for k in KERNEL_WRAPPERS}
     at_480 = fill_rows["fill_polygons_480x640"]
     src = "yolo_contour_regression_tpu_torch/csrc/"
@@ -1438,20 +1652,28 @@ def main() -> int:
          "library_ms": None},
         {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
-         "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_K]),
-         "library_ms": None},
+         "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_NPAD]),
+         "library_ms": None,
+         **{f"{k}_R512_K48": v for k, v in report_row(rows_checks[TRAINER_NPAD]).items()
+            if k in ("ms", "plain_ms", "bound_ms")}},
         {"name": "gt_rays_pairs", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:333",
          "launches": launches["gt_rays_pairs"], **report_row(pairs_check), "library_ms": None},
     ]
     log("report", f"launches on the main paths: predict {predict_counts}, validate "
-        f"{validate_counts} (floor set at 160 and one pass at 640), train {train_counts}; "
+        f"{validate_counts} (floor set at 160 and one pass at 640), train step {train_counts}, "
+        f"trainer {trainer_counts} (the floor run and 640); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, and at 480x640 (the *_480x640 keys); fill_polygons_cv2 (the "
         "predict path's masks): ms a launch at N=300 480x640; gt_rays_rows: ms, plain_ms and "
-        "bound at the train path's R=128 K=128; gt_rays_pairs "
+        "bound at the train step's R=128 K=128, and at the trainer's R=512 K=48 (the *_R512_K48 "
+        "keys); gt_rays_pairs "
         "(also the counterpart of pallas_polar.py:101) at P=16,384 | wall "
         f"{time.perf_counter() - T0:.2f}s | {card}")
+    names = list(phase_start)
+    secs = {a: phase_start[b] - phase_start[a] for a, b in zip(names, names[1:])}
+    log("report", "seconds by phase: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f" | {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,10 @@ numpy and the standard library lacks: in a fresh interpreter that refuses
 jax, flax, optax, cv2, PIL, yaml, torchvision, triton and the JAX package,
 every module of the port and ``chip_smoke`` import, the CPU predict runs
 on the committed seg160 checkpoint, the CPU validator runs on two images
-of the floor set with it, and one CPU train step runs on it."""
+of the floor set with it, one CPU train step runs on it, and
+``YOLO("yolov8n-seg.yaml").train`` runs one epoch on the CPU on four of the
+floor set's train images at imgsz 64 (amp, the augmentation, the loader's
+threads, checkpoints)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -56,11 +59,20 @@ images, batch = chip_smoke.shape_batch(2, 64, 3, seed=0)
 metrics = make_train_step(net, opt, hyp)(
     state, torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in batch.items()})
 assert state.step == 1 and torch.isfinite(metrics["loss"]), metrics
+import tempfile
+train_images, train_labels = chip_smoke.floor_train_set()
+with tempfile.TemporaryDirectory() as d:
+    fresh = pkg.YOLO("yolov8n-seg.yaml", device="cpu")
+    fresh.train(data={"train": (train_images[:4], train_labels[:4]), "val": ([], []),
+                      "names": {0: "circle", 1: "rect"}},
+                epochs=1, imgsz=64, batch=2, nbs=2, workers=1, val=False, project=d)
+    trained = fresh.trainer.state.step
+    assert trained == 2 and fresh.ckpt_path.name == "best.ckpt", (trained, fresh.ckpt_path)
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;",
       "val mask mAP50-95", val["metrics/mAP50-95(M)"], ";", "train step loss",
-      float(metrics["loss"]))
+      float(metrics["loss"]), ";", "YOLO.train steps", trained)
 """
 
 
@@ -71,6 +83,6 @@ def test_port_imports_and_predicts_without_jax_cv2_yaml_triton():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert "detections" in res.stdout and "train step loss" in res.stdout
-    assert "val mask mAP50-95" in res.stdout
+    assert "val mask mAP50-95" in res.stdout and "YOLO.train steps 2" in res.stdout
     n_mods = int(res.stdout.split("imported ")[1].split()[0])
     assert n_mods >= 20  # ops, nn, utils, engine, data modules of the port

@@ -343,3 +343,58 @@ def test_yolo_val_defaults_to_the_card(cuda):
     res = model.val(images[:4], labels[:4], imgsz=160, batch=2)
     assert raster.fill_polygons.launches == before + 8
     assert 0.0 <= res["metrics/mAP50-95(M)"] <= 1.0 and 0.0 <= res["metrics/mAP50-95(B)"] <= 1.0
+
+
+def test_apply_augment_card_equals_cpu(cuda):
+    """The batch augmentation on the card, given the same draws, equals the
+    CPU's: images within 1e-3 levels (the same float32 steps in other
+    kernels), boxes and contours within 1e-6, ``cls`` and ``mask_gt``
+    exactly."""
+    from types import SimpleNamespace
+
+    from chip_smoke import shape_batch
+    from yolo_contour_regression_tpu_torch.data import device_augment as tda
+
+    images, batch = shape_batch(8, 160, 8, seed=5)
+    raw = {k: torch.from_numpy(v) for k, v in batch.items()}
+    raw["img"] = torch.from_numpy((images[..., ::-1] * 255).round().astype(np.uint8))
+    raw["content_hw"] = torch.full((8, 2), 160.0)
+    raw["pad_tl"] = torch.zeros((8, 2))
+    for hyp in (SimpleNamespace(mosaic=1.0, mixup=0.5, degrees=0.0, translate=0.1, scale=0.5,
+                                shear=0.0, perspective=0.0, hsv_h=0.015, hsv_s=0.7, hsv_v=0.4,
+                                fliplr=0.5, flipud=0.5),
+                SimpleNamespace(mosaic=0.5, mixup=0.0, degrees=10.0, translate=0.1, scale=0.5,
+                                shear=2.0, perspective=1e-4, hsv_h=0.0, hsv_s=0.0, hsv_v=0.0,
+                                fliplr=0.5, flipud=0.0)):
+        draws = tda.draw_augment(np.random.default_rng(1), 8, hyp, 160)
+        want = tda.apply_augment(raw, draws, hyp, 160, 32)
+        got = tda.apply_augment({k: v.to(cuda) for k, v in raw.items()}, draws, hyp, 160, 32)
+        assert got["img"].is_cuda
+        torch.testing.assert_close(got["img"].cpu() * 255, want["img"] * 255, atol=1e-3, rtol=0)
+        for k in ("bboxes", "segments"):
+            torch.testing.assert_close(got[k].cpu(), want[k], atol=1e-6, rtol=0)
+        for k in ("cls", "mask_gt"):
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_yolo_train_defaults_to_the_card_and_launches_the_kernels(cuda, tmp_path):
+    """``YOLO("yolov8n-seg.yaml").train`` with no device trains on the card:
+    the model, its EMA and the adopted best.ckpt are there, each step
+    launches the GT-ray kernel and each validation the even-odd fill."""
+    from chip_smoke import floor_train_set, floor_val_set
+    from yolo_contour_regression_tpu_torch import YOLO
+
+    train, val = floor_train_set(), floor_val_set()
+    model = YOLO("yolov8n-seg.yaml")
+    assert model.device.type == "cuda" and model.model is None
+    rays, fills = gt_rays.gt_rays_rows_fast.launches, raster.fill_polygons.launches
+    res = model.train(data={"train": (train[0][:8], train[1][:8]),
+                            "val": (val[0][:4], val[1][:4]), "names": {0: "circle", 1: "rect"}},
+                      epochs=2, imgsz=160, batch=4, nbs=4, workers=2, project=str(tmp_path))
+    state = model.trainer.state
+    assert state.device.type == "cuda" and all(e.is_cuda for e in state.ema.values())
+    assert all(p.is_cuda for p in model.model.parameters())
+    assert gt_rays.gt_rays_rows_fast.launches == rays + state.step == rays + 4
+    # two fills an image: 4 images in each epoch's validation and the final one
+    assert raster.fill_polygons.launches == fills + 2 * 4 * 3
+    assert 0.0 <= res["metrics/mAP50-95(M)"] <= 1.0

@@ -1,6 +1,8 @@
-"""Letterbox and the val-time sample pipeline (counterparts of ``letterbox``,
-``Sample``, ``letterbox_sample``, ``format_sample`` and ``collate`` in the
-JAX package's ``data/augment.py``), without cv2.
+"""Letterbox and the host side of the sample pipelines (counterparts of
+``letterbox``, ``Sample``, ``letterbox_sample``, ``format_sample``,
+``format_sample_raw`` and ``collate`` in the JAX package's
+``data/augment.py``), without cv2. The train transforms run on the device
+(``data/device_augment.py``); the host cv2 train pipeline is not ported.
 
 The resize reproduces ``cv2.resize(..., interpolation=cv2.INTER_LINEAR)`` on
 uint8 images bit for bit, in numpy integer arithmetic: OpenCV's 11-bit
@@ -119,12 +121,9 @@ def letterbox_sample(s: Sample, imgsz, scaleup: bool = True) -> Sample:
     return Sample(img, inst, ori_shape=(h0, w0), ratio_pad=(r, px, py))
 
 
-def format_sample(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
-    """Sample -> the dense per-image dict, labels normalized to the image and
-    padded to ``max_instances``. The image stays uint8, flipped BGR -> RGB on
-    the host; the device's ``.float() / 255`` then equals the JAX package's
-    float32 image bit for bit. ``ori_shape`` and ``ratio_pad`` are float32,
-    as the JAX package stores them."""
+def _padded_labels(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
+    """The sample's labels normalized to its image and padded to
+    ``max_instances``: cls, bboxes (xywh), segments, mask_gt."""
     h, w = s.img.shape[:2]
     n = min(len(s.inst), max_instances)
     cls = np.zeros((max_instances,), np.int32)
@@ -139,14 +138,39 @@ def format_sample(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
         bboxes[:n] = xywh / np.array([w, h, w, h], np.float32)
         segments[:n] = inst.segments[:n] / np.array([w, h], np.float32)
         mask[:n] = True
+    return {"cls": cls, "bboxes": bboxes, "segments": segments, "mask_gt": mask}
+
+
+def format_sample(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
+    """Sample -> the dense per-image dict, labels normalized to the image and
+    padded to ``max_instances``. The image stays uint8, flipped BGR -> RGB on
+    the host; the device's ``.float() / 255`` then equals the JAX package's
+    float32 image bit for bit. ``ori_shape`` and ``ratio_pad`` are float32,
+    as the JAX package stores them."""
+    h, w = s.img.shape[:2]
     return {
         "img": bgr_to_rgb(s.img),
-        "cls": cls,
-        "bboxes": bboxes,
-        "segments": segments,
-        "mask_gt": mask,
+        **_padded_labels(s, max_instances),
         "ori_shape": np.asarray(s.ori_shape if s.ori_shape else (h, w), np.float32),
         "ratio_pad": np.asarray(s.ratio_pad if s.ratio_pad else (1.0, 0.0, 0.0), np.float32),
+    }
+
+
+def format_sample_raw(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
+    """Sample -> the dense per-image dict of the train path, whose
+    augmentation runs on the device (``data/device_augment.py``): the
+    letterboxed image as it is (uint8 BGR), the labels normalized and padded
+    as ``format_sample`` pads them, and the letterbox geometry the mosaic
+    places its tiles by: ``content_hw`` (the resized image's size, Python's
+    ``round(h0 * r)``) and ``pad_tl`` (top and left pad), float32."""
+    h, w = s.img.shape[:2]
+    r, px, py = s.ratio_pad if s.ratio_pad else (1.0, 0.0, 0.0)
+    h0, w0 = s.ori_shape if s.ori_shape else (h, w)
+    return {
+        "img": np.ascontiguousarray(s.img, np.uint8),
+        **_padded_labels(s, max_instances),
+        "content_hw": np.asarray([round(h0 * r), round(w0 * r)], np.float32),
+        "pad_tl": np.asarray([py, px], np.float32),
     }
 
 

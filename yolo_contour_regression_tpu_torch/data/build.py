@@ -1,19 +1,118 @@
-"""The val loader (counterpart of the single-pass val use of the JAX
-package's ``data/build.py:DataLoader``): batches in dataset order,
-collated on the calling thread. The last batch may be short; the JAX loader
-pads it to a fixed shape and reads only its first ``n_valid`` images, so
-the metrics are the same."""
+"""Loaders (counterparts of the JAX package's ``data/build.py:DataLoader``):
+``TrainLoader``, infinite and shuffled, collated by worker threads ahead of
+the step; ``ValLoader``, one pass in dataset order, collated on the calling
+thread. ``use_device_augment`` says whether a config takes the train path
+the port has (augmentation on the device)."""
 from __future__ import annotations
 
-from typing import Dict, Iterator
+import queue
+import random
+import threading
+from typing import Dict, Iterator, List
 
 import numpy as np
 
 from .augment import collate
 
 
+def use_device_augment(cfg) -> bool:
+    """True where the JAX package would augment on the device (its
+    ``data/build.py:use_device_augment``): ``device_augment`` on, no
+    ``mosaic9`` and no ``copy_paste``. Otherwise JAX takes its host cv2
+    train pipeline, which the port does not have."""
+    return (bool(getattr(cfg, "device_augment", False))
+            and float(getattr(cfg, "mosaic9", 0.0) or 0.0) == 0.0
+            and float(getattr(cfg, "copy_paste", 0.0) or 0.0) == 0.0)
+
+
+class TrainLoader:
+    """Endless batches of ``batch_size`` samples, each epoch in a new order
+    drawn by ``random.Random(seed).shuffle`` (the JAX loader's order for the
+    same seed), the last partial batch dropped. ``workers`` threads load
+    and collate batches ahead into a bounded queue; they are handed out in
+    index order whatever thread finishes first, so a run repeats itself with
+    any number of workers (the JAX loader's order is that only with one). A
+    worker's error is raised in the consumer, and an abandoned iterator
+    stops its workers."""
+
+    def __init__(self, dataset, batch_size: int, workers: int = 4, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = max(int(batch_size), 1)
+        self.workers = max(int(workers), 1)
+        self.rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def _chunks(self) -> Iterator[List[int]]:
+        while True:
+            idx = list(range(len(self.dataset)))
+            self.rng.shuffle(idx)
+            idx = idx[: len(idx) - len(idx) % self.batch_size]
+            for i in range(0, len(idx), self.batch_size):
+                yield idx[i: i + self.batch_size]
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if len(self) == 0:
+            raise ValueError(f"{len(self.dataset)} samples make no batch of {self.batch_size}")
+        chunks = enumerate(self._chunks())
+        q: "queue.Queue" = queue.Queue(maxsize=self.workers * 2)
+        stop = threading.Event()
+        lock = threading.Lock()
+
+        def qput(item) -> bool:
+            # a put that gives up once the consumer is gone, so a worker
+            # blocked on a full queue never outlives an abandoned iterator
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            while not stop.is_set():
+                with lock:
+                    seq, chunk = next(chunks)
+                try:
+                    item = collate([self.dataset[j] for j in chunk])
+                except Exception as e:  # handed to the consumer, raised there
+                    qput((seq, e))
+                    return
+                if not qput((seq, item)):
+                    return
+
+        threads = [threading.Thread(target=worker, daemon=True) for _ in range(self.workers)]
+        for t in threads:
+            t.start()
+        ahead, want = {}, 0
+        try:
+            while True:
+                while want not in ahead:
+                    seq, item = q.get()
+                    ahead[seq] = item
+                item = ahead.pop(want)
+                want += 1
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            try:  # unblock a worker sitting in q.put
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+            for t in threads:
+                t.join(timeout=2.0)
+
+
 class ValLoader:
-    """One pass over ``dataset`` in order, ``batch_size`` samples a batch."""
+    """One pass over ``dataset`` in order, ``batch_size`` samples a batch.
+    The last batch may be short; the JAX loader pads it to a fixed shape
+    and reads only its first ``n_valid`` images, so the metrics are the
+    same."""
 
     def __init__(self, dataset, batch_size: int):
         self.dataset = dataset

@@ -1,9 +1,11 @@
-"""YOLO-format labels and the val dataset (counterparts of ``img2label_path``,
-``parse_label_file`` and the val side of ``YOLODataset`` in the JAX
-package's ``data/dataset.py``), in pure Python and numpy.
+"""YOLO-format labels and the datasets (counterparts of ``img2label_path``,
+``parse_label_file`` and ``YOLODataset`` in the JAX package's
+``data/dataset.py``: its val mode, and its train mode with the augmentation
+on the device), in pure Python and numpy.
 
-The port decodes no image files: ``ValDataset`` takes decoded HWC uint8 BGR
-arrays, each with a YOLO label file or its parsed arrays.
+The port decodes no image files: ``ValDataset`` and ``TrainDataset`` take
+decoded HWC uint8 BGR arrays, each with a YOLO label file or its parsed
+arrays.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from ..ops.polar import NUM_CONTOUR_POINTS
-from .augment import Sample, _resize_linear_u8, format_sample, letterbox_sample
+from .augment import (Sample, _resize_linear_u8, format_sample, format_sample_raw,
+                      letterbox_sample)
 from .instance import Instances, resample_segment, segments2boxes
 
 Labels = Tuple[np.ndarray, np.ndarray, np.ndarray]  # cls, xywh boxes, segments
@@ -101,6 +104,8 @@ class ValDataset:
     labels padded to ``max_instances``.
     """
 
+    augment = False  # the JAX dataset's train mode (``TrainDataset``)
+
     def __init__(self, images: Sequence[np.ndarray], labels: Sequence[Union[str, Path, Labels]],
                  imgsz: int = 640, max_instances: int = 48):
         if len(images) != len(labels):
@@ -126,16 +131,17 @@ class ValDataset:
         return len(self.images)
 
     def resized(self, i: int) -> np.ndarray:
-        """The image with its long side at ``imgsz``: enlarged by cv2's
-        INTER_LINEAR, exactly (``data/augment.py:_resize_linear_u8``).
-        Shrinking takes cv2's INTER_AREA in the JAX package, which the port
-        does not have yet."""
+        """The image with its long side at ``imgsz``, as the JAX dataset
+        caches it: by cv2's INTER_LINEAR, exactly
+        (``data/augment.py:_resize_linear_u8``), when enlarging and in train
+        mode. Shrinking for validation takes cv2's INTER_AREA in the JAX
+        package, which the port does not have yet."""
         img = self.images[i]
         h, w = img.shape[:2]
         r = self.imgsz / max(h, w)
         if r == 1.0:
             return img
-        if r < 1.0:
+        if r < 1.0 and not self.augment:
             raise NotImplementedError(
                 f"image {i} is {h}x{w}, larger than imgsz {self.imgsz}: shrinking it takes "
                 "cv2.INTER_AREA, which the port does not have; pass images whose long side is "
@@ -155,3 +161,20 @@ class ValDataset:
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         s = letterbox_sample(self.load_raw(i), self.imgsz, scaleup=False)
         return format_sample(s, self.max_instances)
+
+
+class TrainDataset(ValDataset):
+    """Train samples over decoded images, for the augmentation on the
+    device (the JAX ``YOLODataset`` with ``augment`` and ``device_augment``):
+    each image resized so its long side is ``imgsz`` (cv2's INTER_LINEAR
+    both ways, as the JAX train mode takes it), letterboxed to ``imgsz``
+    with upscaling, and formatted by ``format_sample_raw`` (uint8 BGR, the
+    labels padded to ``max_instances``, the letterbox geometry). Mosaic,
+    the affine warp, MixUp, HSV and the flips run on the device in the
+    train step."""
+
+    augment = True
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        s = letterbox_sample(self.load_raw(i), self.imgsz, scaleup=True)
+        return format_sample_raw(s, self.max_instances)

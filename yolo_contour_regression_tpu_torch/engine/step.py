@@ -1,13 +1,25 @@
 """The training step (counterpart of the JAX package's ``engine/step.py``):
-forward in train mode, polar loss, backward, gradient clip, optimizer step
-and EMA, for the segment task.
+the augmentation on the device, forward in train mode, polar loss,
+backward, gradient clip, optimizer step and EMA, for the segment task.
 
 The public boundary keeps the JAX layouts: images (B, H, W, 3) f32 in
 [0, 1]; batch ``cls`` (B, N), ``bboxes`` (B, N, 4) normalized xywh,
 ``segments`` (B, N, 360, 2) normalized, ``mask_gt`` (B, N). With
+``augment_fn`` (``data/device_augment.py:make_augment_fn``) the step takes
+the loader's raw batches instead, images (B, S, S, 3) uint8 BGR with
+``content_hw`` and ``pad_tl``, and augments them on the device first, with
+draws from ``numpy.random.default_rng([aug_seed, step])`` (``[aug_seed,
+step, micro]`` per micro-batch): the JAX step folds the same three numbers
+into its key, so a run repeats itself (the draws are not JAX's). With
 ``accumulate > 1`` every input carries a leading micro-batch axis and the
 micro-batch gradients are summed, as the reference's repeated
 ``loss.backward()`` sums them.
+
+``amp=True`` runs the conv graph under ``torch.autocast`` in bfloat16, the
+counterpart of the JAX model built with ``dtype=bfloat16`` (the trainer's
+``amp``): parameters, gradients and BatchNorm statistics stay float32, and
+the assigner and loss run in float32 on the head maps cast back, where the
+JAX loss casts them (``utils/loss.py:polar_targets``).
 
 ``init_train_state(..., device="cuda")`` moves the model to the device and
 keeps the EMA there; the step moves its inputs to the state's device.
@@ -16,16 +28,18 @@ batch)`` updates the model, optimizer and EMA in place and returns the
 metrics.
 
 Stages: given ``mark``, the step calls ``mark(stage)`` as each stage starts,
-in order "forward", "assigner" (split around the GT-ray kernel's wrapper
-into "assigner", "gt_rays", "assigner"), "loss", "backward",
-"clip_optimizer_ema", and ``mark("end")`` last, so that a caller can time
-each stage of this very step (a CUDA event per mark).
+in order "augment" (with ``augment_fn``), "forward", "assigner" (split
+around the GT-ray kernel's wrapper into "assigner", "gt_rays",
+"assigner"), "loss", "backward", "clip_optimizer_ema", and ``mark("end")``
+last, so that a caller can time each stage of this very step (a CUDA event
+per mark).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -58,16 +72,19 @@ def init_train_state(model: nn.Module, optimizer: optim_mod.Optimizer,
     return TrainState(model=model, optimizer=optimizer, ema=ema, device=device, step=0)
 
 
-def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None) -> Callable:
+def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool = False
+                 ) -> Callable:
     """(images (B, H, W, 3), batch) -> (total, items) for the segment task;
-    the model runs as it is (train mode updates its BatchNorm statistics)."""
+    the model runs as it is (train mode updates its BatchNorm statistics),
+    under bfloat16 autocast with ``amp``."""
     if getattr(model, "task", "segment") != "segment":
         raise NotImplementedError(f"task {model.task!r} is not ported; only 'segment'")
     mark = mark or _no_mark
 
     def loss_fn(images, batch):
         mark("forward")
-        feats = model(images.permute(0, 3, 1, 2).contiguous())
+        with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=amp):
+            feats = model(images.permute(0, 3, 1, 2).contiguous())
         mark("assigner")
         targets = polar_targets(feats, batch, model.strides, model.nc, hyp, cand=cand, mark=mark)
         mark("loss")
@@ -78,12 +95,23 @@ def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None) -> Callable
 
 
 def make_train_step(model: nn.Module, optimizer: optim_mod.Optimizer, hyp, cand=128,
-                    accumulate: int = 1, mark: Mark = None) -> Callable:
+                    accumulate: int = 1, mark: Mark = None, augment_fn=None, aug_seed: int = 0,
+                    amp: bool = False) -> Callable:
     """The step: ``step(state, images, batch) -> metrics``, 0-dim tensors
-    left on the device (reading them is the caller's sync). ``mark``: see
-    the module docstring."""
-    loss_fn = make_loss_fn(model, hyp, cand=cand, mark=mark)
+    left on the device (reading them is the caller's sync). ``mark``,
+    ``augment_fn`` and ``amp``: see the module docstring."""
+    loss_fn = make_loss_fn(model, hyp, cand=cand, mark=mark, amp=amp)
     mark = mark or _no_mark
+
+    def micro_loss(state, images, batch, *micro):
+        if augment_fn is not None:
+            mark("augment")
+            rng = np.random.default_rng([int(aug_seed), state.step, *micro])
+            images, batch = augment_fn(rng, images, batch)
+        total, items = loss_fn(images, batch)
+        mark("backward")
+        total.backward()
+        return total.detach(), {k: v.detach() for k, v in items.items()}
 
     def step(state: TrainState, images: torch.Tensor, batch: Dict[str, torch.Tensor]):
         images = images.to(state.device)
@@ -91,26 +119,17 @@ def make_train_step(model: nn.Module, optimizer: optim_mod.Optimizer, hyp, cand=
         state.model.train()
         state.optimizer.zero_grad()
         if accumulate > 1:
-            totals, items = [], []
-            for i in range(accumulate):
-                total, it = loss_fn(images[i], {k: v[i] for k, v in batch.items()})
-                mark("backward")
-                total.backward()
-                totals.append(total.detach())
-                items.append(it)
-            total = torch.stack(totals).mean()
-            items = {k: torch.stack([it[k].detach() for it in items]).mean() for k in items[0]}
+            outs = [micro_loss(state, images[i], {k: v[i] for k, v in batch.items()}, i)
+                    for i in range(accumulate)]
+            total = torch.stack([t for t, _ in outs]).mean()
+            items = {k: torch.stack([it[k] for _, it in outs]).mean() for k in outs[0][1]}
         else:
-            total, items = loss_fn(images, batch)
-            mark("backward")
-            total.backward()
+            total, items = micro_loss(state, images, batch)
         mark("clip_optimizer_ema")
         state.optimizer.step(state.step)
         optim_mod.ema_update(state.ema, state.model, state.step + 1)
         state.step += 1
         mark("end")
-        metrics = {k: v.detach() for k, v in items.items()}
-        metrics["loss"] = total.detach()
-        return metrics
+        return {**items, "loss": total}
 
     return step

@@ -1,0 +1,296 @@
+"""The segment trainer (counterpart of ``SegmentationTrainer`` in the JAX
+package's ``engine/trainer.py``: its single-device path, one optimizer step
+per dispatch).
+
+``SegmentationTrainer(overrides=..., device="cuda").train(data)`` trains a
+fresh polar segmentation model: the model built from ``args.model`` at
+``nc = len(data["names"])`` and initialized from ``args.seed``
+(``nn/tasks.py:init_weights``); the train set letterboxed on the host
+(``data/dataset.py:TrainDataset``) and batched by worker threads
+(``data/build.py:TrainLoader``); mosaic, the affine warp, MixUp, HSV and the
+flips on the device inside the step (``data/device_augment.py``), with
+``mosaic`` and ``mixup`` turned off for the last ``close_mosaic`` epochs;
+gradient accumulation toward ``nbs``; AdamW or SGD with the JAX schedules
+and the EMA (``utils/optim.py``). Each epoch ends with a validation of the
+EMA weights with the live BatchNorm statistics, on a copy of the model in
+eval mode (the training model is left as it is), a ``results.csv`` row in
+the JAX columns, ``last.ckpt`` and ``best.ckpt`` on the JAX cadence (written
+at once, not in a thread), and early stopping. At the end ``best.ckpt`` and
+``last.ckpt`` are stripped (EMA -> params) and the stripped ``best.ckpt``
+is validated again; its metrics are returned.
+
+``data`` holds decoded images: ``{"train": (images, labels), "val":
+(images, labels), "names": {0: "...", ...}}``, images HWC uint8 BGR, labels
+as ``data/dataset.py:ValDataset`` takes them (the port decodes no image
+files).
+
+Not ported (raising ``NotImplementedError`` where asked for): the host cv2
+train pipeline (``device_augment=false``, ``mosaic9``, ``copy_paste``),
+``resume``, tasks other than segment. Without effect: ``plots`` (the JAX
+plots need cv2), the multi-step dispatch and ``cache`` options, the
+integration callbacks.
+
+Timing: ``mark`` goes to the step (its stages, "augment" first) and is
+called with "copy" as a batch is copied to the device; ``epoch_times`` holds
+each epoch's host-clock seconds: the train steps, the wait for the loader
+within them, the validation and the save.
+"""
+from __future__ import annotations
+
+import copy
+import csv
+import logging
+import math
+import time
+from pathlib import Path
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..cfg import get_cfg
+from ..data.build import TrainLoader, use_device_augment
+from ..data.dataset import TrainDataset
+from ..data.device_augment import make_augment_fn
+from ..nn.tasks import SegmentationModel, init_weights, yaml_model_load
+from ..utils.checkpoint import (checkpoint_variables, load_checkpoint, load_jax_variables, plain,
+                                save_checkpoint, strip_optimizer, to_jax_variables)
+from ..utils.optim import build_optimizer
+from .step import init_train_state, make_train_step
+from .validator import SegmentationValidator
+
+LOGGER = logging.getLogger(__name__)
+
+
+class EarlyStopping:
+    """Stop once ``patience`` epochs passed without a fitness at least as
+    good as the best (reference ``torch_utils.py:EarlyStopping``)."""
+
+    def __init__(self, patience: int = 50):
+        self.best_fitness = 0.0
+        self.best_epoch = 0
+        self.patience = patience or float("inf")
+
+    def __call__(self, epoch: int, fitness: float) -> bool:
+        if fitness >= self.best_fitness:
+            self.best_epoch = epoch
+            self.best_fitness = fitness
+        return (epoch - self.best_epoch) >= self.patience
+
+
+def schedule(n_images: int, batch: int, nbs: int, epochs: int):
+    """(accumulate, steps_per_epoch, iterations) as the JAX trainer counts
+    them: micro-batches toward the nominal batch ``nbs``, at most one
+    epoch's loader batches (drop_last), and optimizer steps."""
+    micro = max(n_images // batch, 1)
+    accumulate = min(max(round(nbs / batch), 1), micro)
+    steps_per_epoch = max(micro // accumulate, 1)
+    return accumulate, steps_per_epoch, steps_per_epoch * epochs
+
+
+def stack_raw_batches(data_iter, n: int):
+    """``n`` loader batches stacked into (n, B, ...) arrays, for gradient
+    accumulation; the instance axis of each padded to the group's largest
+    (the collate buckets differ between batches)."""
+    micro = [next(data_iter) for _ in range(n)]
+    n_max = max(m["mask_gt"].shape[1] for m in micro)
+    for m in micro:
+        pad = n_max - m["mask_gt"].shape[1]
+        if pad:
+            for k in ("cls", "bboxes", "segments", "mask_gt"):
+                m[k] = np.pad(m[k], [(0, 0), (0, pad)] + [(0, 0)] * (m[k].ndim - 2))
+    images = np.stack([m.pop("img") for m in micro])
+    return images, {k: np.stack([m[k] for m in micro]) for k in micro[0]}
+
+
+def _no_mark(stage: str):
+    pass
+
+
+class SegmentationTrainer:
+    """The trainer: see the module docstring."""
+
+    task = "segment"
+
+    def __init__(self, overrides: Optional[Dict] = None, device="cuda",
+                 mark: Optional[Callable[[str], None]] = None):
+        overrides = dict(overrides or {})
+        task = overrides.pop("task", self.task) or self.task
+        if task != self.task:
+            raise NotImplementedError(f"task {task!r} is not ported; only 'segment'")
+        self.args = get_cfg(None, overrides)
+        self.args.task = self.task
+        if self.args.resume:
+            raise NotImplementedError("resume is not ported: the port's optimizer state has no "
+                                      "form in the checkpoint")
+        if not use_device_augment(self.args):
+            raise NotImplementedError(
+                "the host cv2 train pipeline (train_transform, mosaic9, copy_paste, "
+                "device_augment=false) is not ported: train with device_augment=true, "
+                "mosaic9=0 and copy_paste=0")
+        self.device = torch.device(device)
+        self.mark = mark or _no_mark
+        name = self.args.name or f"{self.task}_train"
+        project = Path(self.args.project or "runs")
+        self.save_dir = project / name
+        i = 1
+        while self.save_dir.exists() and not self.args.exist_ok:
+            self.save_dir = project / f"{name}{i}"
+            i += 1
+        self.wdir = self.save_dir / "weights"
+        self.csv = self.save_dir / "results.csv"
+        self.metrics: Dict[str, float] = {}
+        self.best_fitness = 0.0
+        self.epoch_times = []
+        self._last_saved_epoch = -1
+
+    def build_model(self, nc: int, names) -> SegmentationModel:
+        cfg = self.args.model or "yolov8n-seg.yaml"
+        cfg = yaml_model_load(cfg) if isinstance(cfg, (str, Path)) else copy.deepcopy(dict(cfg))
+        model = SegmentationModel(cfg, nc=nc)
+        model.names = dict(names)
+        return init_weights(model, torch.Generator().manual_seed(int(self.args.seed)))
+
+    def train(self, data: Dict) -> Dict[str, float]:
+        args = self.args
+        names = dict(data["names"])
+        args.nc = len(names)
+        self.model = model = self.build_model(args.nc, names)
+        max_inst = int(args.max_instances)
+        train_set = TrainDataset(*data["train"], imgsz=args.imgsz, max_instances=max_inst)
+        loader = TrainLoader(train_set, args.batch, args.workers, seed=args.seed)
+        accumulate, steps_per_epoch, iterations = schedule(
+            len(train_set), args.batch, args.nbs, args.epochs)
+        args.accumulate = accumulate
+        optimizer = build_optimizer(model, args, steps_per_epoch, iterations)
+        state = init_train_state(model, optimizer, device=self.device)
+
+        def build_step(hyp):
+            return make_train_step(model, optimizer, args, cand=args.cand_per_gt,
+                                   accumulate=accumulate, mark=self.mark,
+                                   augment_fn=make_augment_fn(hyp, args.imgsz, max_inst),
+                                   aug_seed=args.seed, amp=bool(args.amp))
+
+        step_fn = build_step(args)
+        self.validator = validator = SegmentationValidator(
+            imgsz=args.imgsz, batch=args.batch,
+            conf=0.001 if args.conf is None else args.conf, iou=args.iou,
+            max_det=args.max_det, pre_nms=args.pre_nms, mask_ratio=args.val_mask_ratio,
+            max_instances=max_inst) if args.val else None
+        # the EMA is validated on this copy, in eval mode
+        self.eval_model = copy.deepcopy(model).eval() if validator is not None else None
+        stopper = EarlyStopping(args.patience)
+        LOGGER.info(f"train: {len(train_set)} imgs, {steps_per_epoch} steps/epoch, "
+                    f"accumulate {accumulate}, batch {args.batch}, imgsz {args.imgsz}, "
+                    f"{self.device}")
+
+        close_mosaic_at = args.epochs - args.close_mosaic
+        data_iter = iter(loader)
+        t_train = time.perf_counter()
+        try:
+            for epoch in range(args.epochs):
+                if epoch == close_mosaic_at:
+                    hyp = copy.copy(args)
+                    hyp.mosaic, hyp.mixup = 0.0, 0.0
+                    step_fn = build_step(hyp)
+                epoch_metrics: Dict[str, float] = {}
+                t0 = time.perf_counter()
+                wait = 0.0
+                for i in range(steps_per_epoch):
+                    t = time.perf_counter()
+                    if accumulate > 1:
+                        images, batch = stack_raw_batches(data_iter, accumulate)
+                    else:
+                        batch = next(data_iter)
+                        images = batch.pop("img")
+                    wait += time.perf_counter() - t
+                    self.mark("copy")
+                    images = torch.from_numpy(images).to(self.device)
+                    batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+                    metrics = step_fn(state, images, batch)
+                    if i == steps_per_epoch - 1 or i % 50 == 0:
+                        epoch_metrics = {k: float(v) for k, v in metrics.items()}
+                        if not math.isfinite(epoch_metrics["loss"]):
+                            raise FloatingPointError(
+                                f"non-finite loss at epoch {epoch} step {i}: {epoch_metrics}")
+                times = {"epoch": epoch, "train_s": time.perf_counter() - t0,
+                         "loader_wait_s": wait}
+                log = {f"train/{k}": epoch_metrics[k] for k in sorted(epoch_metrics)}
+                LOGGER.info(f"epoch {epoch + 1}/{args.epochs}  "
+                            + "  ".join(f"{k[6:]} {v:.3f}" for k, v in log.items()))
+                fitness = self._epoch_tail(state, epoch, log, data, times)
+                self.epoch_times.append(times)
+                if stopper(epoch, fitness):
+                    LOGGER.info(f"early stopping at epoch {epoch + 1} (patience {args.patience})")
+                    if args.save and self._last_saved_epoch != epoch:
+                        self._save(state, epoch, fitness)
+                    break
+        finally:
+            data_iter.close()  # stops the loader's worker threads
+
+        LOGGER.info(f"training done in {time.perf_counter() - t_train:.1f} s")
+        best, last = self.wdir / "best.ckpt", self.wdir / "last.ckpt"
+        if args.save and best.exists():
+            strip_optimizer(best)
+            strip_optimizer(last)
+            if validator is not None:
+                # the returned metrics describe the stripped best.ckpt
+                load_jax_variables(self.eval_model, *checkpoint_variables(load_checkpoint(best)))
+                self.metrics = validator(self.eval_model, *data["val"], names=names)
+        self.state = state
+        return self.metrics
+
+    def _epoch_tail(self, state, epoch: int, log: Dict[str, float], data, times) -> float:
+        """EMA validation -> fitness -> csv row -> checkpoint; returns this
+        epoch's fitness."""
+        args = self.args
+        fitness = 0.0
+        t = time.perf_counter()
+        if self.validator is not None:
+            with torch.no_grad():
+                for n, p in self.eval_model.named_parameters():
+                    p.copy_(state.ema[n])
+                for (_, b), (_, src) in zip(self.eval_model.named_buffers(),
+                                            state.model.named_buffers()):
+                    b.copy_(src)
+            vm = self.validator(self.eval_model, *data["val"], names=self.model.names)
+            log.update(vm)
+            fitness = vm.get("fitness", 0.0)
+            self.metrics = vm
+        times["val_s"] = time.perf_counter() - t
+        if fitness >= self.best_fitness:
+            self.best_fitness = fitness
+        self._write_csv(epoch, log)
+        t = time.perf_counter()
+        if args.save:
+            every = max(1, int(args.save_last_every or 1))
+            improved = fitness >= self.best_fitness and fitness > 0
+            periodic = args.save_period > 0 and (epoch + 1) % args.save_period == 0
+            if improved or periodic or (epoch + 1) % every == 0 or epoch + 1 == args.epochs:
+                self._save(state, epoch, fitness)
+        times["save_s"] = time.perf_counter() - t
+        return fitness
+
+    def _save(self, state, epoch: int, fitness: float):
+        params, batch_stats = to_jax_variables(state.model.state_dict())
+        ema, _ = to_jax_variables(state.ema)
+        paths = [self.wdir / "last.ckpt"]
+        if fitness >= self.best_fitness:
+            paths.append(self.wdir / "best.ckpt")
+        if self.args.save_period > 0 and (epoch + 1) % self.args.save_period == 0:
+            paths.append(self.wdir / f"epoch{epoch + 1}.ckpt")
+        train_args = {k: plain(v) for k, v in vars(self.args).items() if not callable(v)}
+        for p in paths:
+            save_checkpoint(p, params, batch_stats, ema, step=state.step, epoch=epoch,
+                            best_fitness=self.best_fitness, train_args=train_args,
+                            model_yaml=self.model.yaml, names=self.model.names)
+        self._last_saved_epoch = epoch
+
+    def _write_csv(self, epoch: int, metrics: Dict[str, float]):
+        self.csv.parent.mkdir(parents=True, exist_ok=True)
+        exists = self.csv.exists()
+        with open(self.csv, "a", newline="") as fh:
+            w = csv.writer(fh)
+            if not exists:
+                w.writerow(["epoch"] + list(metrics.keys()))
+            w.writerow([epoch] + [f"{v:.5f}" for v in metrics.values()])

@@ -60,7 +60,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            # in float32 under bfloat16 autocast too, as flax reduces
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)

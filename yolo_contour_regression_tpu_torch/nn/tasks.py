@@ -9,13 +9,19 @@ checkpoint's ``model_yaml``, or ``YOLOV8_SEG`` below), so no yaml parser is
 needed. Layers are registered as ``model.{i}`` so the state-dict keys are the
 reference's. Strides are tracked through the graph instead of calibrated by
 a dummy forward.
+
+``yaml_model_load`` maps a model name to its config dict, and
+``init_weights`` gives a fresh model the JAX package's initialization.
 """
 from __future__ import annotations
 
 import copy
 import math
+import re
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
+import torch
 from torch import nn
 
 from .modules import block as block_mod
@@ -228,3 +234,63 @@ class SegmentationModel(GraphModel):
     @property
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+
+# the ported model configs, by the base name of their yaml in the JAX package
+MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG}
+
+
+def yaml_model_load(name) -> Dict[str, Any]:
+    """A model name such as ``"yolov8n-seg.yaml"`` -> its config dict, the
+    scale letter taken from the name as the JAX ``yaml_model_load`` takes
+    it (``yolov8n-seg`` -> ``yolov8-seg`` at scale ``n``). Only the configs
+    of ``MODEL_CFGS`` are ported: any other name raises
+    ``NotImplementedError``."""
+    stem = Path(str(name)).stem
+    m = (re.match(r"(.*yolov\d+)([nslmx])([-_].+)?$", stem)
+         or re.match(r"(.*yolov\d+)([nslmx])$", stem))
+    base, scale = (m.group(1) + (m.group(3) or ""), m.group(2)) if m else (stem, "")
+    if base not in MODEL_CFGS:
+        raise NotImplementedError(f"model {name!r} is not ported (ported: "
+                                  f"{sorted(k + '.yaml' for k in MODEL_CFGS)}, any scale letter)")
+    cfg = copy.deepcopy(MODEL_CFGS[base])
+    cfg["scale"] = scale  # none: the first of ``scales``, as parse_model takes it
+    return cfg
+
+
+# flax's lecun_normal: a unit normal truncated at +-2, whose std is this, is
+# scaled by sqrt(1 / fan_in) / this, so that the draws' std is sqrt(1 / fan_in)
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
+    """``t`` <- normal(0, std) truncated at +-2 std, by the inverse CDF."""
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = torch.rand(t.shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
+    z = (torch.erfinv(u) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    t.copy_(z * std)
+
+
+@torch.no_grad()
+def init_weights(model: "SegmentationModel", generator: torch.Generator):
+    """The JAX package's initialization of a fresh model, in place: conv
+    kernels flax's ``lecun_normal`` (std ``sqrt(1 / fan_in) / 0.8796...``,
+    truncated at 2 std, ``fan_in = k * k * c_in / groups``), conv biases 0,
+    BatchNorm scale 1, bias 0, running mean 0 and variance 1; then the head
+    priors of JAX ``BaseModel.init``: each class bias ``log(5 / nc / (640 /
+    stride)^2)`` and each ray bias 1. The draws come from ``generator`` (a
+    CPU ``torch.Generator``), not JAX's."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            w = torch.empty(m.weight.shape)
+            _trunc_normal_(w, math.sqrt(1.0 / m.weight[0].numel()) / TRUNC_NORMAL_STD, generator)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    head = model.model[-1]
+    for i, s in enumerate(model.strides):
+        head.cv3[i][2].bias.fill_(math.log(5 / model.nc / (640 / s) ** 2))
+        head.cv2[i][2].bias.fill_(1.0)
+    return model

@@ -3,7 +3,9 @@
 
 A ``.ckpt`` is one pickle of plain dicts of numpy arrays: ``params``,
 ``batch_stats``, ``ema_params``, ``model_yaml``, ``names``, ``train_args``, ...
-``from_jax_variables`` inverts the name map of the JAX package's
+``save_checkpoint`` writes the same format, ``strip_optimizer`` turns a
+training checkpoint into its deployable form, and ``from_jax_variables``
+inverts the name map of the JAX package's
 ``utils/torch_convert.py``, and ``to_jax_variables`` inverts it back:
 
   this port (reference .pt keys)       JAX tree
@@ -47,6 +49,21 @@ _REPCONV_INV = {("conv1", "conv"): "conv1", ("conv1", "bn"): "bn1",
                 ("conv2", "conv"): "conv2", ("conv2", "bn"): "bn2"}
 # the version string written into checkpoints, the JAX package's format
 CKPT_VERSION = "0.1.0"
+
+
+def plain(v):
+    """A value as plain Python (numpy scalars, paths, tuples and devices
+    converted), so that the JAX package can unpickle a checkpoint without
+    this port."""
+    if isinstance(v, dict):
+        return {plain(k): plain(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [plain(x) for x in v]
+    if isinstance(v, np.generic):
+        return v.item()
+    if isinstance(v, (Path, torch.device)):
+        return str(v)
+    return v
 
 
 def load_checkpoint(path) -> Dict[str, Any]:
@@ -198,23 +215,28 @@ def save_checkpoint(path, params: dict, batch_stats: dict, ema_params: Optional[
     """Write a checkpoint in the JAX package's format (the keys of its
     ``save_checkpoint``; ``opt_state`` is None: the optimizer state of this
     port has no JAX form). The trees are numpy, as ``to_jax_variables``
-    gives them. Written to a temporary file and renamed, so a crash never
-    leaves a half-written checkpoint."""
+    gives them, and the rest plain Python (``plain``)."""
     ckpt = {
         "deploy": None,
         "epoch": int(epoch),
-        "best_fitness": best_fitness,
+        "best_fitness": float(best_fitness),
         "params": params,
         "batch_stats": batch_stats,
         "ema_params": ema_params,
         "opt_state": None,
         "step": int(step),
-        "train_args": dict(train_args),
-        "model_yaml": dict(model_yaml),
-        "names": dict(names),
+        "train_args": plain(dict(train_args)),
+        "model_yaml": plain(dict(model_yaml)),
+        "names": plain(dict(names)),
         "date": datetime.now().isoformat(),
         "version": CKPT_VERSION,
     }
+    return _write(path, ckpt)
+
+
+def _write(path, ckpt: Dict[str, Any]) -> Path:
+    """Pickle to a temporary file, then rename: a crash never leaves a
+    half-written checkpoint."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(path.suffix + ".tmp")
@@ -222,3 +244,16 @@ def save_checkpoint(path, params: dict, batch_stats: dict, ema_params: Optional[
         pickle.dump(ckpt, fh, protocol=pickle.HIGHEST_PROTOCOL)
     tmp.replace(path)
     return path
+
+
+def strip_optimizer(path, out_path=None) -> Path:
+    """A training checkpoint -> its deployable form, as the JAX
+    ``strip_optimizer`` makes it: the EMA weights become ``params``, and
+    ``ema_params`` and ``opt_state`` are set to None. Written over ``path``
+    unless ``out_path`` is given."""
+    ckpt = load_checkpoint(path)
+    if ckpt.get("ema_params") is not None:
+        ckpt["params"] = ckpt["ema_params"]
+    ckpt["ema_params"] = None
+    ckpt["opt_state"] = None
+    return _write(out_path or path, ckpt)
