@@ -28,8 +28,8 @@ Phases, one timestamped line each (elapsed seconds):
      reading every result's masks; launch counts are zeroed just before and
      read just after. Then the masks of the 640 phase are split into their
      steps (copies, kernels, numpy), each timed apart, and the card's head
-     outputs and detections are held against the port on the CPU at imgsz
-     160.
+     outputs, detections and scores are held against the port on the CPU
+     at imgsz 160 (``card_vs_cpu_predict``).
   5. validate: (a) ``YOLO(runs/floor_seg160/best.ckpt).val`` on the seg160
      floor set (16 decoded val images, ``tests/data/``) at imgsz 160, batch
      4: its mask and box mAP50-95 must meet ``floor.json``; the first
@@ -61,9 +61,31 @@ Phases, one timestamped line each (elapsed seconds):
      marks (copy, augment, forward, assigner, GT rays, loss, backward,
      clip + optimizer + EMA); launch counts zeroed just before each, read
      just after.
-  8. report: a JSON line of the kernels (launches summed over the predict,
-     validate, train-step and trainer runs), the card's line, and last
-     ``{"ok": true, "device": {...}}``.
+  8. fuse: ``YOLO(floor checkpoint).fuse()`` on the card for seg160 and
+     floor_detect, each against the unfused model on the card (head maps
+     1e-3, the same detections) and validated on its floor set (each
+     metric within 0.01 of the unfused model's, and the floor); launch
+     counts zeroed just before the fused validation and read just after
+     (the seg160 one launches the even-odd fill).
+  9. detect predict: ``YOLO(runs/floor_detect/best.ckpt).predict`` at imgsz
+     96 batch 1 on the detect floor images and at 640 batch 8 on 480x640
+     frames (ms per image), and the card against the port on the CPU at 96
+     (head 1e-3, the same detections, boxes 0.05 px, scores 1e-4).
+  10. detect validate: (a) the detect floor set at 96 batch 4: box
+     mAP50-95 at least ``floor.json``'s and each metric within 0.01 of the
+     JAX validator's (stored with the set); (b) the validator at 640 batch
+     16 on 32 frames, split as in 5 (b) without the mask IoU.
+  11. detect train step: as 6 (a) at imgsz 96 and 6 (b) at 640 batch 16,
+     for yolov8n from the floor_detect checkpoint.
+  12. detect trainer: ``YOLO("yolov8n.yaml").train`` from scratch on the
+     detect floor set at its ``floor.json`` config (100 epochs at 96, batch
+     16), as 7 (a): the stripped ``best.ckpt`` must meet the detect floor.
+  13. compare: the fork's headline, printed and not gated: ms an image on
+     the card at 640, batch 1 and 8, of yolov8n-seg polar (contours, no
+     masks) and yolov8n detect, fused and unfused, and seg / detect.
+  14. report: a JSON line of the kernels (launches summed over the predict,
+     validate, train-step, trainer and fused validate runs), the card's
+     line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -87,18 +109,20 @@ import torch
 
 from yolo_contour_regression_tpu_torch import YOLO
 from yolo_contour_regression_tpu_torch.data.dataset import parse_label_lines
-from yolo_contour_regression_tpu_torch.engine.predictor import SegmentationPredictor
+from yolo_contour_regression_tpu_torch.engine.predictor import (DetectionPredictor,
+                                                                SegmentationPredictor)
 from yolo_contour_regression_tpu_torch.engine.results import Masks, contours_to_masks
 from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
 from yolo_contour_regression_tpu_torch.engine.validator import (
-    EVAL_KEYS, SegmentationValidator, grid_scale)
-from yolo_contour_regression_tpu_torch.nn.tasks import SegmentationModel
+    EVAL_KEYS, DetectionValidator, SegmentationValidator, grid_scale)
+from yolo_contour_regression_tpu_torch.nn.tasks import build_model
 from yolo_contour_regression_tpu_torch.ops import gt_rays, polar, raster
 from yolo_contour_regression_tpu_torch.ops.boxes import box_iou, scale_coords
 from yolo_contour_regression_tpu_torch.utils import cuda_build, optim
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     checkpoint_variables, load_checkpoint, load_jax_variables, save_checkpoint, to_jax_variables)
-from yolo_contour_regression_tpu_torch.utils.loss import polar_loss, polar_targets
+from yolo_contour_regression_tpu_torch.utils.loss import (detect_loss, detect_targets, polar_loss,
+                                                          polar_targets)
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "runs" / "floor_seg160" / "best.ckpt"
@@ -128,6 +152,13 @@ TRAIN_GRAD_TOL = 1e-3
 FLOOR_VAL = ROOT / "tests" / "data" / "torch_port_floor_seg160_val16.npz"
 FLOOR_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_seg160_train64.npz"
 FLOOR_JSON = ROOT / "runs" / "floor_seg160" / "floor.json"
+# the detect floor set (16 val and 64 train images at 96 px, decoded, with
+# their label lines and the JAX validator's metrics of the floor_detect
+# checkpoint; tests/test_torch_port_detect_val.py regenerates them)
+DETECT_CKPT = ROOT / "runs" / "floor_detect" / "best.ckpt"
+DETECT_FLOOR_JSON = ROOT / "runs" / "floor_detect" / "floor.json"
+FLOOR_DETECT_VAL = ROOT / "tests" / "data" / "torch_port_floor_detect_val16.npz"
+FLOOR_DETECT_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_detect_train64.npz"
 VAL_IMGSZ, VAL_B = 160, 4
 VAL640_N, VAL640_HW, VAL640_B = 32, (480, 640), 16
 VAL_CONF, VAL_IOU = 0.001, 0.7
@@ -138,6 +169,16 @@ METRIC_KEYS = tuple(f"metrics/{m}({t})" for t in "BM"
 # gate, or its suppressing IoU this close to ``iou``
 VAL_GATE_TOL, VAL_IOU_TOL = 1e-4, 1e-3
 VAL_SCORE_ATOL, VAL_BOX_IOU_ATOL, VAL_MASK_IOU_ATOL = 1e-4, 1e-3, 0.02
+
+# the detect slice: the floor_detect checkpoint's imgsz; fused against
+# unfused on the card (head maps, and each validation metric); the card's
+# validation against the JAX validator's stored metrics; predict scores,
+# card against CPU; the batches of the seg/detect comparison
+DETECT_IMGSZ = 96
+FUSE_HEAD_ATOL = 1e-3
+FUSE_METRIC_ATOL = DETECT_METRIC_ATOL = 0.01
+SCORE_ATOL = 1e-4
+COMPARE_BATCHES = (1, 8)
 
 KERNEL_SOURCES = ("raster", "gt_rays")
 # the trainer at imgsz 640, batch 16, cand_per_gt 128 with cand_balance:
@@ -927,11 +968,21 @@ def train_hyp(ckpt, **over):
     return hyp
 
 
-def seg160_model(ckpt, device):
-    model = SegmentationModel(ckpt["model_yaml"])
+def ckpt_model(ckpt, device):
+    """The checkpoint's model (its task's) with its weights, in train mode."""
+    model = build_model(ckpt["model_yaml"])
     model.names = dict(ckpt["names"])
     load_jax_variables(model, *checkpoint_variables(ckpt))
     return model.to(device).train()
+
+
+def loss_and_assign(model, feats, batch, hyp):
+    """The model's task loss on its head maps, and the assignment."""
+    if model.task == "detect":
+        tg = detect_targets(feats, batch, model.strides, model.nc, model.reg_max)
+        return detect_loss(tg, hyp).total, tg.assign
+    tg = polar_targets(feats, batch, model.strides, model.nc, hyp, cand=hyp.cand_per_gt)
+    return polar_loss(tg, hyp).total, tg.assign
 
 
 def to_device(images, batch, device):
@@ -939,31 +990,31 @@ def to_device(images, batch, device):
             {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
 
 
-def train_card_vs_cpu(ckpt, card: str):
-    """One loss, the assignment and every gradient of the seg160 model at
-    imgsz 160, batch 4, on the card and on the CPU (f32, TF32 off)."""
-    images, batch = shape_batch(4, 160, 8, seed=3)
+def train_card_vs_cpu(ckpt, card: str, imgsz: int = 160, phase: str = "train"):
+    """One loss, the assignment and every gradient of the checkpoint's
+    model at ``imgsz``, batch 4, on the card and on the CPU (f32, TF32
+    off)."""
+    images, batch = shape_batch(4, imgsz, 8, seed=3)
     hyp = train_hyp(ckpt)
     res = {}
     for dev in ("cpu", "cuda"):
-        model = seg160_model(ckpt, dev)
+        model = ckpt_model(ckpt, dev)
         x, b = to_device(images, batch, dev)
-        feats = model(x.permute(0, 3, 1, 2).contiguous())
-        tg = polar_targets(feats, b, model.strides, model.nc, hyp, cand=hyp.cand_per_gt)
-        out = polar_loss(tg, hyp)
-        out.total.backward()
-        res[dev] = (out.total.item(), tg.assign.fg_mask.cpu(), tg.assign.target_gt_idx.cpu(),
+        total, assign = loss_and_assign(model, model(x.permute(0, 3, 1, 2).contiguous()), b, hyp)
+        total.backward()
+        res[dev] = (total.item(), assign.fg_mask.cpu(), assign.target_gt_idx.cpu(),
                     {n: p.grad.cpu() for n, p in model.named_parameters()})
     (lc, fc, ic, gc), (lg, fg, ig, gg) = res["cpu"], res["cuda"]
     loss_rel = abs(lg - lc) / abs(lc)
     grad_rel = max(float((gg[n] - gc[n]).abs().max() / gc[n].abs().max().clamp_min(1e-30))
                    for n in gc)
-    same = torch.equal(fc, fg) and torch.equal(ic[fc], ig[fg])
+    same = torch.equal(fc, fg) and torch.equal(ic[fc], ig[fg]) and bool(fc.any())
     if not same or loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_TOL:
-        raise AssertionError(f"train card vs CPU: same assignment {same}, loss rel {loss_rel:.2e} "
-                             f"(limit {TRAIN_LOSS_RTOL}), grad {grad_rel:.2e} of the tensor max "
-                             f"(limit {TRAIN_GRAD_TOL})")
-    log("train", f"card vs CPU, seg160 at imgsz 160 batch 4: loss {lg:.6f} vs {lc:.6f} (rel "
+        raise AssertionError(f"{phase} card vs CPU: same assignment {same}, loss rel "
+                             f"{loss_rel:.2e} (limit {TRAIN_LOSS_RTOL}), grad {grad_rel:.2e} of the "
+                             f"tensor max (limit {TRAIN_GRAD_TOL})")
+    log(phase, f"card vs CPU, {ckpt['model_yaml']['head'][-1][2]} model of the checkpoint at "
+        f"imgsz {imgsz} batch 4: loss {lg:.6f} vs {lc:.6f} (rel "
         f"{loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); same assignment ({int(fc.sum())} fg anchors); "
         f"worst gradient {grad_rel:.2e} of its tensor's max (limit {TRAIN_GRAD_TOL}) | {card}")
 
@@ -1005,15 +1056,15 @@ class StageTimer:
         return out
 
 
-def train_full_width(ckpt, card: str):
-    """yolov8n-seg at full width from the seg160 checkpoint, imgsz 640,
-    batch 16, N_pad 8, AdamW from the checkpoint's train_args with no
+def train_full_width(ckpt, card: str, phase: str = "train"):
+    """The checkpoint's model (yolov8n-seg or yolov8n) at full width, imgsz
+    640, batch 16, N_pad 8, AdamW from the checkpoint's train_args with no
     warmup: 3 warm-up steps, then TRAIN_STEPS steps of ``make_train_step``
     on one repeated batch (counts zeroed just before, read just after), each
     timed on the host clock and split into its stages by the step's own
     marks (``StageTimer``)."""
     hyp = train_hyp(ckpt, optimizer="AdamW", warmup_epochs=0.0, batch=TRAIN_B)
-    model = seg160_model(ckpt, "cuda")
+    model = ckpt_model(ckpt, "cuda")
     opt = optim.build_optimizer(model, hyp, steps_per_epoch=1000, iterations=1000)
     state = init_train_state(model, opt, device="cuda")
     timer = StageTimer()
@@ -1034,10 +1085,11 @@ def train_full_width(ckpt, card: str):
         losses.append(metrics["loss"].item())
     counts = launch_counts()
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train at 640: losses {losses}")
-    if counts["gt_rays_rows"] == 0:
+        raise AssertionError(f"{phase} at 640: losses {losses}")
+    if model.task == "segment" and counts["gt_rays_rows"] == 0:
         raise AssertionError("the train path never launched the GT-ray kernel")
-    log("train", f"yolov8n-seg full width, imgsz {TRAIN_IMGSZ} batch {TRAIN_B} N_pad "
+    name = "yolov8n-seg" if model.task == "segment" else "yolov8n"
+    log(phase, f"{name} full width, imgsz {TRAIN_IMGSZ} batch {TRAIN_B} N_pad "
         f"{TRAIN_NPAD}, AdamW lr0 {hyp.lr0}: loss {losses[0]:.4f} at step 0, {losses[-1]:.4f} "
         f"at step {len(losses) - 1}, all finite; {int(batch['mask_gt'].sum())} GT instances; "
         f"launches {counts}; ms per step (host clock, median of {TRAIN_STEPS}) "
@@ -1045,7 +1097,7 @@ def train_full_width(ckpt, card: str):
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {card}")
     med = {k: statistics.median(s[k] for s in splits) for k in splits[0]}
     parts = ", ".join(f"{k} {v:.3f}" for k, v in med.items())
-    log("train", f"imgsz {TRAIN_IMGSZ} batch {TRAIN_B}, ms per step split by CUDA events at the "
+    log(phase, f"imgsz {TRAIN_IMGSZ} batch {TRAIN_B}, ms per step split by CUDA events at the "
         f"step's own stage marks (median of the same {TRAIN_STEPS} steps): {parts} | {card}")
     return state, counts, med, statistics.median(times)
 
@@ -1124,24 +1176,27 @@ def epoch_split(trainer) -> dict:
             "sum": {k: sum(t[k] for t in times) for k in keys}}
 
 
-def train_floor(card: str):
-    """``YOLO("yolov8n-seg.yaml", device="cuda").train`` from scratch on the
-    seg160 floor set (64 train and 16 val images, decoded) at the
-    ``floor.json`` config with the seg160 checkpoint's train_args (launch
-    counts zeroed just before, read just after): the final validation of
-    the stripped ``best.ckpt`` must meet the floor. Prints the eight
-    metrics, every 10th epoch's train loss beside the JAX run's
-    ``results.csv``, the wall time, the epoch and step splits and the peak
-    memory; then ``YOLO(best.ckpt).predict`` on the val images must find
-    detections."""
-    record = json.loads(FLOOR_JSON.read_text())
-    ckpt_args = load_checkpoint(CKPT)["train_args"]
-    over = {k: ckpt_args[k] for k in FLOOR_TRAIN_KEYS}
-    train, val = floor_train_set(), floor_val_set()
-    data = {"train": train, "val": val, "names": load_checkpoint(CKPT)["names"]}
+def train_floor(card: str, task: str = "segment"):
+    """``YOLO(yaml, device="cuda").train`` from scratch on the task's floor
+    set (64 train and 16 val images, decoded) at its ``floor.json`` config
+    with the floor checkpoint's train_args (launch counts zeroed just
+    before, read just after): the final validation of the stripped
+    ``best.ckpt`` must meet the floor. Segment: yolov8n-seg on the seg160
+    set, 120 epochs at 160; detect: yolov8n on the detect set, 100 epochs at
+    96. Prints the metrics, every 10th epoch's train loss beside the JAX
+    run's ``results.csv``, the wall time, the epoch and step splits and the
+    peak memory; then ``YOLO(best.ckpt).predict`` on the val images must
+    find detections."""
+    ckpt_path, floor_json, yaml, train_set, val_set = FLOOR_RUNS[task]
+    phase = "train_floor" if task == "segment" else "detect_trainer"
+    record = json.loads(floor_json.read_text())
+    ckpt = load_checkpoint(ckpt_path)
+    over = {k: ckpt["train_args"][k] for k in FLOOR_TRAIN_KEYS}
+    train, val = train_set(), val_set()
+    data = {"train": train, "val": val, "names": ckpt["names"]}
     timer = TrainTotals(skip=len(train[0]) // over["batch"])
     with tempfile.TemporaryDirectory() as d:
-        model = YOLO("yolov8n-seg.yaml", device="cuda")
+        model = YOLO(yaml, device="cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_launch_counts()
@@ -1155,44 +1210,44 @@ def train_floor(card: str):
             rows = list(csv.DictReader(fh))
         best = YOLO(trainer.wdir / "best.ckpt", device="cuda")
         pred = best.predict(val[0], imgsz=over["imgsz"])
-    metrics = ", ".join(f"{k.split('/')[1]} {res[k]:.4f}" for k in METRIC_KEYS)
+    metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in res.items() if k != "fitness")
     n_ep = len(trainer.epoch_times)
     split = epoch_split(trainer)
     steps = timer.seen
-    log("train_floor", f"yolov8n-seg from scratch on the seg160 floor set ({len(train[0])} train, "
+    floors = ", ".join(f"{n} {v}" for n, v in record["floor"].items())
+    log(phase, f"{yaml} from scratch on the {task} floor set ({len(train[0])} train, "
         f"{len(val[0])} val images), {over}: {n_ep} epochs, {steps} steps in {wall:.2f}s wall "
         f"({wall / n_ep:.3f}s an epoch); final eval of the stripped best.ckpt: {metrics}; floor "
-        f"mask {record['floor']['mask_mAP50-95']} box {record['floor']['box_mAP50-95']}; "
-        f"launches {counts}; peak memory {peak / 2**30:.3f} GiB | {card}")
-    with open(CKPT.parent / "results.csv") as fh:
+        f"{floors}; launches {counts}; peak memory {peak / 2**30:.3f} GiB | {card}")
+    with open(ckpt_path.parent / "results.csv") as fh:
         jax_rows = list(csv.DictReader(fh))
     pairs = [f"{e}: {float(rows[e]['train/loss']):.3f} vs {float(jax_rows[e]['train/loss']):.3f}"
              for e in range(9, min(len(rows), len(jax_rows)), 10)]
-    log("train_floor", f"train loss every 10th epoch, this run vs the JAX run's results.csv "
+    log(phase, f"train loss every 10th epoch, this run vs the JAX run's results.csv "
         f"(host augmentation, bf16 on a TPU; a yardstick, not a gate): {'; '.join(pairs)} | "
         f"{card}")
     med, tot = split["median"], split["sum"]
     per_step = timer.per_step()
-    log("train_floor", "host clock, s an epoch (median of the epochs): "
+    log(phase, "host clock, s an epoch (median of the epochs): "
         + ", ".join(f"{k} {v:.4f}" for k, v in med.items()) + "; summed over the run: "
         + ", ".join(f"{k} {v:.2f}" for k, v in tot.items())
         + f"; ms per step by the host clock {1e3 * tot['train_s'] / max(steps, 1):.3f} | {card}")
-    log("train_floor", f"device ms per step by CUDA events at the marks (mean of the "
+    log(phase, f"device ms per step by CUDA events at the marks (mean of the "
         f"{timer.steps} steps after the first epoch; copy includes waiting for the card to "
         f"take it): "
         + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items()) + f" | {card}")
     below = {k: (res[k], record["floor"][n]) for k, n in record["floor_keys"].items()
              if not res[k] >= record["floor"][n]}
     if below:
-        raise AssertionError(f"train_floor: the port-trained best.ckpt is below the seg160 floor: "
+        raise AssertionError(f"{phase}: the port-trained best.ckpt is below the {task} floor: "
                              f"{below}")
-    if counts["gt_rays_rows"] == 0 or counts["fill_polygons"] == 0:
+    if task == "segment" and (counts["gt_rays_rows"] == 0 or counts["fill_polygons"] == 0):
         raise AssertionError(f"train_floor: a kernel of the path never launched: {counts}")
     n_det = sum(len(r) for r in pred)
-    log("train_floor", f"YOLO(best.ckpt).predict on the {len(pred)} val images: {n_det} "
+    log(phase, f"YOLO(best.ckpt).predict on the {len(pred)} val images: {n_det} "
         f"detections | {card}")
     if n_det == 0:
-        raise AssertionError("train_floor: predict from the trained best.ckpt found nothing")
+        raise AssertionError(f"{phase}: predict from the trained best.ckpt found nothing")
     return counts
 
 
@@ -1245,8 +1300,8 @@ def train_640(card: str):
 
 
 def _decoded_set(path):
-    z = np.load(path)
-    return list(z["images"]), [parse_label_lines(str(t).splitlines()) for t in z["labels"]]
+    with np.load(path) as z:
+        return list(z["images"]), [parse_label_lines(str(t).splitlines()) for t in z["labels"]]
 
 
 def floor_val_set():
@@ -1259,6 +1314,34 @@ def floor_val_set():
 def floor_train_set():
     """The 64 train images of the same floor set, decoded the same way."""
     return _decoded_set(FLOOR_TRAIN)
+
+
+def floor_detect_val_set():
+    """The 16 val images of the detect floor set (``make_shape_dataset(
+    n_train=64, n_val=16, imgsz=96, seed=0)``, decoded by cv2) and their
+    labels, parsed from the committed label lines."""
+    return _decoded_set(FLOOR_DETECT_VAL)
+
+
+def floor_detect_train_set():
+    """The 64 train images of the detect floor set, decoded the same way."""
+    return _decoded_set(FLOOR_DETECT_TRAIN)
+
+
+def floor_detect_jax_metrics() -> dict:
+    """The JAX validator's metrics of ``runs/floor_detect/best.ckpt`` on the
+    detect floor set at imgsz 96, batch 4, stored with the set."""
+    with np.load(FLOOR_DETECT_VAL) as z:
+        return {str(k): float(v) for k, v in zip(z["jax_metric_names"], z["jax_metrics"])}
+
+
+# per task: the floor checkpoint, its floor.json, the model a trainer starts
+# from, and the floor set's train and val images
+FLOOR_RUNS = {
+    "segment": (CKPT, FLOOR_JSON, "yolov8n-seg.yaml", floor_train_set, floor_val_set),
+    "detect": (DETECT_CKPT, DETECT_FLOOR_JSON, "yolov8n.yaml", floor_detect_train_set,
+               floor_detect_val_set),
+}
 
 
 def eval_np(validator, model, batch: dict, device) -> dict:
@@ -1423,17 +1506,20 @@ def validate_floor(model, cpu, card: str):
     return res, counts
 
 
-def validate_full_width(model, card: str, passes: int = 3):
-    """(b) The validator at imgsz 640, batch 16, over ``VAL640_N`` 480x640
-    frames with exact labels (``shape_val_set``): one pass with the launch
-    counts zeroed just before and read just after and the peak device
-    memory, then ``passes`` timed passes, ms per image (median): host
+def validate_full_width(model, card: str, passes: int = 3, phase: str = "validate"):
+    """(b) The task's validator at imgsz 640, batch 16, over ``VAL640_N``
+    480x640 frames with exact labels (``shape_val_set``): one pass with the
+    launch counts zeroed just before and read just after and the peak
+    device memory, then ``passes`` timed passes, ms per image (median): host
     preprocess, then by CUDA events at the validator's marks forward + NMS,
-    scale + box IoU, and ``polygon_mask_iou`` (fills and product), then
-    host matching + metrics; and the device eval on the host clock."""
+    scale + box IoU, and for the segment task ``polygon_mask_iou`` (fills
+    and product), then host matching + metrics; and the device eval on the
+    host clock."""
     images, labels = shape_val_set(VAL640_N, *VAL640_HW, seed=6)
     timer = StageTimer()
-    v = SegmentationValidator(imgsz=640, batch=VAL640_B, conf=VAL_CONF, iou=VAL_IOU, mark=timer)
+    seg = model.task == "segment"
+    v = (SegmentationValidator if seg else DetectionValidator)(
+        imgsz=640, batch=VAL640_B, conf=VAL_CONF, iou=VAL_IOU, mark=timer)
     v(model.model, images, labels)  # warm-up
     timer.marks = []
     torch.cuda.synchronize()
@@ -1450,14 +1536,16 @@ def validate_full_width(model, card: str, passes: int = 3):
         splits.append({"preprocess": v.speed["preprocess"], **dev,
                        "matching": v.speed["matching"], "eval (host clock)": v.speed["eval"]})
     med = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
-    if counts["fill_polygons"] == 0:
+    if seg and counts["fill_polygons"] == 0:
         raise AssertionError("the validate path at 640 never launched the even-odd fill kernel")
-    metrics = ", ".join(f"{k.split('/')[1]} {res[k]:.4f}" for k in METRIC_KEYS)
-    log("validate", f"full width, {VAL640_N} images {VAL640_HW[0]}x{VAL640_HW[1]} at imgsz 640 "
-        f"batch {VAL640_B} (printed, not held: the model was trained at 160): {metrics}; "
+    metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in res.items() if k != "fitness")
+    log(phase, f"full width, {VAL640_N} images {VAL640_HW[0]}x{VAL640_HW[1]} at imgsz 640 "
+        f"batch {VAL640_B} (printed, not held: the model was trained at {model.imgsz}): {metrics}; "
         f"launches of one pass {counts}; peak device memory {peak / 2**30:.3f} GiB | {card}")
-    log("validate", f"imgsz 640 batch {VAL640_B}, ms per image (median of {passes} passes): "
+    log(phase, f"imgsz 640 batch {VAL640_B}, ms per image (median of {passes} passes): "
         f"{', '.join(f'{k} {x:.3f}' for k, x in med.items())} | {card}")
+    if not seg:
+        return res, counts, med, peak
     batch = next(iter(v.loader(images, labels)))
     g, gv, p, pv = (t.cuda() for t in grid_polygons(eval_np(v, model.model, batch, "cuda"), batch,
                                                     v.grid)[0])
@@ -1477,6 +1565,205 @@ def validate_full_width(model, card: str, passes: int = 3):
         f"10); device kernels by name (launches, µs summed, torch.profiler): "
         f"{by_name if by_name else kernels} | {card}")
     return res, counts, med, peak
+
+
+def predict_ms(model, images, imgsz: int, batch: int, masks: bool) -> dict:
+    """One predict call (and, with ``masks``, every result's masks); ms per
+    image of each stage on the host clock."""
+    t = time.perf_counter()
+    res = model.predict(images, imgsz=imgsz, batch=batch)
+    t_masks = time.perf_counter()
+    if masks:
+        for r in res:
+            r.masks  # noqa: B018 (rasterize)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    n = len(images)
+    stages = {k: statistics.fmean(r.speed[k] for r in res)
+              for k in ("preprocess", "inference", "postprocess")}
+    out = {"total": (end - t) * 1e3 / n, **stages}
+    if masks:
+        out["masks"] = (end - t_masks) * 1e3 / n
+    return out
+
+
+def predictor_of(model):
+    return (SegmentationPredictor if model.task == "segment" else DetectionPredictor)
+
+
+def card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str):
+    """The card's head maps and predict outputs against the port on the CPU,
+    from the same letterboxed inputs: head maps within ``HEAD_ATOL``, the
+    same detections, boxes within ``BOX_ATOL`` px, scores within
+    ``SCORE_ATOL``."""
+    pred = predictor_of(model)(imgsz=imgsz)
+    worst = dict.fromkeys(("head", "box", "score"), 0.0)
+    n_det = 0
+    for img in images:
+        x, _, _ = pred.preprocess_u8(img, imgsz)
+        xt = torch.from_numpy(x[None])
+        with torch.inference_mode():
+            xf = xt.float().div(255.0).permute(0, 3, 1, 2).contiguous()
+            for g, c in zip(model.model(xf.cuda()), cpu.model(xf)):
+                worst["head"] = max(worst["head"], float((g.cpu() - c).abs().max()))
+        out_gpu = {k: v.cpu() for k, v in pred.eval_batch(model.model, xt.cuda()).items()}
+        out_cpu = pred.eval_batch(cpu.model, xt)
+        if not (torch.equal(out_gpu["valid"], out_cpu["valid"])
+                and torch.equal(out_gpu["classes"], out_cpu["classes"])):
+            raise AssertionError(f"{phase}: card and CPU keep different detections")
+        worst["box"] = max(worst["box"], float((out_gpu["boxes"] - out_cpu["boxes"]).abs().max()))
+        worst["score"] = max(worst["score"],
+                             float((out_gpu["scores"] - out_cpu["scores"]).abs().max()))
+        n_det += int(out_cpu["valid"].sum())
+    limits = {"head": HEAD_ATOL, "box": BOX_ATOL, "score": SCORE_ATOL}
+    if any(worst[k] > limits[k] for k in limits) or n_det == 0:
+        raise AssertionError(f"{phase} card vs CPU: {worst} (limits {limits}), {n_det} detections")
+    log(phase, f"card vs CPU at imgsz {imgsz} on {len(images)} images: head max abs "
+        f"{worst['head']:.2e} (limit {HEAD_ATOL}), the same {n_det} detections, boxes max abs "
+        f"{worst['box']:.2e} px (limit {BOX_ATOL}), scores {worst['score']:.2e} (limit "
+        f"{SCORE_ATOL}) | {card}")
+
+
+def fuse_check(task: str, card: str) -> dict:
+    """``YOLO(floor checkpoint).fuse()`` on the card against the unfused
+    model on the card: head maps within ``FUSE_HEAD_ATOL`` and the same
+    detections (boxes within ``BOX_ATOL``) on the floor set's val images;
+    then both validated on the floor set (launch counts zeroed just before
+    the fused run, read just after): each metric of the fused model within
+    ``FUSE_METRIC_ATOL`` of the unfused one's, and the floor met. The
+    segment task's validation launches the even-odd fill kernel."""
+    ckpt_path, floor_json, _, _, val_set = FLOOR_RUNS[task]
+    record = json.loads(floor_json.read_text())
+    images, labels = val_set()
+    plain = YOLO(ckpt_path, device="cuda")
+    fused = YOLO(ckpt_path, device="cuda").fuse()
+    imgsz = plain.imgsz
+    pred = predictor_of(plain)(imgsz=imgsz)
+    worst_head = worst_box = 0.0
+    n_det = 0
+    for img in images[:8]:
+        x, _, _ = pred.preprocess_u8(img, imgsz)
+        xt = torch.from_numpy(x[None]).cuda()
+        with torch.inference_mode():
+            xf = xt.float().div(255.0).permute(0, 3, 1, 2).contiguous()
+            for g, c in zip(fused.model(xf), plain.model(xf)):
+                worst_head = max(worst_head, float((g - c).abs().max()))
+        og, oc = pred.eval_batch(fused.model, xt), pred.eval_batch(plain.model, xt)
+        if not (torch.equal(og["valid"], oc["valid"]) and torch.equal(og["classes"], oc["classes"])):
+            raise AssertionError(f"fuse {task}: fused and unfused keep different detections")
+        worst_box = max(worst_box, float((og["boxes"] - oc["boxes"]).abs().max()))
+        n_det += int(oc["valid"].sum())
+    want = plain.val(images, labels, imgsz=imgsz, batch=VAL_B, conf=VAL_CONF, iou=VAL_IOU)
+    zero_launch_counts()
+    got = fused.val(images, labels, imgsz=imgsz, batch=VAL_B, conf=VAL_CONF, iou=VAL_IOU)
+    counts = launch_counts()
+    gaps = {k: abs(got[k] - want[k]) for k in want}
+    below = {k: (got[k], record["floor"][n]) for k, n in record["floor_keys"].items()
+             if not got[k] >= record["floor"][n]}
+    metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in got.items() if k != "fitness")
+    log("fuse", f"{task} ({ckpt_path.parent.name}) fused on the card vs unfused on the card, "
+        f"{min(len(images), 8)} images at imgsz {imgsz}: head max abs {worst_head:.2e} (limit "
+        f"{FUSE_HEAD_ATOL}), the same {n_det} detections, boxes max abs {worst_box:.2e} px; "
+        f"{plain.model.num_params} -> {fused.model.num_params} parameters | {card}")
+    log("fuse", f"{task} fused, validated on the floor set at imgsz {imgsz} batch {VAL_B}: "
+        f"{metrics}; worst gap to the unfused model {max(gaps.values()):.2e} (limit "
+        f"{FUSE_METRIC_ATOL}); floor {record['floor']}; launches {counts} | {card}")
+    if worst_head > FUSE_HEAD_ATOL or worst_box > BOX_ATOL or n_det == 0:
+        raise AssertionError(f"fuse {task}: head {worst_head:.2e}, boxes {worst_box:.2e}, "
+                             f"{n_det} detections")
+    if max(gaps.values()) > FUSE_METRIC_ATOL or below:
+        raise AssertionError(f"fuse {task}: metric gaps {gaps}, below the floor {below}")
+    if task == "segment" and counts["fill_polygons"] == 0:
+        raise AssertionError("the fused validate path never launched the even-odd fill kernel")
+    return counts
+
+
+def detect_predict(card: str):
+    """``YOLO(runs/floor_detect/best.ckpt).predict`` on the detect floor
+    set's val images at imgsz 96 (batch 1) and on 480x640 frames at 640
+    (batch 8), launch counts zeroed just before and read just after (the
+    detect path has no kernel of its own); ms per image; then the card
+    against the port on the CPU at 96."""
+    model = YOLO(DETECT_CKPT, device="cuda")
+    imgs96 = floor_detect_val_set()[0]
+    imgs640 = shape_images(8, *RASTER_HW, seed=2)
+    zero_launch_counts()
+    n96 = sum(len(r) for r in model.predict(imgs96, imgsz=DETECT_IMGSZ))
+    n640 = sum(len(r) for r in model.predict(imgs640, imgsz=640, batch=8))
+    lat = {}
+    for imgsz, images, batch in ((DETECT_IMGSZ, imgs96[:1], 1), (640, imgs640, 8)):
+        predict_ms(model, images, imgsz, batch, masks=False)  # warm-up
+        runs = [predict_ms(model, images, imgsz, batch, masks=False) for _ in range(10)]
+        lat[imgsz] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    counts = launch_counts()
+    if n96 == 0:
+        raise AssertionError("detect predict at 96 found nothing on the floor images")
+    log("detect_predict", f"imgsz {DETECT_IMGSZ}: {n96} detections on {len(imgs96)} floor images; "
+        f"imgsz 640 batch 8: {n640} detections on {len(imgs640)} frames (a model trained at 96); "
+        f"launches {counts} | {card}")
+    for imgsz, batch in ((DETECT_IMGSZ, 1), (640, 8)):
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in lat[imgsz].items())
+        log("detect_predict", f"imgsz {imgsz} batch {batch}, ms per image (host clock, median of "
+            f"10 calls): {parts} | {card}")
+    card_vs_cpu_predict(model, YOLO(DETECT_CKPT, device="cpu"), imgs96[:8], DETECT_IMGSZ,
+                        "detect_predict", card)
+    return model
+
+
+def detect_validate_floor(model, card: str):
+    """``YOLO(runs/floor_detect/best.ckpt).val`` on the card over the detect
+    floor set at imgsz 96, batch 4: box mAP50-95 at least ``floor.json``'s,
+    and each metric within ``DETECT_METRIC_ATOL`` of the JAX validator's
+    (stored with the set)."""
+    images, labels = floor_detect_val_set()
+    record = json.loads(DETECT_FLOOR_JSON.read_text())
+    want = floor_detect_jax_metrics()
+    zero_launch_counts()
+    res = model.val(images, labels, imgsz=DETECT_IMGSZ, batch=VAL_B, conf=VAL_CONF, iou=VAL_IOU)
+    counts = launch_counts()
+    gaps = {k: abs(res[k] - want[k]) for k in want}
+    metrics = ", ".join(f"{k.split('/')[-1]} {x:.4f} (JAX {want[k]:.4f})" for k, x in res.items())
+    log("detect_validate", f"floor set, {len(images)} images at imgsz {DETECT_IMGSZ} batch {VAL_B} "
+        f"on the card: {metrics}; worst gap {max(gaps.values()):.2e} (limit "
+        f"{DETECT_METRIC_ATOL}); floor {record['floor']}; ms per image (host clock) "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in model.validator.speed.items())}; launches "
+        f"{counts} | {card}")
+    below = {k: (res[k], record["floor"][n]) for k, n in record["floor_keys"].items()
+             if not res[k] >= record["floor"][n]}
+    if below or max(gaps.values()) > DETECT_METRIC_ATOL:
+        raise AssertionError(f"detect validate on the card: gaps {gaps}, below the floor {below}")
+    return res
+
+
+def paper_comparison(card: str) -> dict:
+    """The fork's headline, printed and not gated: ms an image on the card
+    at imgsz 640, batch 1 and batch 8, of yolov8n-seg polar (boxes, scores
+    and contours, no masks) and yolov8n detect, each unfused and fused:
+    the predictor's device evaluation (the conv graph, the decode and NMS,
+    and the polar contours of the survivors) from letterboxed uint8 frames
+    on the card, CUDA events, median of 20; TF32 off as in the whole run;
+    and the ratio seg / detect."""
+    frames = shape_images(8, *RASTER_HW, seed=9)
+    out = {}
+    for name, path in (("seg", CKPT), ("detect", DETECT_CKPT)):
+        for fused in (False, True):
+            m = YOLO(path, device="cuda")
+            if fused:
+                m.fuse()
+            pred = predictor_of(m)(imgsz=640)
+            x = torch.from_numpy(np.stack([pred.preprocess_u8(f, 640)[0] for f in frames])).cuda()
+            for b in COMPARE_BATCHES:
+                xb = x[:b]
+                out[(name, fused, b)] = time_ms(lambda: pred.eval_batch(m.model, xb), reps=20) / b
+    rows = []
+    for fused in (False, True):
+        for b in COMPARE_BATCHES:
+            seg, det = out[("seg", fused, b)], out[("detect", fused, b)]
+            rows.append(f"{'fused' if fused else 'unfused'} batch {b}: seg {seg:.3f}, detect "
+                        f"{det:.3f}, seg/detect {seg / det:.3f}")
+    log("compare", "imgsz 640, ms an image on the card (forward + decode + NMS, polar contours "
+        "of the survivors, no masks; CUDA events, median of 20): " + "; ".join(rows) + f" | {card}")
+    return out
 
 
 def main() -> int:
@@ -1555,24 +1842,10 @@ def main() -> int:
     n_det640 = sum(len(r) for r in res640)
     n_px640 = sum(int(r.masks.data.sum()) for r in res640)
 
-    def run(images, imgsz, batch):
-        """One predict call plus every mask; per-image ms of each stage."""
-        t = time.perf_counter()
-        res = model.predict(images, imgsz=imgsz, batch=batch)
-        t_masks = time.perf_counter()
-        for r in res:
-            r.masks  # noqa: B018 (rasterize)
-        torch.cuda.synchronize()
-        end = time.perf_counter()
-        n = len(images)
-        stages = {k: statistics.fmean(r.speed[k] for r in res)
-                  for k in ("preprocess", "inference", "postprocess")}
-        return {"total": (end - t) * 1e3 / n, "masks": (end - t_masks) * 1e3 / n, **stages}
-
     lat = {}
     for imgsz, images, batch in ((160, imgs160[:1], 1), (640, imgs640, 8)):
-        run(images, imgsz, batch)  # warm-up
-        runs = [run(images, imgsz, batch) for _ in range(10)]
+        predict_ms(model, images, imgsz, batch, masks=True)  # warm-up
+        runs = [predict_ms(model, images, imgsz, batch, masks=True) for _ in range(10)]
         lat[imgsz] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     predict_counts = launch_counts()
     if predict_counts["fill_polygons_cv2"] == 0:
@@ -1591,28 +1864,7 @@ def main() -> int:
 
     # the card against the port on the CPU, from the same letterboxed input
     cpu = YOLO(CKPT, device="cpu")
-    pred = SegmentationPredictor(imgsz=160)
-    worst_head, worst_box = 0.0, 0.0
-    for img in imgs160:
-        x, gain, pad = pred.preprocess_u8(img, 160)
-        xt = torch.from_numpy(x[None])
-        with torch.inference_mode():
-            xf = xt.float().div(255.0).permute(0, 3, 1, 2).contiguous()
-            head_gpu = model.model(xf.cuda())
-            head_cpu = cpu.model(xf)
-        for g, c in zip(head_gpu, head_cpu):
-            worst_head = max(worst_head, float((g.cpu() - c).abs().max()))
-        out_gpu = pred.eval_batch(model.model, xt.cuda())
-        out_cpu = pred.eval_batch(cpu.model, xt)
-        vg, vc = out_gpu["valid"].cpu(), out_cpu["valid"]
-        if not torch.equal(vg, vc) or not torch.equal(out_gpu["classes"].cpu(), out_cpu["classes"]):
-            raise AssertionError("card and CPU keep different detections")
-        worst_box = max(worst_box, float((out_gpu["boxes"].cpu() - out_cpu["boxes"]).abs().max()))
-    if worst_head > HEAD_ATOL or worst_box > BOX_ATOL:
-        raise AssertionError(f"card vs CPU: head {worst_head:.2e} (limit {HEAD_ATOL}), "
-                             f"boxes {worst_box:.2e} px (limit {BOX_ATOL})")
-    log("predict", f"card vs CPU at imgsz 160: head max abs {worst_head:.2e} (limit {HEAD_ATOL}), "
-        f"same detections, boxes max abs {worst_box:.2e} px (limit {BOX_ATOL}) | {card}")
+    card_vs_cpu_predict(model, cpu, imgs160, 160, "predict", card)
 
     # 5. the main path: validate on the card
     phase_start["validate"] = time.perf_counter()
@@ -1633,10 +1885,32 @@ def main() -> int:
     t640_counts = train_640(card)
     trainer_counts = {k: floor_counts[k] + t640_counts[k] for k in KERNEL_WRAPPERS}
 
-    # 8. report: launches summed over the main paths' runs
+    # 8. the deploy form: both floor checkpoints fused on the card
+    phase_start["fuse"] = time.perf_counter()
+    fuse_runs = [fuse_check(task, card) for task in ("segment", "detect")]
+    fuse_counts = {k: sum(c[k] for c in fuse_runs) for k in KERNEL_WRAPPERS}
+
+    # 9-12. the detect task: predict, validate, the train step, the trainer
+    phase_start["detect_predict"] = time.perf_counter()
+    detect = detect_predict(card)
+    phase_start["detect_validate"] = time.perf_counter()
+    detect_validate_floor(detect, card)
+    validate_full_width(detect, card, phase="detect_validate")
+    phase_start["detect_train"] = time.perf_counter()
+    detect_ckpt = load_checkpoint(DETECT_CKPT)
+    train_card_vs_cpu(detect_ckpt, card, imgsz=DETECT_IMGSZ, phase="detect_train")
+    train_full_width(detect_ckpt, card, phase="detect_train")
+    phase_start["detect_trainer"] = time.perf_counter()
+    train_floor(card, "detect")
+
+    # 13. the fork's headline comparison, seg against detect, at 640
+    phase_start["compare"] = time.perf_counter()
+    paper_comparison(card)
+
+    # 14. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k] + trainer_counts[k]
-                for k in KERNEL_WRAPPERS}
+                + fuse_counts[k] for k in KERNEL_WRAPPERS}
     at_480 = fill_rows["fill_polygons_480x640"]
     src = "yolo_contour_regression_tpu_torch/csrc/"
     kernels = [
@@ -1662,7 +1936,8 @@ def main() -> int:
     ]
     log("report", f"launches on the main paths: predict {predict_counts}, validate "
         f"{validate_counts} (floor set at 160 and one pass at 640), train step {train_counts}, "
-        f"trainer {trainer_counts} (the floor run and 640); "
+        f"trainer {trainer_counts} (the floor run and 640), fused validate {fuse_counts} (the "
+        f"seg160 and detect floor sets; the detect path has no kernel of its own); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, and at 480x640 (the *_480x640 keys); fill_polygons_cv2 (the "
         "predict path's masks): ms a launch at N=300 480x640; gt_rays_rows: ms, plain_ms and "

@@ -6,7 +6,9 @@ on the committed seg160 checkpoint, the CPU validator runs on two images
 of the floor set with it, one CPU train step runs on it, and
 ``YOLO("yolov8n-seg.yaml").train`` runs one epoch on the CPU on four of the
 floor set's train images at imgsz 64 (amp, the augmentation, the loader's
-threads, checkpoints)."""
+threads, checkpoints); then the detect task: the floor_detect checkpoint
+predicts and validates, fused and unfused, and ``YOLO("yolov8n.yaml")
+.train`` runs one epoch on four of the detect floor set's images."""
 import subprocess
 import sys
 from pathlib import Path
@@ -68,11 +70,27 @@ with tempfile.TemporaryDirectory() as d:
                 epochs=1, imgsz=64, batch=2, nbs=2, workers=1, val=False, project=d)
     trained = fresh.trainer.state.step
     assert trained == 2 and fresh.ckpt_path.name == "best.ckpt", (trained, fresh.ckpt_path)
+det = pkg.YOLO("runs/floor_detect/best.ckpt", device="cpu")
+det_images, det_labels = chip_smoke.floor_detect_val_set()
+n_det = sum(len(r) for r in det.predict(det_images[:4]))
+det_val = det.val(det_images[:4], det_labels[:4], imgsz=96, batch=2)
+fused_val = det.fuse().val(det_images[:4], det_labels[:4], imgsz=96, batch=2)
+assert n_det > 0 and det.model.fused, n_det
+assert abs(det_val["metrics/mAP50-95(B)"] - fused_val["metrics/mAP50-95(B)"]) < 0.01
+assert sum(len(r) for r in pkg.YOLO("runs/floor_seg160/best.ckpt", device="cpu").fuse().predict(
+    chip_smoke.shape_images(1, 120, 200, seed=0), imgsz=160)) > 0
+det_train = chip_smoke.floor_detect_train_set()
+with tempfile.TemporaryDirectory() as d:
+    fresh = pkg.YOLO("yolov8n.yaml", device="cpu")
+    fresh.train(data={"train": (det_train[0][:4], det_train[1][:4]), "val": ([], []),
+                      "names": {0: "circle", 1: "rect"}},
+                epochs=1, imgsz=64, batch=2, nbs=2, workers=1, val=False, project=d)
+    assert fresh.task == "detect" and fresh.trainer.state.step == 2
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;",
       "val mask mAP50-95", val["metrics/mAP50-95(M)"], ";", "train step loss",
-      float(metrics["loss"]), ";", "YOLO.train steps", trained)
+      float(metrics["loss"]), ";", "YOLO.train steps", trained, "; detect", n_det, "detections")
 """
 
 
@@ -84,5 +102,6 @@ def test_port_imports_and_predicts_without_jax_cv2_yaml_triton():
     assert res.returncode == 0, res.stdout + res.stderr
     assert "detections" in res.stdout and "train step loss" in res.stdout
     assert "val mask mAP50-95" in res.stdout and "YOLO.train steps 2" in res.stdout
+    assert "; detect" in res.stdout
     n_mods = int(res.stdout.split("imported ")[1].split()[0])
     assert n_mods >= 20  # ops, nn, utils, engine, data modules of the port

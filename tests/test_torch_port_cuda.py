@@ -398,3 +398,39 @@ def test_yolo_train_defaults_to_the_card_and_launches_the_kernels(cuda, tmp_path
     # two fills an image: 4 images in each epoch's validation and the final one
     assert raster.fill_polygons.launches == fills + 2 * 4 * 3
     assert 0.0 <= res["metrics/mAP50-95(M)"] <= 1.0
+
+
+@pytest.fixture
+def full_f32():
+    """TF32 off for convolutions and matmuls, as ``chip_smoke.py`` runs, so
+    the card computes in float32 like the CPU it is held to."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_detect_predict_card_equals_cpu(cuda, full_f32):
+    """``YOLO(runs/floor_detect/best.ckpt)`` defaults to the card; its head
+    maps and predict outputs equal the CPU port's on the floor images:
+    heads within 1e-3, the same detections, boxes within 0.05 px, scores
+    within 1e-4 (``chip_smoke.card_vs_cpu_predict``)."""
+    from chip_smoke import DETECT_CKPT, card_vs_cpu_predict, floor_detect_val_set
+    from yolo_contour_regression_tpu_torch import YOLO
+
+    model = YOLO(DETECT_CKPT)
+    assert model.task == "detect" and all(p.is_cuda for p in model.model.parameters())
+    card_vs_cpu_predict(model, YOLO(DETECT_CKPT, device="cpu"), floor_detect_val_set()[0][:8], 96,
+                        "test", "card")
+
+
+@pytest.mark.parametrize("task", ["segment", "detect"])
+def test_fused_equals_unfused_on_the_card(cuda, full_f32, task):
+    """``YOLO(floor checkpoint).fuse()`` on the card against the unfused
+    model there: heads within 1e-3, the same detections, each validation
+    metric within 0.01 and the floor met; the fused segment validation
+    launches the fill kernel (``chip_smoke.fuse_check``)."""
+    from chip_smoke import fuse_check
+
+    counts = fuse_check(task, "card")
+    assert (counts["fill_polygons"] > 0) == (task == "segment")

@@ -335,8 +335,9 @@ def test_strip_optimizer_matches_jax(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    """The host cv2 train pipeline, resume, other tasks and other models
-    raise ``NotImplementedError`` naming what is missing."""
+    """The host cv2 train pipeline, resume, another task's model and the
+    models of tasks not ported raise ``NotImplementedError`` naming what is
+    missing."""
     for over, match in ((dict(device_augment=False), "host cv2 train pipeline"),
                         (dict(mosaic9=0.5), "mosaic9"), (dict(copy_paste=0.1), "copy_paste"),
                         (dict(resume=True), "resume"), (dict(task="detect"), "task")):
@@ -344,7 +345,7 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
             ttrainer.SegmentationTrainer(overrides={**over, "project": str(tmp_path)},
                                          device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        YOLO("yolov8n.yaml", device="cpu")
+        YOLO("yolov8n-pose.yaml", device="cpu")
 
 
 def test_a_fresh_facade_has_no_weights_until_trained():

@@ -1,18 +1,23 @@
-"""The ``YOLO`` facade for polar segmentation (counterpart of the JAX
-package's ``engine/model.py``)::
+"""The ``YOLO`` facade of the segment and detect tasks (counterpart of the
+JAX package's ``engine/model.py``)::
 
-    model = YOLO("yolov8n-seg.yaml", device="cuda")     # a fresh model
+    model = YOLO("yolov8n-seg.yaml", device="cuda")     # a fresh polar model
     metrics = model.train(data={"train": (images, labels), "val": (images, labels),
                                 "names": {0: "circle", 1: "rect"}}, epochs=100, imgsz=640)
     model = YOLO("runs/floor_seg160/best.ckpt", device="cuda")
     results = model.predict([img_bgr_u8, ...], imgsz=160)
     metrics = model.val([img_bgr_u8, ...], ["a.txt", ...], imgsz=160, batch=4)
+    model = YOLO("runs/floor_detect/best.ckpt").fuse()  # detect, deploy form
 
 A name ending in ``.yaml`` names a fresh model (``nn/tasks.py``:
-``yaml_model_load``) that has no weights until ``train`` builds and
+``yaml_model_load``; ``yolov8n-seg.yaml`` is the polar segment task,
+``yolov8n.yaml`` detect) that has no weights until ``train`` builds and
 initializes it from ``seed`` and adopts its ``best.ckpt``; anything else is
-a checkpoint of the JAX package's polar ``segment`` task, in its training
-(unfused) form, or one the port's trainer wrote.
+a checkpoint of the JAX package's ``segment`` or ``detect`` task, in its
+training form or fused (``deploy == "fused"``, as the JAX ``YOLO.save``
+writes it after ``fuse()``), or one the port's trainer wrote. The task
+comes from the checkpoint's ``train_args`` or, failing that, the config's
+head; ``predict``, ``val`` and ``train`` take the task's classes.
 """
 from __future__ import annotations
 
@@ -21,11 +26,26 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
-from ..nn.tasks import SegmentationModel, yaml_model_load
+from ..nn.fuse import fuse_model
+from ..nn.tasks import TASK_MODELS, TaskModel, build_model, guess_model_task, yaml_model_load
 from ..utils.checkpoint import checkpoint_variables, load_checkpoint, load_jax_variables
-from .predictor import SegmentationPredictor
-from .trainer import SegmentationTrainer
-from .validator import SegmentationValidator
+from .predictor import DetectionPredictor, SegmentationPredictor
+from .trainer import DetectionTrainer, SegmentationTrainer
+from .validator import DetectionValidator, SegmentationValidator
+
+# each task's predictor, validator and trainer (the JAX ``TASK_MAP``, for the ported tasks)
+TASK_MAP = {
+    "segment": {"predictor": SegmentationPredictor, "validator": SegmentationValidator,
+                "trainer": SegmentationTrainer},
+    "detect": {"predictor": DetectionPredictor, "validator": DetectionValidator,
+               "trainer": DetectionTrainer},
+}
+
+
+def _check_task(task: str) -> str:
+    if task not in TASK_MAP:
+        raise NotImplementedError(f"task={task!r} is not ported; only {sorted(TASK_MAP)}")
+    return task
 
 
 class YOLO:
@@ -40,21 +60,25 @@ class YOLO:
             self._load(model)
 
     def _new(self, name: str):
-        yaml_model_load(name)  # raises for a model that is not ported
-        self.model: Optional[SegmentationModel] = None  # the trainer builds it
+        self.task = _check_task(guess_model_task(yaml_model_load(name)))
+        self.model: Optional[TaskModel] = None  # the trainer builds it
         self.imgsz = 640
-        self.overrides = {"model": name, "task": "segment"}
+        self.overrides = {"model": name, "task": self.task}
 
     def _load(self, path):
         ckpt = load_checkpoint(path)
-        if ckpt.get("deploy"):
-            raise NotImplementedError(f"deploy={ckpt['deploy']!r} checkpoints are not ported")
+        deploy = ckpt.get("deploy")
+        if deploy not in (None, "fused"):
+            raise NotImplementedError(f"deploy={deploy!r} checkpoints are not ported")
         train_args = ckpt.get("train_args") or {}
-        task = train_args.get("task", "segment")
-        if task != "segment":
-            raise NotImplementedError(f"task={task!r} is not ported; only 'segment'")
-        self.model = SegmentationModel(ckpt["model_yaml"])
+        cfg = ckpt["model_yaml"]
+        self.task = _check_task(train_args.get("task") or guess_model_task(cfg))
+        self.model = build_model(cfg)
+        if not isinstance(self.model, TASK_MODELS[self.task]):
+            raise NotImplementedError(f"task={self.task!r} on a {type(self.model).__name__}")
         self.model.names = dict(ckpt.get("names") or self.model.names)
+        if deploy == "fused":  # a fused params tree, no batch_stats
+            fuse_model(self.model)
         load_jax_variables(self.model, *checkpoint_variables(ckpt))
         self.model.to(self.device).eval()
         # the JAX facade takes the training imgsz as the predict default
@@ -66,7 +90,7 @@ class YOLO:
     def names(self):
         return self._weights().names
 
-    def _weights(self) -> SegmentationModel:
+    def _weights(self) -> TaskModel:
         if self.model is None:
             raise RuntimeError(f"{self.overrides['model']} has no weights yet: train it, or "
                                f"load a checkpoint")
@@ -83,9 +107,9 @@ class YOLO:
         if self.ckpt_path is not None:
             raise NotImplementedError("training starts from a model config (YOLO('yolov8n-seg"
                                       ".yaml')); from a checkpoint's weights it is not ported")
-        self.trainer = SegmentationTrainer(overrides={**self.overrides, **overrides,
-                                                      "mode": "train"},
-                                           device=self.device, mark=mark)
+        trainer = TASK_MAP[self.task]["trainer"]
+        self.trainer = trainer(overrides={**self.overrides, **overrides, "mode": "train"},
+                               device=self.device, mark=mark)
         metrics = self.trainer.train(data)
         best, last = self.trainer.wdir / "best.ckpt", self.trainer.wdir / "last.ckpt"
         src = best if best.exists() else last
@@ -97,7 +121,7 @@ class YOLO:
                 max_det: int = 300, pre_nms: int = 1024, batch: int = 1):
         """Images (HWC uint8 BGR numpy, or a list) -> list of ``Results``,
         ``batch`` images per forward."""
-        predictor = SegmentationPredictor(
+        predictor = TASK_MAP[self.task]["predictor"](
             imgsz=imgsz or self.imgsz, conf=conf, iou=iou, max_det=max_det,
             pre_nms=pre_nms, batch=batch,
         )
@@ -105,13 +129,21 @@ class YOLO:
 
     def val(self, images, labels, imgsz=None, batch: int = 16, conf: float = 0.001,
             iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024, mask_ratio: int = 1):
-        """Box and mask mAP on decoded images (HWC uint8 BGR numpy) with their
-        labels (YOLO label-file paths, or the ``(cls, bboxes, segments)``
-        arrays ``data/dataset.py:parse_label_file`` gives), on the model's
-        device -> the JAX ``results_dict`` keys. The validator, with its
-        ``speed``, stays at ``self.validator``."""
-        self.validator = SegmentationValidator(
-            imgsz=imgsz or self.imgsz, batch=batch, conf=conf, iou=iou, max_det=max_det,
-            pre_nms=pre_nms, mask_ratio=mask_ratio,
-        )
+        """Box (and for the segment task mask) mAP on decoded images (HWC
+        uint8 BGR numpy) with their labels (YOLO label-file paths, or the
+        ``(cls, bboxes, segments)`` arrays ``data/dataset.py:parse_label_file``
+        gives), on the model's device -> the JAX ``results_dict`` keys. The
+        validator, with its ``speed``, stays at ``self.validator``."""
+        kw = dict(imgsz=imgsz or self.imgsz, batch=batch, conf=conf, iou=iou, max_det=max_det,
+                  pre_nms=pre_nms)
+        if self.task == "segment":
+            kw["mask_ratio"] = mask_ratio
+        self.validator = TASK_MAP[self.task]["validator"](**kw)
         return self.validator(self._weights(), images, labels, names=self.names)
+
+    def fuse(self) -> "YOLO":
+        """The deploy form, in place (``nn/fuse.py:fuse_model``): every Conv,
+        Conv2 and RepConv folded with its BatchNorm into one conv. A no-op
+        on a fused model; the model no longer trains."""
+        fuse_model(self._weights())
+        return self

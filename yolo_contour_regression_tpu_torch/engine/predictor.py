@@ -1,10 +1,13 @@
-"""Polar segmentation predictor (counterpart of ``SegmentationPredictor``
-in the JAX package's ``engine/predictor.py``).
+"""Predictors of the segment and detect tasks (counterparts of the JAX
+package's ``engine/predictor.py``).
 
 Per batch: host letterbox (uint8, BGR -> RGB) -> device uint8 -> [0, 1]
-float -> ``predict_parts(sigmoid=False)`` -> ``non_max_suppression_parts(
-scores_are_logits=True)`` -> ``finalize_polar_extras`` -> host postprocess
-(unpad/ungain and clip of boxes and contour points). Sources are HWC uint8
+float -> the task's device evaluation -> host postprocess (unpad/ungain and
+clip). Segment: ``predict_parts(sigmoid=False)`` ->
+``non_max_suppression_parts(scores_are_logits=True)`` ->
+``finalize_polar_extras``; boxes, contours and masks. Detect, as the JAX
+detect branch: ``decode_detect`` (sigmoid scores) -> ``xywh2xyxy`` -> NMS
+in float32 with scores as probabilities; boxes only. Sources are HWC uint8
 BGR numpy arrays or lists of them; decoding image files is not ported.
 """
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 
 from ..data.augment import bgr_to_rgb, letterbox
 from ..nn.modules.head import finalize_polar_extras
-from ..ops.nms import non_max_suppression_parts
+from ..ops.boxes import xywh2xyxy
+from ..ops.nms import non_max_suppression, non_max_suppression_parts
 from .results import Results
 
 
@@ -43,8 +47,11 @@ def _as_float(images: torch.Tensor) -> torch.Tensor:
     return images.float() / 255.0
 
 
-class SegmentationPredictor:
-    task = "segment"
+class BasePredictor:
+    """The batching, letterbox and timing the tasks share; a task gives
+    ``eval_batch`` and ``postprocess``."""
+
+    task = ""
 
     def __init__(self, imgsz: int = 640, conf: float = 0.25, iou: float = 0.7,
                  max_det: int = 300, pre_nms: int = 1024, batch: int = 1):
@@ -55,35 +62,6 @@ class SegmentationPredictor:
         """Letterbox to imgsz and flip BGR -> RGB, staying uint8."""
         lb, gain, pad = letterbox(img, (imgsz, imgsz))
         return bgr_to_rgb(lb), gain, pad
-
-    @torch.inference_mode()
-    def eval_batch(self, model, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """images (B, H, W, 3) uint8 on the model's device -> NMS
-        outputs with ``extras`` as [36 x | 36 y | 36 valid]."""
-        x = _as_float(images).permute(0, 3, 1, 2).contiguous()
-        boxes, logits, extras = model.predict_parts(x, sigmoid=False)
-        out = non_max_suppression_parts(boxes, logits, extras, scores_are_logits=True,
-                                        **self.nms_kw)
-        out["extras"] = finalize_polar_extras(out["extras"])
-        return out
-
-    def postprocess(self, out: Dict[str, np.ndarray], bi: int, orig, path, gain, pad, names,
-                    device) -> Results:
-        keep = out["valid"][bi]
-        boxes = out["boxes"][bi][keep]
-        ex = out["extras"][bi][keep]  # (n, 108)
-        h, w = orig.shape[:2]
-        boxes = (boxes - np.array([pad[0], pad[1], pad[0], pad[1]])) / gain
-        boxes = np.clip(boxes, 0, [w, h, w, h])
-        pts = np.stack([ex[:, :36], ex[:, 36:72]], -1)
-        pts = (pts - np.array(pad)) / gain
-        pts[..., 0] = pts[..., 0].clip(0, w)
-        pts[..., 1] = pts[..., 1].clip(0, h)
-        valid_rays = ex[:, 72:108] > 0.5
-        data = np.concatenate(
-            [boxes, out["scores"][bi][keep][:, None], out["classes"][bi][keep][:, None]], -1
-        )
-        return Results(orig, path, names, boxes=data, contours=(pts, valid_rays), device=device)
 
     def __call__(self, model, source, names=None) -> List[Results]:
         device = next(model.parameters()).device
@@ -109,3 +87,63 @@ class SegmentationPredictor:
                 }
                 results.append(res)
         return results
+
+
+def detect_xyxy(pred: torch.Tensor) -> torch.Tensor:
+    """``decode_detect``'s (B, 4 + nc, A) with its xywh boxes made xyxy, the
+    layout ``non_max_suppression`` takes."""
+    return torch.cat([xywh2xyxy(pred[:, :4].transpose(1, 2)).transpose(1, 2), pred[:, 4:]], 1)
+
+
+def _image_boxes(out: Dict[str, np.ndarray], bi: int, orig, gain, pad) -> np.ndarray:
+    """Image ``bi``'s kept detections as [x1, y1, x2, y2, conf, cls] rows,
+    boxes unpadded, ungained and clipped to the image."""
+    keep = out["valid"][bi]
+    h, w = orig.shape[:2]
+    boxes = (out["boxes"][bi][keep] - np.array([pad[0], pad[1], pad[0], pad[1]])) / gain
+    boxes = np.clip(boxes, 0, [w, h, w, h])
+    return np.concatenate(
+        [boxes, out["scores"][bi][keep][:, None], out["classes"][bi][keep][:, None]], -1)
+
+
+class SegmentationPredictor(BasePredictor):
+    task = "segment"
+
+    @torch.inference_mode()
+    def eval_batch(self, model, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images (B, H, W, 3) uint8 on the model's device -> NMS
+        outputs with ``extras`` as [36 x | 36 y | 36 valid]."""
+        x = _as_float(images).permute(0, 3, 1, 2).contiguous()
+        boxes, logits, extras = model.predict_parts(x, sigmoid=False)
+        out = non_max_suppression_parts(boxes, logits, extras, scores_are_logits=True,
+                                        **self.nms_kw)
+        out["extras"] = finalize_polar_extras(out["extras"])
+        return out
+
+    def postprocess(self, out: Dict[str, np.ndarray], bi: int, orig, path, gain, pad, names,
+                    device) -> Results:
+        ex = out["extras"][bi][out["valid"][bi]]  # (n, 108)
+        h, w = orig.shape[:2]
+        pts = np.stack([ex[:, :36], ex[:, 36:72]], -1)
+        pts = (pts - np.array(pad)) / gain
+        pts[..., 0] = pts[..., 0].clip(0, w)
+        pts[..., 1] = pts[..., 1].clip(0, h)
+        valid_rays = ex[:, 72:108] > 0.5
+        return Results(orig, path, names, boxes=_image_boxes(out, bi, orig, gain, pad),
+                       contours=(pts, valid_rays), device=device)
+
+
+class DetectionPredictor(BasePredictor):
+    task = "detect"
+
+    @torch.inference_mode()
+    def eval_batch(self, model, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images (B, H, W, 3) uint8 on the model's device -> NMS outputs
+        (boxes in letterbox pixels, xyxy)."""
+        pred = detect_xyxy(model.predict(_as_float(images).permute(0, 3, 1, 2).contiguous()))
+        return non_max_suppression(pred.float(), nc=model.nc, **self.nms_kw)
+
+    def postprocess(self, out: Dict[str, np.ndarray], bi: int, orig, path, gain, pad, names,
+                    device) -> Results:
+        return Results(orig, path, names, boxes=_image_boxes(out, bi, orig, gain, pad),
+                       device=device)

@@ -1,5 +1,6 @@
 """Inference result containers (counterpart of the JAX package's
-``engine/results.py``), numpy-backed.
+``engine/results.py``), numpy-backed. A detect result carries boxes only
+(``contours`` and ``masks`` are None).
 
 ``Results.masks`` is lazy: the first read rasterizes the polar contours at
 the original image size through ``ops.raster.fill_polygons_cv2`` on the

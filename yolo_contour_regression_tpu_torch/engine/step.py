@@ -1,6 +1,8 @@
 """The training step (counterpart of the JAX package's ``engine/step.py``):
 the augmentation on the device, forward in train mode, polar loss,
-backward, gradient clip, optimizer step and EMA, for the segment task.
+backward, gradient clip, optimizer step and EMA, for the segment and
+detect tasks (the loss by the model's ``task``: the polar loss, or the
+stock detect loss).
 
 The public boundary keeps the JAX layouts: images (B, H, W, 3) f32 in
 [0, 1]; batch ``cls`` (B, N), ``bboxes`` (B, N, 4) normalized xywh,
@@ -19,7 +21,7 @@ micro-batch gradients are summed, as the reference's repeated
 counterpart of the JAX model built with ``dtype=bfloat16`` (the trainer's
 ``amp``): parameters, gradients and BatchNorm statistics stay float32, and
 the assigner and loss run in float32 on the head maps cast back, where the
-JAX loss casts them (``utils/loss.py:polar_targets``).
+JAX loss casts them (``utils/loss.py:polar_targets``, ``detect_targets``).
 
 ``init_train_state(..., device="cuda")`` moves the model to the device and
 keeps the EMA there; the step moves its inputs to the state's device.
@@ -44,7 +46,7 @@ import torch
 from torch import nn
 
 from ..utils import optim as optim_mod
-from ..utils.loss import polar_loss, polar_targets
+from ..utils.loss import detect_loss, detect_targets, polar_loss, polar_targets
 
 Mark = Optional[Callable[[str], None]]
 
@@ -74,11 +76,15 @@ def init_train_state(model: nn.Module, optimizer: optim_mod.Optimizer,
 
 def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool = False
                  ) -> Callable:
-    """(images (B, H, W, 3), batch) -> (total, items) for the segment task;
-    the model runs as it is (train mode updates its BatchNorm statistics),
-    under bfloat16 autocast with ``amp``."""
-    if getattr(model, "task", "segment") != "segment":
-        raise NotImplementedError(f"task {model.task!r} is not ported; only 'segment'")
+    """(images (B, H, W, 3), batch) -> (total, items) for the model's task
+    (segment or detect); the model runs as it is (train mode updates its
+    BatchNorm statistics), under bfloat16 autocast with ``amp``. A fused
+    (deploy) model does not train."""
+    task = getattr(model, "task", "segment")
+    if task not in ("segment", "detect"):
+        raise NotImplementedError(f"task {task!r} is not ported; only 'segment' and 'detect'")
+    if getattr(model, "fused", False):
+        raise ValueError("a fused (deploy) model is inference-only")
     mark = mark or _no_mark
 
     def loss_fn(images, batch):
@@ -86,9 +92,15 @@ def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool =
         with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=amp):
             feats = model(images.permute(0, 3, 1, 2).contiguous())
         mark("assigner")
-        targets = polar_targets(feats, batch, model.strides, model.nc, hyp, cand=cand, mark=mark)
-        mark("loss")
-        res = polar_loss(targets, hyp)
+        if task == "detect":
+            targets = detect_targets(feats, batch, model.strides, model.nc, model.reg_max)
+            mark("loss")
+            res = detect_loss(targets, hyp)
+        else:
+            targets = polar_targets(feats, batch, model.strides, model.nc, hyp, cand=cand,
+                                    mark=mark)
+            mark("loss")
+            res = polar_loss(targets, hyp)
         return res.total, res.items
 
     return loss_fn

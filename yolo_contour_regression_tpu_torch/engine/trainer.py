@@ -1,9 +1,12 @@
-"""The segment trainer (counterpart of ``SegmentationTrainer`` in the JAX
-package's ``engine/trainer.py``: its single-device path, one optimizer step
-per dispatch).
+"""The trainers of the segment and detect tasks (counterparts of
+``SegmentationTrainer`` and ``DetectionTrainer`` in the JAX package's
+``engine/trainer.py``: its single-device path, one optimizer step per
+dispatch).
 
 ``SegmentationTrainer(overrides=..., device="cuda").train(data)`` trains a
-fresh polar segmentation model: the model built from ``args.model`` at
+fresh polar segmentation model, ``DetectionTrainer`` a fresh detect model
+(the task is the ``task`` override's, else the model config's head's, and
+must be the trainer's): the model built from ``args.model`` at
 ``nc = len(data["names"])`` and initialized from ``args.seed``
 (``nn/tasks.py:init_weights``); the train set letterboxed on the host
 (``data/dataset.py:TrainDataset``) and batched by worker threads
@@ -11,8 +14,8 @@ fresh polar segmentation model: the model built from ``args.model`` at
 flips on the device inside the step (``data/device_augment.py``), with
 ``mosaic`` and ``mixup`` turned off for the last ``close_mosaic`` epochs;
 gradient accumulation toward ``nbs``; AdamW or SGD with the JAX schedules
-and the EMA (``utils/optim.py``). Each epoch ends with a validation of the
-EMA weights with the live BatchNorm statistics, on a copy of the model in
+and the EMA (``utils/optim.py``). Each epoch ends with a validation (the task's
+validator) of the EMA weights with the live BatchNorm statistics, on a copy of the model in
 eval mode (the training model is left as it is), a ``results.csv`` row in
 the JAX columns, ``last.ckpt`` and ``best.ckpt`` on the JAX cadence (written
 at once, not in a thread), and early stopping. At the end ``best.ckpt`` and
@@ -24,9 +27,13 @@ is validated again; its metrics are returned.
 as ``data/dataset.py:ValDataset`` takes them (the port decodes no image
 files).
 
+Detect batches carry the label files' segments as the JAX dataset does (its
+``use_segments`` is stored and never read): a polygon label's instance is
+warped by its contour, a box label's (zero segments) by its box corners.
+
 Not ported (raising ``NotImplementedError`` where asked for): the host cv2
 train pipeline (``device_augment=false``, ``mosaic9``, ``copy_paste``),
-``resume``, tasks other than segment. Without effect: ``plots`` (the JAX
+``resume``, tasks other than segment and detect. Without effect: ``plots`` (the JAX
 plots need cv2), the multi-step dispatch and ``cache`` options, the
 integration callbacks.
 
@@ -52,12 +59,12 @@ from ..cfg import get_cfg
 from ..data.build import TrainLoader, use_device_augment
 from ..data.dataset import TrainDataset
 from ..data.device_augment import make_augment_fn
-from ..nn.tasks import SegmentationModel, init_weights, yaml_model_load
+from ..nn.tasks import TaskModel, build_model, guess_model_task, init_weights, yaml_model_load
 from ..utils.checkpoint import (checkpoint_variables, load_checkpoint, load_jax_variables, plain,
                                 save_checkpoint, strip_optimizer, to_jax_variables)
 from ..utils.optim import build_optimizer
 from .step import init_train_state, make_train_step
-from .validator import SegmentationValidator
+from .validator import DetectionValidator, SegmentationValidator
 
 LOGGER = logging.getLogger(__name__)
 
@@ -107,17 +114,23 @@ def _no_mark(stage: str):
     pass
 
 
-class SegmentationTrainer:
-    """The trainer: see the module docstring."""
+class BaseTrainer:
+    """The trainer: see the module docstring. A task's trainer gives
+    ``task``, its default model config and its validator's class."""
 
-    task = "segment"
+    task = ""
+    default_model = ""
+    validator_cls = DetectionValidator
 
     def __init__(self, overrides: Optional[Dict] = None, device="cuda",
                  mark: Optional[Callable[[str], None]] = None):
         overrides = dict(overrides or {})
-        task = overrides.pop("task", self.task) or self.task
+        model = overrides.get("model") or self.default_model
+        cfg = yaml_model_load(model) if isinstance(model, (str, Path)) else model
+        task = overrides.pop("task", None) or guess_model_task(cfg)
         if task != self.task:
-            raise NotImplementedError(f"task {task!r} is not ported; only 'segment'")
+            raise NotImplementedError(f"task {task!r} is not this trainer's ({self.task!r}); the "
+                                      f"port trains 'segment' and 'detect'")
         self.args = get_cfg(None, overrides)
         self.args.task = self.task
         if self.args.resume:
@@ -144,10 +157,10 @@ class SegmentationTrainer:
         self.epoch_times = []
         self._last_saved_epoch = -1
 
-    def build_model(self, nc: int, names) -> SegmentationModel:
-        cfg = self.args.model or "yolov8n-seg.yaml"
+    def build_model(self, nc: int, names) -> TaskModel:
+        cfg = self.args.model or self.default_model
         cfg = yaml_model_load(cfg) if isinstance(cfg, (str, Path)) else copy.deepcopy(dict(cfg))
-        model = SegmentationModel(cfg, nc=nc)
+        model = build_model(cfg, nc=nc)
         model.names = dict(names)
         return init_weights(model, torch.Generator().manual_seed(int(self.args.seed)))
 
@@ -172,11 +185,7 @@ class SegmentationTrainer:
                                    aug_seed=args.seed, amp=bool(args.amp))
 
         step_fn = build_step(args)
-        self.validator = validator = SegmentationValidator(
-            imgsz=args.imgsz, batch=args.batch,
-            conf=0.001 if args.conf is None else args.conf, iou=args.iou,
-            max_det=args.max_det, pre_nms=args.pre_nms, mask_ratio=args.val_mask_ratio,
-            max_instances=max_inst) if args.val else None
+        self.validator = validator = self.get_validator() if args.val else None
         # the EMA is validated on this copy, in eval mode
         self.eval_model = copy.deepcopy(model).eval() if validator is not None else None
         stopper = EarlyStopping(args.patience)
@@ -240,6 +249,16 @@ class SegmentationTrainer:
         self.state = state
         return self.metrics
 
+    def get_validator(self):
+        args = self.args
+        kw = dict(imgsz=args.imgsz, batch=args.batch,
+                  conf=0.001 if args.conf is None else args.conf, iou=args.iou,
+                  max_det=args.max_det, pre_nms=args.pre_nms,
+                  max_instances=int(args.max_instances))
+        if self.task == "segment":
+            kw["mask_ratio"] = args.val_mask_ratio
+        return self.validator_cls(**kw)
+
     def _epoch_tail(self, state, epoch: int, log: Dict[str, float], data, times) -> float:
         """EMA validation -> fitness -> csv row -> checkpoint; returns this
         epoch's fitness."""
@@ -294,3 +313,14 @@ class SegmentationTrainer:
             if not exists:
                 w.writerow(["epoch"] + list(metrics.keys()))
             w.writerow([epoch] + [f"{v:.5f}" for v in metrics.values()])
+
+
+class SegmentationTrainer(BaseTrainer):
+    task = "segment"
+    default_model = "yolov8n-seg.yaml"
+    validator_cls = SegmentationValidator
+
+
+class DetectionTrainer(BaseTrainer):
+    task = "detect"
+    default_model = "yolov8n.yaml"

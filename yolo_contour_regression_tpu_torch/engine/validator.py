@@ -1,16 +1,18 @@
-"""Polar segment validator: box and mask mAP in each image's own frame
-(counterpart of ``SegmentationValidator`` in the JAX package's
-``engine/validator.py``; COCO JSON, plots, rect val and the dispatch
-grouping are not ported).
+"""Validators of the detect and segment tasks: box (and mask) mAP in each
+image's own frame (counterparts of ``DetectionValidator`` and
+``SegmentationValidator`` in the JAX package's ``engine/validator.py``;
+COCO JSON, plots, rect val and the dispatch grouping are not ported).
 
-Per batch, on the model's device (``eval_batch``): the conv graph and
-``decode_polar_parts``, multi-label NMS on the logits, predicted and GT
-boxes mapped back through the letterbox (``scale_boxes``) and their IoU,
-then the predicted 36-gons and GT 360-gons mapped back (``scale_coords``),
-scaled by one factor per image onto an R x R grid and compared by
-``polygon_mask_iou`` (the even-odd fill kernel and a product of the masks).
-On the host: the reference's TP matching at 10 IoU thresholds for boxes and
-masks, ``SegmentMetrics`` and the confusion matrix.
+Per batch, on the model's device (``eval_batch``). Detect: ``decode_detect``
+and ``xywh2xyxy``, multi-label NMS in float32 with the scores as
+probabilities, predicted and GT boxes mapped back through the letterbox
+(``scale_boxes``) and their IoU. Segment: the conv graph and
+``decode_polar_parts``, multi-label NMS on the logits, the boxes as for
+detect, then the predicted 36-gons and GT 360-gons mapped back
+(``scale_coords``), scaled by one factor per image onto an R x R grid and
+compared by ``polygon_mask_iou`` (the even-odd fill kernel and a product of
+the masks). On the host: the reference's TP matching at 10 IoU thresholds,
+``DetMetrics`` or ``SegmentMetrics`` and the confusion matrix.
 """
 from __future__ import annotations
 
@@ -24,13 +26,14 @@ from ..data.build import ValLoader
 from ..data.dataset import ValDataset
 from ..nn.modules.head import finalize_polar_extras
 from ..ops.boxes import box_iou, scale_boxes, scale_coords, xywh2xyxy
-from ..ops.nms import non_max_suppression_parts
+from ..ops.nms import non_max_suppression, non_max_suppression_parts
 from ..ops.polar import NUM_RAYS
 from ..ops.raster import polygon_mask_iou
-from ..utils.metrics import ConfusionMatrix, SegmentMetrics, match_predictions
-from .predictor import _as_float
+from ..utils.metrics import ConfusionMatrix, DetMetrics, SegmentMetrics, match_predictions
+from .predictor import _as_float, detect_xyxy
 
 EVAL_KEYS = ("img", "bboxes", "segments", "mask_gt", "ori_shape", "ratio_pad")
+DETECT_EVAL_KEYS = ("img", "bboxes", "mask_gt", "ori_shape", "ratio_pad")
 
 
 def _no_mark(stage: str):
@@ -43,30 +46,128 @@ def grid_scale(ori_shape: torch.Tensor, grid: int) -> torch.Tensor:
     return grid / ori_shape.max(-1).values.clamp_min(1.0)
 
 
-class SegmentationValidator:
-    """Box and mask mAP of a polar segmentation model over decoded images.
+class DetectionValidator:
+    """Box mAP of a detect model over decoded images.
 
-    ``conf``, ``iou``, ``max_det`` and ``pre_nms`` set the multi-label NMS;
-    masks are compared on an R x R grid, ``R = max(imgsz // mask_ratio,
-    8)``. ``mark``, if given, is called with each device stage's name as it
-    starts ("forward_nms", "scale_box_iou", "mask_iou") and "end" last, so
-    that a caller can time the stages (a CUDA event per mark). After a call,
-    ``speed`` holds ms per image: host preprocess, device eval (the copy of
-    its outputs to the host included) and host matching with the metrics.
+    ``conf``, ``iou``, ``max_det`` and ``pre_nms`` set the multi-label NMS.
+    ``mark``, if given, is called with each device stage's name as it
+    starts ("forward_nms", "scale_box_iou", and the segment task's
+    "mask_iou") and "end" last, so that a caller can time the stages (a
+    CUDA event per mark). After a call, ``speed`` holds ms per image: host
+    preprocess, device eval (the copy of its outputs to the host included)
+    and host matching with the metrics.
     """
 
+    task = "detect"
+    eval_keys = DETECT_EVAL_KEYS
+
+    def __init__(self, imgsz: int = 640, batch: int = 16, conf: float = 0.001,
+                 iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024,
+                 max_instances: int = 48, mark: Optional[Callable[[str], None]] = None):
+        self.imgsz, self.batch = int(imgsz), max(int(batch), 1)
+        self.nms_kw = dict(conf_thres=conf, iou_thres=iou, pre_nms=pre_nms, max_det=max_det)
+        self.max_instances = int(max_instances)
+        self.mark = mark or _no_mark
+        self.speed: Dict[str, float] = {}
+
+    def _scale_box_iou(self, boxes, batch):
+        """Predicted boxes (letterbox px, xyxy) -> the image's frame, clipped
+        to it; GT boxes (normalized letterbox xywh) -> the image's frame; and
+        their IoU (B, N, max_det)."""
+        img, ratio_pad, ori_shape = batch["img"], batch["ratio_pad"], batch["ori_shape"]
+        H, W = img.shape[1:3]
+        boxes_nat = scale_boxes(boxes, ratio_pad, ori_shape)
+        wh = torch.tensor([W, H], dtype=torch.float32, device=img.device)
+        gt_nat = scale_boxes(xywh2xyxy(batch["bboxes"]) * wh.repeat(2), ratio_pad, ori_shape)
+        return boxes_nat, gt_nat, box_iou(gt_nat, boxes_nat)
+
+    @torch.inference_mode()
+    def eval_batch(self, model, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One collated batch (``eval_keys`` as tensors on the model's device;
+        ``img`` (B, H, W, 3) uint8 RGB) -> the JAX eval function's outputs:
+        ``boxes`` (B, max_det, 4) in the image's frame, ``scores``,
+        ``classes``, ``valid``, ``ious_box`` (B, N, max_det) of GT against
+        detections and ``gt_boxes`` (B, N, 4)."""
+        mark = self.mark
+        mark("forward_nms")
+        pred = detect_xyxy(model.predict(_as_float(batch["img"]).permute(0, 3, 1, 2).contiguous()))
+        out = non_max_suppression(pred.float(), nc=model.nc, multi_label=True, **self.nms_kw)
+        mark("scale_box_iou")
+        boxes_nat, gt_nat, ious_box = self._scale_box_iou(out["boxes"], batch)
+        mark("end")
+        return {"boxes": boxes_nat, "scores": out["scores"], "classes": out["classes"],
+                "valid": out["valid"], "ious_box": ious_box, "gt_boxes": gt_nat}
+
+    def new_metrics(self, names):
+        return DetMetrics(names=names)
+
+    def update(self, metrics, out: Dict[str, np.ndarray], bi: int, keep, gt_keep, pred_cls,
+               conf, tcls):
+        """Image ``bi``'s TP tables into ``metrics``."""
+        tp = match_predictions(pred_cls, tcls, out["ious_box"][bi][gt_keep][:, keep])
+        metrics.box.update(tp, conf, pred_cls, tcls)
+
+    def loader(self, images: Sequence[np.ndarray], labels) -> ValLoader:
+        return ValLoader(ValDataset(images, labels, self.imgsz, self.max_instances), self.batch)
+
+    def __call__(self, model, images: Sequence[np.ndarray], labels, names=None
+                 ) -> Dict[str, float]:
+        """Validate ``model`` on ``images`` (HWC uint8 BGR) and ``labels``
+        (see ``data/dataset.py:ValDataset``) -> the JAX ``results_dict``:
+        precision, recall, mAP50 and mAP50-95 of boxes (B) (and for the
+        segment task of masks (M)), and fitness."""
+        device = next(model.parameters()).device
+        names = names if names is not None else getattr(model, "names", {})
+        metrics = self.new_metrics(names)
+        cm = ConfusionMatrix(model.nc)
+        t = dict.fromkeys(("preprocess", "eval", "matching"), 0.0)
+        n_img = 0
+        batches = iter(self.loader(images, labels))
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            dev = {k: torch.from_numpy(batch[k]).to(device) for k in self.eval_keys}
+            t1 = time.perf_counter()
+            out = {k: v.cpu().numpy() for k, v in self.eval_batch(model, dev).items()}
+            t2 = time.perf_counter()
+            for bi in range(batch["img"].shape[0]):
+                keep = out["valid"][bi]
+                gt_keep = batch["mask_gt"][bi]
+                pred_cls = out["classes"][bi][keep]
+                conf = out["scores"][bi][keep]
+                tcls = batch["cls"][bi][gt_keep]
+                self.update(metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls)
+                cm.process_batch(out["boxes"][bi][keep], pred_cls, conf,
+                                 out["gt_boxes"][bi][gt_keep], tcls)
+            n_img += batch["img"].shape[0]
+            t3 = time.perf_counter()
+            t["preprocess"] += t1 - t0
+            t["eval"] += t2 - t1
+            t["matching"] += t3 - t2
+        t0 = time.perf_counter()
+        metrics.process()
+        t["matching"] += time.perf_counter() - t0
+        self.confusion_matrix = cm
+        self.speed = {k: v * 1e3 / max(n_img, 1) for k, v in t.items()}
+        return metrics.results_dict
+
+
+class SegmentationValidator(DetectionValidator):
+    """Box and mask mAP of a polar segmentation model over decoded images;
+    masks are compared on an R x R grid, ``R = max(imgsz // mask_ratio,
+    8)``."""
+
     task = "segment"
+    eval_keys = EVAL_KEYS
 
     def __init__(self, imgsz: int = 640, batch: int = 16, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024,
                  mask_ratio: int = 1, max_instances: int = 48,
                  mark: Optional[Callable[[str], None]] = None):
-        self.imgsz, self.batch = int(imgsz), max(int(batch), 1)
-        self.nms_kw = dict(conf_thres=conf, iou_thres=iou, pre_nms=pre_nms, max_det=max_det)
+        super().__init__(imgsz, batch, conf, iou, max_det, pre_nms, max_instances, mark)
         self.grid = max(self.imgsz // max(int(mask_ratio or 1), 1), 8)
-        self.max_instances = int(max_instances)
-        self.mark = mark or _no_mark
-        self.speed: Dict[str, float] = {}
 
     @torch.inference_mode()
     def eval_batch(self, model, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -85,12 +186,8 @@ class SegmentationValidator:
         out = non_max_suppression_parts(boxes_p, logits_p, extras_p, multi_label=True,
                                         scores_are_logits=True, **self.nms_kw)
         mark("scale_box_iou")
-        # predictions: letterbox px -> the image's frame, clipped to it; GT:
-        # normalized letterbox -> the image's frame
-        boxes_nat = scale_boxes(out["boxes"], ratio_pad, ori_shape)
+        boxes_nat, gt_nat, ious_box = self._scale_box_iou(out["boxes"], batch)
         wh = torch.tensor([W, H], dtype=torch.float32, device=img.device)
-        gt_nat = scale_boxes(xywh2xyxy(batch["bboxes"]) * wh.repeat(2), ratio_pad, ori_shape)
-        ious_box = box_iou(gt_nat, boxes_nat)
         ex = finalize_polar_extras(out["extras"])
         ppts = scale_coords(torch.stack([ex[..., :NUM_RAYS], ex[..., NUM_RAYS:2 * NUM_RAYS]], -1),
                             ratio_pad)
@@ -108,51 +205,10 @@ class SegmentationValidator:
                 "valid": out["valid"], "ious_box": ious_box, "ious_mask": ious_mask,
                 "gt_boxes": gt_nat, "pred_pts": ppts, "pred_pts_valid": pvalid}
 
-    def loader(self, images: Sequence[np.ndarray], labels) -> ValLoader:
-        return ValLoader(ValDataset(images, labels, self.imgsz, self.max_instances), self.batch)
+    def new_metrics(self, names):
+        return SegmentMetrics(names=names)
 
-    def __call__(self, model, images: Sequence[np.ndarray], labels, names=None
-                 ) -> Dict[str, float]:
-        """Validate ``model`` on ``images`` (HWC uint8 BGR) and ``labels``
-        (see ``data/dataset.py:ValDataset``) -> the JAX ``results_dict``:
-        precision, recall, mAP50 and mAP50-95 of boxes (B) and masks (M),
-        and fitness."""
-        device = next(model.parameters()).device
-        names = names if names is not None else getattr(model, "names", {})
-        metrics = SegmentMetrics(names=names)
-        cm = ConfusionMatrix(model.nc)
-        t = dict.fromkeys(("preprocess", "eval", "matching"), 0.0)
-        n_img = 0
-        batches = iter(self.loader(images, labels))
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                break
-            dev = {k: torch.from_numpy(batch[k]).to(device) for k in EVAL_KEYS}
-            t1 = time.perf_counter()
-            out = {k: v.cpu().numpy() for k, v in self.eval_batch(model, dev).items()}
-            t2 = time.perf_counter()
-            for bi in range(batch["img"].shape[0]):
-                keep = out["valid"][bi]
-                gt_keep = batch["mask_gt"][bi]
-                pred_cls = out["classes"][bi][keep]
-                conf = out["scores"][bi][keep]
-                tcls = batch["cls"][bi][gt_keep]
-                tp_b = match_predictions(pred_cls, tcls, out["ious_box"][bi][gt_keep][:, keep])
-                tp_m = match_predictions(pred_cls, tcls, out["ious_mask"][bi][gt_keep][:, keep])
-                metrics.box.update(tp_b, conf, pred_cls, tcls)
-                metrics.seg.update(tp_m, conf, pred_cls, tcls)
-                cm.process_batch(out["boxes"][bi][keep], pred_cls, conf,
-                                 out["gt_boxes"][bi][gt_keep], tcls)
-            n_img += batch["img"].shape[0]
-            t3 = time.perf_counter()
-            t["preprocess"] += t1 - t0
-            t["eval"] += t2 - t1
-            t["matching"] += t3 - t2
-        t0 = time.perf_counter()
-        metrics.process()
-        t["matching"] += time.perf_counter() - t0
-        self.confusion_matrix = cm
-        self.speed = {k: v * 1e3 / max(n_img, 1) for k, v in t.items()}
-        return metrics.results_dict
+    def update(self, metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls):
+        super().update(metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls)
+        tp = match_predictions(pred_cls, tcls, out["ious_mask"][bi][gt_keep][:, keep])
+        metrics.seg.update(tp, conf, pred_cls, tcls)

@@ -1,5 +1,6 @@
 """Composite blocks in NCHW (counterpart of the JAX package's
-``nn/modules/block.py``): the fork's RepBlock and SPPF."""
+``nn/modules/block.py``): the fork's RepBlock and SPPF, and the stock
+YOLOv8 blocks of the detect graph, DFL, Bottleneck and C2f."""
 from __future__ import annotations
 
 import torch
@@ -43,3 +44,58 @@ class SPPF(nn.Module):
         y2 = _maxpool_same(y1, self.k)
         y3 = _maxpool_same(y2, self.k)
         return self.cv2(torch.cat([x, y1, y2, y3], dim=1))
+
+
+class DFL(nn.Module):
+    """Distribution Focal Loss integral: softmax over ``reg_max`` bins, then
+    the expectation of the bin index, as the JAX module writes it (no frozen
+    conv, no parameters). x (B, 4 * reg_max, A) -> (B, 4, A)."""
+
+    def __init__(self, reg_max: int = 16):
+        super().__init__()
+        self.reg_max = reg_max
+
+    def forward(self, x):
+        b, _, a = x.shape
+        probs = x.reshape(b, 4, self.reg_max, a).softmax(2)
+        proj = torch.arange(self.reg_max, dtype=probs.dtype, device=probs.device)
+        return torch.einsum("bkra,r->bka", probs, proj)
+
+
+class Bottleneck(nn.Module):
+    """Standard bottleneck: Conv(k[0]) -> Conv(k[1]), plus the input when
+    ``shortcut`` and the widths agree."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, k=(3, 3),
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """Fast CSP bottleneck with 2 convs: cv1 to 2c channels, split in two
+    halves (channel order kept: the first c channels, then the next c), n
+    bottlenecks chained on the last piece, all pieces concatenated into
+    cv2. The bottlenecks are ``m.{i}`` (the JAX ``m{i}``)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
+                 e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0)
+                               for _ in range(n))
+
+    def forward(self, x):
+        ys = list(self.cv1(x).split(self.c, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))

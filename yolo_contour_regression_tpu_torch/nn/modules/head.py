@@ -1,9 +1,9 @@
-"""The polar-contour segment head and its decode (counterpart of the JAX
-package's ``nn/modules/head.py``).
+"""The polar-contour segment head, the stock YOLOv8 detect head, and their
+decodes (counterpart of the JAX package's ``nn/modules/head.py``).
 
-``PolarSegment`` returns raw per-level maps in NCHW; the decode helpers
-take those maps and produce the JAX package's (B, A, .) layouts, anchors
-flattened row-major per level as ``make_anchors`` orders them.
+``PolarSegment`` and ``Detect`` return raw per-level maps in NCHW; the
+decode helpers take those maps and produce the JAX package's layouts,
+anchors flattened row-major per level as ``make_anchors`` orders them.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ...ops import polar as polar_ops
+from ...ops.boxes import dist2bbox
 from .conv import Conv
 
 
@@ -29,6 +30,30 @@ class PolarSegment(nn.Module):
         c3 = max(ch[0], min(nc, 100))
         self.cv2 = nn.ModuleList(
             nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, nm, 1)) for x in ch
+        )
+        self.cv3 = nn.ModuleList(
+            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for x in ch
+        )
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        return [torch.cat([b2(x), b3(x)], dim=1) for x, b2, b3 in zip(feats, self.cv2, self.cv3)]
+
+
+class Detect(nn.Module):
+    """Stock YOLOv8 detect head with DFL box regression. Per level i:
+    cv2[i] = Conv3x3 -> Conv3x3 -> 1x1 (4 * reg_max box bins), cv3[i] =
+    Conv3x3 -> Conv3x3 -> 1x1 (nc logits), widths ``c2 = max(16, ch0 // 4,
+    4 * reg_max)`` and ``c3 = max(ch0, min(nc, 100))``. Output per level:
+    (B, 4 * reg_max + nc, H, W), box bins first."""
+
+    def __init__(self, nc: int = 80, ch: Sequence[int] = (), reg_max: int = 16):
+        super().__init__()
+        self.nc, self.reg_max = nc, reg_max
+        c2 = max(16, ch[0] // 4, reg_max * 4)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(
+            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1))
+            for x in ch
         )
         self.cv3 = nn.ModuleList(
             nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for x in ch
@@ -76,3 +101,21 @@ def finalize_polar_extras(ex: torch.Tensor, nm: int = polar_ops.NUM_RAYS):
     rays, anc = ex[..., :nm], ex[..., nm:]
     points, valid, _ = polar_ops.decode_rays(rays, anc)
     return torch.cat([points[..., 0], points[..., 1], valid.to(ex.dtype)], dim=-1)
+
+
+def decode_detect(outs: Sequence[torch.Tensor], strides: Sequence[int], nc: int,
+                  reg_max: int = 16) -> torch.Tensor:
+    """Eval-time DFL decode: the softmax expectation over ``reg_max`` bins
+    -> ltrb -> xywh boxes in pixels, and sigmoid scores: (B, 4 + nc, A)."""
+    feat_hw = [(o.shape[2], o.shape[3]) for o in outs]
+    anchor_points, stride_t = polar_ops.make_anchors(
+        feat_hw, strides, dtype=outs[0].dtype, device=outs[0].device
+    )
+    x = flatten_levels(outs)  # (B, A, 4 * reg_max + nc)
+    box_dist, cls = x[..., : 4 * reg_max], x[..., 4 * reg_max:]
+    b, a, _ = box_dist.shape
+    probs = box_dist.reshape(b, a, 4, reg_max).softmax(-1)
+    proj = torch.arange(reg_max, dtype=probs.dtype, device=probs.device)
+    ltrb = torch.einsum("bakr,r->bak", probs, proj)
+    dbox = dist2bbox(ltrb, anchor_points[None], xywh=True) * stride_t[None]
+    return torch.cat([dbox, torch.sigmoid(cls)], dim=-1).transpose(1, 2)

@@ -5,11 +5,14 @@ package's ``nn/tasks.py``).
 gain ``n = max(round(n * depth), 1)``, width gain ``c2 = make_divisible(
 min(c2, max_ch) * width, 8)`` except for the nc passthrough, and the scale
 letter from the config's ``scales`` block. It works on a config **dict** (a
-checkpoint's ``model_yaml``, or ``YOLOV8_SEG`` below), so no yaml parser is
-needed. Layers are registered as ``model.{i}`` so the state-dict keys are the
-reference's. Strides are tracked through the graph instead of calibrated by
-a dummy forward.
+checkpoint's ``model_yaml``, or ``YOLOV8_SEG`` and ``YOLOV8`` below), so no
+yaml parser is needed. Layers are registered as ``model.{i}`` so the
+state-dict keys are the reference's. Strides are tracked through the graph
+instead of calibrated by a dummy forward.
 
+Two task models: ``SegmentationModel`` (the polar ``Segment`` head) and
+``DetectionModel`` (the stock ``Detect`` head with DFL); ``build_model``
+picks one by the config's head (``guess_model_task``).
 ``yaml_model_load`` maps a model name to its config dict, and
 ``init_weights`` gives a fresh model the JAX package's initialization.
 """
@@ -69,17 +72,57 @@ YOLOV8_SEG: Dict[str, Any] = {
     "scale": "n",
 }
 
+# cfg/models/yolov8.yaml of the JAX package as a dict: the stock YOLOv8
+# detect graph, a C2f backbone and neck and the Detect (DFL) head.
+YOLOV8: Dict[str, Any] = {
+    "nc": 80,
+    "scales": copy.deepcopy(YOLOV8_SEG["scales"]),
+    "backbone": [
+        [-1, 1, "Conv", [64, 3, 2]],  # 0 P1/2
+        [-1, 1, "Conv", [128, 3, 2]],  # 1 P2/4
+        [-1, 3, "C2f", [128, True]],  # 2
+        [-1, 1, "Conv", [256, 3, 2]],  # 3 P3/8
+        [-1, 6, "C2f", [256, True]],  # 4
+        [-1, 1, "Conv", [512, 3, 2]],  # 5 P4/16
+        [-1, 6, "C2f", [512, True]],  # 6
+        [-1, 1, "Conv", [1024, 3, 2]],  # 7 P5/32
+        [-1, 3, "C2f", [1024, True]],  # 8
+        [-1, 1, "SPPF", [1024, 5]],  # 9
+    ],
+    "head": [
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],  # 10
+        [[-1, 6], 1, "Concat", [1]],  # 11
+        [-1, 3, "C2f", [512]],  # 12
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],  # 13
+        [[-1, 4], 1, "Concat", [1]],  # 14
+        [-1, 3, "C2f", [256]],  # 15 P3/8-small
+        [-1, 1, "Conv", [256, 3, 2]],  # 16
+        [[-1, 12], 1, "Concat", [1]],  # 17
+        [-1, 3, "C2f", [512]],  # 18 P4/16-medium
+        [-1, 1, "Conv", [512, 3, 2]],  # 19
+        [[-1, 9], 1, "Concat", [1]],  # 20
+        [-1, 3, "C2f", [1024]],  # 21 P5/32-large
+        [[15, 18, 21], 1, "Detect", ["nc"]],  # 22 Detect(P3, P4, P5)
+    ],
+}
+
 # config name -> (module class, positional field names after c1, kind)
 REGISTRY = {
     "Conv": (conv_mod.Conv, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
     "Conv2": (conv_mod.Conv2, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
     "RepConv": (conv_mod.RepConv, ("c2", "k", "s", "g", "d", "act"), "conv"),
+    "Bottleneck": (block_mod.Bottleneck, ("c2", "shortcut", "g", "k", "e"), "conv"),
     "SPPF": (block_mod.SPPF, ("c2", "k"), "conv"),
     "RepBlock": (block_mod.RepBlock, ("c2", "n", "shortcut"), "csp"),
+    "C2f": (block_mod.C2f, ("c2", "n", "shortcut", "g", "e"), "csp"),
     "Concat": (conv_mod.Concat, ("dim",), "concat"),
     "nn.Upsample": (nn.Upsample, (), "upsample"),
     "Segment": (head_mod.PolarSegment, ("nc", "nm", "npr"), "head"),
+    "Detect": (head_mod.Detect, ("nc",), "head"),
 }
+# a head's config name -> its task (the JAX ``HEAD_TASKS``)
+HEAD_TASKS = {"Segment": "segment", "Segmentori": "segment_ori", "Detect": "detect",
+              "Pose": "pose", "Classify": "classify", "RTDETRDecoder": "rtdetr"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -159,7 +202,7 @@ def parse_model(cfg: dict, ch: int = 3):
             stride = s_in / kwargs["scale_factor"]
         else:  # head
             kwargs = dict(zip(fields, args))
-            if len(args) > 2:
+            if name == "Segment" and len(args) > 2:
                 kwargs["npr"] = make_divisible(min(args[2], max_channels) * width, 8)
             c2 = nc
 
@@ -207,43 +250,95 @@ class GraphModel(nn.Module):
         return out  # head output
 
 
-class SegmentationModel(GraphModel):
-    """Polar-contour segmentation model: ``forward`` gives the head's raw
-    per-level maps, ``predict_parts`` their predict-path decode."""
+class TaskModel(GraphModel):
+    """A graph whose last layer is the head ``head_name``: its config, class
+    count, names and output strides. ``forward`` gives the head's raw
+    per-level maps. ``fused`` is set by ``nn/fuse.py`` (the deploy form)."""
 
-    task = "segment"
+    task = ""
+    head_name = ""
 
-    def __init__(self, cfg: Optional[dict] = None, nc: Optional[int] = None, ch: int = 3):
-        cfg = copy.deepcopy(dict(cfg if cfg is not None else YOLOV8_SEG))
+    def __init__(self, cfg: dict, nc: Optional[int] = None, ch: int = 3):
+        cfg = copy.deepcopy(dict(cfg))
         if nc and nc != cfg.get("nc"):
             cfg["nc"] = nc
         super().__init__(cfg, ch=ch)
-        if self.head_spec is None or self.head_spec.name != "Segment":
-            raise ValueError("SegmentationModel needs a polar 'Segment' head")
+        if self.head_spec is None or self.head_spec.name != self.head_name:
+            raise ValueError(f"{type(self).__name__} needs a '{self.head_name}' head")
         self.yaml = cfg
         self.nc = cfg["nc"]
-        self.nm = self.head_spec.kwargs.get("nm", 36)
         self.strides = tuple(int(s) for s in self.head_spec.stride)
         self.names = {i: f"class{i}" for i in range(self.nc)}
-
-    def predict_parts(self, x, sigmoid: bool = True):
-        """x (B, 3, H, W) float -> (boxes (B, A, 4), scores (B, A, nc),
-        extras (B, A, 38)); ``sigmoid=False`` returns raw class logits."""
-        return head_mod.decode_polar_parts(self(x), self.strides, self.nc, self.nm, sigmoid=sigmoid)
+        self.fused = False
 
     @property
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
 
+class SegmentationModel(TaskModel):
+    """Polar-contour segmentation model: ``predict_parts`` gives the head's
+    predict-path decode."""
+
+    task = "segment"
+    head_name = "Segment"
+
+    def __init__(self, cfg: Optional[dict] = None, nc: Optional[int] = None, ch: int = 3):
+        super().__init__(cfg if cfg is not None else YOLOV8_SEG, nc=nc, ch=ch)
+        self.nm = self.head_spec.kwargs.get("nm", 36)
+
+    def predict_parts(self, x, sigmoid: bool = True):
+        """x (B, 3, H, W) float -> (boxes (B, A, 4), scores (B, A, nc),
+        extras (B, A, 38)); ``sigmoid=False`` returns raw class logits."""
+        return head_mod.decode_polar_parts(self(x), self.strides, self.nc, self.nm, sigmoid=sigmoid)
+
+
+class DetectionModel(TaskModel):
+    """The stock YOLOv8 detect model: ``predict`` gives (B, 4 + nc, A), xywh
+    boxes in pixels and sigmoid scores (``decode_detect``)."""
+
+    task = "detect"
+    head_name = "Detect"
+    reg_max = 16
+
+    def __init__(self, cfg: Optional[dict] = None, nc: Optional[int] = None, ch: int = 3):
+        super().__init__(cfg if cfg is not None else YOLOV8, nc=nc, ch=ch)
+
+    def predict(self, x):
+        """x (B, 3, H, W) float -> (B, 4 + nc, A)."""
+        return head_mod.decode_detect(self(x), self.strides, self.nc, self.reg_max)
+
+    def predict_augmented(self, x):
+        raise NotImplementedError("test-time augmentation (predict_augmented) is not ported")
+
+
+TASK_MODELS = {"segment": SegmentationModel, "detect": DetectionModel}
+
+
+def guess_model_task(cfg: dict) -> str:
+    """A config's task, by its last layer's head (``detect`` for a head the
+    table does not know, as in the JAX version)."""
+    return HEAD_TASKS.get(cfg["head"][-1][2], "detect")
+
+
+def build_model(cfg: dict, nc: Optional[int] = None) -> TaskModel:
+    """The task model of a config dict; ``NotImplementedError`` for a task
+    that is not ported."""
+    task = guess_model_task(cfg)
+    if task not in TASK_MODELS:
+        raise NotImplementedError(f"task {task!r} is not ported (ported: {sorted(TASK_MODELS)})")
+    return TASK_MODELS[task](cfg, nc=nc)
+
+
 # the ported model configs, by the base name of their yaml in the JAX package
-MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG}
+MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG, "yolov8": YOLOV8}
 
 
 def yaml_model_load(name) -> Dict[str, Any]:
-    """A model name such as ``"yolov8n-seg.yaml"`` -> its config dict, the
-    scale letter taken from the name as the JAX ``yaml_model_load`` takes
-    it (``yolov8n-seg`` -> ``yolov8-seg`` at scale ``n``). Only the configs
+    """A model name such as ``"yolov8n-seg.yaml"`` or ``"yolov8n.yaml"`` ->
+    its config dict, the scale letter taken from the name as the JAX
+    ``yaml_model_load`` takes it (``yolov8n-seg`` -> ``yolov8-seg`` at
+    scale ``n``). Only the configs
     of ``MODEL_CFGS`` are ported: any other name raises
     ``NotImplementedError``."""
     stem = Path(str(name)).stem
@@ -272,14 +367,15 @@ def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
 
 
 @torch.no_grad()
-def init_weights(model: "SegmentationModel", generator: torch.Generator):
+def init_weights(model: TaskModel, generator: torch.Generator):
     """The JAX package's initialization of a fresh model, in place: conv
     kernels flax's ``lecun_normal`` (std ``sqrt(1 / fan_in) / 0.8796...``,
     truncated at 2 std, ``fan_in = k * k * c_in / groups``), conv biases 0,
     BatchNorm scale 1, bias 0, running mean 0 and variance 1; then the head
     priors of JAX ``BaseModel.init``: each class bias ``log(5 / nc / (640 /
-    stride)^2)`` and each ray bias 1. The draws come from ``generator`` (a
-    CPU ``torch.Generator``), not JAX's."""
+    stride)^2)``, and on the polar head each ray bias 1 (the detect head's
+    box bias keeps its 0). The draws come from ``generator`` (a CPU
+    ``torch.Generator``), not JAX's."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             w = torch.empty(m.weight.shape)
@@ -292,5 +388,6 @@ def init_weights(model: "SegmentationModel", generator: torch.Generator):
     head = model.model[-1]
     for i, s in enumerate(model.strides):
         head.cv3[i][2].bias.fill_(math.log(5 / model.nc / (640 / s) ** 2))
-        head.cv2[i][2].bias.fill_(1.0)
+        if model.task == "segment":
+            head.cv2[i][2].bias.fill_(1.0)
     return model

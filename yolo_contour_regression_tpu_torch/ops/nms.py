@@ -154,3 +154,25 @@ def non_max_suppression_parts(
         boxes, scores, classes, extras, conf_thres=conf_thres, iou_thres=iou_thres,
         pre_nms=pre_nms, max_det=max_det, agnostic=agnostic,
     )
+
+
+def non_max_suppression(
+    prediction: torch.Tensor,
+    nc: int,
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.7,
+    pre_nms: int = 1024,
+    max_det: int = 300,
+    agnostic: bool = False,
+    multi_label: bool = False,
+):
+    """NMS over a head output in the reference layout (B, 4 + nc + E, A):
+    xyxy boxes, ``nc`` scores as probabilities (gated at ``conf_thres``
+    itself, as the JAX detect path gates them), then E extras.
+    ``non_max_suppression_parts`` of the transposed pieces."""
+    pred = prediction.transpose(1, 2)  # (B, A, C)
+    return non_max_suppression_parts(
+        pred[..., :4], pred[..., 4:4 + nc], pred[..., 4 + nc:], conf_thres=conf_thres,
+        iou_thres=iou_thres, pre_nms=pre_nms, max_det=max_det, agnostic=agnostic,
+        multi_label=multi_label,
+    )

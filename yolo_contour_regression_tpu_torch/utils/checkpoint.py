@@ -15,6 +15,7 @@ inverts the name map of the JAX package's
   model.{i}.bn.running_{mean,var}      batch_stats.layer{i}.bn.{mean,var}
   model.{i}.{r}....   (repeats)        layer{i}_{r}....
   model.{i}.cv2.{a}.{b}....  (heads)   layer{i}.cv2_{a}_{b}....
+  model.{i}.m.{j}....  (C2f)           layer{i}.m{j}....
   RepConv conv1.conv/conv1.bn/         RepConv conv1/bn1/
           conv2.conv/conv2.bn/bn               conv2/bn2/bn_id
 """
@@ -94,8 +95,8 @@ def _module_path(path: Tuple[str, ...]) -> Tuple[str, ...]:
         raise KeyError(f"not a graph layer: {'/'.join(path)}")
     out = ["model", m.group(1)] + ([m.group(2)] if m.group(2) is not None else [])
     for tok in path[1:]:
-        head = re.fullmatch(r"(cv\d)_(\d+)_(\d+)", tok)
-        out += list(head.groups()) if head else [tok]
+        head = re.fullmatch(r"(cv\d)_(\d+)_(\d+)|(m)(\d+)", tok)
+        out += [g for g in head.groups() if g is not None] if head else [tok]
     return tuple(out[:-1]) + _REPCONV_MAP.get(out[-1], (out[-1],))
 
 
@@ -163,6 +164,8 @@ def _jax_module_path(tokens, keys) -> Tuple[str, ...]:
         tok = rest.pop(0)
         if re.fullmatch(r"cv\d", tok) and len(rest) >= 2 and rest[0].isdigit() and rest[1].isdigit():
             tok = f"{tok}_{rest.pop(0)}_{rest.pop(0)}"
+        elif tok == "m" and rest and rest[0].isdigit():
+            tok = f"m{rest.pop(0)}"
         out.append(tok)
     if tuple(out[-2:]) in _REPCONV_INV:
         out = out[:-2] + [_REPCONV_INV[tuple(out[-2:])]]

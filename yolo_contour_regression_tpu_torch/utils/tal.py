@@ -1,6 +1,5 @@
-"""Polar task-aligned assignment (counterpart of the JAX package's
-``utils/tal.py``; its stock ``task_aligned_assign`` belongs to the detect
-and pose tasks and is not ported yet).
+"""Task-aligned assignment, polar and stock (counterpart of the JAX
+package's ``utils/tal.py``).
 
 ``polar_task_aligned_assign``: candidate anchors inside the GT box, GT rays
 per (gt, anchor) pair from the 360-point contour, overlaps = polar MaskIoU,
@@ -15,6 +14,10 @@ Ties follow the JAX version: the candidate pick is a stable descending sort
 claimed by several GTs with the same overlap goes to the lowest GT index.
 The whole assigner runs under ``torch.no_grad()``, as JAX stops gradients
 at its inputs.
+
+``task_aligned_assign``: the stock YOLOv8 assigner of the detect task,
+dense over (B, N, A): CIoU overlaps of GT and predicted boxes, align =
+score^0.5 * iou^6, top-10 per GT, the same dedupe and normalized scores.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import polar as polar_ops
+from ..ops.boxes import bbox_iou
 from ..ops.gt_rays import gt_rays_rows_fast
 
 EPS = 1e-9
@@ -232,3 +236,41 @@ def polar_task_aligned_assign(
     target_bboxes = torch.gather(gt_bboxes, 1, target_gt_idx[..., None].expand(B, A, 4))
     return AssignResult(target_labels, target_bboxes, target_scores, fg_mask, target_gt_idx,
                         target_rays, centerness)
+
+
+@torch.no_grad()
+def task_aligned_assign(
+    pd_scores: torch.Tensor,  # (B, A, nc) sigmoid scores
+    pd_bboxes: torch.Tensor,  # (B, A, 4) xyxy px
+    anc_points: torch.Tensor,  # (A, 2) anchor centers, px
+    gt_labels: torch.Tensor,  # (B, N) int
+    gt_bboxes: torch.Tensor,  # (B, N, 4) xyxy px
+    mask_gt: torch.Tensor,  # (B, N) bool
+    alpha: float = 0.5,
+    beta: float = 6.0,
+    topk: int = 10,
+) -> AssignResult:
+    """The stock assigner: overlaps = CIoU(gt, pred) clipped at 0, over
+    every (gt, anchor) pair with the anchor inside the GT box. Its
+    ``target_rays`` and ``centerness`` are zeros (no contour)."""
+    B, A, nc = pd_scores.shape
+    N = gt_labels.shape[1]
+    dt, dev = pd_scores.dtype, pd_scores.device
+    gt_labels = gt_labels.long()
+
+    valid_pair = select_candidates_in_gts(anc_points, gt_bboxes) & mask_gt[..., None]
+    score_gt = torch.gather(pd_scores.transpose(1, 2), 1,
+                            gt_labels.clamp(0, nc - 1)[:, :, None].expand(B, N, A))  # (B, N, A)
+    overlaps = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :], xywh=False,
+                        CIoU=True)
+    overlaps = overlaps.clamp_min(0) * valid_pair
+    align = score_gt.clamp_min(0).pow(alpha) * overlaps.pow(beta) * valid_pair
+
+    mask_pos = (_topk_mask(align, topk, mask_gt[..., None]) & valid_pair).to(dt)
+    target_gt_idx, fg_mask, mask_final = _dedupe_by_overlap(mask_pos, overlaps, N)
+    target_bboxes = torch.gather(gt_bboxes, 1, target_gt_idx[..., None].expand(B, A, 4))
+    target_labels, target_scores = _normalized_target_scores(
+        gt_labels, target_gt_idx, fg_mask, align, overlaps, mask_final, nc)
+    return AssignResult(target_labels, target_bboxes, target_scores, fg_mask, target_gt_idx,
+                        torch.zeros((B, A, polar_ops.NUM_RAYS), dtype=dt, device=dev),
+                        torch.zeros((B, A), dtype=dt, device=dev))
