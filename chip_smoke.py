@@ -61,8 +61,8 @@ Phases, one timestamped line each (elapsed seconds):
      marks (copy, augment, forward, assigner, GT rays, loss, backward,
      clip + optimizer + EMA); launch counts zeroed just before each, read
      just after.
-  8. fuse: ``YOLO(floor checkpoint).fuse()`` on the card for seg160 and
-     floor_detect, each against the unfused model on the card (head maps
+  8. fuse: ``YOLO(floor checkpoint).fuse()`` on the card for seg160,
+     floor_detect and floor_pose, each against the unfused model on the card (head maps
      1e-3, the same detections) and validated on its floor set (each
      metric within 0.01 of the unfused model's, and the floor); launch
      counts zeroed just before the fused validation and read just after
@@ -80,10 +80,31 @@ Phases, one timestamped line each (elapsed seconds):
   12. detect trainer: ``YOLO("yolov8n.yaml").train`` from scratch on the
      detect floor set at its ``floor.json`` config (100 epochs at 96, batch
      16), as 7 (a): the stripped ``best.ckpt`` must meet the detect floor.
-  13. compare: the fork's headline, printed and not gated: ms an image on
+  13. pose predict: ``YOLO(runs/floor_pose/best.ckpt).predict`` at imgsz
+     96 batch 1 on the pose floor images, and yolov8n-pose at full width
+     (nc 1, 17 keypoints, a fresh init from a seed) at 640 batch 8 on
+     480x640 frames: keypoints (n, K, 3) and finite, ms per image; the
+     floor model on the card against the port on the CPU at 96 (heads 1e-3,
+     the same detections, boxes and keypoints 0.05 px, scores and
+     visibilities 1e-4).
+  14. pose validate: (a) the pose floor set at 96 batch 4: pose and box
+     mAP50-95 at least ``floor.json``'s and each of the eight metrics and
+     fitness within 0.01 of the JAX validator's (stored with the set); (b)
+     the full-width model at 640 batch 16 on 32 480x640 frames with 17
+     keypoints an instance along each contour, split as in 10 (b).
+  15. pose train step: as 6 (a) at imgsz 96 on the floor_pose checkpoint,
+     and 6 (b) at 640 batch 16 for the full-width model (K 17), batches
+     with keypoints along each contour.
+  16. pose trainer: ``YOLO("yolov8n-pose.yaml").train`` from scratch on the
+     pose floor set (``kpt_shape`` [5, 3] and ``flip_idx`` from its data)
+     at its ``floor.json`` config (150 epochs at 96, batch 16), as 7 (a):
+     the stripped ``best.ckpt`` must meet the pose floor (pose and box
+     mAP50-95) and predict keypoints. The pose phases launch no kernel: their
+     counts are printed, all 0.
+  17. compare: the fork's headline, printed and not gated: ms an image on
      the card at 640, batch 1 and 8, of yolov8n-seg polar (contours, no
      masks) and yolov8n detect, fused and unfused, and seg / detect.
-  14. report: a JSON line of the kernels (launches summed over the predict,
+  18. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs), the card's
      line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
@@ -109,20 +130,21 @@ import torch
 
 from yolo_contour_regression_tpu_torch import YOLO
 from yolo_contour_regression_tpu_torch.data.dataset import parse_label_lines
-from yolo_contour_regression_tpu_torch.engine.predictor import (DetectionPredictor,
+from yolo_contour_regression_tpu_torch.engine.predictor import (DetectionPredictor, PosePredictor,
                                                                 SegmentationPredictor)
 from yolo_contour_regression_tpu_torch.engine.results import Masks, contours_to_masks
 from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
 from yolo_contour_regression_tpu_torch.engine.validator import (
-    EVAL_KEYS, DetectionValidator, SegmentationValidator, grid_scale)
-from yolo_contour_regression_tpu_torch.nn.tasks import build_model
+    EVAL_KEYS, DetectionValidator, PoseValidator, SegmentationValidator, grid_scale)
+from yolo_contour_regression_tpu_torch.nn.tasks import (build_model, guess_model_task, init_weights,
+                                                        yaml_model_load)
 from yolo_contour_regression_tpu_torch.ops import gt_rays, polar, raster
 from yolo_contour_regression_tpu_torch.ops.boxes import box_iou, scale_coords
 from yolo_contour_regression_tpu_torch.utils import cuda_build, optim
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     checkpoint_variables, load_checkpoint, load_jax_variables, save_checkpoint, to_jax_variables)
 from yolo_contour_regression_tpu_torch.utils.loss import (detect_loss, detect_targets, polar_loss,
-                                                          polar_targets)
+                                                          polar_targets, pose_loss)
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "runs" / "floor_seg160" / "best.ckpt"
@@ -159,6 +181,14 @@ DETECT_CKPT = ROOT / "runs" / "floor_detect" / "best.ckpt"
 DETECT_FLOOR_JSON = ROOT / "runs" / "floor_detect" / "floor.json"
 FLOOR_DETECT_VAL = ROOT / "tests" / "data" / "torch_port_floor_detect_val16.npz"
 FLOOR_DETECT_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_detect_train64.npz"
+# the pose floor set (16 val and 64 train images at 96 px, decoded, with
+# their label lines, the data's kpt_shape and flip_idx, and the JAX
+# validator's metrics of the floor_pose checkpoint;
+# tests/test_torch_port_pose_val.py regenerates them)
+POSE_CKPT = ROOT / "runs" / "floor_pose" / "best.ckpt"
+POSE_FLOOR_JSON = ROOT / "runs" / "floor_pose" / "floor.json"
+FLOOR_POSE_VAL = ROOT / "tests" / "data" / "torch_port_floor_pose_val16.npz"
+FLOOR_POSE_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_pose_train64.npz"
 VAL_IMGSZ, VAL_B = 160, 4
 VAL640_N, VAL640_HW, VAL640_B = 32, (480, 640), 16
 VAL_CONF, VAL_IOU = 0.001, 0.7
@@ -194,6 +224,12 @@ TRAIN_STEPS = 20
 # (the rest are the defaults; optimizer 'auto' picks AdamW and its lr)
 FLOOR_TRAIN_KEYS = ("epochs", "imgsz", "batch", "nbs", "seed", "amp", "close_mosaic", "patience",
                     "workers", "mixup")
+# and for pose its loss gains and the flip its flip_idx serves
+POSE_TRAIN_KEYS = ("pose", "kobj", "fliplr")
+# the pose slice: the floor_pose checkpoint's imgsz; yolov8n-pose at full
+# width (the published config: nc 1, COCO's 17 keypoints) from a fresh
+# init drawn from this seed
+POSE_IMGSZ, POSE_SEED = 96, 0
 # train_640: the default config at the size users train
 TRAIN640_N, TRAIN640_VAL, TRAIN640_EPOCHS = 256, 16, 9  # 4 optimizer steps an epoch
 
@@ -295,6 +331,32 @@ def shape_val_set(n: int, h: int, w: int, seed: int):
         labels.append((np.array([k for k, _ in drawn], np.int32), boxes.astype(np.float32),
                        segs.astype(np.float32)))
     return images, labels
+
+
+def contour_keypoints(segments: np.ndarray, valid: np.ndarray, k: int) -> np.ndarray:
+    """``k`` keypoints an instance, evenly spaced along its 360-point contour
+    (..., 360, 2), normalized as the contour, visibility 2 where ``valid``
+    (...,) and 0 elsewhere -> (..., k, 3) float32: a pose label of any
+    keypoint count for the shape sets."""
+    xy = segments[..., (np.arange(k) * segments.shape[-2]) // k, :]
+    vis = np.broadcast_to(np.where(valid, 2.0, 0.0)[..., None, None], xy.shape[:-1] + (1,))
+    return np.concatenate([xy, vis], -1).astype(np.float32)
+
+
+def with_keypoints(labels, k: int):
+    """``shape_val_set``'s labels as a one-class pose set's: every shape
+    class 0, with ``contour_keypoints`` added: (cls, bboxes, segments,
+    keypoints (n, k, 3))."""
+    return [(np.zeros_like(c), b, s, contour_keypoints(s, np.ones(len(c), bool), k))
+            for c, b, s in labels]
+
+
+def pose_batch(batch: dict, k: int) -> dict:
+    """``shape_batch``'s labels as a one-class pose batch's, in place: every
+    shape class 0, with ``contour_keypoints``."""
+    batch["cls"][:] = 0
+    batch["keypoints"] = contour_keypoints(batch["segments"], batch["mask_gt"], k)
+    return batch
 
 
 def ray_contours(n: int, seed: int, size: float = 640.0):
@@ -978,6 +1040,12 @@ def ckpt_model(ckpt, device):
 
 def loss_and_assign(model, feats, batch, hyp):
     """The model's task loss on its head maps, and the assignment."""
+    if model.task == "pose":
+        nk = model.kpt_shape[0] * model.kpt_shape[1]
+        tg = detect_targets([f[:, :-nk] for f in feats], batch, model.strides, model.nc,
+                            model.reg_max)
+        return pose_loss(feats, batch, model.strides, model.nc, hyp, model.kpt_shape,
+                         model.reg_max).total, tg.assign
     if model.task == "detect":
         tg = detect_targets(feats, batch, model.strides, model.nc, model.reg_max)
         return detect_loss(tg, hyp).total, tg.assign
@@ -995,6 +1063,8 @@ def train_card_vs_cpu(ckpt, card: str, imgsz: int = 160, phase: str = "train"):
     model at ``imgsz``, batch 4, on the card and on the CPU (f32, TF32
     off)."""
     images, batch = shape_batch(4, imgsz, 8, seed=3)
+    if guess_model_task(ckpt["model_yaml"]) == "pose":
+        pose_batch(batch, ckpt["model_yaml"]["kpt_shape"][0])
     hyp = train_hyp(ckpt)
     res = {}
     for dev in ("cpu", "cuda"):
@@ -1056,20 +1126,24 @@ class StageTimer:
         return out
 
 
-def train_full_width(ckpt, card: str, phase: str = "train"):
-    """The checkpoint's model (yolov8n-seg or yolov8n) at full width, imgsz
-    640, batch 16, N_pad 8, AdamW from the checkpoint's train_args with no
-    warmup: 3 warm-up steps, then TRAIN_STEPS steps of ``make_train_step``
-    on one repeated batch (counts zeroed just before, read just after), each
-    timed on the host clock and split into its stages by the step's own
-    marks (``StageTimer``)."""
+def train_full_width(ckpt, card: str, phase: str = "train", model=None):
+    """The checkpoint's model (yolov8n-seg or yolov8n), or ``model`` (the
+    fresh yolov8n-pose) with the checkpoint's train_args, at full width,
+    imgsz 640, batch 16, N_pad 8, AdamW from the checkpoint's train_args
+    with no warmup: 3 warm-up steps, then TRAIN_STEPS steps of
+    ``make_train_step`` on one repeated batch (counts zeroed just before,
+    read just after), each timed on the host clock and split into its
+    stages by the step's own marks (``StageTimer``). Pose batches are
+    ``pose_batch``'s."""
     hyp = train_hyp(ckpt, optimizer="AdamW", warmup_epochs=0.0, batch=TRAIN_B)
-    model = ckpt_model(ckpt, "cuda")
+    model = ckpt_model(ckpt, "cuda") if model is None else model.to("cuda").train()
     opt = optim.build_optimizer(model, hyp, steps_per_epoch=1000, iterations=1000)
     state = init_train_state(model, opt, device="cuda")
     timer = StageTimer()
     step = make_train_step(model, opt, hyp, cand=hyp.cand_per_gt, mark=timer)
     images, batch = shape_batch(TRAIN_B, TRAIN_IMGSZ, TRAIN_NPAD, seed=4)
+    if model.task == "pose":
+        pose_batch(batch, model.kpt_shape[0])
     x, b = to_device(images, batch, "cuda")
     losses = [step(state, x, b)["loss"].item() for _ in range(3)]
     timer.marks = []
@@ -1088,7 +1162,8 @@ def train_full_width(ckpt, card: str, phase: str = "train"):
         raise AssertionError(f"{phase} at 640: losses {losses}")
     if model.task == "segment" and counts["gt_rays_rows"] == 0:
         raise AssertionError("the train path never launched the GT-ray kernel")
-    name = "yolov8n-seg" if model.task == "segment" else "yolov8n"
+    name = (f"yolov8n-pose (K {model.kpt_shape[0]})" if model.task == "pose"
+            else {"segment": "yolov8n-seg", "detect": "yolov8n"}[model.task])
     log(phase, f"{name} full width, imgsz {TRAIN_IMGSZ} batch {TRAIN_B} N_pad "
         f"{TRAIN_NPAD}, AdamW lr0 {hyp.lr0}: loss {losses[0]:.4f} at step 0, {losses[-1]:.4f} "
         f"at step {len(losses) - 1}, all finite; {int(batch['mask_gt'].sum())} GT instances; "
@@ -1183,17 +1258,21 @@ def train_floor(card: str, task: str = "segment"):
     before, read just after): the final validation of the stripped
     ``best.ckpt`` must meet the floor. Segment: yolov8n-seg on the seg160
     set, 120 epochs at 160; detect: yolov8n on the detect set, 100 epochs at
-    96. Prints the metrics, every 10th epoch's train loss beside the JAX
-    run's ``results.csv``, the wall time, the epoch and step splits and the
-    peak memory; then ``YOLO(best.ckpt).predict`` on the val images must
-    find detections."""
-    ckpt_path, floor_json, yaml, train_set, val_set = FLOOR_RUNS[task]
-    phase = "train_floor" if task == "segment" else "detect_trainer"
+    96; pose: yolov8n-pose on the pose set with its ``kpt_shape`` [5, 3] and
+    ``flip_idx``, 150 epochs at 96, with the checkpoint's pose and kobj
+    gains and fliplr. Prints the metrics, every 10th epoch's train loss
+    beside the JAX run's ``results.csv``, the wall time, the epoch and step
+    splits and the peak memory; then ``YOLO(best.ckpt).predict`` on the val
+    images must find detections (for pose, each with its keypoints)."""
+    ckpt_path, floor_json, yaml, train_set, val_set, _ = FLOOR_RUNS[task]
+    phase = {"segment": "train_floor", "detect": "detect_trainer", "pose": "pose_trainer"}[task]
     record = json.loads(floor_json.read_text())
     ckpt = load_checkpoint(ckpt_path)
-    over = {k: ckpt["train_args"][k] for k in FLOOR_TRAIN_KEYS}
+    keys = FLOOR_TRAIN_KEYS + (POSE_TRAIN_KEYS if task == "pose" else ())
+    over = {k: ckpt["train_args"][k] for k in keys}
     train, val = train_set(), val_set()
-    data = {"train": train, "val": val, "names": ckpt["names"]}
+    data = {"train": train, "val": val, "names": ckpt["names"],
+            **(floor_pose_data() if task == "pose" else {})}
     timer = TrainTotals(skip=len(train[0]) // over["batch"])
     with tempfile.TemporaryDirectory() as d:
         model = YOLO(yaml, device="cuda")
@@ -1244,8 +1323,16 @@ def train_floor(card: str, task: str = "segment"):
     if task == "segment" and (counts["gt_rays_rows"] == 0 or counts["fill_polygons"] == 0):
         raise AssertionError(f"train_floor: a kernel of the path never launched: {counts}")
     n_det = sum(len(r) for r in pred)
+    kpts = ""
+    if task == "pose":
+        k = data["kpt_shape"]
+        if not all(r.keypoints.shape == (len(r), *k) and np.isfinite(r.keypoints).all()
+                   for r in pred):
+            raise AssertionError(f"{phase}: predict from best.ckpt gave keypoints of shapes "
+                                 f"{[r.keypoints.shape for r in pred]}, not (n, {k[0]}, {k[1]})")
+        kpts = f", each with its {k[0]} keypoints"
     log(phase, f"YOLO(best.ckpt).predict on the {len(pred)} val images: {n_det} "
-        f"detections | {card}")
+        f"detections{kpts} | {card}")
     if n_det == 0:
         raise AssertionError(f"{phase}: predict from the trained best.ckpt found nothing")
     return counts
@@ -1301,7 +1388,9 @@ def train_640(card: str):
 
 def _decoded_set(path):
     with np.load(path) as z:
-        return list(z["images"]), [parse_label_lines(str(t).splitlines()) for t in z["labels"]]
+        kpt_shape = tuple(int(v) for v in z["kpt_shape"]) if "kpt_shape" in z else None
+        return list(z["images"]), [parse_label_lines(str(t).splitlines(), kpt_shape=kpt_shape)
+                                   for t in z["labels"]]
 
 
 def floor_val_set():
@@ -1328,19 +1417,53 @@ def floor_detect_train_set():
     return _decoded_set(FLOOR_DETECT_TRAIN)
 
 
-def floor_detect_jax_metrics() -> dict:
-    """The JAX validator's metrics of ``runs/floor_detect/best.ckpt`` on the
-    detect floor set at imgsz 96, batch 4, stored with the set."""
-    with np.load(FLOOR_DETECT_VAL) as z:
+def _jax_metrics(path) -> dict:
+    with np.load(path) as z:
         return {str(k): float(v) for k, v in zip(z["jax_metric_names"], z["jax_metrics"])}
 
 
+def floor_detect_jax_metrics() -> dict:
+    """The JAX validator's metrics of ``runs/floor_detect/best.ckpt`` on the
+    detect floor set at imgsz 96, batch 4, stored with the set."""
+    return _jax_metrics(FLOOR_DETECT_VAL)
+
+
+def floor_pose_val_set():
+    """The 16 val images of the pose floor set (``make_pose_dataset(
+    n_train=64, n_val=16, imgsz=96, seed=0)``, decoded by cv2) and their
+    labels with keypoints, parsed from the committed label lines."""
+    return _decoded_set(FLOOR_POSE_VAL)
+
+
+def floor_pose_train_set():
+    """The 64 train images of the pose floor set, decoded the same way."""
+    return _decoded_set(FLOOR_POSE_TRAIN)
+
+
+def floor_pose_data() -> dict:
+    """The pose floor set's ``kpt_shape`` and ``flip_idx``, from its data
+    yaml, stored with the set."""
+    with np.load(FLOOR_POSE_TRAIN) as z:
+        return {"kpt_shape": [int(v) for v in z["kpt_shape"]],
+                "flip_idx": [int(v) for v in z["flip_idx"]]}
+
+
+def floor_pose_jax_metrics() -> dict:
+    """The JAX validator's metrics of ``runs/floor_pose/best.ckpt`` on the
+    pose floor set at imgsz 96, batch 4, stored with the set."""
+    return _jax_metrics(FLOOR_POSE_VAL)
+
+
 # per task: the floor checkpoint, its floor.json, the model a trainer starts
-# from, and the floor set's train and val images
+# from, the floor set's train and val images, and the JAX validator's
+# metrics stored with the val set (the seg160 set's are checked by
+# ``validate_floor`` against the CPU port instead)
 FLOOR_RUNS = {
-    "segment": (CKPT, FLOOR_JSON, "yolov8n-seg.yaml", floor_train_set, floor_val_set),
+    "segment": (CKPT, FLOOR_JSON, "yolov8n-seg.yaml", floor_train_set, floor_val_set, None),
     "detect": (DETECT_CKPT, DETECT_FLOOR_JSON, "yolov8n.yaml", floor_detect_train_set,
-               floor_detect_val_set),
+               floor_detect_val_set, floor_detect_jax_metrics),
+    "pose": (POSE_CKPT, POSE_FLOOR_JSON, "yolov8n-pose.yaml", floor_pose_train_set,
+             floor_pose_val_set, floor_pose_jax_metrics),
 }
 
 
@@ -1508,7 +1631,8 @@ def validate_floor(model, cpu, card: str):
 
 def validate_full_width(model, card: str, passes: int = 3, phase: str = "validate"):
     """(b) The task's validator at imgsz 640, batch 16, over ``VAL640_N``
-    480x640 frames with exact labels (``shape_val_set``): one pass with the
+    480x640 frames with exact labels (``shape_val_set``; for pose with the
+    model's keypoint count along each contour, ``with_keypoints``): one pass with the
     launch counts zeroed just before and read just after and the peak
     device memory, then ``passes`` timed passes, ms per image (median): host
     preprocess, then by CUDA events at the validator's marks forward + NMS,
@@ -1516,9 +1640,12 @@ def validate_full_width(model, card: str, passes: int = 3, phase: str = "validat
     and product), then host matching + metrics; and the device eval on the
     host clock."""
     images, labels = shape_val_set(VAL640_N, *VAL640_HW, seed=6)
+    if model.task == "pose":
+        labels = with_keypoints(labels, model.model.kpt_shape[0])
     timer = StageTimer()
     seg = model.task == "segment"
-    v = (SegmentationValidator if seg else DetectionValidator)(
+    v = {"segment": SegmentationValidator, "detect": DetectionValidator,
+         "pose": PoseValidator}[model.task](
         imgsz=640, batch=VAL640_B, conf=VAL_CONF, iou=VAL_IOU, mark=timer)
     v(model.model, images, labels)  # warm-up
     timer.marks = []
@@ -1540,7 +1667,9 @@ def validate_full_width(model, card: str, passes: int = 3, phase: str = "validat
         raise AssertionError("the validate path at 640 never launched the even-odd fill kernel")
     metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in res.items() if k != "fitness")
     log(phase, f"full width, {VAL640_N} images {VAL640_HW[0]}x{VAL640_HW[1]} at imgsz 640 "
-        f"batch {VAL640_B} (printed, not held: the model was trained at {model.imgsz}): {metrics}; "
+        f"batch {VAL640_B} (printed, not held: "
+        f"{f'the model was trained at {model.imgsz}' if model.ckpt_path else 'random weights'}): "
+        f"{metrics}; "
         f"launches of one pass {counts}; peak device memory {peak / 2**30:.3f} GiB | {card}")
     log(phase, f"imgsz 640 batch {VAL640_B}, ms per image (median of {passes} passes): "
         f"{', '.join(f'{k} {x:.3f}' for k, x in med.items())} | {card}")
@@ -1588,16 +1717,18 @@ def predict_ms(model, images, imgsz: int, batch: int, masks: bool) -> dict:
 
 
 def predictor_of(model):
-    return (SegmentationPredictor if model.task == "segment" else DetectionPredictor)
+    return {"segment": SegmentationPredictor, "detect": DetectionPredictor,
+            "pose": PosePredictor}[model.task]
 
 
 def card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str):
     """The card's head maps and predict outputs against the port on the CPU,
     from the same letterboxed inputs: head maps within ``HEAD_ATOL``, the
     same detections, boxes within ``BOX_ATOL`` px, scores within
-    ``SCORE_ATOL``."""
+    ``SCORE_ATOL``; for pose the kept detections' keypoints within
+    ``BOX_ATOL`` px and their visibilities within ``SCORE_ATOL``."""
     pred = predictor_of(model)(imgsz=imgsz)
-    worst = dict.fromkeys(("head", "box", "score"), 0.0)
+    worst = dict.fromkeys(("head", "box", "score", "keypoint", "visibility"), 0.0)
     n_det = 0
     for img in images:
         x, _, _ = pred.preprocess_u8(img, imgsz)
@@ -1614,14 +1745,25 @@ def card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str):
         worst["box"] = max(worst["box"], float((out_gpu["boxes"] - out_cpu["boxes"]).abs().max()))
         worst["score"] = max(worst["score"],
                              float((out_gpu["scores"] - out_cpu["scores"]).abs().max()))
+        if model.task == "pose":
+            keep = out_cpu["valid"]
+            d = (out_gpu["extras"][keep] - out_cpu["extras"][keep]).abs()
+            d = d.reshape(d.shape[0], -1, model.model.kpt_shape[1])
+            if d.numel():
+                worst["keypoint"] = max(worst["keypoint"], float(d[..., :2].max()))
+                worst["visibility"] = max(worst["visibility"], float(d[..., 2:].max()))
         n_det += int(out_cpu["valid"].sum())
-    limits = {"head": HEAD_ATOL, "box": BOX_ATOL, "score": SCORE_ATOL}
+    limits = {"head": HEAD_ATOL, "box": BOX_ATOL, "score": SCORE_ATOL, "keypoint": BOX_ATOL,
+              "visibility": SCORE_ATOL}
     if any(worst[k] > limits[k] for k in limits) or n_det == 0:
         raise AssertionError(f"{phase} card vs CPU: {worst} (limits {limits}), {n_det} detections")
     log(phase, f"card vs CPU at imgsz {imgsz} on {len(images)} images: head max abs "
         f"{worst['head']:.2e} (limit {HEAD_ATOL}), the same {n_det} detections, boxes max abs "
         f"{worst['box']:.2e} px (limit {BOX_ATOL}), scores {worst['score']:.2e} (limit "
-        f"{SCORE_ATOL}) | {card}")
+        f"{SCORE_ATOL})"
+        + (f", keypoints {worst['keypoint']:.2e} px (limit {BOX_ATOL}), visibilities "
+           f"{worst['visibility']:.2e} (limit {SCORE_ATOL})" if model.task == "pose" else "")
+        + f" | {card}")
 
 
 def fuse_check(task: str, card: str) -> dict:
@@ -1632,7 +1774,7 @@ def fuse_check(task: str, card: str) -> dict:
     the fused run, read just after): each metric of the fused model within
     ``FUSE_METRIC_ATOL`` of the unfused one's, and the floor met. The
     segment task's validation launches the even-odd fill kernel."""
-    ckpt_path, floor_json, _, _, val_set = FLOOR_RUNS[task]
+    ckpt_path, floor_json, _, _, val_set, _ = FLOOR_RUNS[task]
     record = json.loads(floor_json.read_text())
     images, labels = val_set()
     plain = YOLO(ckpt_path, device="cuda")
@@ -1710,29 +1852,86 @@ def detect_predict(card: str):
     return model
 
 
-def detect_validate_floor(model, card: str):
-    """``YOLO(runs/floor_detect/best.ckpt).val`` on the card over the detect
-    floor set at imgsz 96, batch 4: box mAP50-95 at least ``floor.json``'s,
-    and each metric within ``DETECT_METRIC_ATOL`` of the JAX validator's
-    (stored with the set)."""
-    images, labels = floor_detect_val_set()
-    record = json.loads(DETECT_FLOOR_JSON.read_text())
-    want = floor_detect_jax_metrics()
+def validate_floor_jax(model, card: str, task: str):
+    """``YOLO(floor checkpoint).val`` on the card over the task's floor set
+    (detect or pose) at its imgsz, batch 4: the floor met (box mAP50-95, and
+    for pose the keypoints' too), and each metric within
+    ``DETECT_METRIC_ATOL`` of the JAX validator's (stored with the set)."""
+    ckpt_path, floor_json, _, _, val_set, jax_metrics = FLOOR_RUNS[task]
+    images, labels = val_set()
+    record = json.loads(floor_json.read_text())
+    want = jax_metrics()
+    phase = f"{task}_validate"
     zero_launch_counts()
-    res = model.val(images, labels, imgsz=DETECT_IMGSZ, batch=VAL_B, conf=VAL_CONF, iou=VAL_IOU)
+    res = model.val(images, labels, imgsz=model.imgsz, batch=VAL_B, conf=VAL_CONF, iou=VAL_IOU)
     counts = launch_counts()
     gaps = {k: abs(res[k] - want[k]) for k in want}
     metrics = ", ".join(f"{k.split('/')[-1]} {x:.4f} (JAX {want[k]:.4f})" for k, x in res.items())
-    log("detect_validate", f"floor set, {len(images)} images at imgsz {DETECT_IMGSZ} batch {VAL_B} "
+    log(phase, f"floor set, {len(images)} images at imgsz {model.imgsz} batch {VAL_B} "
         f"on the card: {metrics}; worst gap {max(gaps.values()):.2e} (limit "
         f"{DETECT_METRIC_ATOL}); floor {record['floor']}; ms per image (host clock) "
         f"{', '.join(f'{k} {v:.3f}' for k, v in model.validator.speed.items())}; launches "
         f"{counts} | {card}")
     below = {k: (res[k], record["floor"][n]) for k, n in record["floor_keys"].items()
              if not res[k] >= record["floor"][n]}
-    if below or max(gaps.values()) > DETECT_METRIC_ATOL:
-        raise AssertionError(f"detect validate on the card: gaps {gaps}, below the floor {below}")
+    if below or set(gaps) != set(res) or max(gaps.values()) > DETECT_METRIC_ATOL:
+        raise AssertionError(f"{task} validate on the card: gaps {gaps}, below the floor {below}")
     return res
+
+
+def fresh_pose_model(device="cuda") -> YOLO:
+    """``YOLO("yolov8n-pose.yaml")`` holding the published yolov8n-pose (nc
+    1, 17 keypoints) at full width, initialized as the trainer initializes
+    a fresh model (``init_weights``) from ``POSE_SEED``, in eval mode."""
+    handle = YOLO("yolov8n-pose.yaml", device=device)
+    model = build_model(yaml_model_load("yolov8n-pose.yaml"))
+    model.names = {0: "person"}
+    init_weights(model, torch.Generator().manual_seed(POSE_SEED))
+    handle.model = model.to(device).eval()
+    return handle
+
+
+def pose_predict(card: str):
+    """``YOLO(runs/floor_pose/best.ckpt).predict`` on the pose floor set's
+    val images at imgsz 96 (batch 1), and the fresh full-width yolov8n-pose
+    (``fresh_pose_model``) on 480x640 frames at 640 (batch 8), launch counts
+    zeroed just before and read just after (the pose path has no kernel of
+    its own): every result's keypoints (n, K, 3) and finite; ms per image;
+    then the floor model on the card against the port on the CPU at 96
+    (heads, detections, boxes, scores, keypoints)."""
+    model = YOLO(POSE_CKPT, device="cuda")
+    full = fresh_pose_model()
+    imgs96 = floor_pose_val_set()[0]
+    imgs640 = shape_images(8, *RASTER_HW, seed=2)
+    zero_launch_counts()
+    res96 = model.predict(imgs96, imgsz=POSE_IMGSZ)
+    res640 = full.predict(imgs640, imgsz=640, batch=8, conf=VAL_CONF)
+    for res, k in ((res96, model.model.kpt_shape), (res640, full.model.kpt_shape)):
+        bad = [r.keypoints.shape for r in res
+               if r.keypoints.shape != (len(r), *k) or not np.isfinite(r.keypoints).all()]
+        if bad:
+            raise AssertionError(f"pose predict: keypoints of shapes {bad}, not (n, {k[0]}, 3)")
+    n96, n640 = sum(len(r) for r in res96), sum(len(r) for r in res640)
+    lat = {}
+    for imgsz, m, images, batch in ((POSE_IMGSZ, model, imgs96[:1], 1), (640, full, imgs640, 8)):
+        predict_ms(m, images, imgsz, batch, masks=False)  # warm-up
+        runs = [predict_ms(m, images, imgsz, batch, masks=False) for _ in range(10)]
+        lat[imgsz] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    counts = launch_counts()
+    if n96 == 0:
+        raise AssertionError("pose predict at 96 found nothing on the floor images")
+    log("pose_predict", f"floor_pose (K {model.model.kpt_shape[0]}) at imgsz {POSE_IMGSZ}: {n96} "
+        f"detections with keypoints on {len(imgs96)} floor images; yolov8n-pose full width (K "
+        f"{full.model.kpt_shape[0]}, {full.model.num_params} parameters, random weights from "
+        f"seed {POSE_SEED}) at imgsz 640 batch 8, conf {VAL_CONF}: {n640} detections with "
+        f"keypoints on {len(imgs640)} frames; launches {counts} | {card}")
+    for imgsz, batch, name in ((POSE_IMGSZ, 1, "floor_pose"), (640, 8, "yolov8n-pose K 17")):
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in lat[imgsz].items())
+        log("pose_predict", f"{name} imgsz {imgsz} batch {batch}, ms per image (host clock, "
+            f"median of 10 calls, conf 0.25): {parts} | {card}")
+    card_vs_cpu_predict(model, YOLO(POSE_CKPT, device="cpu"), imgs96[:8], POSE_IMGSZ,
+                        "pose_predict", card)
+    return model, full
 
 
 def paper_comparison(card: str) -> dict:
@@ -1887,14 +2086,14 @@ def main() -> int:
 
     # 8. the deploy form: both floor checkpoints fused on the card
     phase_start["fuse"] = time.perf_counter()
-    fuse_runs = [fuse_check(task, card) for task in ("segment", "detect")]
+    fuse_runs = [fuse_check(task, card) for task in ("segment", "detect", "pose")]
     fuse_counts = {k: sum(c[k] for c in fuse_runs) for k in KERNEL_WRAPPERS}
 
     # 9-12. the detect task: predict, validate, the train step, the trainer
     phase_start["detect_predict"] = time.perf_counter()
     detect = detect_predict(card)
     phase_start["detect_validate"] = time.perf_counter()
-    detect_validate_floor(detect, card)
+    validate_floor_jax(detect, card, "detect")
     validate_full_width(detect, card, phase="detect_validate")
     phase_start["detect_train"] = time.perf_counter()
     detect_ckpt = load_checkpoint(DETECT_CKPT)
@@ -1903,11 +2102,25 @@ def main() -> int:
     phase_start["detect_trainer"] = time.perf_counter()
     train_floor(card, "detect")
 
-    # 13. the fork's headline comparison, seg against detect, at 640
+    # 13-16. the pose task: predict, validate, the train step, the trainer
+    # (no kernel of its own: each run's launch counts are printed, all 0)
+    phase_start["pose_predict"] = time.perf_counter()
+    pose, pose17 = pose_predict(card)
+    phase_start["pose_validate"] = time.perf_counter()
+    validate_floor_jax(pose, card, "pose")
+    validate_full_width(pose17, card, phase="pose_validate")
+    phase_start["pose_train"] = time.perf_counter()
+    pose_ckpt = load_checkpoint(POSE_CKPT)
+    train_card_vs_cpu(pose_ckpt, card, imgsz=POSE_IMGSZ, phase="pose_train")
+    train_full_width(pose_ckpt, card, phase="pose_train", model=pose17.model)
+    phase_start["pose_trainer"] = time.perf_counter()
+    train_floor(card, "pose")
+
+    # 17. the fork's headline comparison, seg against detect, at 640
     phase_start["compare"] = time.perf_counter()
     paper_comparison(card)
 
-    # 14. report: launches summed over the main paths' runs
+    # 18. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k] + trainer_counts[k]
                 + fuse_counts[k] for k in KERNEL_WRAPPERS}
@@ -1937,7 +2150,8 @@ def main() -> int:
     log("report", f"launches on the main paths: predict {predict_counts}, validate "
         f"{validate_counts} (floor set at 160 and one pass at 640), train step {train_counts}, "
         f"trainer {trainer_counts} (the floor run and 640), fused validate {fuse_counts} (the "
-        f"seg160 and detect floor sets; the detect path has no kernel of its own); "
+        f"seg160, detect and pose floor sets; the detect and pose paths have no kernel of their "
+        f"own); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, and at 480x640 (the *_480x640 keys); fill_polygons_cv2 (the "
         "predict path's masks): ms a launch at N=300 480x640; gt_rays_rows: ms, plain_ms and "

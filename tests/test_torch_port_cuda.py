@@ -424,7 +424,7 @@ def test_detect_predict_card_equals_cpu(cuda, full_f32):
                         "test", "card")
 
 
-@pytest.mark.parametrize("task", ["segment", "detect"])
+@pytest.mark.parametrize("task", ["segment", "detect", "pose"])
 def test_fused_equals_unfused_on_the_card(cuda, full_f32, task):
     """``YOLO(floor checkpoint).fuse()`` on the card against the unfused
     model there: heads within 1e-3, the same detections, each validation
@@ -434,3 +434,69 @@ def test_fused_equals_unfused_on_the_card(cuda, full_f32, task):
 
     counts = fuse_check(task, "card")
     assert (counts["fill_polygons"] > 0) == (task == "segment")
+
+
+def test_pose_head_predict_and_train_step_card_equal_cpu(cuda, full_f32):
+    """``YOLO(runs/floor_pose/best.ckpt)`` defaults to the card; its head
+    maps and predict outputs equal the CPU port's on the floor images
+    (heads within 1e-3, the same detections, boxes and keypoints within
+    0.05 px, scores and visibilities within 1e-4), and its train-mode pose
+    loss, assignment and gradients at 96 px equal the CPU's (loss 1e-4
+    relative, gradients 1e-3 of each tensor's largest;
+    ``chip_smoke.card_vs_cpu_predict`` and ``train_card_vs_cpu``)."""
+    from chip_smoke import (POSE_CKPT, card_vs_cpu_predict, floor_pose_val_set,
+                            train_card_vs_cpu)
+    from yolo_contour_regression_tpu_torch import YOLO
+    from yolo_contour_regression_tpu_torch.utils.checkpoint import load_checkpoint
+
+    model = YOLO(POSE_CKPT)
+    assert model.task == "pose" and all(p.is_cuda for p in model.model.parameters())
+    card_vs_cpu_predict(model, YOLO(POSE_CKPT, device="cpu"), floor_pose_val_set()[0][:8], 96,
+                        "test", "card")
+    train_card_vs_cpu(load_checkpoint(POSE_CKPT), "card", imgsz=96, phase="test")
+
+
+@pytest.mark.parametrize("k", [5, 17])
+def test_pose_loss_card_equals_cpu(cuda, full_f32, k):
+    """``pose_loss`` on the same random head maps (imgsz 64, 5 or 17
+    keypoints) on the card and on the CPU: the total and each item within
+    1e-5 relative, the same assignment, and the gradients w.r.t. the maps
+    within 1e-5 of their largest entry."""
+    from types import SimpleNamespace
+
+    from yolo_contour_regression_tpu_torch.utils import loss as tloss
+
+    rng = np.random.default_rng(k)
+    B, nc, nk, n = 2, 1, 3 * k, 4
+    hyp = SimpleNamespace(box=7.5, cls=0.5, dfl=1.5, pose=12.0, kobj=1.0)
+    c = rng.uniform(0.3, 0.7, (B, n, 2))
+    wh = rng.uniform(0.2, 0.5, (B, n, 2))
+    kxy = c[:, :, None] + rng.uniform(-0.5, 0.5, (B, n, k, 2)) * wh[:, :, None]
+    vis = rng.choice([0.0, 2.0], (B, n, k), p=[0.2, 0.8])
+    batch = {"cls": np.zeros((B, n), np.int32),
+             "bboxes": np.concatenate([c, wh], -1).astype(np.float32),
+             "mask_gt": np.ones((B, n), bool),
+             "keypoints": np.concatenate([kxy, vis[..., None]], -1).astype(np.float32)}
+    feats = []
+    for s in (8, 16, 32):
+        f = rng.normal(0, 2, (B, 64 + nc + nk, 64 // s, 64 // s))
+        f[:, :64] -= np.tile(0.6 * np.arange(16), 4)[None, :, None, None]
+        f[:, 64 + nc:] *= 0.4
+        feats.append(f.astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fs = [torch.from_numpy(f).to(dev).requires_grad_() for f in feats]
+        b = {key: torch.from_numpy(v).to(dev) for key, v in batch.items()}
+        res = tloss.pose_loss(fs, b, (8, 16, 32), nc, hyp, (k, 3))
+        res.total.backward()
+        assign = tloss.detect_targets([f[:, :-nk] for f in fs], b, (8, 16, 32), nc).assign
+        out[dev] = (res, assign, [f.grad.cpu() for f in fs])
+    (rc, ac, gc), (rg, ag, gg) = out["cpu"], out["cuda"]
+    assert torch.equal(ac.fg_mask, ag.fg_mask.cpu()) and bool(ac.fg_mask.any())
+    assert torch.equal(ac.target_gt_idx[ac.fg_mask], ag.target_gt_idx.cpu()[ac.fg_mask])
+    np.testing.assert_allclose(rg.total.item(), rc.total.item(), rtol=1e-5)
+    for key in rc.items:
+        np.testing.assert_allclose(rg.items[key].item(), rc.items[key].item(), rtol=1e-5,
+                                   err_msg=key)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

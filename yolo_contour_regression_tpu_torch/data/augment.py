@@ -123,7 +123,8 @@ def letterbox_sample(s: Sample, imgsz, scaleup: bool = True) -> Sample:
 
 def _padded_labels(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
     """The sample's labels normalized to its image and padded to
-    ``max_instances``: cls, bboxes (xywh), segments, mask_gt."""
+    ``max_instances``: cls, bboxes (xywh), segments, mask_gt, and where the
+    sample has them keypoints (max_instances, K, 3), xy normalized."""
     h, w = s.img.shape[:2]
     n = min(len(s.inst), max_instances)
     cls = np.zeros((max_instances,), np.int32)
@@ -138,7 +139,15 @@ def _padded_labels(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
         bboxes[:n] = xywh / np.array([w, h, w, h], np.float32)
         segments[:n] = inst.segments[:n] / np.array([w, h], np.float32)
         mask[:n] = True
-    return {"cls": cls, "bboxes": bboxes, "segments": segments, "mask_gt": mask}
+    out = {"cls": cls, "bboxes": bboxes, "segments": segments, "mask_gt": mask}
+    if s.inst.keypoints is not None:
+        kpts = np.zeros((max_instances, s.inst.keypoints.shape[1], 3), np.float32)
+        if n:
+            kpts[:n] = s.inst.keypoints[:n]
+            kpts[:n, :, 0] /= w
+            kpts[:n, :, 1] /= h
+        out["keypoints"] = kpts
+    return out
 
 
 def format_sample(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
@@ -175,6 +184,8 @@ def format_sample_raw(s: Sample, max_instances: int) -> Dict[str, np.ndarray]:
 
 
 INSTANCE_BUCKETS = (8, 16, 32)
+# the per-instance keys that ``collate`` trims to the bucket
+INSTANCE_KEYS = ("cls", "bboxes", "segments", "mask_gt", "keypoints")
 
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -185,6 +196,7 @@ def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     n_pad = out["mask_gt"].shape[1]
     n_act = int(out["mask_gt"].sum(axis=1).max())
     cap = next((b for b in INSTANCE_BUCKETS if n_act <= b < n_pad), n_pad)
-    for k in ("cls", "bboxes", "segments", "mask_gt"):
-        out[k] = out[k][:, :cap]
+    for k in INSTANCE_KEYS:
+        if k in out:
+            out[k] = out[k][:, :cap]
     return out

@@ -15,12 +15,19 @@ import numpy as np
 from .augment import collate
 
 
+# the tasks whose train transforms the device augmentation covers (classify
+# has transforms of its own, on the host)
+DEVICE_AUGMENT_TASKS = ("detect", "segment", "segment_ori", "pose")
+
+
 def use_device_augment(cfg) -> bool:
     """True where the JAX package would augment on the device (its
-    ``data/build.py:use_device_augment``): ``device_augment`` on, no
-    ``mosaic9`` and no ``copy_paste``. Otherwise JAX takes its host cv2
-    train pipeline, which the port does not have."""
+    ``data/build.py:use_device_augment``): ``device_augment`` on, a task of
+    ``DEVICE_AUGMENT_TASKS`` (``detect`` when the config names none), no
+    ``mosaic9`` and no ``copy_paste``. Otherwise JAX takes its host train
+    pipeline, which the port does not have."""
     return (bool(getattr(cfg, "device_augment", False))
+            and getattr(cfg, "task", "detect") in DEVICE_AUGMENT_TASKS
             and float(getattr(cfg, "mosaic9", 0.0) or 0.0) == 0.0
             and float(getattr(cfg, "copy_paste", 0.0) or 0.0) == 0.0)
 

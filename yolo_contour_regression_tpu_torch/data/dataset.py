@@ -97,7 +97,10 @@ class ValDataset:
 
     ``images``: HWC uint8 BGR arrays. ``labels``: one per image, a path to a
     YOLO label file or the ``(cls, bboxes, segments)`` arrays
-    ``parse_label_file`` gives (normalized to the image). Each image is first
+    ``parse_label_file`` gives (normalized to the image); with ``kpt_shape``
+    (K, D) a pose set, whose labels add keypoints (``(cls, bboxes, segments,
+    keypoints (n, K, 3))``, as ``parse_label_file(..., kpt_shape=...)``
+    gives them) and whose samples carry ``keypoints``. Each image is first
     resized so its long side is ``imgsz``, as the JAX dataset caches it, and
     ``ori_shape`` is that resized image's shape: the metrics are in its
     frame. Then it is letterboxed without upscaling and formatted with its
@@ -107,25 +110,31 @@ class ValDataset:
     augment = False  # the JAX dataset's train mode (``TrainDataset``)
 
     def __init__(self, images: Sequence[np.ndarray], labels: Sequence[Union[str, Path, Labels]],
-                 imgsz: int = 640, max_instances: int = 48):
+                 imgsz: int = 640, max_instances: int = 48, kpt_shape=None):
         if len(images) != len(labels):
             raise ValueError(f"{len(images)} images but {len(labels)} labels")
         for i, img in enumerate(images):
             if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3):
                 raise TypeError(f"image {i}: expected an HWC uint8 numpy array")
         self.images = list(images)
+        self.kpt_shape = tuple(int(v) for v in kpt_shape) if kpt_shape else None
         self.labels = [self._labels(lab) for lab in labels]
         self.imgsz = int(imgsz)
         self.max_instances = int(max_instances)
 
-    @staticmethod
-    def _labels(lab) -> Dict[str, np.ndarray]:
+    def _labels(self, lab) -> Dict[str, np.ndarray]:
         if isinstance(lab, (str, Path)):
-            lab = parse_label_file(str(lab))
-        c, b, s = lab
-        return {"cls": np.asarray(c, np.int32).reshape(-1),
-                "bboxes": np.asarray(b, np.float32).reshape(-1, 4),
-                "segments": np.asarray(s, np.float32).reshape(-1, NUM_CONTOUR_POINTS, 2)}
+            lab = parse_label_file(str(lab), kpt_shape=self.kpt_shape)
+        c, b, s = lab[:3]
+        out = {"cls": np.asarray(c, np.int32).reshape(-1),
+               "bboxes": np.asarray(b, np.float32).reshape(-1, 4),
+               "segments": np.asarray(s, np.float32).reshape(-1, NUM_CONTOUR_POINTS, 2)}
+        if self.kpt_shape:
+            if len(lab) < 4:
+                raise ValueError(f"a pose set (kpt_shape {self.kpt_shape}) needs keypoints with "
+                                 "each label: (cls, bboxes, segments, keypoints)")
+            out["keypoints"] = np.asarray(lab[3], np.float32).reshape(len(out["cls"]), -1, 3)
+        return out
 
     def __len__(self):
         return len(self.images)
@@ -156,7 +165,12 @@ class ValDataset:
         xywh = lab["bboxes"] * np.array([w, h, w, h], np.float32)
         xyxy = np.concatenate([xywh[:, :2] - xywh[:, 2:] / 2, xywh[:, :2] + xywh[:, 2:] / 2], -1)
         segs = lab["segments"] * np.array([w, h], np.float32)
-        return Sample(img, Instances(lab["cls"].astype(np.float32), xyxy, segs))
+        kpts = None
+        if "keypoints" in lab:
+            kpts = lab["keypoints"].copy()
+            kpts[..., 0] *= w
+            kpts[..., 1] *= h
+        return Sample(img, Instances(lab["cls"].astype(np.float32), xyxy, segs, kpts))
 
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         s = letterbox_sample(self.load_raw(i), self.imgsz, scaleup=False)

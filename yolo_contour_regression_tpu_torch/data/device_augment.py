@@ -24,7 +24,10 @@ resamples separably in bfloat16: here everything is float32, so an image
 agrees with JAX's float32 warps to summation order and with its bfloat16
 default to about one level. Labels: contours and box corners go through the
 same 3x3 matrix; the 4 tiles' 4N instances are cut to ``n_out`` by validity,
-then area (a stable sort: among equals the lowest index wins).
+then area (a stable sort: among equals the lowest index wins). Keypoints
+(a pose batch) go through the same matrix; one warped outside the image
+(x or y below 0 or above S) loses its visibility, and ``fliplr`` swaps the
+left and right keypoints by ``hyp.flip_idx``.
 """
 from __future__ import annotations
 
@@ -269,10 +272,11 @@ def apply_augment(batch: Dict[str, torch.Tensor], draws: Dict, hyp, imgsz: int, 
 
     batch: ``img`` (B, S, S, 3) uint8 BGR as the loader gives it, ``cls``
     (B, N), ``bboxes`` (B, N, 4) normalized xywh, ``segments`` (B, N, 360,
-    2) normalized, ``mask_gt`` (B, N), ``content_hw`` and ``pad_tl`` (B, 2).
-    draws: ``draw_augment``'s dict of numpy arrays. Returns the batch the
-    loss takes: ``img`` (B, S, S, 3) float32 RGB in [0, 1], and labels with
-    ``n_out`` instances."""
+    2) normalized, ``mask_gt`` (B, N), ``content_hw`` and ``pad_tl`` (B, 2),
+    and optionally ``keypoints`` (B, N, K, 3), xy normalized and a
+    visibility. draws: ``draw_augment``'s dict of numpy arrays. Returns the
+    batch the loss takes: ``img`` (B, S, S, 3) float32 RGB in [0, 1], and
+    labels with ``n_out`` instances (with ``keypoints`` where given)."""
     S = int(imgsz)
     images = batch["img"]
     dev = images.device
@@ -290,6 +294,7 @@ def apply_augment(batch: Dict[str, torch.Tensor], draws: Dict, hyp, imgsz: int, 
     t_cls, t_boxes = batch["cls"][sel], batch["bboxes"].float()[sel]
     t_segs, t_mask = batch["segments"].float()[sel], batch["mask_gt"].bool()[sel]
     t_chw, t_pad = batch["content_hw"].float()[sel], batch["pad_tl"].float()[sel]
+    t_kpts = batch["keypoints"].float()[sel] if "keypoints" in batch else None
 
     use_mosaic = d["mosaic"].bool()
     zero = torch.zeros((), device=dev)
@@ -320,6 +325,10 @@ def apply_augment(batch: Dict[str, torch.Tensor], draws: Dict, hyp, imgsz: int, 
     wh_after = out_max - out_min
     keep = tile_valid & _box_candidates(wh_before, wh_after)
     out_boxes = torch.cat([(out_min + out_max) / 2, out_max - out_min], -1)
+    if t_kpts is not None:  # px; a keypoint warped out of the image is not visible
+        kxy = _warp_points(t_kpts[..., :2] * S + shift[:, :, None, None, :], M)
+        out_of = (kxy[..., 0] < 0) | (kxy[..., 0] > S) | (kxy[..., 1] < 0) | (kxy[..., 1] > S)
+        kvis = torch.where(out_of, torch.zeros_like(t_kpts[..., 2]), t_kpts[..., 2])
 
     # merge the 4 tiles' 4N instances -> n_out by validity, then area
     def flat(a):
@@ -329,6 +338,10 @@ def apply_augment(batch: Dict[str, torch.Tensor], draws: Dict, hyp, imgsz: int, 
     order = _by_priority(keep_f, flat(wh_after[..., 0] * wh_after[..., 1]), n_out)
     out = {"cls": _take(flat(t_cls), order), "bboxes": _take(flat(out_boxes), order) / S,
            "segments": _take(flat(segs_out), order) / S, "mask_gt": _take(keep_f, order)}
+    if t_kpts is not None:
+        out["keypoints"] = torch.cat([_take(flat(kxy), order) / S,
+                                      _take(flat(kvis), order)[..., None]], -1)
+    geometry = [k for k in ("bboxes", "segments", "keypoints") if k in out]
 
     img = img.flip(-1) / 255.0  # BGR -> RGB
 
@@ -340,7 +353,7 @@ def apply_augment(batch: Dict[str, torch.Tensor], draws: Dict, hyp, imgsz: int, 
         m2 = torch.cat([out["mask_gt"], out["mask_gt"][pidx] & do[:, None]], 1)
         area = out["bboxes"][..., 2] * out["bboxes"][..., 3]
         order = _by_priority(m2, torch.cat([area, area[pidx]], 1), n_out)
-        for k in ("cls", "bboxes", "segments"):
+        for k in ("cls", *geometry):
             out[k] = _take(torch.cat([out[k], out[k][pidx]], 1), order)
         out["mask_gt"] = _take(m2, order)
 
@@ -349,18 +362,27 @@ def apply_augment(batch: Dict[str, torch.Tensor], draws: Dict, hyp, imgsz: int, 
         if _f(hyp, key, 0.5 if key == "fliplr" else 0.0) > 0:
             do = d[key].bool()
             img = torch.where(do[:, None, None, None], img.flip(axis), img)
-            for k, m in (("bboxes", do[:, None]), ("segments", do[:, None, None])):
+            for k in geometry:
                 v = out[k].clone()
+                m = do.reshape(-1, *([1] * (v.dim() - 2)))
                 v[..., coord] = torch.where(m, 1.0 - v[..., coord], v[..., coord])
                 out[k] = v
+            flip_idx = getattr(hyp, "flip_idx", None)
+            if key == "fliplr" and flip_idx and "keypoints" in out:
+                k = out["keypoints"]
+                kf = k[:, :, torch.as_tensor(list(flip_idx), device=dev).long()]
+                out["keypoints"] = torch.where(do[:, None, None, None], kf, k)
 
     # HSV, pixels only
     if any(_f(hyp, f"hsv_{c}") > 0 for c in "hsv"):
         scale = torch.tensor([_f(hyp, "hsv_h"), _f(hyp, "hsv_s"), _f(hyp, "hsv_v")], device=dev)
         img = hsv_jitter(img, d["hsv"].float() * scale + 1.0)
 
-    return {"img": img.to(torch.float32), "cls": out["cls"].to(torch.int32),
-            "bboxes": out["bboxes"], "segments": out["segments"], "mask_gt": out["mask_gt"]}
+    res = {"img": img.to(torch.float32), "cls": out["cls"].to(torch.int32),
+           "bboxes": out["bboxes"], "segments": out["segments"], "mask_gt": out["mask_gt"]}
+    if "keypoints" in out:
+        res["keypoints"] = out["keypoints"]
+    return res
 
 
 def make_augment_fn(hyp, imgsz: int, max_instances: int):

@@ -1,7 +1,10 @@
 """Label geometry (a numpy copy of the parts of the JAX package's
-``data/instance.py`` that validation uses): boxes and 360-point contours
-scaled and translated together, so the letterbox cannot desync them."""
+``data/instance.py`` that the host pipelines use): boxes, 360-point contours
+and keypoints scaled and translated together, so the letterbox cannot
+desync them."""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -32,30 +35,40 @@ def segments2boxes(segments: np.ndarray) -> np.ndarray:
 
 
 class Instances:
-    """cls (N,), bboxes (N, 4) xyxy and segments (N, 360, 2), in pixels,
-    float32."""
+    """cls (N,), bboxes (N, 4) xyxy, segments (N, 360, 2) and optional
+    keypoints (N, K, 3), in pixels, float32 (the geometry leaves a
+    keypoint's visibility as it is)."""
 
-    def __init__(self, cls: np.ndarray, bboxes: np.ndarray, segments: np.ndarray):
+    def __init__(self, cls: np.ndarray, bboxes: np.ndarray, segments: np.ndarray,
+                 keypoints: Optional[np.ndarray] = None):
         self.cls = np.asarray(cls, np.float32).reshape(-1)
         self.bboxes = np.asarray(bboxes, np.float32).reshape(-1, 4)
         if segments.size == 0:
             segments = np.zeros((len(self.cls), NUM_CONTOUR_POINTS, 2), np.float32)
         self.segments = np.asarray(segments, np.float32)
+        self.keypoints = None if keypoints is None else np.asarray(keypoints, np.float32)
 
     def __len__(self):
         return self.cls.shape[0]
 
     def copy(self) -> "Instances":
-        return Instances(self.cls.copy(), self.bboxes.copy(), self.segments.copy())
+        return Instances(self.cls.copy(), self.bboxes.copy(), self.segments.copy(),
+                         None if self.keypoints is None else self.keypoints.copy())
 
     def scale(self, sx: float, sy: float):
         self.bboxes[:, [0, 2]] *= sx
         self.bboxes[:, [1, 3]] *= sy
         self.segments[..., 0] *= sx
         self.segments[..., 1] *= sy
+        if self.keypoints is not None:
+            self.keypoints[..., 0] *= sx
+            self.keypoints[..., 1] *= sy
 
     def translate(self, dx: float, dy: float):
         self.bboxes[:, [0, 2]] += dx
         self.bboxes[:, [1, 3]] += dy
         self.segments[..., 0] += dx
         self.segments[..., 1] += dy
+        if self.keypoints is not None:
+            self.keypoints[..., 0] += dx
+            self.keypoints[..., 1] += dy

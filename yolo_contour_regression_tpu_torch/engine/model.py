@@ -1,5 +1,5 @@
-"""The ``YOLO`` facade of the segment and detect tasks (counterpart of the
-JAX package's ``engine/model.py``)::
+"""The ``YOLO`` facade of the segment, detect and pose tasks (counterpart of
+the JAX package's ``engine/model.py``)::
 
     model = YOLO("yolov8n-seg.yaml", device="cuda")     # a fresh polar model
     metrics = model.train(data={"train": (images, labels), "val": (images, labels),
@@ -8,12 +8,14 @@ JAX package's ``engine/model.py``)::
     results = model.predict([img_bgr_u8, ...], imgsz=160)
     metrics = model.val([img_bgr_u8, ...], ["a.txt", ...], imgsz=160, batch=4)
     model = YOLO("runs/floor_detect/best.ckpt").fuse()  # detect, deploy form
+    results = YOLO("runs/floor_pose/best.ckpt").predict(images)  # results[0].keypoints
 
 A name ending in ``.yaml`` names a fresh model (``nn/tasks.py``:
 ``yaml_model_load``; ``yolov8n-seg.yaml`` is the polar segment task,
-``yolov8n.yaml`` detect) that has no weights until ``train`` builds and
-initializes it from ``seed`` and adopts its ``best.ckpt``; anything else is
-a checkpoint of the JAX package's ``segment`` or ``detect`` task, in its
+``yolov8n.yaml`` detect, ``yolov8n-pose.yaml`` pose) that has no weights
+until ``train`` builds and initializes it from ``seed`` and adopts its
+``best.ckpt``; anything else is a checkpoint of the JAX package's
+``segment``, ``detect`` or ``pose`` task, in its
 training form or fused (``deploy == "fused"``, as the JAX ``YOLO.save``
 writes it after ``fuse()``), or one the port's trainer wrote. The task
 comes from the checkpoint's ``train_args`` or, failing that, the config's
@@ -29,9 +31,9 @@ import torch
 from ..nn.fuse import fuse_model
 from ..nn.tasks import TASK_MODELS, TaskModel, build_model, guess_model_task, yaml_model_load
 from ..utils.checkpoint import checkpoint_variables, load_checkpoint, load_jax_variables
-from .predictor import DetectionPredictor, SegmentationPredictor
-from .trainer import DetectionTrainer, SegmentationTrainer
-from .validator import DetectionValidator, SegmentationValidator
+from .predictor import DetectionPredictor, PosePredictor, SegmentationPredictor
+from .trainer import DetectionTrainer, PoseTrainer, SegmentationTrainer
+from .validator import DetectionValidator, PoseValidator, SegmentationValidator
 
 # each task's predictor, validator and trainer (the JAX ``TASK_MAP``, for the ported tasks)
 TASK_MAP = {
@@ -39,6 +41,7 @@ TASK_MAP = {
                 "trainer": SegmentationTrainer},
     "detect": {"predictor": DetectionPredictor, "validator": DetectionValidator,
                "trainer": DetectionTrainer},
+    "pose": {"predictor": PosePredictor, "validator": PoseValidator, "trainer": PoseTrainer},
 }
 
 
@@ -129,10 +132,12 @@ class YOLO:
 
     def val(self, images, labels, imgsz=None, batch: int = 16, conf: float = 0.001,
             iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024, mask_ratio: int = 1):
-        """Box (and for the segment task mask) mAP on decoded images (HWC
-        uint8 BGR numpy) with their labels (YOLO label-file paths, or the
-        ``(cls, bboxes, segments)`` arrays ``data/dataset.py:parse_label_file``
-        gives), on the model's device -> the JAX ``results_dict`` keys. The
+        """Box (and for the segment task mask, for pose keypoint) mAP on
+        decoded images (HWC uint8 BGR numpy) with their labels (YOLO
+        label-file paths, or the arrays ``data/dataset.py:parse_label_file``
+        gives: ``(cls, bboxes, segments)``, for pose with the model's
+        ``kpt_shape`` also ``keypoints``), on the model's device -> the JAX
+        ``results_dict`` keys. The
         validator, with its ``speed``, stays at ``self.validator``."""
         kw = dict(imgsz=imgsz or self.imgsz, batch=batch, conf=conf, iou=iou, max_det=max_det,
                   pre_nms=pre_nms)

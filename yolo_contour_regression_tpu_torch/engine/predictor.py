@@ -1,4 +1,4 @@
-"""Predictors of the segment and detect tasks (counterparts of the JAX
+"""Predictors of the segment, detect and pose tasks (counterparts of the JAX
 package's ``engine/predictor.py``).
 
 Per batch: host letterbox (uint8, BGR -> RGB) -> device uint8 -> [0, 1]
@@ -7,8 +7,11 @@ clip). Segment: ``predict_parts(sigmoid=False)`` ->
 ``non_max_suppression_parts(scores_are_logits=True)`` ->
 ``finalize_polar_extras``; boxes, contours and masks. Detect, as the JAX
 detect branch: ``decode_detect`` (sigmoid scores) -> ``xywh2xyxy`` -> NMS
-in float32 with scores as probabilities; boxes only. Sources are HWC uint8
-BGR numpy arrays or lists of them; decoding image files is not ported.
+in float32 with scores as probabilities; boxes only. Pose, as detect with
+the decoded keypoints riding through NMS as its extras; boxes and keypoints
+(unpadded and ungained, not clipped, the visibility kept). Sources are HWC
+uint8 BGR numpy arrays or lists of them; decoding image files is not
+ported.
 """
 from __future__ import annotations
 
@@ -147,3 +150,22 @@ class DetectionPredictor(BasePredictor):
                     device) -> Results:
         return Results(orig, path, names, boxes=_image_boxes(out, bi, orig, gain, pad),
                        device=device)
+
+
+class PosePredictor(DetectionPredictor):
+    task = "pose"
+
+    def postprocess(self, out: Dict[str, np.ndarray], bi: int, orig, path, gain, pad, names,
+                    device) -> Results:
+        """The detect result, and each detection's keypoints (n, K, D) in the
+        image's pixels: ``(k[..., :2] - pad) / gain``, the visibility kept. As in
+        the JAX ``PosePredictor``, keypoints are reported where nk is a
+        multiple of 3; an image without detections gets (0, K, 3) (JAX's
+        reshape of the empty array raises there)."""
+        res = super().postprocess(out, bi, orig, path, gain, pad, names, device)
+        ex = out["extras"][bi][out["valid"][bi]]  # (n, nk) decoded keypoints
+        if ex.shape[1] % 3 == 0:
+            k = ex.reshape(ex.shape[0], ex.shape[1] // 3, 3).copy()
+            k[..., :2] = (k[..., :2] - np.array(pad)) / gain
+            res.keypoints = k
+        return res

@@ -1,6 +1,8 @@
 """Inference result containers (counterpart of the JAX package's
 ``engine/results.py``), numpy-backed. A detect result carries boxes only
-(``contours`` and ``masks`` are None).
+(``contours`` and ``masks`` are None), a pose result boxes and
+``keypoints`` (n, K, D) in the image's pixels, a segment result no
+keypoints (None).
 
 ``Results.masks`` is lazy: the first read rasterizes the polar contours at
 the original image size through ``ops.raster.fill_polygons_cv2`` on the
@@ -85,6 +87,7 @@ class Results:
         names: Dict[int, str],
         boxes: Optional[np.ndarray] = None,
         contours=None,
+        keypoints: Optional[np.ndarray] = None,
         speed: Optional[Dict[str, float]] = None,
         device="cuda",
     ):
@@ -96,6 +99,7 @@ class Results:
         self.contours = (
             Contours(contours[0], contours[1], self.orig_shape) if contours is not None else None
         )
+        self.keypoints = keypoints
         self.device = device
         self.speed = speed or {}
         self._masks: Optional[Masks] = None

@@ -1,12 +1,13 @@
 """The training step (counterpart of the JAX package's ``engine/step.py``):
 the augmentation on the device, forward in train mode, polar loss,
-backward, gradient clip, optimizer step and EMA, for the segment and
-detect tasks (the loss by the model's ``task``: the polar loss, or the
-stock detect loss).
+backward, gradient clip, optimizer step and EMA, for the segment, detect
+and pose tasks (the loss by the model's ``task``: the polar loss, the stock
+detect loss, or the pose loss on the detect loss's assignment).
 
 The public boundary keeps the JAX layouts: images (B, H, W, 3) f32 in
 [0, 1]; batch ``cls`` (B, N), ``bboxes`` (B, N, 4) normalized xywh,
-``segments`` (B, N, 360, 2) normalized, ``mask_gt`` (B, N). With
+``segments`` (B, N, 360, 2) normalized, ``mask_gt`` (B, N), and for pose
+``keypoints`` (B, N, K, 3), xy normalized and a visibility. With
 ``augment_fn`` (``data/device_augment.py:make_augment_fn``) the step takes
 the loader's raw batches instead, images (B, S, S, 3) uint8 BGR with
 ``content_hw`` and ``pad_tl``, and augments them on the device first, with
@@ -46,7 +47,7 @@ import torch
 from torch import nn
 
 from ..utils import optim as optim_mod
-from ..utils.loss import detect_loss, detect_targets, polar_loss, polar_targets
+from ..utils.loss import detect_loss, detect_targets, polar_loss, polar_targets, pose_loss
 
 Mark = Optional[Callable[[str], None]]
 
@@ -77,12 +78,13 @@ def init_train_state(model: nn.Module, optimizer: optim_mod.Optimizer,
 def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool = False
                  ) -> Callable:
     """(images (B, H, W, 3), batch) -> (total, items) for the model's task
-    (segment or detect); the model runs as it is (train mode updates its
+    (segment, detect or pose); the model runs as it is (train mode updates its
     BatchNorm statistics), under bfloat16 autocast with ``amp``. A fused
     (deploy) model does not train."""
     task = getattr(model, "task", "segment")
-    if task not in ("segment", "detect"):
-        raise NotImplementedError(f"task {task!r} is not ported; only 'segment' and 'detect'")
+    if task not in ("segment", "detect", "pose"):
+        raise NotImplementedError(f"task {task!r} is not ported; only 'segment', 'detect' and "
+                                  "'pose'")
     if getattr(model, "fused", False):
         raise ValueError("a fused (deploy) model is inference-only")
     mark = mark or _no_mark
@@ -96,6 +98,9 @@ def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool =
             targets = detect_targets(feats, batch, model.strides, model.nc, model.reg_max)
             mark("loss")
             res = detect_loss(targets, hyp)
+        elif task == "pose":
+            res = pose_loss(feats, batch, model.strides, model.nc, hyp, model.kpt_shape,
+                            model.reg_max, mark=mark)
         else:
             targets = polar_targets(feats, batch, model.strides, model.nc, hyp, cand=cand,
                                     mark=mark)

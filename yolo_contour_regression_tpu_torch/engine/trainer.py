@@ -1,12 +1,13 @@
-"""The trainers of the segment and detect tasks (counterparts of
-``SegmentationTrainer`` and ``DetectionTrainer`` in the JAX package's
-``engine/trainer.py``: its single-device path, one optimizer step per
-dispatch).
+"""The trainers of the segment, detect and pose tasks (counterparts of
+``SegmentationTrainer``, ``DetectionTrainer`` and ``PoseTrainer`` in the JAX
+package's ``engine/trainer.py``: its single-device path, one optimizer step
+per dispatch).
 
 ``SegmentationTrainer(overrides=..., device="cuda").train(data)`` trains a
-fresh polar segmentation model, ``DetectionTrainer`` a fresh detect model
-(the task is the ``task`` override's, else the model config's head's, and
-must be the trainer's): the model built from ``args.model`` at
+fresh polar segmentation model, ``DetectionTrainer`` a fresh detect model,
+``PoseTrainer`` a fresh keypoint model (the task is the ``task``
+override's, else the model config's head's, and must be the trainer's):
+the model built from ``args.model`` at
 ``nc = len(data["names"])`` and initialized from ``args.seed``
 (``nn/tasks.py:init_weights``); the train set letterboxed on the host
 (``data/dataset.py:TrainDataset``) and batched by worker threads
@@ -25,7 +26,10 @@ is validated again; its metrics are returned.
 ``data`` holds decoded images: ``{"train": (images, labels), "val":
 (images, labels), "names": {0: "...", ...}}``, images HWC uint8 BGR, labels
 as ``data/dataset.py:ValDataset`` takes them (the port decodes no image
-files).
+files). A pose set adds ``"kpt_shape": [K, D]``, which overrides the model
+config's (as the JAX trainer takes the data yaml's), and optionally
+``"flip_idx"``, the keypoint permutation of a horizontal flip, which goes to
+the augmentation as ``args.flip_idx``.
 
 Detect batches carry the label files' segments as the JAX dataset does (its
 ``use_segments`` is stored and never read): a polygon label's instance is
@@ -33,7 +37,7 @@ warped by its contour, a box label's (zero segments) by its box corners.
 
 Not ported (raising ``NotImplementedError`` where asked for): the host cv2
 train pipeline (``device_augment=false``, ``mosaic9``, ``copy_paste``),
-``resume``, tasks other than segment and detect. Without effect: ``plots`` (the JAX
+``resume``, the tasks other than segment, detect and pose. Without effect: ``plots`` (the JAX
 plots need cv2), the multi-step dispatch and ``cache`` options, the
 integration callbacks.
 
@@ -56,6 +60,7 @@ import numpy as np
 import torch
 
 from ..cfg import get_cfg
+from ..data.augment import INSTANCE_KEYS
 from ..data.build import TrainLoader, use_device_augment
 from ..data.dataset import TrainDataset
 from ..data.device_augment import make_augment_fn
@@ -64,7 +69,7 @@ from ..utils.checkpoint import (checkpoint_variables, load_checkpoint, load_jax_
                                 save_checkpoint, strip_optimizer, to_jax_variables)
 from ..utils.optim import build_optimizer
 from .step import init_train_state, make_train_step
-from .validator import DetectionValidator, SegmentationValidator
+from .validator import DetectionValidator, PoseValidator, SegmentationValidator
 
 LOGGER = logging.getLogger(__name__)
 
@@ -104,7 +109,7 @@ def stack_raw_batches(data_iter, n: int):
     for m in micro:
         pad = n_max - m["mask_gt"].shape[1]
         if pad:
-            for k in ("cls", "bboxes", "segments", "mask_gt"):
+            for k in (k for k in INSTANCE_KEYS if k in m):
                 m[k] = np.pad(m[k], [(0, 0), (0, pad)] + [(0, 0)] * (m[k].ndim - 2))
     images = np.stack([m.pop("img") for m in micro])
     return images, {k: np.stack([m[k] for m in micro]) for k in micro[0]}
@@ -130,7 +135,7 @@ class BaseTrainer:
         task = overrides.pop("task", None) or guess_model_task(cfg)
         if task != self.task:
             raise NotImplementedError(f"task {task!r} is not this trainer's ({self.task!r}); the "
-                                      f"port trains 'segment' and 'detect'")
+                                      f"port trains 'segment', 'detect' and 'pose'")
         self.args = get_cfg(None, overrides)
         self.args.task = self.task
         if self.args.resume:
@@ -157,9 +162,11 @@ class BaseTrainer:
         self.epoch_times = []
         self._last_saved_epoch = -1
 
-    def build_model(self, nc: int, names) -> TaskModel:
+    def build_model(self, nc: int, names, data: Optional[Dict] = None) -> TaskModel:
         cfg = self.args.model or self.default_model
         cfg = yaml_model_load(cfg) if isinstance(cfg, (str, Path)) else copy.deepcopy(dict(cfg))
+        if self.task == "pose" and (data or {}).get("kpt_shape"):
+            cfg["kpt_shape"] = [int(v) for v in data["kpt_shape"]]
         model = build_model(cfg, nc=nc)
         model.names = dict(names)
         return init_weights(model, torch.Generator().manual_seed(int(self.args.seed)))
@@ -168,9 +175,13 @@ class BaseTrainer:
         args = self.args
         names = dict(data["names"])
         args.nc = len(names)
-        self.model = model = self.build_model(args.nc, names)
+        self.model = model = self.build_model(args.nc, names, data)
         max_inst = int(args.max_instances)
-        train_set = TrainDataset(*data["train"], imgsz=args.imgsz, max_instances=max_inst)
+        kpt_shape = getattr(model, "kpt_shape", None)
+        if self.task == "pose" and data.get("flip_idx"):
+            args.flip_idx = tuple(int(v) for v in data["flip_idx"])
+        train_set = TrainDataset(*data["train"], imgsz=args.imgsz, max_instances=max_inst,
+                                 kpt_shape=kpt_shape)
         loader = TrainLoader(train_set, args.batch, args.workers, seed=args.seed)
         accumulate, steps_per_epoch, iterations = schedule(
             len(train_set), args.batch, args.nbs, args.epochs)
@@ -324,3 +335,9 @@ class SegmentationTrainer(BaseTrainer):
 class DetectionTrainer(BaseTrainer):
     task = "detect"
     default_model = "yolov8n.yaml"
+
+
+class PoseTrainer(BaseTrainer):
+    task = "pose"
+    default_model = "yolov8n-pose.yaml"
+    validator_cls = PoseValidator

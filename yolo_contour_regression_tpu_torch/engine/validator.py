@@ -1,7 +1,8 @@
-"""Validators of the detect and segment tasks: box (and mask) mAP in each
-image's own frame (counterparts of ``DetectionValidator`` and
-``SegmentationValidator`` in the JAX package's ``engine/validator.py``;
-COCO JSON, plots, rect val and the dispatch grouping are not ported).
+"""Validators of the detect, segment and pose tasks: box (and mask or
+keypoint) mAP in each image's own frame (counterparts of
+``DetectionValidator``, ``SegmentationValidator`` and ``PoseValidator`` in
+the JAX package's ``engine/validator.py``; COCO JSON, plots, rect val and the
+dispatch grouping are not ported).
 
 Per batch, on the model's device (``eval_batch``). Detect: ``decode_detect``
 and ``xywh2xyxy``, multi-label NMS in float32 with the scores as
@@ -11,8 +12,12 @@ probabilities, predicted and GT boxes mapped back through the letterbox
 detect, then the predicted 36-gons and GT 360-gons mapped back
 (``scale_coords``), scaled by one factor per image onto an R x R grid and
 compared by ``polygon_mask_iou`` (the even-odd fill kernel and a product of
-the masks). On the host: the reference's TP matching at 10 IoU thresholds,
-``DetMetrics`` or ``SegmentMetrics`` and the confusion matrix.
+the masks). Pose: as detect, with the decoded keypoints riding through NMS
+as its extras and mapped back by ``scale_coords``; on the host the GT
+keypoints go to the image's frame and the OKS (``kpt_iou``, the GT box area
+x 0.53 as the object's area) decides the keypoint matches. On the host: the
+reference's TP matching at 10 IoU thresholds, ``DetMetrics``,
+``SegmentMetrics`` or ``PoseMetrics`` and the confusion matrix.
 """
 from __future__ import annotations
 
@@ -29,7 +34,9 @@ from ..ops.boxes import box_iou, scale_boxes, scale_coords, xywh2xyxy
 from ..ops.nms import non_max_suppression, non_max_suppression_parts
 from ..ops.polar import NUM_RAYS
 from ..ops.raster import polygon_mask_iou
-from ..utils.metrics import ConfusionMatrix, DetMetrics, SegmentMetrics, match_predictions
+from ..utils.loss import OKS_SIGMA
+from ..utils.metrics import (ConfusionMatrix, DetMetrics, PoseMetrics, SegmentMetrics, kpt_iou,
+                             match_predictions)
 from .predictor import _as_float, detect_xyxy
 
 EVAL_KEYS = ("img", "bboxes", "segments", "mask_gt", "ori_shape", "ratio_pad")
@@ -102,8 +109,9 @@ class DetectionValidator:
         return DetMetrics(names=names)
 
     def update(self, metrics, out: Dict[str, np.ndarray], bi: int, keep, gt_keep, pred_cls,
-               conf, tcls):
-        """Image ``bi``'s TP tables into ``metrics``."""
+               conf, tcls, batch: Dict[str, np.ndarray]):
+        """Image ``bi``'s TP tables into ``metrics`` (``batch`` is the
+        collated host batch)."""
         tp = match_predictions(pred_cls, tcls, out["ious_box"][bi][gt_keep][:, keep])
         metrics.box.update(tp, conf, pred_cls, tcls)
 
@@ -138,7 +146,7 @@ class DetectionValidator:
                 pred_cls = out["classes"][bi][keep]
                 conf = out["scores"][bi][keep]
                 tcls = batch["cls"][bi][gt_keep]
-                self.update(metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls)
+                self.update(metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls, batch)
                 cm.process_batch(out["boxes"][bi][keep], pred_cls, conf,
                                  out["gt_boxes"][bi][gt_keep], tcls)
             n_img += batch["img"].shape[0]
@@ -208,7 +216,66 @@ class SegmentationValidator(DetectionValidator):
     def new_metrics(self, names):
         return SegmentMetrics(names=names)
 
-    def update(self, metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls):
-        super().update(metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls)
+    def update(self, metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls, batch):
+        super().update(metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls, batch)
         tp = match_predictions(pred_cls, tcls, out["ious_mask"][bi][gt_keep][:, keep])
         metrics.seg.update(tp, conf, pred_cls, tcls)
+
+
+class PoseValidator(DetectionValidator):
+    """Box and keypoint mAP of a pose model over decoded images whose labels
+    carry keypoints (``ValDataset`` with the model's ``kpt_shape``: label
+    files, or ``(cls, bboxes, segments, keypoints)`` arrays). The OKS sigmas
+    are COCO's for 17 keypoints, else 1 / K (float64, as JAX's validator
+    takes them). Fitness is the box metrics' (``PoseMetrics``)."""
+
+    task = "pose"
+
+    @torch.inference_mode()
+    def eval_batch(self, model, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """As ``DetectionValidator.eval_batch``, NMS carrying the decoded
+        keypoints, plus ``kpts`` (B, max_det, K, D): each detection's
+        keypoints in the image's frame (``scale_coords``, the visibility
+        kept)."""
+        mark = self.mark
+        mark("forward_nms")
+        pred = detect_xyxy(model.predict(_as_float(batch["img"]).permute(0, 3, 1, 2).contiguous()))
+        out = non_max_suppression(pred.float(), nc=model.nc, multi_label=True, **self.nms_kw)
+        mark("scale_box_iou")
+        boxes_nat, gt_nat, ious_box = self._scale_box_iou(out["boxes"], batch)
+        k = out["extras"].reshape(*out["extras"].shape[:2], *model.kpt_shape)
+        kpts = torch.cat([scale_coords(k[..., :2], batch["ratio_pad"]), k[..., 2:]], -1)
+        mark("end")
+        return {"boxes": boxes_nat, "scores": out["scores"], "classes": out["classes"],
+                "valid": out["valid"], "ious_box": ious_box, "gt_boxes": gt_nat, "kpts": kpts}
+
+    def new_metrics(self, names):
+        return PoseMetrics(names=names)
+
+    def update(self, metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls, batch):
+        """The box tables, then the keypoints': the GT keypoints (normalized
+        to the letterbox) to the image's frame per axis, ``(k * size - pad) /
+        gain``, and their OKS with the detections' keypoints."""
+        super().update(metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls, batch)
+        gain, (padx, pady) = batch["ratio_pad"][bi][0], batch["ratio_pad"][bi][1:3]
+        gk = batch["keypoints"][bi][gt_keep].copy()
+        bh, bw = batch["img"].shape[1:3]
+        gk[..., 0] = (gk[..., 0] * bw - padx) / gain
+        gk[..., 1] = (gk[..., 1] * bh - pady) / gain
+        gb = out["gt_boxes"][bi][gt_keep]
+        area = np.clip((gb[:, 2] - gb[:, 0]) * (gb[:, 3] - gb[:, 1]) * 0.53, 1, None)
+        oks = kpt_iou(gk, out["kpts"][bi][keep], area, self.sigma)
+        metrics.pose.update(match_predictions(pred_cls, tcls, oks), conf, pred_cls, tcls)
+
+    def loader(self, images: Sequence[np.ndarray], labels) -> ValLoader:
+        return ValLoader(ValDataset(images, labels, self.imgsz, self.max_instances,
+                                    kpt_shape=self.kpt_shape), self.batch)
+
+    def __call__(self, model, images: Sequence[np.ndarray], labels, names=None
+                 ) -> Dict[str, float]:
+        """As ``DetectionValidator.__call__``, with the pose metrics (P)
+        beside the box ones (B)."""
+        self.kpt_shape = tuple(model.kpt_shape)
+        k = self.kpt_shape[0]
+        self.sigma = OKS_SIGMA.numpy() if k == OKS_SIGMA.shape[0] else np.full(k, 1.0 / k)
+        return super().__call__(model, images, labels, names=names)

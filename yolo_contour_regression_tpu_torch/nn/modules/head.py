@@ -1,8 +1,9 @@
-"""The polar-contour segment head, the stock YOLOv8 detect head, and their
-decodes (counterpart of the JAX package's ``nn/modules/head.py``).
+"""The polar-contour segment head, the stock YOLOv8 detect head, the
+keypoint head, and their decodes (counterpart of the JAX package's
+``nn/modules/head.py``).
 
-``PolarSegment`` and ``Detect`` return raw per-level maps in NCHW; the
-decode helpers take those maps and produce the JAX package's layouts,
+``PolarSegment``, ``Detect`` and ``Pose`` return raw per-level maps in NCHW;
+the decode helpers take those maps and produce the JAX package's layouts,
 anchors flattened row-major per level as ``make_anchors`` orders them.
 """
 from __future__ import annotations
@@ -63,6 +64,28 @@ class Detect(nn.Module):
         return [torch.cat([b2(x), b3(x)], dim=1) for x, b2, b3 in zip(feats, self.cv2, self.cv3)]
 
 
+class Pose(nn.Module):
+    """Keypoint head: a ``Detect`` (the child ``detect``, as the JAX head
+    nests it) and per level i ``cv4[i]`` = Conv3x3 -> Conv3x3 -> 1x1 (nk =
+    K * D keypoint outputs, bias), ``c4 = max(ch0 // 4, nk)``. Output per
+    level: (B, 4 * reg_max + nc + nk, H, W), the detect maps first."""
+
+    def __init__(self, nc: int = 1, kpt_shape: Sequence[int] = (17, 3), ch: Sequence[int] = (),
+                 reg_max: int = 16):
+        super().__init__()
+        self.nc, self.kpt_shape = nc, tuple(int(v) for v in kpt_shape)
+        self.nk = self.kpt_shape[0] * self.kpt_shape[1]
+        self.detect = Detect(nc, ch, reg_max)
+        c4 = max(ch[0] // 4, self.nk)
+        self.cv4 = nn.ModuleList(
+            nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, self.nk, 1)) for x in ch
+        )
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        return [torch.cat([d, b4(x)], dim=1)
+                for d, x, b4 in zip(self.detect(feats), feats, self.cv4)]
+
+
 def flatten_levels(outs: Sequence[torch.Tensor]) -> torch.Tensor:
     """[(B, C, H, W)...] -> (B, A, C): permute each level to NHWC first, so
     anchors flatten row-major (y then x) as in ``make_anchors``."""
@@ -119,3 +142,18 @@ def decode_detect(outs: Sequence[torch.Tensor], strides: Sequence[int], nc: int,
     ltrb = torch.einsum("bakr,r->bak", probs, proj)
     dbox = dist2bbox(ltrb, anchor_points[None], xywh=True) * stride_t[None]
     return torch.cat([dbox, torch.sigmoid(cls)], dim=-1).transpose(1, 2)
+
+
+def decode_pose(kpt_raw: torch.Tensor, strides: Sequence[int], feat_hw, kpt_shape=(17, 3)
+                ) -> torch.Tensor:
+    """Raw keypoints (B, A, nk) -> (B, A, K, D) in pixels: ``xy = (raw * 2 +
+    anchor - 0.5) * stride``, and with D = 3 the visibility ``sigmoid(raw)``."""
+    anchor_points, stride_t = polar_ops.make_anchors(
+        feat_hw, strides, dtype=kpt_raw.dtype, device=kpt_raw.device
+    )
+    b, a, _ = kpt_raw.shape
+    k = kpt_raw.reshape(b, a, kpt_shape[0], kpt_shape[1])
+    xy = (k[..., :2] * 2.0 + (anchor_points[None, :, None, :] - 0.5)) * stride_t[None, :, None, :]
+    if kpt_shape[1] == 3:
+        return torch.cat([xy, torch.sigmoid(k[..., 2:3])], dim=-1)
+    return xy

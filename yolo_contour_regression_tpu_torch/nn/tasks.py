@@ -10,9 +10,10 @@ yaml parser is needed. Layers are registered as ``model.{i}`` so the
 state-dict keys are the reference's. Strides are tracked through the graph
 instead of calibrated by a dummy forward.
 
-Two task models: ``SegmentationModel`` (the polar ``Segment`` head) and
-``DetectionModel`` (the stock ``Detect`` head with DFL); ``build_model``
-picks one by the config's head (``guess_model_task``).
+Three task models: ``SegmentationModel`` (the polar ``Segment`` head),
+``DetectionModel`` (the stock ``Detect`` head with DFL) and ``PoseModel``
+(the ``Pose`` head: ``Detect`` and a keypoint branch); ``build_model`` picks
+one by the config's head (``guess_model_task``).
 ``yaml_model_load`` maps a model name to its config dict, and
 ``init_weights`` gives a fresh model the JAX package's initialization.
 """
@@ -106,6 +107,18 @@ YOLOV8: Dict[str, Any] = {
     ],
 }
 
+# cfg/models/yolov8-pose.yaml of the JAX package as a dict: the yolov8 graph
+# with the Pose head, nc 1 and COCO's 17 keypoints (x, y, visibility)
+YOLOV8_POSE: Dict[str, Any] = {
+    "nc": 1,
+    "kpt_shape": [17, 3],
+    "scales": copy.deepcopy(YOLOV8_SEG["scales"]),
+    "backbone": copy.deepcopy(YOLOV8["backbone"]),
+    "head": copy.deepcopy(YOLOV8["head"][:-1]) + [
+        [[15, 18, 21], 1, "Pose", ["nc", "kpt_shape"]],  # 22 Pose(P3, P4, P5)
+    ],
+}
+
 # config name -> (module class, positional field names after c1, kind)
 REGISTRY = {
     "Conv": (conv_mod.Conv, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
@@ -119,6 +132,7 @@ REGISTRY = {
     "nn.Upsample": (nn.Upsample, (), "upsample"),
     "Segment": (head_mod.PolarSegment, ("nc", "nm", "npr"), "head"),
     "Detect": (head_mod.Detect, ("nc",), "head"),
+    "Pose": (head_mod.Pose, ("nc", "kpt_shape"), "head"),
 }
 # a head's config name -> its task (the JAX ``HEAD_TASKS``)
 HEAD_TASKS = {"Segment": "segment", "Segmentori": "segment_ori", "Detect": "detect",
@@ -143,8 +157,10 @@ class LayerSpec:
 
 def parse_model(cfg: dict, ch: int = 3):
     """Config dict -> (specs, save, head_spec), with the JAX version's
-    scaling rules and from-index normalization."""
+    scaling rules and from-index normalization; the argument ``kpt_shape``
+    takes the config's (default (17, 3))."""
     nc = cfg.get("nc", 80)
+    kpt_shape = tuple(cfg.get("kpt_shape", (17, 3)))
     scales = cfg.get("scales")
     depth = cfg.get("depth_multiple", 1.0)
     width = cfg.get("width_multiple", 1.0)
@@ -168,6 +184,8 @@ def parse_model(cfg: dict, ch: int = 3):
         for j, a in enumerate(args):
             if a == "nc":
                 args[j] = nc
+            elif a == "kpt_shape":
+                args[j] = kpt_shape
             elif a in ("True", "False", "None"):
                 args[j] = {"True": True, "False": False, "None": None}[a]
         if name not in REGISTRY:
@@ -312,7 +330,33 @@ class DetectionModel(TaskModel):
         raise NotImplementedError("test-time augmentation (predict_augmented) is not ported")
 
 
-TASK_MODELS = {"segment": SegmentationModel, "detect": DetectionModel}
+class PoseModel(TaskModel):
+    """The keypoint model: ``predict`` gives (B, 4 + nc + nk, A), the detect
+    decode (xywh boxes in pixels, sigmoid scores) and then the keypoints
+    decoded in pixels (``decode_pose``), ``nk = K * D`` rows ordered
+    keypoint by keypoint."""
+
+    task = "pose"
+    head_name = "Pose"
+    reg_max = 16
+
+    def __init__(self, cfg: Optional[dict] = None, nc: Optional[int] = None, ch: int = 3):
+        super().__init__(cfg if cfg is not None else YOLOV8_POSE, nc=nc, ch=ch)
+        self.kpt_shape = tuple(int(v) for v in self.head_spec.kwargs["kpt_shape"])
+
+    def predict(self, x):
+        """x (B, 3, H, W) float -> (B, 4 + nc + nk, A)."""
+        outs = self(x)
+        nk = self.kpt_shape[0] * self.kpt_shape[1]
+        feat_hw = [(o.shape[2], o.shape[3]) for o in outs]
+        y = head_mod.decode_detect([o[:, :-nk] for o in outs], self.strides, self.nc,
+                                   self.reg_max)
+        kpt = head_mod.flatten_levels([o[:, -nk:] for o in outs])
+        k = head_mod.decode_pose(kpt, self.strides, feat_hw, self.kpt_shape)
+        return torch.cat([y, k.reshape(k.shape[0], k.shape[1], nk).transpose(1, 2)], dim=1)
+
+
+TASK_MODELS = {"segment": SegmentationModel, "detect": DetectionModel, "pose": PoseModel}
 
 
 def guess_model_task(cfg: dict) -> str:
@@ -331,7 +375,8 @@ def build_model(cfg: dict, nc: Optional[int] = None) -> TaskModel:
 
 
 # the ported model configs, by the base name of their yaml in the JAX package
-MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG, "yolov8": YOLOV8}
+MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG, "yolov8": YOLOV8,
+                                         "yolov8-pose": YOLOV8_POSE}
 
 
 def yaml_model_load(name) -> Dict[str, Any]:
@@ -374,8 +419,9 @@ def init_weights(model: TaskModel, generator: torch.Generator):
     BatchNorm scale 1, bias 0, running mean 0 and variance 1; then the head
     priors of JAX ``BaseModel.init``: each class bias ``log(5 / nc / (640 /
     stride)^2)``, and on the polar head each ray bias 1 (the detect head's
-    box bias keeps its 0). The draws come from ``generator`` (a CPU
-    ``torch.Generator``), not JAX's."""
+    box bias keeps its 0; the pose head's priors go to its ``detect`` child,
+    its keypoint biases keep their 0). The draws come from ``generator`` (a
+    CPU ``torch.Generator``), not JAX's."""
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             w = torch.empty(m.weight.shape)
@@ -386,6 +432,7 @@ def init_weights(model: TaskModel, generator: torch.Generator):
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
     head = model.model[-1]
+    head = getattr(head, "detect", head)
     for i, s in enumerate(model.strides):
         head.cv3[i][2].bias.fill_(math.log(5 / model.nc / (640 / s) ** 2))
         if model.task == "segment":

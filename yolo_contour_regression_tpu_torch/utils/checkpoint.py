@@ -16,6 +16,9 @@ inverts the name map of the JAX package's
   model.{i}.{r}....   (repeats)        layer{i}_{r}....
   model.{i}.cv2.{a}.{b}....  (heads)   layer{i}.cv2_{a}_{b}....
   model.{i}.m.{j}....  (C2f)           layer{i}.m{j}....
+  model.{i}.detect.cv2.{a}.{b}....     layer{i}.detect.cv2_{a}_{b}....
+    (Pose: the head keeps JAX's nested ``detect`` child, beside its
+    ``cv4.{a}.{b}`` = ``cv4_{a}_{b}``; no rule of its own is needed)
   RepConv conv1.conv/conv1.bn/         RepConv conv1/bn1/
           conv2.conv/conv2.bn/bn               conv2/bn2/bn_id
 """

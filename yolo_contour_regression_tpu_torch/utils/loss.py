@@ -1,8 +1,10 @@
-"""The training losses of the segment and detect tasks (counterparts of
-``segmentation_loss`` and ``detection_loss`` in the JAX package's
-``utils/loss.py``; its pose and classify losses are not ported yet):
+"""The training losses of the segment, detect and pose tasks (counterparts
+of ``segmentation_loss``, ``detection_loss`` and ``pose_loss`` in the JAX
+package's ``utils/loss.py``; its classify loss is not ported yet):
 polar-IoU ray loss plus BCE class loss with the polar task-aligned
-assignment; CIoU box loss, DFL and BCE class loss with the stock one.
+assignment; CIoU box loss, DFL and BCE class loss with the stock one; and
+for pose, on the detect loss's assignment, the OKS keypoint loss and the
+keypoint visibility BCE.
 
 GT batches arrive dense: (B, N_max) padded instances with a validity mask.
 Contour GT is scaled per point (x * w, y * h), the JAX package's deliberate
@@ -11,7 +13,7 @@ for square images.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -191,3 +193,62 @@ def detection_loss(feats, batch, strides, nc: int, hyp, reg_max: int = 16,
     targets = detect_targets(feats, batch, strides, nc, reg_max)
     out = detect_loss(targets, hyp)
     return (out, targets.assign) if return_assign else out
+
+
+# OKS sigmas of COCO's 17 keypoints (the reference v8PoseLoss's), float32 as
+# the JAX constant; another keypoint count takes a uniform 1 / K
+OKS_SIGMA = torch.tensor([.26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62, 1.07, 1.07,
+                          .87, .87, .89, .89], dtype=torch.float32) / 10.0
+
+
+def pose_loss(feats, batch, strides, nc: int, hyp, kpt_shape: Tuple[int, int] = (17, 3),
+              reg_max: int = 16, mark: Optional[Callable[[str], None]] = None) -> LossOut:
+    """The pose loss (JAX ``pose_loss``): the detect loss on the maps'
+    detect channels (``detection_loss``'s two halves), and on its shared
+    assignment the keypoint terms. ``batch`` adds ``keypoints`` (B, N, K, 3),
+    xy normalized and a visibility. Keypoint loss: ``1 - exp(-e)``, ``e =
+    d^2 / (2 sigma)^2 / (area + 1e-9) / 2``, over the visible keypoints of
+    the foreground anchors, ``area`` the assigned GT box's in pixels;
+    visibility loss (D = 3): a BCE of the visibility logits against "this
+    keypoint is visible" over the foreground anchors x K. The total adds
+    ``(kpt * pose + kobj * kobj) * B``. Math in f32. ``mark("loss")`` is
+    called between the assignment and the losses."""
+    nk = kpt_shape[0] * kpt_shape[1]
+    targets = detect_targets([f[:, :-nk] for f in feats], batch, strides, nc, reg_max)
+    if mark is not None:
+        mark("loss")
+    det = detect_loss(targets, hyp)
+    assign, anchor_points, stride_t = targets.assign, targets.anchor_points, targets.stride_t
+    dt = torch.float32
+    dev = feats[0].device
+
+    kpt_raw = flatten_levels([f[:, -nk:] for f in feats]).to(dt)  # (B, A, nk)
+    b, a = kpt_raw.shape[:2]
+    img_h = feats[0].shape[2] * strides[0]
+    img_w = feats[0].shape[3] * strides[0]
+    k = kpt_raw.reshape(b, a, kpt_shape[0], kpt_shape[1])
+    kxy = (k[..., :2] * 2.0 + (anchor_points[None, :, None, :] - 0.5)) * stride_t[None, :, None, :]
+
+    gt_kpts = batch["keypoints"].to(dt)  # (B, N, K, 3)
+    gt_kxy = gt_kpts[..., :2] * torch.tensor([img_w, img_h], dtype=dt, device=dev)
+    idx = assign.target_gt_idx[:, :, None, None].expand(b, a, kpt_shape[0], 2)
+    sel_kxy = torch.gather(gt_kxy, 1, idx)  # (B, A, K, 2)
+    sel_vis = torch.gather(gt_kpts[..., 2], 1, idx[..., 0])  # (B, A, K)
+    kpt_mask = (sel_vis > 0) & assign.fg_mask[..., None]
+
+    area = (assign.target_bboxes[..., 2:] - assign.target_bboxes[..., :2]).prod(-1)[..., None]
+    d2 = ((kxy - sel_kxy) ** 2).sum(-1)  # (B, A, K)
+    sigmas = (OKS_SIGMA.to(dev) if kpt_shape[0] == OKS_SIGMA.shape[0]
+              else torch.full((kpt_shape[0],), 1.0 / kpt_shape[0], dtype=dt, device=dev))
+    e = d2 / ((2 * sigmas) ** 2) / (area + 1e-9) / 2
+    loss_kpt = ((1 - torch.exp(-e)) * kpt_mask).sum() / kpt_mask.sum().clamp_min(1).to(dt)
+    fg = assign.fg_mask.to(dt)
+    if kpt_shape[1] == 3:
+        bce = F.binary_cross_entropy_with_logits(k[..., 2], kpt_mask.to(dt), reduction="none")
+        loss_kobj = (bce * fg[..., None]).sum() / (fg.sum() * kpt_shape[0]).clamp_min(1.0)
+    else:
+        loss_kobj = torch.zeros((), dtype=dt, device=dev)
+
+    total = det.total + (loss_kpt * hyp.pose + loss_kobj * hyp.kobj) * b
+    return LossOut(total, {**det.items, "pose_loss": loss_kpt * hyp.pose,
+                           "kobj_loss": loss_kobj * hyp.kobj})

@@ -5,9 +5,9 @@ matrix takes its box IoU from ``ops/boxes.py``).
 ``match_predictions`` is the reference's dedupe (candidate pairs sorted by
 IoU, one per detection, then one per label); ``compute_ap`` the 101-point
 interpolated AP; ``ap_per_class`` per-class P, R and AP at the 10 IoU
-thresholds; ``Metric``, ``DetMetrics`` and ``SegmentMetrics`` accumulate
-per-image TP tables and give ``results_dict``. Host-side numpy: the tables
-are small.
+thresholds; ``kpt_iou`` the keypoints' OKS; ``Metric``, ``DetMetrics``,
+``SegmentMetrics`` and ``PoseMetrics`` accumulate per-image TP tables and
+give ``results_dict``. Host-side numpy: the tables are small.
 """
 from __future__ import annotations
 
@@ -22,6 +22,19 @@ IOU_THRESHES = np.linspace(0.5, 0.95, 10)
 
 # numpy 2 renamed trapz
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz
+
+
+def kpt_iou(kpt1: np.ndarray, kpt2: np.ndarray, area: np.ndarray, sigma: np.ndarray,
+            eps: float = 1e-7) -> np.ndarray:
+    """OKS of GT keypoints (N, K, 3) against predicted ones (M, K, 3), given
+    the GT areas (N,) and the sigmas (K,) -> (N, M): ``exp(-d^2 / (2
+    sigma)^2 / (area + eps) / 2)`` averaged over each GT's visible
+    keypoints."""
+    d = (kpt1[:, None, :, 0] - kpt2[None, :, :, 0]) ** 2 + (
+        kpt1[:, None, :, 1] - kpt2[None, :, :, 1]) ** 2
+    kpt_mask = kpt1[..., 2] != 0  # (N, K)
+    e = d / (2 * sigma) ** 2 / (area[:, None, None] + eps) / 2
+    return (np.exp(-e) * kpt_mask[:, None]).sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
 
 
 def match_predictions(
@@ -250,3 +263,28 @@ class SegmentMetrics(DetMetrics):
         box_f = 0.1 * self.box.map50 + 0.9 * self.box.map
         seg_f = 0.1 * self.seg.map50 + 0.9 * self.seg.map
         return box_f + seg_f
+
+
+class PoseMetrics(DetMetrics):
+    """Box and keypoint (OKS) metrics. Its fitness is the box metrics' alone,
+    as the JAX package's ``PoseMetrics`` keeps ``DetMetrics.fitness``."""
+
+    def __init__(self, names=None):
+        super().__init__(names)
+        self.pose = Metric()
+
+    def process(self):
+        return super().process(), self.pose.process()
+
+    @property
+    def results_dict(self):
+        d = super().results_dict
+        d.update(
+            {
+                "metrics/precision(P)": self.pose.mp,
+                "metrics/recall(P)": self.pose.mr,
+                "metrics/mAP50(P)": self.pose.map50,
+                "metrics/mAP50-95(P)": self.pose.map,
+            }
+        )
+        return d
