@@ -14,7 +14,9 @@ Phases, one timestamped line each (elapsed seconds):
      time and the card's least time for the same work (its bound): both
      polygon fills (even-odd, and the facade's cv2 rule) at the predict
      path's masks, the even-odd one also on the validator's 640x640 grid,
-     with the edge cases of ``raster_inputs``, each with the
+     with the edge cases of ``raster_inputs``, and at the segment_ori GT
+     masks' shapes (N=128 and N=768 360-point contours on the 160x160 proto
+     grid, ``segori_fill_inputs``), each with the
      device kernels one call launches (``torch.profiler``); the GT rays,
      rows form, at the train path's shapes (imgsz 640, batch 16, N_pad 8
      -> K 128 and N_pad 48 -> K 48; the trainer's augmented batches, N_pad
@@ -101,21 +103,48 @@ Phases, one timestamped line each (elapsed seconds):
      the stripped ``best.ckpt`` must meet the pose floor (pose and box
      mAP50-95) and predict keypoints. The pose phases launch no kernel: their
      counts are printed, all 0.
-  17. compare: the fork's headline, printed and not gated: ms an image on
+  17. segment_ori predict: the fresh full-width yolov8n-segori (nc 2, a
+     seeded init) on 480x640 frames at 640, batch 1 and 8, conf 0.001,
+     every result's masks (n, 480, 640); ms per image.
+  18. segment_ori validate: that model at 640 batch 16 on 32 480x640
+     frames, split as in 10 (b) with the mask IoU (the GT masks filled by
+     the even-odd kernel, one launch a batch).
+  19. segment_ori train step: as 6 (a) at 640 batch 16 N_pad 8, the
+     networks in float64 (a fresh init's float32 gradients are
+     ill-conditioned; card against CPU: loss 1e-4 relative, the same
+     assignment, gradients 1e-3)
+     and 6 (b) for that model: one fill launch a step.
+  20. segment_ori trainer: ``YOLO("yolov8n-segori.yaml").train`` from
+     scratch on the seg160 floor set at its config (120 epochs at 160), as
+     7 (a) with its metrics recorded, not held (no segment_ori floor is
+     committed); its best.ckpt on the card against the port on the CPU at
+     160 (heads and prototypes, detections, boxes, scores; the masks'
+     differing pixels printed), then fused on the card as in 8.
+  21. classify: ``YOLO(runs/floor_classify/best.ckpt).val`` on the 32
+     committed val images at 64: the JAX validator's metrics exactly, and
+     the probabilities card against CPU within 1e-4; predict at 224, batch
+     1 and 8 on 480x640 frames (ms per image); the fused model's
+     probabilities within 1e-3 and its metrics the same;
+     ``YOLO("yolov8n-cls.yaml").train`` from scratch at the floor.json
+     config (60 epochs at 64 on the 96 committed train images) must meet
+     the floor (top-1) and predict. Classify launches no kernel.
+  22. compare: the fork's headline, printed and not gated: ms an image on
      the card at 640, batch 1 and 8, of yolov8n-seg polar (contours, no
      masks) and yolov8n detect, fused and unfused, and seg / detect.
-  18. report: a JSON line of the kernels (launches summed over the predict,
-     validate, train-step, trainer and fused validate runs), the card's
-     line, and last ``{"ok": true, "device": {...}}``.
+  23. report: a JSON line of the kernels (launches summed over the predict,
+     validate, train-step, trainer and fused validate runs of every task),
+     the card's line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
+import copy
 import csv
 import ctypes
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -130,12 +159,14 @@ import torch
 
 from yolo_contour_regression_tpu_torch import YOLO
 from yolo_contour_regression_tpu_torch.data.dataset import parse_label_lines
-from yolo_contour_regression_tpu_torch.engine.predictor import (DetectionPredictor, PosePredictor,
-                                                                SegmentationPredictor)
+from yolo_contour_regression_tpu_torch.engine.predictor import (
+    ClassificationPredictor, DetectionPredictor, PosePredictor, SegmentationOriPredictor,
+    SegmentationPredictor)
 from yolo_contour_regression_tpu_torch.engine.results import Masks, contours_to_masks
 from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
 from yolo_contour_regression_tpu_torch.engine.validator import (
-    EVAL_KEYS, DetectionValidator, PoseValidator, SegmentationValidator, grid_scale)
+    EVAL_KEYS, DetectionValidator, PoseValidator, SegmentationOriValidator, SegmentationValidator,
+    grid_scale)
 from yolo_contour_regression_tpu_torch.nn.tasks import (build_model, guess_model_task, init_weights,
                                                         yaml_model_load)
 from yolo_contour_regression_tpu_torch.ops import gt_rays, polar, raster
@@ -144,7 +175,8 @@ from yolo_contour_regression_tpu_torch.utils import cuda_build, optim
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     checkpoint_variables, load_checkpoint, load_jax_variables, save_checkpoint, to_jax_variables)
 from yolo_contour_regression_tpu_torch.utils.loss import (detect_loss, detect_targets, polar_loss,
-                                                          polar_targets, pose_loss)
+                                                          polar_targets, pose_loss,
+                                                          segmentation_ori_loss)
 
 ROOT = Path(__file__).resolve().parent
 CKPT = ROOT / "runs" / "floor_seg160" / "best.ckpt"
@@ -232,6 +264,26 @@ POSE_TRAIN_KEYS = ("pose", "kobj", "fliplr")
 POSE_IMGSZ, POSE_SEED = 96, 0
 # train_640: the default config at the size users train
 TRAIN640_N, TRAIN640_VAL, TRAIN640_EPOCHS = 256, 16, 9  # 4 optimizer steps an epoch
+# the segment_ori slice: yolov8n-segori at full width (the published config
+# at nc 2) from a fresh init drawn from this seed; its loss and validator
+# fill the GT masks at proto size (imgsz / 4) from 360-point contours: at
+# imgsz 640 batch 16, N = 16 x 8 (the train step's N_pad 8) and 16 x 48
+# (max_instances)
+SEGORI_SEED, SEGORI_PROTO_HW = 0, (160, 160)
+SEGORI_FILL_N = (TRAIN_B * TRAIN_NPAD, TRAIN_B * 48)
+SHAPE_NAMES = {0: "circle", 1: "rect"}
+# the classify slice: the floor_classify checkpoint and its floor set (96
+# train and 32 val images at 64 px, decoded by cv2, with their class indices
+# and the JAX validator's metrics of the checkpoint;
+# tests/test_torch_port_classify.py regenerates them); the predict size of
+# the published config; probabilities card against CPU, and fused against
+# unfused; the floor.json config the trainer takes from the checkpoint
+CLS_CKPT = ROOT / "runs" / "floor_classify" / "best.ckpt"
+CLS_FLOOR_JSON = ROOT / "runs" / "floor_classify" / "floor.json"
+FLOOR_CLS_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_classify_train96.npz"
+FLOOR_CLS_VAL = ROOT / "tests" / "data" / "torch_port_floor_classify_val32.npz"
+CLS_PREDICT_IMGSZ, PROB_ATOL, FUSE_PROB_ATOL = 224, 1e-4, 1e-3
+CLS_TRAIN_KEYS = ("epochs", "imgsz", "batch", "nbs", "seed", "amp", "patience", "workers")
 
 
 def log(phase: str, msg: str):
@@ -975,32 +1027,54 @@ def kernels_of_one_call(name: str, fn, n_kernels: int, tries: int = 3):
 
 
 def check_fill(name: str, entry: str, fast, plain, rule: str, n_kernels: int, card: str,
-               hw=RASTER_HW) -> dict:
+               hw=RASTER_HW, inputs=None) -> dict:
     """One polygon-fill entry against its plain version on the card, at
     masks of shape ``hw`` (the predict path's by default) and the edge cases
-    of ``raster_inputs``: 0 differing pixels; the kernel's time per launch
-    (``launch_ms``), the wrapper's per call, the plain version's and the
-    bound; the device kernels of one call, which must be ``n_kernels`` where
-    the profiler records them."""
-    pts, valid = raster_inputs(hw=hw)
+    of ``raster_inputs`` (or ``inputs``, points and valid on the card): 0
+    differing pixels; the kernel's time per launch (``launch_ms``), the
+    wrapper's per call, the plain version's and the bound; the device
+    kernels of one call, which must be ``n_kernels`` where the profiler
+    records them."""
+    pts, valid = raster_inputs(hw=hw) if inputs is None else inputs
     h, w = hw
     got, want = fast(pts, valid, h, w), plain(pts, valid, h, w)
     torch.cuda.synchronize()
     n_diff = int((got != want).sum())
-    if n_diff or not want[1:].any() or want[0].any():
+    cases = (not want[1:].any() or want[0].any()) if inputs is None else not want.any()
+    if n_diff or cases:
         raise AssertionError(f"{name}: {n_diff} pixels differ from the plain version")
     ms = launch_ms(entry, pts, valid, h, w)
     call_ms = time_ms(lambda: fast(pts, valid, h, w))
     plain_ms = time_ms(lambda: plain(pts, valid, h, w), reps=10)
     bound_ms, bound_by = raster_bound_ms(pts, valid, h, w, rule)
     kernels = kernels_of_one_call(name, lambda: fast(pts, valid, h, w), n_kernels)
-    log("kernels", f"{name} N={RASTER_N} V={RASTER_V} {h}x{w}: {n_diff} of {got.numel()} pixels "
+    n, v = valid.shape
+    log("kernels", f"{name} N={n} V={v} {h}x{w}: {n_diff} of {got.numel()} pixels "
         f"differ from the plain version; kernel {ms:.4f} ms a launch ({bound_ms / ms:.1%} of the "
         f"bound), wrapper {call_ms:.4f} ms a call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
         f"ms ({bound_by}); device kernels of one call: {kernels if kernels else 'not measured'}; "
         f"library ms: none (no PyTorch call fills polygons) | {card}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": float((got.int() - want.int()).abs().max())}
+
+
+def segori_fill_inputs(n: int):
+    """GT contours at proto size (``SEGORI_PROTO_HW``) as the segment_ori
+    loss fills them, on the card: N = 128, the train step's batch
+    (``shape_batch(16, 640, 8, seed=4)``, as ``train_full_width`` draws it:
+    1 to 3 shapes an image, the padded rows all invalid); N = 768, every row
+    a valid 360-point contour (``ray_contours`` on the proto grid), the
+    most the loss fills at ``max_instances``."""
+    hp, wp = SEGORI_PROTO_HW
+    if n == TRAIN_B * TRAIN_NPAD:
+        _, batch = shape_batch(TRAIN_B, TRAIN_IMGSZ, TRAIN_NPAD, seed=4)
+        pts = batch["segments"].reshape(n, -1, 2) * np.array([wp, hp], np.float32)
+        valid = np.repeat(batch["mask_gt"].reshape(n, 1), pts.shape[1], 1)
+    else:
+        pts = ray_contours(n, seed=n, size=float(hp))[0]
+        valid = np.ones(pts.shape[:2], bool)
+    return (torch.from_numpy(np.ascontiguousarray(pts, np.float32)).cuda(),
+            torch.from_numpy(np.ascontiguousarray(valid)).cuda())
 
 
 def report_row(check: dict) -> dict:
@@ -1040,6 +1114,12 @@ def ckpt_model(ckpt, device):
 
 def loss_and_assign(model, feats, batch, hyp):
     """The model's task loss on its head maps, and the assignment."""
+    if model.task == "segment_ori":
+        levels, _ = feats
+        tg = detect_targets([f[:, :-model.nm] for f in levels], batch, model.strides, model.nc,
+                            model.reg_max)
+        return segmentation_ori_loss(feats, batch, model.strides, model.nc, hyp, nm=model.nm,
+                                     reg_max=model.reg_max).total, tg.assign
     if model.task == "pose":
         nk = model.kpt_shape[0] * model.kpt_shape[1]
         tg = detect_targets([f[:, :-nk] for f in feats], batch, model.strides, model.nc,
@@ -1058,35 +1138,46 @@ def to_device(images, batch, device):
             {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
 
 
-def train_card_vs_cpu(ckpt, card: str, imgsz: int = 160, phase: str = "train"):
+def train_card_vs_cpu(ckpt, card: str, imgsz: int = 160, phase: str = "train", b: int = 4,
+                      model=None, dtype=torch.float32):
     """One loss, the assignment and every gradient of the checkpoint's
-    model at ``imgsz``, batch 4, on the card and on the CPU (f32, TF32
-    off)."""
-    images, batch = shape_batch(4, imgsz, 8, seed=3)
+    model (or of a copy of ``model``, with the checkpoint's train_args) at
+    ``imgsz``, batch ``b``, N_pad 8, on the card and on the CPU (the
+    network in ``dtype``, the loss math f32; TF32 off). A fresh init's
+    float32 gradients are ill-conditioned (a neck bottleneck's are 10% of
+    its largest entry off their float64 values on the CPU alone), so a
+    fresh model is held in float64, as the CPU tests hold JAX's."""
+    images, batch = shape_batch(b, imgsz, 8, seed=3)
     if guess_model_task(ckpt["model_yaml"]) == "pose":
         pose_batch(batch, ckpt["model_yaml"]["kpt_shape"][0])
     hyp = train_hyp(ckpt)
     res = {}
     for dev in ("cpu", "cuda"):
-        model = ckpt_model(ckpt, dev)
-        x, b = to_device(images, batch, dev)
-        total, assign = loss_and_assign(model, model(x.permute(0, 3, 1, 2).contiguous()), b, hyp)
+        model_d = (ckpt_model(ckpt, dev) if model is None
+                   else copy.deepcopy(model).to(dev).train()).to(dtype)
+        x, bt = to_device(images, batch, dev)
+        total, assign = loss_and_assign(model_d, model_d(x.to(dtype).permute(0, 3, 1, 2)
+                                                         .contiguous()), bt, hyp)
         total.backward()
         res[dev] = (total.item(), assign.fg_mask.cpu(), assign.target_gt_idx.cpu(),
-                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+                    {n: p.grad.cpu() for n, p in model_d.named_parameters()})
+        del model_d
     (lc, fc, ic, gc), (lg, fg, ig, gg) = res["cpu"], res["cuda"]
     loss_rel = abs(lg - lc) / abs(lc)
-    grad_rel = max(float((gg[n] - gc[n]).abs().max() / gc[n].abs().max().clamp_min(1e-30))
-                   for n in gc)
+    grad_rel, worst = max((float((gg[n] - gc[n]).abs().max()
+                                 / gc[n].abs().max().clamp_min(1e-30)), n) for n in gc)
     same = torch.equal(fc, fg) and torch.equal(ic[fc], ig[fg]) and bool(fc.any())
     if not same or loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_TOL:
         raise AssertionError(f"{phase} card vs CPU: same assignment {same}, loss rel "
                              f"{loss_rel:.2e} (limit {TRAIN_LOSS_RTOL}), grad {grad_rel:.2e} of the "
-                             f"tensor max (limit {TRAIN_GRAD_TOL})")
-    log(phase, f"card vs CPU, {ckpt['model_yaml']['head'][-1][2]} model of the checkpoint at "
-        f"imgsz {imgsz} batch 4: loss {lg:.6f} vs {lc:.6f} (rel "
+                             f"tensor max at {worst} (limit {TRAIN_GRAD_TOL})")
+    head = (model.yaml if model is not None else ckpt["model_yaml"])["head"][-1][2]
+    whose = "a fresh" if model is not None else "the checkpoint's"
+    log(phase, f"card vs CPU, {whose} {head} model ({str(dtype)[6:]}) at "
+        f"imgsz {imgsz} batch {b}: loss {lg:.6f} vs {lc:.6f} (rel "
         f"{loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); same assignment ({int(fc.sum())} fg anchors); "
-        f"worst gradient {grad_rel:.2e} of its tensor's max (limit {TRAIN_GRAD_TOL}) | {card}")
+        f"worst gradient {grad_rel:.2e} of its tensor's max, {worst} (limit {TRAIN_GRAD_TOL}) | "
+        f"{card}")
 
 
 class StageTimer:
@@ -1128,7 +1219,8 @@ class StageTimer:
 
 def train_full_width(ckpt, card: str, phase: str = "train", model=None):
     """The checkpoint's model (yolov8n-seg or yolov8n), or ``model`` (the
-    fresh yolov8n-pose) with the checkpoint's train_args, at full width,
+    fresh yolov8n-pose or yolov8n-segori) with the checkpoint's train_args,
+    at full width,
     imgsz 640, batch 16, N_pad 8, AdamW from the checkpoint's train_args
     with no warmup: 3 warm-up steps, then TRAIN_STEPS steps of
     ``make_train_step`` on one repeated batch (counts zeroed just before,
@@ -1162,8 +1254,11 @@ def train_full_width(ckpt, card: str, phase: str = "train", model=None):
         raise AssertionError(f"{phase} at 640: losses {losses}")
     if model.task == "segment" and counts["gt_rays_rows"] == 0:
         raise AssertionError("the train path never launched the GT-ray kernel")
+    if model.task == "segment_ori" and counts["fill_polygons"] != TRAIN_STEPS:
+        raise AssertionError(f"the segment_ori step fills its GT masks once a step: {counts}")
     name = (f"yolov8n-pose (K {model.kpt_shape[0]})" if model.task == "pose"
-            else {"segment": "yolov8n-seg", "detect": "yolov8n"}[model.task])
+            else {"segment": "yolov8n-seg", "detect": "yolov8n",
+                  "segment_ori": "yolov8n-segori"}[model.task])
     log(phase, f"{name} full width, imgsz {TRAIN_IMGSZ} batch {TRAIN_B} N_pad "
         f"{TRAIN_NPAD}, AdamW lr0 {hyp.lr0}: loss {losses[0]:.4f} at step 0, {losses[-1]:.4f} "
         f"at step {len(losses) - 1}, all finite; {int(batch['mask_gt'].sum())} GT instances; "
@@ -1251,7 +1346,7 @@ def epoch_split(trainer) -> dict:
             "sum": {k: sum(t[k] for t in times) for k in keys}}
 
 
-def train_floor(card: str, task: str = "segment"):
+def train_floor(card: str, task: str = "segment", keep: Path = None):
     """``YOLO(yaml, device="cuda").train`` from scratch on the task's floor
     set (64 train and 16 val images, decoded) at its ``floor.json`` config
     with the floor checkpoint's train_args (launch counts zeroed just
@@ -1260,12 +1355,18 @@ def train_floor(card: str, task: str = "segment"):
     set, 120 epochs at 160; detect: yolov8n on the detect set, 100 epochs at
     96; pose: yolov8n-pose on the pose set with its ``kpt_shape`` [5, 3] and
     ``flip_idx``, 150 epochs at 96, with the checkpoint's pose and kobj
-    gains and fliplr. Prints the metrics, every 10th epoch's train loss
-    beside the JAX run's ``results.csv``, the wall time, the epoch and step
+    gains and fliplr; segment_ori: yolov8n-segori on the seg160 set at the
+    seg160 config, its metrics recorded, not held (no segment_ori floor is
+    committed). Prints the metrics, every 10th epoch's train loss
+    beside the JAX run's ``results.csv`` (not for segment_ori, whose loss
+    is not the polar run's), the wall time, the epoch and step
     splits and the peak memory; then ``YOLO(best.ckpt).predict`` on the val
-    images must find detections (for pose, each with its keypoints)."""
+    images must find detections (for pose, each with its keypoints). With
+    ``keep``, the stripped best.ckpt is copied there."""
     ckpt_path, floor_json, yaml, train_set, val_set, _ = FLOOR_RUNS[task]
-    phase = {"segment": "train_floor", "detect": "detect_trainer", "pose": "pose_trainer"}[task]
+    phase = {"segment": "train_floor", "detect": "detect_trainer", "pose": "pose_trainer",
+             "segment_ori": "segori_trainer"}[task]
+    gated = task != "segment_ori"
     record = json.loads(floor_json.read_text())
     ckpt = load_checkpoint(ckpt_path)
     keys = FLOOR_TRAIN_KEYS + (POSE_TRAIN_KEYS if task == "pose" else ())
@@ -1288,23 +1389,32 @@ def train_floor(card: str, task: str = "segment"):
         with open(trainer.csv) as fh:
             rows = list(csv.DictReader(fh))
         best = YOLO(trainer.wdir / "best.ckpt", device="cuda")
-        pred = best.predict(val[0], imgsz=over["imgsz"])
+        pred = best.predict(val[0], imgsz=over["imgsz"], conf=0.25 if gated else VAL_CONF)
+        if keep is not None:
+            shutil.copyfile(trainer.wdir / "best.ckpt", keep)
     metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in res.items() if k != "fitness")
     n_ep = len(trainer.epoch_times)
     split = epoch_split(trainer)
     steps = timer.seen
-    floors = ", ".join(f"{n} {v}" for n, v in record["floor"].items())
-    log(phase, f"{yaml} from scratch on the {task} floor set ({len(train[0])} train, "
+    floors = (", ".join(f"{n} {v}" for n, v in record["floor"].items()) if gated
+              else "none (recorded, not held)")
+    set_name = "seg160" if task == "segment_ori" else task
+    log(phase, f"{yaml} from scratch on the {set_name} floor set ({len(train[0])} train, "
         f"{len(val[0])} val images), {over}: {n_ep} epochs, {steps} steps in {wall:.2f}s wall "
         f"({wall / n_ep:.3f}s an epoch); final eval of the stripped best.ckpt: {metrics}; floor "
         f"{floors}; launches {counts}; peak memory {peak / 2**30:.3f} GiB | {card}")
-    with open(ckpt_path.parent / "results.csv") as fh:
-        jax_rows = list(csv.DictReader(fh))
-    pairs = [f"{e}: {float(rows[e]['train/loss']):.3f} vs {float(jax_rows[e]['train/loss']):.3f}"
-             for e in range(9, min(len(rows), len(jax_rows)), 10)]
-    log(phase, f"train loss every 10th epoch, this run vs the JAX run's results.csv "
-        f"(host augmentation, bf16 on a TPU; a yardstick, not a gate): {'; '.join(pairs)} | "
-        f"{card}")
+    if gated:
+        with open(ckpt_path.parent / "results.csv") as fh:
+            jax_rows = list(csv.DictReader(fh))
+        pairs = [f"{e}: {float(rows[e]['train/loss']):.3f} vs "
+                 f"{float(jax_rows[e]['train/loss']):.3f}"
+                 for e in range(9, min(len(rows), len(jax_rows)), 10)]
+        log(phase, f"train loss every 10th epoch, this run vs the JAX run's results.csv "
+            f"(host augmentation, bf16 on a TPU; a yardstick, not a gate): {'; '.join(pairs)} | "
+            f"{card}")
+    else:
+        pairs = [f"{e}: {float(rows[e]['train/loss']):.3f}" for e in range(9, len(rows), 10)]
+        log(phase, f"train loss every 10th epoch: {'; '.join(pairs)} | {card}")
     med, tot = split["median"], split["sum"]
     per_step = timer.per_step()
     log(phase, "host clock, s an epoch (median of the epochs): "
@@ -1316,12 +1426,15 @@ def train_floor(card: str, task: str = "segment"):
         f"take it): "
         + ", ".join(f"{k} {v:.3f}" for k, v in per_step.items()) + f" | {card}")
     below = {k: (res[k], record["floor"][n]) for k, n in record["floor_keys"].items()
-             if not res[k] >= record["floor"][n]}
+             if gated and not res[k] >= record["floor"][n]}
     if below:
         raise AssertionError(f"{phase}: the port-trained best.ckpt is below the {task} floor: "
                              f"{below}")
     if task == "segment" and (counts["gt_rays_rows"] == 0 or counts["fill_polygons"] == 0):
         raise AssertionError(f"train_floor: a kernel of the path never launched: {counts}")
+    if task == "segment_ori" and counts["fill_polygons"] < steps:
+        raise AssertionError(f"{phase}: the GT-mask fill launched {counts['fill_polygons']} "
+                             f"times in {steps} steps")
     n_det = sum(len(r) for r in pred)
     kpts = ""
     if task == "pose":
@@ -1457,13 +1570,18 @@ def floor_pose_jax_metrics() -> dict:
 # per task: the floor checkpoint, its floor.json, the model a trainer starts
 # from, the floor set's train and val images, and the JAX validator's
 # metrics stored with the val set (the seg160 set's are checked by
-# ``validate_floor`` against the CPU port instead)
+# ``validate_floor`` against the CPU port instead); segment_ori borrows the
+# seg160 set, checkpoint (its train_args) and floor.json (its config), and
+# holds no floor
 FLOOR_RUNS = {
     "segment": (CKPT, FLOOR_JSON, "yolov8n-seg.yaml", floor_train_set, floor_val_set, None),
     "detect": (DETECT_CKPT, DETECT_FLOOR_JSON, "yolov8n.yaml", floor_detect_train_set,
                floor_detect_val_set, floor_detect_jax_metrics),
     "pose": (POSE_CKPT, POSE_FLOOR_JSON, "yolov8n-pose.yaml", floor_pose_train_set,
              floor_pose_val_set, floor_pose_jax_metrics),
+    # no segment_ori floor: the seg160 set and config, the metrics recorded
+    "segment_ori": (CKPT, FLOOR_JSON, "yolov8n-segori.yaml", floor_train_set, floor_val_set,
+                    None),
 }
 
 
@@ -1645,7 +1763,7 @@ def validate_full_width(model, card: str, passes: int = 3, phase: str = "validat
     timer = StageTimer()
     seg = model.task == "segment"
     v = {"segment": SegmentationValidator, "detect": DetectionValidator,
-         "pose": PoseValidator}[model.task](
+         "pose": PoseValidator, "segment_ori": SegmentationOriValidator}[model.task](
         imgsz=640, batch=VAL640_B, conf=VAL_CONF, iou=VAL_IOU, mark=timer)
     v(model.model, images, labels)  # warm-up
     timer.marks = []
@@ -1663,7 +1781,7 @@ def validate_full_width(model, card: str, passes: int = 3, phase: str = "validat
         splits.append({"preprocess": v.speed["preprocess"], **dev,
                        "matching": v.speed["matching"], "eval (host clock)": v.speed["eval"]})
     med = {k: statistics.median(sp[k] for sp in splits) for k in splits[0]}
-    if seg and counts["fill_polygons"] == 0:
+    if model.task in ("segment", "segment_ori") and counts["fill_polygons"] == 0:
         raise AssertionError("the validate path at 640 never launched the even-odd fill kernel")
     metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in res.items() if k != "fitness")
     log(phase, f"full width, {VAL640_N} images {VAL640_HW[0]}x{VAL640_HW[1]} at imgsz 640 "
@@ -1696,11 +1814,11 @@ def validate_full_width(model, card: str, passes: int = 3, phase: str = "validat
     return res, counts, med, peak
 
 
-def predict_ms(model, images, imgsz: int, batch: int, masks: bool) -> dict:
-    """One predict call (and, with ``masks``, every result's masks); ms per
-    image of each stage on the host clock."""
+def predict_ms(model, images, imgsz: int, batch: int, masks: bool, conf: float = 0.25) -> dict:
+    """One predict call at ``conf`` (and, with ``masks``, every result's
+    masks); ms per image of each stage on the host clock."""
     t = time.perf_counter()
-    res = model.predict(images, imgsz=imgsz, batch=batch)
+    res = model.predict(images, imgsz=imgsz, batch=batch, conf=conf)
     t_masks = time.perf_counter()
     if masks:
         for r in res:
@@ -1718,16 +1836,28 @@ def predict_ms(model, images, imgsz: int, batch: int, masks: bool) -> dict:
 
 def predictor_of(model):
     return {"segment": SegmentationPredictor, "detect": DetectionPredictor,
-            "pose": PosePredictor}[model.task]
+            "pose": PosePredictor, "segment_ori": SegmentationOriPredictor,
+            "classify": ClassificationPredictor}[model.task]
 
 
-def card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str):
+def head_maps(out):
+    """A model's raw outputs as a flat list of tensors (segment_ori's
+    levels and prototypes, classify's probabilities)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, tuple):
+        return head_maps(out[0]) + head_maps(out[1])
+    return list(out)
+
+
+def card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str,
+                        conf: float = 0.25):
     """The card's head maps and predict outputs against the port on the CPU,
-    from the same letterboxed inputs: head maps within ``HEAD_ATOL``, the
+    from the same letterboxed inputs, NMS at ``conf``: head maps within ``HEAD_ATOL``, the
     same detections, boxes within ``BOX_ATOL`` px, scores within
     ``SCORE_ATOL``; for pose the kept detections' keypoints within
     ``BOX_ATOL`` px and their visibilities within ``SCORE_ATOL``."""
-    pred = predictor_of(model)(imgsz=imgsz)
+    pred = predictor_of(model)(imgsz=imgsz, conf=conf)
     worst = dict.fromkeys(("head", "box", "score", "keypoint", "visibility"), 0.0)
     n_det = 0
     for img in images:
@@ -1735,7 +1865,7 @@ def card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str):
         xt = torch.from_numpy(x[None])
         with torch.inference_mode():
             xf = xt.float().div(255.0).permute(0, 3, 1, 2).contiguous()
-            for g, c in zip(model.model(xf.cuda()), cpu.model(xf)):
+            for g, c in zip(head_maps(model.model(xf.cuda())), head_maps(cpu.model(xf))):
                 worst["head"] = max(worst["head"], float((g.cpu() - c).abs().max()))
         out_gpu = {k: v.cpu() for k, v in pred.eval_batch(model.model, xt.cuda()).items()}
         out_cpu = pred.eval_batch(cpu.model, xt)
@@ -1766,15 +1896,17 @@ def card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str):
         + f" | {card}")
 
 
-def fuse_check(task: str, card: str) -> dict:
-    """``YOLO(floor checkpoint).fuse()`` on the card against the unfused
-    model on the card: head maps within ``FUSE_HEAD_ATOL`` and the same
-    detections (boxes within ``BOX_ATOL``) on the floor set's val images;
-    then both validated on the floor set (launch counts zeroed just before
-    the fused run, read just after): each metric of the fused model within
-    ``FUSE_METRIC_ATOL`` of the unfused one's, and the floor met. The
-    segment task's validation launches the even-odd fill kernel."""
-    ckpt_path, floor_json, _, _, val_set, _ = FLOOR_RUNS[task]
+def fuse_check(task: str, card: str, ckpt_path: Path = None) -> dict:
+    """``YOLO(floor checkpoint).fuse()`` (or ``ckpt_path``'s) on the card
+    against the unfused model on the card: head maps within
+    ``FUSE_HEAD_ATOL`` and the same detections (boxes within ``BOX_ATOL``)
+    on the floor set's val images; then both validated on the floor set
+    (launch counts zeroed just before the fused run, read just after): each
+    metric of the fused model within ``FUSE_METRIC_ATOL`` of the unfused
+    one's, and the floor met (segment_ori has none). The segment tasks'
+    validations launch the even-odd fill kernel."""
+    floor_ckpt, floor_json, _, _, val_set, _ = FLOOR_RUNS[task]
+    ckpt_path = ckpt_path or floor_ckpt
     record = json.loads(floor_json.read_text())
     images, labels = val_set()
     plain = YOLO(ckpt_path, device="cuda")
@@ -1788,7 +1920,7 @@ def fuse_check(task: str, card: str) -> dict:
         xt = torch.from_numpy(x[None]).cuda()
         with torch.inference_mode():
             xf = xt.float().div(255.0).permute(0, 3, 1, 2).contiguous()
-            for g, c in zip(fused.model(xf), plain.model(xf)):
+            for g, c in zip(head_maps(fused.model(xf)), head_maps(plain.model(xf))):
                 worst_head = max(worst_head, float((g - c).abs().max()))
         og, oc = pred.eval_batch(fused.model, xt), pred.eval_batch(plain.model, xt)
         if not (torch.equal(og["valid"], oc["valid"]) and torch.equal(og["classes"], oc["classes"])):
@@ -1801,21 +1933,24 @@ def fuse_check(task: str, card: str) -> dict:
     counts = launch_counts()
     gaps = {k: abs(got[k] - want[k]) for k in want}
     below = {k: (got[k], record["floor"][n]) for k, n in record["floor_keys"].items()
-             if not got[k] >= record["floor"][n]}
+             if task != "segment_ori" and not got[k] >= record["floor"][n]}
     metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in got.items() if k != "fitness")
-    log("fuse", f"{task} ({ckpt_path.parent.name}) fused on the card vs unfused on the card, "
+    log("fuse", f"{task} ({ckpt_path.parent.name}/{ckpt_path.name}) fused on the card vs "
+        f"unfused on the card, "
         f"{min(len(images), 8)} images at imgsz {imgsz}: head max abs {worst_head:.2e} (limit "
         f"{FUSE_HEAD_ATOL}), the same {n_det} detections, boxes max abs {worst_box:.2e} px; "
         f"{plain.model.num_params} -> {fused.model.num_params} parameters | {card}")
     log("fuse", f"{task} fused, validated on the floor set at imgsz {imgsz} batch {VAL_B}: "
         f"{metrics}; worst gap to the unfused model {max(gaps.values()):.2e} (limit "
-        f"{FUSE_METRIC_ATOL}); floor {record['floor']}; launches {counts} | {card}")
+        f"{FUSE_METRIC_ATOL}); floor "
+        f"{record['floor'] if task != 'segment_ori' else 'none (not held)'}; launches {counts} | "
+        f"{card}")
     if worst_head > FUSE_HEAD_ATOL or worst_box > BOX_ATOL or n_det == 0:
         raise AssertionError(f"fuse {task}: head {worst_head:.2e}, boxes {worst_box:.2e}, "
                              f"{n_det} detections")
     if max(gaps.values()) > FUSE_METRIC_ATOL or below:
         raise AssertionError(f"fuse {task}: metric gaps {gaps}, below the floor {below}")
-    if task == "segment" and counts["fill_polygons"] == 0:
+    if task in ("segment", "segment_ori") and counts["fill_polygons"] == 0:
         raise AssertionError("the fused validate path never launched the even-odd fill kernel")
     return counts
 
@@ -1879,16 +2014,22 @@ def validate_floor_jax(model, card: str, task: str):
     return res
 
 
-def fresh_pose_model(device="cuda") -> YOLO:
-    """``YOLO("yolov8n-pose.yaml")`` holding the published yolov8n-pose (nc
-    1, 17 keypoints) at full width, initialized as the trainer initializes
-    a fresh model (``init_weights``) from ``POSE_SEED``, in eval mode."""
-    handle = YOLO("yolov8n-pose.yaml", device=device)
-    model = build_model(yaml_model_load("yolov8n-pose.yaml"))
-    model.names = {0: "person"}
-    init_weights(model, torch.Generator().manual_seed(POSE_SEED))
+def fresh_model(name: str, names: dict, seed: int, device="cuda") -> YOLO:
+    """``YOLO(name)`` holding that published config at full width (nc
+    ``len(names)``), initialized as the trainer initializes a fresh model
+    (``init_weights``) from ``seed``, in eval mode."""
+    handle = YOLO(name, device=device)
+    model = build_model(yaml_model_load(name), nc=len(names))
+    model.names = dict(names)
+    init_weights(model, torch.Generator().manual_seed(seed))
     handle.model = model.to(device).eval()
     return handle
+
+
+def fresh_pose_model(device="cuda") -> YOLO:
+    """The published yolov8n-pose (nc 1, 17 keypoints) at full width, a
+    fresh init from ``POSE_SEED`` (``fresh_model``)."""
+    return fresh_model("yolov8n-pose.yaml", {0: "person"}, POSE_SEED, device)
 
 
 def pose_predict(card: str):
@@ -1932,6 +2073,165 @@ def pose_predict(card: str):
     card_vs_cpu_predict(model, YOLO(POSE_CKPT, device="cpu"), imgs96[:8], POSE_IMGSZ,
                         "pose_predict", card)
     return model, full
+
+
+def segori_predict(card: str):
+    """The fresh full-width yolov8n-segori (``fresh_model``, nc 2, random
+    weights from ``SEGORI_SEED``) on 480x640 frames at imgsz 640, batch 1
+    and 8, conf ``VAL_CONF`` (random weights score below 0.25), launch
+    counts zeroed just before and read just after (predict fills no
+    polygon: its masks are the prototypes' crops, upsampled on the card):
+    every result's masks (n, 480, 640) bool, ms per image. (The card
+    against the CPU is held on the trained model, ``segori_card_vs_cpu``:
+    random weights give many scores and overlaps within float rounding of
+    the gates.)"""
+    model = fresh_model("yolov8n-segori.yaml", SHAPE_NAMES, SEGORI_SEED)
+    frames = shape_images(8, *RASTER_HW, seed=2)
+    zero_launch_counts()
+    res = model.predict(frames, imgsz=640, batch=8, conf=VAL_CONF)
+    bad = [None if r.masks is None else r.masks.data.shape for r in res
+           if len(r) and (r.masks is None or r.masks.data.shape != (len(r), *RASTER_HW))]
+    n_det, n_px = sum(len(r) for r in res), sum(int(r.masks.data.sum()) for r in res if len(r))
+    lat = {}
+    for batch in (1, 8):
+        images = frames[:batch]
+        predict_ms(model, images, 640, batch, masks=False, conf=VAL_CONF)  # warm-up
+        runs = [predict_ms(model, images, 640, batch, masks=False, conf=VAL_CONF)
+                for _ in range(5)]
+        lat[batch] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    counts = launch_counts()
+    if bad or n_det == 0:
+        raise AssertionError(f"segment_ori predict: {n_det} detections, masks of shapes {bad}")
+    log("segori_predict", f"yolov8n-segori full width ({model.model.num_params} parameters, "
+        f"random weights from seed {SEGORI_SEED}) at imgsz 640, conf {VAL_CONF}: {n_det} "
+        f"detections with masks on {len(frames)} frames ({n_px} mask pixels); launches {counts} "
+        f"| {card}")
+    for batch in (1, 8):
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in lat[batch].items())
+        log("segori_predict", f"imgsz 640 batch {batch}, conf {VAL_CONF}, ms per image (host "
+            f"clock, median of 5 calls; postprocess holds the masks' matmul, crop and upsample "
+            f"and their copy to the host): {parts} | {card}")
+    return model, counts
+
+
+def segori_card_vs_cpu(path: Path, card: str):
+    """The segment_ori checkpoint ``path`` (the trainer's best.ckpt) on the
+    card against the port on the CPU, on the seg160 val images at its imgsz
+    (heads and prototypes within ``HEAD_ATOL``, the same detections, boxes,
+    scores; ``card_vs_cpu_predict``), and how many pixels of the two
+    predicts' masks differ (printed: a pixel at the 0.5 edge may)."""
+    model, cpu = YOLO(path, device="cuda"), YOLO(path, device="cpu")
+    images = floor_val_set()[0][:8]
+    card_vs_cpu_predict(model, cpu, images, model.imgsz, "segori_trainer", card)
+    got, want = model.predict(images), cpu.predict(images)
+    n_diff = sum(int((g.masks.data != w.masks.data).sum()) for g, w in zip(got, want) if len(w))
+    n_all = sum(w.masks.data.size for w in want if len(w))
+    log("segori_trainer", f"predict masks of the trained model, card vs CPU on the same "
+        f"{len(images)} images: {n_diff} of {n_all} pixels differ (printed, not held) | {card}")
+
+
+def floor_cls_set(path):
+    """The committed decoded images and class indices of a classify floor
+    split (``make_cls_dataset(n_train=48, n_val=16, imgsz=64, seed=0)``)."""
+    with np.load(path) as z:
+        return list(z["images"]), z["labels"]
+
+
+def floor_cls_jax_metrics() -> dict:
+    """The JAX validator's metrics of ``runs/floor_classify/best.ckpt`` on
+    the classify floor set at imgsz 64, batch 16, stored with the set."""
+    return _jax_metrics(FLOOR_CLS_VAL)
+
+
+def classify_phases(card: str) -> dict:
+    """The classify task (no kernel of its own; launch counts printed, all
+    0): (a) ``YOLO(runs/floor_classify/best.ckpt).val`` on the card over the
+    32 committed val images at 64, batch 16: the JAX validator's metrics
+    exactly (top-1 0.78125, top-5 1.0), and the floor; the probabilities,
+    card against CPU, within ``PROB_ATOL``; (b) predict at imgsz 224 on
+    480x640 frames, batch 1 and 8, ms per image; (c) the deploy fuse: the
+    fused model's probabilities within ``FUSE_PROB_ATOL`` of the unfused
+    ones', its metrics the same; (d) ``YOLO("yolov8n-cls.yaml").train``
+    from scratch on the floor set (96 train images) at the ``floor.json``
+    config (60 epochs at 64, batch 16, seed 0): the stripped best.ckpt must
+    meet the floor (top-1) and predict."""
+    record = json.loads(CLS_FLOOR_JSON.read_text())
+    images, labels = floor_cls_set(FLOOR_CLS_VAL)
+    want = floor_cls_jax_metrics()
+    model = YOLO(CLS_CKPT, device="cuda")
+    zero_launch_counts()
+    res = model.val(images, labels, imgsz=model.imgsz, batch=16)
+    counts = launch_counts()
+    log("classify_validate", f"floor_classify on the {len(images)} committed val images at "
+        f"imgsz {model.imgsz} batch 16 on the card: {res} (JAX {want}); ms per image (host clock) "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in model.validator.speed.items())}; launches "
+        f"{counts} | {card}")
+    if res != want or res["metrics/accuracy_top1"] < record["floor"]["accuracy_top1"]:
+        raise AssertionError(f"classify validate on the card: {res}, not JAX's {want}")
+    cpu = YOLO(CLS_CKPT, device="cpu")
+    got = np.stack([r.probs.data for r in model.predict(images, batch=8)])
+    ref = np.stack([r.probs.data for r in cpu.predict(images, batch=8)])
+    worst = float(np.abs(got - ref).max())
+    log("classify_validate", f"probabilities, card vs CPU on the {len(images)} val images: max "
+        f"abs {worst:.2e} (limit {PROB_ATOL}), the same top-1 on "
+        f"{int((got.argmax(1) == ref.argmax(1)).sum())} of {len(images)} | {card}")
+    if worst > PROB_ATOL or not (got.argmax(1) == ref.argmax(1)).all():
+        raise AssertionError(f"classify card vs CPU: probabilities {worst:.2e} apart")
+
+    frames = shape_images(8, *RASTER_HW, seed=2)
+    lat = {}
+    for batch in (1, 8):
+        predict_ms(model, frames[:batch], CLS_PREDICT_IMGSZ, batch, masks=False)  # warm-up
+        runs = [predict_ms(model, frames[:batch], CLS_PREDICT_IMGSZ, batch, masks=False)
+                for _ in range(10)]
+        lat[batch] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in lat[batch].items())
+        log("classify_predict", f"imgsz {CLS_PREDICT_IMGSZ} batch {batch} on 480x640 frames, ms "
+            f"per image (host clock, median of 10 calls; preprocess is the grayscale transform "
+            f"on the host): {parts} | {card}")
+
+    fused = YOLO(CLS_CKPT, device="cuda").fuse()
+    fp = np.stack([r.probs.data for r in fused.predict(images, batch=8)])
+    gap = float(np.abs(fp - got).max())
+    fres = fused.val(images, labels, imgsz=model.imgsz, batch=16)
+    log("fuse", f"classify (floor_classify) fused on the card: probabilities max abs {gap:.2e} "
+        f"from the unfused (limit {FUSE_PROB_ATOL}); {model.model.num_params} -> "
+        f"{fused.model.num_params} parameters; validated: {fres} | {card}")
+    if gap > FUSE_PROB_ATOL or fres != res:
+        raise AssertionError(f"classify fuse: probabilities {gap:.2e} apart, metrics {fres}")
+
+    ckpt = load_checkpoint(CLS_CKPT)
+    over = {k: ckpt["train_args"][k] for k in CLS_TRAIN_KEYS}
+    data = {"train": floor_cls_set(FLOOR_CLS_TRAIN), "val": (images, labels),
+            "names": ckpt["names"]}
+    timer = TrainTotals(skip=len(data["train"][0]) // over["batch"])
+    with tempfile.TemporaryDirectory() as d:
+        m = YOLO("yolov8n-cls.yaml", device="cuda")
+        zero_launch_counts()
+        t = time.perf_counter()
+        tres = m.train(data=data, mark=timer, project=d, name="floor", **over)
+        wall = time.perf_counter() - t
+        tcounts = launch_counts()
+        trainer = m.trainer
+        best = YOLO(trainer.wdir / "best.ckpt", device="cuda")
+        pred = best.predict(frames[:2] + images[:6], imgsz=over["imgsz"])
+    tot = epoch_split(trainer)["sum"]
+    log("classify_trainer", f"yolov8n-cls from scratch on the classify floor set "
+        f"({len(data['train'][0])} train, {len(images)} val images), {over}: "
+        f"{len(trainer.epoch_times)} epochs, {timer.seen} steps in {wall:.2f}s wall; final eval of "
+        f"the stripped best.ckpt: {tres}; floor {record['floor']}; host clock, s summed: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in tot.items())
+        + f"; device ms per step by CUDA events after the first epoch: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timer.per_step().items())
+        + f"; launches {tcounts} | {card}")
+    if tres["metrics/accuracy_top1"] < record["floor"]["accuracy_top1"]:
+        raise AssertionError(f"classify trainer: top-1 {tres['metrics/accuracy_top1']} below the "
+                             f"floor {record['floor']['accuracy_top1']}")
+    if not all(r.probs is not None and np.isfinite(r.probs.data).all() for r in pred):
+        raise AssertionError("classify: predict from the trained best.ckpt gave no probabilities")
+    log("classify_trainer", f"YOLO(best.ckpt).predict on {len(pred)} images: top-1 classes "
+        f"{[r.probs.top1 for r in pred]} | {card}")
+    return {k: counts[k] + tcounts[k] for k in counts}
 
 
 def paper_comparison(card: str) -> dict:
@@ -2006,6 +2306,10 @@ def main() -> int:
                                         raster.fill_polygons_cv2, raster.fill_polygons_cv2_plain,
                                         "cv2", 2, card),
     }
+    segori_fill = {n: check_fill("fill_polygons", "raster_fill_polygons", raster.fill_polygons,
+                                 raster.fill_polygons_plain, "even_odd", 1, card,
+                                 hw=SEGORI_PROTO_HW, inputs=segori_fill_inputs(n))
+                   for n in SEGORI_FILL_N}
     rows_checks = {}
     for n_pad, k in RAY_SHAPES:
         r = TRAIN_B * n_pad
@@ -2116,22 +2420,52 @@ def main() -> int:
     phase_start["pose_trainer"] = time.perf_counter()
     train_floor(card, "pose")
 
-    # 17. the fork's headline comparison, seg against detect, at 640
+    # 17-20. the segment_ori task: predict, validate, the train step, the
+    # trainer and the fuse; its loss and validator fill the GT masks with
+    # the even-odd kernel
+    phase_start["segori_predict"] = time.perf_counter()
+    segori, segori_predict_counts = segori_predict(card)
+    phase_start["segori_validate"] = time.perf_counter()
+    _, segori_val_counts, _, _ = validate_full_width(segori, card, phase="segori_validate")
+    phase_start["segori_train"] = time.perf_counter()
+    train_card_vs_cpu(ckpt, card, imgsz=TRAIN_IMGSZ, phase="segori_train", b=TRAIN_B,
+                      model=segori.model, dtype=torch.float64)
+    _, segori_step_counts, _, _ = train_full_width(ckpt, card, phase="segori_train",
+                                                   model=segori.model)
+    phase_start["segori_trainer"] = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        segori_best = Path(d) / "segori_best.ckpt"
+        segori_trainer_counts = train_floor(card, "segment_ori", keep=segori_best)
+        segori_card_vs_cpu(segori_best, card)
+        segori_fuse_counts = fuse_check("segment_ori", card, ckpt_path=segori_best)
+
+    # 21. the classify task: validate, predict, fuse, the trainer
+    phase_start["classify"] = time.perf_counter()
+    classify_counts = classify_phases(card)
+
+    # 22. the fork's headline comparison, seg against detect, at 640
     phase_start["compare"] = time.perf_counter()
     paper_comparison(card)
 
-    # 18. report: launches summed over the main paths' runs
+    # 23. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
+    segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
+                     "train step": segori_step_counts, "trainer": segori_trainer_counts,
+                     "fused validate": segori_fuse_counts}
     launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k] + trainer_counts[k]
-                + fuse_counts[k] for k in KERNEL_WRAPPERS}
+                + fuse_counts[k] + sum(c[k] for c in segori_counts.values())
+                + classify_counts[k] for k in KERNEL_WRAPPERS}
     at_480 = fill_rows["fill_polygons_480x640"]
+    at_segori = {f"{key}_N{n}_V360_160x160": segori_fill[n][key] for n in SEGORI_FILL_N
+                 for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
     src = "yolo_contour_regression_tpu_torch/csrc/"
     kernels = [
         {"name": "fill_polygons", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_raster.py:58",
          "launches": launches["fill_polygons"], **fill_rows["fill_polygons"], "library_ms": None,
          "ms_480x640": at_480["ms"], "plain_ms_480x640": at_480["plain_ms"],
-         "bound_ms_480x640": at_480["bound_ms"]},
+         "bound_ms_480x640": at_480["bound_ms"], **at_segori,
+         "launches_segment_ori": {k: c["fill_polygons"] for k, c in segori_counts.items()}},
         {"name": "fill_polygons_cv2", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
                      "no TPU kernel)",
@@ -2151,9 +2485,12 @@ def main() -> int:
         f"{validate_counts} (floor set at 160 and one pass at 640), train step {train_counts}, "
         f"trainer {trainer_counts} (the floor run and 640), fused validate {fuse_counts} (the "
         f"seg160, detect and pose floor sets; the detect and pose paths have no kernel of their "
-        f"own); "
+        f"own), segment_ori {segori_counts} (its GT masks: one fill a train step and a "
+        f"validated batch), classify {classify_counts} (no kernel of its own); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
-        "validator's 640x640 grid, and at 480x640 (the *_480x640 keys); fill_polygons_cv2 (the "
+        "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
+        "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "
+        "fill_polygons_cv2 (the "
         "predict path's masks): ms a launch at N=300 480x640; gt_rays_rows: ms, plain_ms and "
         "bound at the train step's R=128 K=128, and at the trainer's R=512 K=48 (the *_R512_K48 "
         "keys); gt_rays_pairs "

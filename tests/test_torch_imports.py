@@ -8,7 +8,11 @@ of the floor set with it, one CPU train step runs on it, and
 floor set's train images at imgsz 64 (amp, the augmentation, the loader's
 threads, checkpoints); then the detect task: the floor_detect checkpoint
 predicts and validates, fused and unfused, and ``YOLO("yolov8n.yaml")
-.train`` runs one epoch on four of the detect floor set's images."""
+.train`` runs one epoch on four of the detect floor set's images; then the
+classify task (the floor_classify checkpoint validates to JAX's top-1 on
+the committed set, and ``YOLO("yolov8n-cls.yaml").train`` runs one epoch
+on the host path) and the segment_ori task (the narrow checkpoint of the
+CPU tests predicts masks)."""
 import subprocess
 import sys
 from pathlib import Path
@@ -86,6 +90,21 @@ with tempfile.TemporaryDirectory() as d:
                       "names": {0: "circle", 1: "rect"}},
                 epochs=1, imgsz=64, batch=2, nbs=2, workers=1, val=False, project=d)
     assert fresh.task == "detect" and fresh.trainer.state.step == 2
+cls = pkg.YOLO("runs/floor_classify/best.ckpt", device="cpu")
+with np.load("tests/data/torch_port_floor_classify_val32.npz") as z:
+    cls_images, cls_labels = list(z["images"]), z["labels"]
+cls_val = cls.val(cls_images, cls_labels, imgsz=64, batch=16)
+assert cls_val["metrics/accuracy_top1"] == 0.78125, cls_val
+with tempfile.TemporaryDirectory() as d:
+    fresh = pkg.YOLO("yolov8n-cls.yaml", device="cpu")
+    fresh.train(data={"train": (cls_images[::4], cls_labels[::4]),
+                      "val": (cls_images[:4], cls_labels[:4]), "names": {0: "circle", 1: "rect"}},
+                epochs=1, imgsz=32, batch=4, nbs=4, workers=1, project=d)
+    assert fresh.task == "classify" and fresh.trainer.state.step == 2
+so = pkg.YOLO("tests/data/torch_port_segori_narrow64.ckpt", device="cpu")
+so_res = so.predict(chip_smoke.shape_val_set(4, 48, 64, 41)[0], conf=0.001)
+assert sum(len(r) for r in so_res) > 0
+assert all(r.masks.data.shape[1:] == (48, 64) for r in so_res if len(r))
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;",

@@ -500,3 +500,81 @@ def test_pose_loss_card_equals_cpu(cuda, full_f32, k):
                                    err_msg=key)
     for a, b in zip(gg, gc):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("n", [128, 768])
+def test_segori_gt_masks_kernel_equals_plain(cuda, n):
+    """The segment_ori GT masks (``gt_masks_at``: 360-point contours on the
+    160x160 proto grid, one launch of the even-odd kernel) equal the plain
+    fill's, at the train step's N 128 and ``max_instances``' 768
+    (``chip_smoke.segori_fill_inputs``)."""
+    from chip_smoke import SEGORI_PROTO_HW, segori_fill_inputs
+    from yolo_contour_regression_tpu_torch.utils.loss import gt_masks_at
+
+    pts, valid = segori_fill_inputs(n)
+    hp, wp = SEGORI_PROTO_HW
+    segs = (pts / torch.tensor([wp, hp], device=cuda)).reshape(16, -1, 360, 2)
+    mask_gt = valid[:, 0].reshape(16, -1)
+    before = raster.fill_polygons.launches
+    got = gt_masks_at(segs, mask_gt, hp, wp)
+    assert raster.fill_polygons.launches == before + 1
+    want = gt_masks_at(segs.cpu(), mask_gt.cpu(), hp, wp)
+    assert torch.equal(got.cpu(), want) and bool(want.any())
+
+
+def test_segori_loss_card_equals_cpu(cuda, full_f32):
+    """``segmentation_ori_loss`` on the same random head maps and
+    prototypes (imgsz 64, nm 8) on the card and on the CPU: the total and
+    each item within 1e-5 relative, the gradients w.r.t. the maps and the
+    prototypes within 1e-5 of their largest entry; one fill launch."""
+    from types import SimpleNamespace
+
+    from chip_smoke import shape_batch
+    from yolo_contour_regression_tpu_torch.utils import loss as tloss
+
+    rng = np.random.default_rng(3)
+    hyp = SimpleNamespace(box=7.5, cls=0.5, dfl=1.5)
+    _, batch = shape_batch(2, 64, 4, seed=3)
+    feats = []
+    for s in (8, 16, 32):
+        f = rng.normal(0, 2, (2, 64 + 2 + 8, 64 // s, 64 // s))
+        f[:, :64] -= np.tile(0.6 * np.arange(16), 4)[None, :, None, None]
+        feats.append(f.astype(np.float32))
+    proto = rng.normal(0, 1, (2, 8, 16, 16)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fs = [torch.from_numpy(f).to(dev).requires_grad_() for f in feats]
+        pr = torch.from_numpy(proto).to(dev).requires_grad_()
+        b = {key: torch.from_numpy(v).to(dev) for key, v in batch.items()}
+        before = raster.fill_polygons.launches
+        res = tloss.segmentation_ori_loss((fs, pr), b, (8, 16, 32), 2, hyp, nm=8)
+        res.total.backward()
+        assert raster.fill_polygons.launches == before + (dev == "cuda")
+        out[dev] = (res, [f.grad.cpu() for f in fs] + [pr.grad.cpu()])
+    (rc, gc), (rg, gg) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(rg.total.item(), rc.total.item(), rtol=1e-5)
+    for key in rc.items:
+        np.testing.assert_allclose(rg.items[key].item(), rc.items[key].item(), rtol=1e-5,
+                                   err_msg=key)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_segori_and_classify_predict_card_equal_cpu(cuda, full_f32):
+    """The narrow segori checkpoint of the CPU tests on the card against
+    the CPU on its val frames at 64, conf 0.001 (heads and prototypes
+    within 1e-3, the same detections, boxes 0.05 px, scores 1e-4); the
+    floor_classify checkpoint's probabilities within 1e-4 of the CPU's."""
+    from pathlib import Path
+
+    from chip_smoke import CLS_CKPT, card_vs_cpu_predict, shape_images, shape_val_set
+    from yolo_contour_regression_tpu_torch import YOLO
+
+    ckpt = Path(__file__).resolve().parent / "data" / "torch_port_segori_narrow64.ckpt"
+    card_vs_cpu_predict(YOLO(ckpt), YOLO(ckpt, device="cpu"), shape_val_set(8, 48, 64, 41)[0],
+                        64, "test", "card", conf=0.001)
+    frames = shape_images(2, 480, 640, seed=2)
+    got = YOLO(CLS_CKPT).predict(frames, imgsz=64)
+    want = YOLO(CLS_CKPT, device="cpu").predict(frames, imgsz=64)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.probs.data, w.probs.data, atol=1e-4)

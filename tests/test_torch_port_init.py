@@ -72,14 +72,14 @@ def test_get_cfg_checks_probabilities():
                                   "yolov8l-seg.yaml", "yolov8x-seg.yaml", "yolov8-seg.yaml"])
 def test_yaml_model_load_matches_jax(name):
     """The config and scale letter JAX's ``yaml_model_load`` reads for the
-    name, and for its pose counterpart (its ``yaml_file`` path aside);
-    other names (classify) are not ported."""
-    for n in (name, name.replace("-seg", "-pose")):
+    name, and for its pose, proto-mask and classify counterparts (its
+    ``yaml_file`` path aside); other names (RT-DETR) are not ported."""
+    for n in (name, *(name.replace("-seg", t) for t in ("-pose", "-segori", "-cls"))):
         want = jax_yaml_model_load(n)
         want.pop("yaml_file")
         assert yaml_model_load(n) == want, n
     with pytest.raises(NotImplementedError, match="not ported"):
-        yaml_model_load(name.replace("-seg", "-cls"))
+        yaml_model_load(name.replace("-seg", "-rtdetr"))
 
 
 @pytest.fixture(scope="module")

@@ -345,7 +345,7 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
             ttrainer.SegmentationTrainer(overrides={**over, "project": str(tmp_path)},
                                          device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        YOLO("yolov8n-cls.yaml", device="cpu")
+        YOLO("yolov8n-rtdetr.yaml", device="cpu")
 
 
 def test_a_fresh_facade_has_no_weights_until_trained():

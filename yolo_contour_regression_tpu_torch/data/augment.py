@@ -1,19 +1,24 @@
 """Letterbox and the host side of the sample pipelines (counterparts of
 ``letterbox``, ``Sample``, ``letterbox_sample``, ``format_sample``,
-``format_sample_raw`` and ``collate`` in the JAX package's
-``data/augment.py``), without cv2. The train transforms run on the device
+``format_sample_raw``, ``collate`` and the fork's grayscale classify
+transforms in the JAX package's ``data/augment.py``), without cv2. The
+detect-family train transforms run on the device
 (``data/device_augment.py``); the host cv2 train pipeline is not ported.
 
 The resize reproduces ``cv2.resize(..., interpolation=cv2.INTER_LINEAR)`` on
-uint8 images bit for bit, in numpy integer arithmetic: OpenCV's 11-bit
-fixed-point coefficients (``_linear_coeffs``), a horizontal pass into int32
-and its vertical pass as its vector code rounds it (``_resize_linear_u8``).
+uint8 images (any channel count) bit for bit, in numpy integer arithmetic:
+OpenCV's 11-bit fixed-point coefficients (``_linear_coeffs``), a horizontal
+pass into int32 and its vertical pass as its vector code rounds it
+(``_resize_linear_u8``). ``bgr_to_gray`` is cv2's ``COLOR_BGR2GRAY`` on
+uint8, exact. ``resize_linear_f32`` is the same resize of float32 images
+(cv2's float path, in torch): a separate algorithm, see its docstring.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from ..ops.polar import NUM_CONTOUR_POINTS
 from .instance import Instances
@@ -62,6 +67,94 @@ def _resize_linear_u8(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     out = (((b0[:, None, None] * (rows[r0] >> 4)) >> 16)
            + ((b1[:, None, None] * (rows[r1] >> 4)) >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+# cv2's BGR2GRAY on uint8: 15-bit fixed-point weights of B, G and R
+GRAY_WEIGHTS = (3735, 19235, 9798)
+GRAY_SHIFT = 15
+
+
+def bgr_to_gray(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)`` for an HWC uint8 BGR image,
+    exactly: ``(3735 B + 19235 G + 9798 R + 2^14) >> 15``."""
+    x = img.astype(np.int32)
+    wb, wg, wr = GRAY_WEIGHTS
+    g = x[..., 0] * wb + x[..., 1] * wg + x[..., 2] * wr + (1 << (GRAY_SHIFT - 1))
+    return (g >> GRAY_SHIFT).astype(np.uint8)
+
+
+def _resize_to_square_u8(g: np.ndarray, imgsz: int) -> np.ndarray:
+    """``cv2.resize(g, (imgsz, imgsz))`` of a one-channel uint8 image."""
+    if g.shape[:2] == (imgsz, imgsz):
+        return g.copy()
+    return _resize_linear_u8(g[..., None], imgsz, imgsz)[..., 0]
+
+
+def classify_transform_eval(img: np.ndarray, imgsz: int) -> np.ndarray:
+    """The fork's classify eval transform: gray (``bgr_to_gray``), resized to
+    imgsz x imgsz (cv2's INTER_LINEAR, exactly), ``/ 255`` in float32 and
+    repeated to 3 channels -> (imgsz, imgsz, 3) float32."""
+    g = _resize_to_square_u8(bgr_to_gray(img), imgsz)
+    g = g.astype(np.float32) / 255.0
+    return np.repeat(g[..., None], 3, -1)
+
+
+def classify_transform_train(img: np.ndarray, imgsz: int, rng, noise) -> np.ndarray:
+    """The fork's classify train transform: as the eval one, with a
+    brightness factor ``rng.uniform(0.6, 1.4)`` (``rng`` the dataset's
+    ``random.Random``), clipped to [0, 255] in float32, then, where
+    ``rng.random() < 0.5``, Gaussian noise ``noise.normal(0, 8, shape)``
+    added in float64 and clipped again. ``noise`` is a
+    ``numpy.random.Generator`` (JAX draws it from numpy's global state,
+    ``np.random``, which has the same ``normal`` and may be passed here to
+    reproduce its draws)."""
+    g = _resize_to_square_u8(bgr_to_gray(img), imgsz)
+    b = rng.uniform(0.6, 1.4)
+    g = np.clip(g.astype(np.float32) * b, 0, 255)
+    if rng.random() < 0.5:
+        g = np.clip(g + noise.normal(0, 8, g.shape), 0, 255)
+    g = (g / 255.0).astype(np.float32)
+    return np.repeat(g[..., None], 3, -1)
+
+
+def _linear_taps_f32(src: int, dst: int, device):
+    """cv2's float INTER_LINEAR taps along one axis: per output index the
+    two source indices and the float32 fraction. The position ``(d + 0.5) *
+    (src / dst) - 0.5`` is taken in double; where it leaves the image the
+    border pixel is taken alone (fraction 0)."""
+    pos = (np.arange(dst, dtype=np.float64) + 0.5) * (src / dst) - 0.5
+    first = np.floor(pos)
+    frac = pos - first
+    first = first.astype(np.int64)
+    out = (first < 0) | (first >= src - 1)
+    frac[out] = 0.0
+    first = np.clip(first, 0, src - 1)
+    return (torch.from_numpy(first).to(device), torch.from_numpy(np.minimum(first + 1, src - 1))
+            .to(device), torch.from_numpy(frac.astype(np.float32)).to(device))
+
+
+def _lerp_fma(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """``fma(b - a, f, a)`` in float32, rounded once: the product of two
+    float32 numbers is exact in float64, so only the sum rounds (twice: to
+    float64, then float32)."""
+    return ((b - a).double() * f.double() + a.double()).float()
+
+
+def resize_linear_f32(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """``cv2.resize(m, (width, height), interpolation=cv2.INTER_LINEAR)`` of
+    float32 images x (n, h, w), on x's device: a horizontal then a vertical
+    pass, each ``fma(x1 - x0, f, x0)`` in float32 on the taps of
+    ``_linear_taps_f32`` (cv2's float path; it differs from the uint8 one).
+    Equal to cv2 on every pixel of random images at every up- and
+    down-scale tried, except sources one pixel high or wide, which cv2
+    treats apart (within 2e-6). The same size returns a copy, as cv2."""
+    n, h, w = x.shape
+    if (h, w) == (height, width):
+        return x.clone()
+    x0, x1, fx = _linear_taps_f32(w, width, x.device)
+    y0, y1, fy = _linear_taps_f32(h, height, x.device)
+    rows = _lerp_fma(x[:, :, x0], x[:, :, x1], fx)
+    return _lerp_fma(rows[:, y0], rows[:, y1], fy[:, None])
 
 
 def letterbox(img: np.ndarray, new_shape: Tuple[int, int], scaleup: bool = True
@@ -191,8 +284,10 @@ INSTANCE_KEYS = ("cls", "bboxes", "segments", "mask_gt", "keypoints")
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     """Stack per-image dicts, and trim the padded instance axis to the
     smallest bucket of ``INSTANCE_BUCKETS`` that holds the batch's most
-    instances (else keep the pad)."""
+    instances (else keep the pad; classify samples have no instances)."""
     out = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    if "mask_gt" not in out:
+        return out
     n_pad = out["mask_gt"].shape[1]
     n_act = int(out["mask_gt"].sum(axis=1).max())
     cap = next((b for b in INSTANCE_BUCKETS if n_act <= b < n_pad), n_pad)

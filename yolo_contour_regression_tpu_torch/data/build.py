@@ -2,7 +2,9 @@
 ``TrainLoader``, infinite and shuffled, collated by worker threads ahead of
 the step; ``ValLoader``, one pass in dataset order, collated on the calling
 thread. ``use_device_augment`` says whether a config takes the train path
-the port has (augmentation on the device)."""
+with the augmentation on the device; classify takes the host path, its
+transforms in ``ClassificationDataset`` read by ``TrainLoader(...,
+in_order=True)``."""
 from __future__ import annotations
 
 import queue
@@ -40,13 +42,18 @@ class TrainLoader:
     index order whatever thread finishes first, so a run repeats itself with
     any number of workers (the JAX loader's order is that only with one). A
     worker's error is raised in the consumer, and an abandoned iterator
-    stops its workers."""
+    stops its workers. ``in_order``: a dataset that draws its own
+    randomness as it is read (``ClassificationDataset``) is read by one
+    thread at a time, batch after batch, so its draws follow the batch order
+    as in the JAX loader with one worker; the collate stays parallel."""
 
-    def __init__(self, dataset, batch_size: int, workers: int = 4, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, workers: int = 4, seed: int = 0,
+                 in_order: bool = False):
         self.dataset = dataset
         self.batch_size = max(int(batch_size), 1)
         self.workers = max(int(workers), 1)
         self.rng = random.Random(seed)
+        self.in_order = bool(in_order)
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -80,10 +87,19 @@ class TrainLoader:
 
         def worker():
             while not stop.is_set():
+                samples = None
                 with lock:
                     seq, chunk = next(chunks)
+                    if self.in_order:
+                        try:
+                            samples = [self.dataset[j] for j in chunk]
+                        except Exception as e:  # handed to the consumer, raised there
+                            qput((seq, e))
+                            return
                 try:
-                    item = collate([self.dataset[j] for j in chunk])
+                    if samples is None:
+                        samples = [self.dataset[j] for j in chunk]
+                    item = collate(samples)
                 except Exception as e:  # handed to the consumer, raised there
                     qput((seq, e))
                     return

@@ -1,23 +1,24 @@
 """YOLO-format labels and the datasets (counterparts of ``img2label_path``,
-``parse_label_file`` and ``YOLODataset`` in the JAX package's
-``data/dataset.py``: its val mode, and its train mode with the augmentation
-on the device), in pure Python and numpy.
+``parse_label_file``, ``YOLODataset`` (its val mode, and its train mode
+with the augmentation on the device) and ``ClassificationDataset`` in the
+JAX package's ``data/dataset.py``), in pure Python and numpy.
 
 The port decodes no image files: ``ValDataset`` and ``TrainDataset`` take
 decoded HWC uint8 BGR arrays, each with a YOLO label file or its parsed
-arrays.
+arrays; ``ClassificationDataset`` takes decoded arrays and class indices.
 """
 from __future__ import annotations
 
 import os
+import random
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from ..ops.polar import NUM_CONTOUR_POINTS
-from .augment import (Sample, _resize_linear_u8, format_sample, format_sample_raw,
-                      letterbox_sample)
+from .augment import (Sample, _resize_linear_u8, classify_transform_eval,
+                      classify_transform_train, format_sample, format_sample_raw, letterbox_sample)
 from .instance import Instances, resample_segment, segments2boxes
 
 Labels = Tuple[np.ndarray, np.ndarray, np.ndarray]  # cls, xywh boxes, segments
@@ -192,3 +193,41 @@ class TrainDataset(ValDataset):
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         s = letterbox_sample(self.load_raw(i), self.imgsz, scaleup=True)
         return format_sample_raw(s, self.max_instances)
+
+
+class ClassificationDataset:
+    """Classify samples over decoded images (the JAX ``ClassificationDataset``
+    without its image folder): ``images`` HWC uint8 BGR, ``labels`` their
+    class indices (JAX numbers the sorted class folders; a set made from
+    one keeps that order). A sample is ``{"img": (imgsz, imgsz, 3) float32,
+    "cls": int32}`` by the fork's grayscale transforms
+    (``data/augment.py``): ``classify_transform_train`` with ``augment``,
+    its brightness draws from ``random.Random(seed)`` in the order samples
+    are read, its noise from ``self.noise``, ``numpy.random.default_rng(
+    seed)`` (JAX draws it from numpy's global state), else
+    ``classify_transform_eval``."""
+
+    def __init__(self, images: Sequence[np.ndarray], labels: Sequence[int], imgsz: int = 224,
+                 augment: bool = False, seed: int = 0):
+        if len(images) != len(labels):
+            raise ValueError(f"{len(images)} images but {len(labels)} labels")
+        for i, img in enumerate(images):
+            if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3):
+                raise TypeError(f"image {i}: expected an HWC uint8 numpy array")
+        self.images = list(images)
+        self.labels = np.asarray(labels, np.int32).reshape(-1)
+        self.imgsz = int(imgsz)
+        self.augment = bool(augment)
+        self.rng = random.Random(seed)
+        self.noise = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        img = self.images[i]
+        if self.augment:
+            x = classify_transform_train(img, self.imgsz, self.rng, self.noise)
+        else:
+            x = classify_transform_eval(img, self.imgsz)
+        return {"img": x, "cls": np.int32(self.labels[i])}

@@ -1,5 +1,5 @@
-"""The ``YOLO`` facade of the segment, detect and pose tasks (counterpart of
-the JAX package's ``engine/model.py``)::
+"""The ``YOLO`` facade of the segment, detect, pose, segment_ori and classify
+tasks (counterpart of the JAX package's ``engine/model.py``)::
 
     model = YOLO("yolov8n-seg.yaml", device="cuda")     # a fresh polar model
     metrics = model.train(data={"train": (images, labels), "val": (images, labels),
@@ -9,13 +9,17 @@ the JAX package's ``engine/model.py``)::
     metrics = model.val([img_bgr_u8, ...], ["a.txt", ...], imgsz=160, batch=4)
     model = YOLO("runs/floor_detect/best.ckpt").fuse()  # detect, deploy form
     results = YOLO("runs/floor_pose/best.ckpt").predict(images)  # results[0].keypoints
+    YOLO("yolov8n-segori.yaml").train(data=...)          # proto masks: results[0].masks
+    model = YOLO("runs/floor_classify/best.ckpt")        # classify: results[0].probs
+    metrics = model.val([img_bgr_u8, ...], [0, 1, ...], imgsz=64)  # labels: class indices
 
 A name ending in ``.yaml`` names a fresh model (``nn/tasks.py``:
 ``yaml_model_load``; ``yolov8n-seg.yaml`` is the polar segment task,
-``yolov8n.yaml`` detect, ``yolov8n-pose.yaml`` pose) that has no weights
-until ``train`` builds and initializes it from ``seed`` and adopts its
-``best.ckpt``; anything else is a checkpoint of the JAX package's
-``segment``, ``detect`` or ``pose`` task, in its
+``yolov8n.yaml`` detect, ``yolov8n-pose.yaml`` pose, ``yolov8n-segori.yaml``
+segment_ori, ``yolov8n-cls.yaml`` classify) that has no weights until
+``train`` builds and initializes it from ``seed`` and adopts its
+``best.ckpt``; anything else is a checkpoint of one of those tasks of the
+JAX package, in its
 training form or fused (``deploy == "fused"``, as the JAX ``YOLO.save``
 writes it after ``fuse()``), or one the port's trainer wrote. The task
 comes from the checkpoint's ``train_args`` or, failing that, the config's
@@ -31,9 +35,12 @@ import torch
 from ..nn.fuse import fuse_model
 from ..nn.tasks import TASK_MODELS, TaskModel, build_model, guess_model_task, yaml_model_load
 from ..utils.checkpoint import checkpoint_variables, load_checkpoint, load_jax_variables
-from .predictor import DetectionPredictor, PosePredictor, SegmentationPredictor
-from .trainer import DetectionTrainer, PoseTrainer, SegmentationTrainer
-from .validator import DetectionValidator, PoseValidator, SegmentationValidator
+from .predictor import (ClassificationPredictor, DetectionPredictor, PosePredictor,
+                        SegmentationOriPredictor, SegmentationPredictor)
+from .trainer import (ClassificationTrainer, DetectionTrainer, PoseTrainer, SegmentationOriTrainer,
+                      SegmentationTrainer)
+from .validator import (ClassificationValidator, DetectionValidator, PoseValidator,
+                        SegmentationOriValidator, SegmentationValidator)
 
 # each task's predictor, validator and trainer (the JAX ``TASK_MAP``, for the ported tasks)
 TASK_MAP = {
@@ -42,6 +49,10 @@ TASK_MAP = {
     "detect": {"predictor": DetectionPredictor, "validator": DetectionValidator,
                "trainer": DetectionTrainer},
     "pose": {"predictor": PosePredictor, "validator": PoseValidator, "trainer": PoseTrainer},
+    "segment_ori": {"predictor": SegmentationOriPredictor, "validator": SegmentationOriValidator,
+                    "trainer": SegmentationOriTrainer},
+    "classify": {"predictor": ClassificationPredictor, "validator": ClassificationValidator,
+                 "trainer": ClassificationTrainer},
 }
 
 
@@ -121,26 +132,30 @@ class YOLO:
         return metrics
 
     def predict(self, source, imgsz=None, conf: float = 0.25, iou: float = 0.7,
-                max_det: int = 300, pre_nms: int = 1024, batch: int = 1):
+                max_det: int = 300, pre_nms: int = 1024, batch: int = 1,
+                agnostic_nms: bool = False):
         """Images (HWC uint8 BGR numpy, or a list) -> list of ``Results``,
-        ``batch`` images per forward."""
+        ``batch`` images per forward; ``agnostic_nms`` suppresses across
+        classes."""
         predictor = TASK_MAP[self.task]["predictor"](
             imgsz=imgsz or self.imgsz, conf=conf, iou=iou, max_det=max_det,
-            pre_nms=pre_nms, batch=batch,
+            pre_nms=pre_nms, batch=batch, agnostic_nms=agnostic_nms,
         )
         return predictor(self._weights(), source, names=self.names)
 
     def val(self, images, labels, imgsz=None, batch: int = 16, conf: float = 0.001,
             iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024, mask_ratio: int = 1):
-        """Box (and for the segment task mask, for pose keypoint) mAP on
+        """Box (and for the segment tasks mask, for pose keypoint) mAP on
         decoded images (HWC uint8 BGR numpy) with their labels (YOLO
         label-file paths, or the arrays ``data/dataset.py:parse_label_file``
         gives: ``(cls, bboxes, segments)``, for pose with the model's
-        ``kpt_shape`` also ``keypoints``), on the model's device -> the JAX
+        ``kpt_shape`` also ``keypoints``; for classify the class indices,
+        and top-1 and top-5 accuracy), on the model's device -> the JAX
         ``results_dict`` keys. The
         validator, with its ``speed``, stays at ``self.validator``."""
-        kw = dict(imgsz=imgsz or self.imgsz, batch=batch, conf=conf, iou=iou, max_det=max_det,
-                  pre_nms=pre_nms)
+        kw = dict(imgsz=imgsz or self.imgsz, batch=batch)
+        if self.task != "classify":
+            kw.update(conf=conf, iou=iou, max_det=max_det, pre_nms=pre_nms)
         if self.task == "segment":
             kw["mask_ratio"] = mask_ratio
         self.validator = TASK_MAP[self.task]["validator"](**kw)
@@ -148,7 +163,8 @@ class YOLO:
 
     def fuse(self) -> "YOLO":
         """The deploy form, in place (``nn/fuse.py:fuse_model``): every Conv,
-        Conv2 and RepConv folded with its BatchNorm into one conv. A no-op
-        on a fused model; the model no longer trains."""
+        Conv2 and RepConv folded with its BatchNorm into one conv (a Linear
+        stays as it is). A no-op on a fused model; the model no longer
+        trains."""
         fuse_model(self._weights())
         return self

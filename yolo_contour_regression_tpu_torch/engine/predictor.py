@@ -1,5 +1,5 @@
-"""Predictors of the segment, detect and pose tasks (counterparts of the JAX
-package's ``engine/predictor.py``).
+"""Predictors of the segment, detect, pose, segment_ori and classify tasks
+(counterparts of the JAX package's ``engine/predictor.py``).
 
 Per batch: host letterbox (uint8, BGR -> RGB) -> device uint8 -> [0, 1]
 float -> the task's device evaluation -> host postprocess (unpad/ungain and
@@ -9,7 +9,15 @@ clip). Segment: ``predict_parts(sigmoid=False)`` ->
 detect branch: ``decode_detect`` (sigmoid scores) -> ``xywh2xyxy`` -> NMS
 in float32 with scores as probabilities; boxes only. Pose, as detect with
 the decoded keypoints riding through NMS as its extras; boxes and keypoints
-(unpadded and ungained, not clipped, the visibility kept). Sources are HWC
+(unpadded and ungained, not clipped, the visibility kept). Segment_ori, as
+detect with the 32 mask coefficients riding through NMS, then on the host
+as the JAX postprocess: ``sigmoid(mc @ proto)`` in numpy float32, zeroed
+outside each box on the proto grid (the half-open test), the letterbox pad
+stripped (``int(round(pad * r))`` proto pixels a side), upsampled to the
+image by cv2's float INTER_LINEAR (``resize_linear_f32``, in torch on the
+predictor's device) and thresholded at ``> 0.5``. Classify: the fork's
+grayscale eval transform on the host (no uint8 path), the probabilities.
+Every task's NMS takes ``agnostic`` (``agnostic_nms``). Sources are HWC
 uint8 BGR numpy arrays or lists of them; decoding image files is not
 ported.
 """
@@ -21,7 +29,7 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
-from ..data.augment import bgr_to_rgb, letterbox
+from ..data.augment import bgr_to_rgb, classify_transform_eval, letterbox, resize_linear_f32
 from ..nn.modules.head import finalize_polar_extras
 from ..ops.boxes import xywh2xyxy
 from ..ops.nms import non_max_suppression, non_max_suppression_parts
@@ -57,9 +65,11 @@ class BasePredictor:
     task = ""
 
     def __init__(self, imgsz: int = 640, conf: float = 0.25, iou: float = 0.7,
-                 max_det: int = 300, pre_nms: int = 1024, batch: int = 1):
+                 max_det: int = 300, pre_nms: int = 1024, batch: int = 1,
+                 agnostic_nms: bool = False):
         self.imgsz, self.batch = int(imgsz), max(int(batch), 1)
-        self.nms_kw = dict(conf_thres=conf, iou_thres=iou, pre_nms=pre_nms, max_det=max_det)
+        self.nms_kw = dict(conf_thres=conf, iou_thres=iou, pre_nms=pre_nms, max_det=max_det,
+                           agnostic=bool(agnostic_nms))
 
     def preprocess_u8(self, img: np.ndarray, imgsz: int):
         """Letterbox to imgsz and flip BGR -> RGB, staying uint8."""
@@ -169,3 +179,65 @@ class PosePredictor(DetectionPredictor):
             k[..., :2] = (k[..., :2] - np.array(pad)) / gain
             res.keypoints = k
         return res
+
+
+class SegmentationOriPredictor(DetectionPredictor):
+    task = "segment_ori"
+
+    @torch.inference_mode()
+    def eval_batch(self, model, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images (B, H, W, 3) uint8 on the model's device -> NMS outputs
+        (boxes in letterbox pixels, xyxy; ``extras`` the mask coefficients)
+        and ``proto`` (B, nm, hp, wp)."""
+        pred, proto = model.predict(_as_float(images).permute(0, 3, 1, 2).contiguous())
+        out = non_max_suppression(detect_xyxy(pred).float(), nc=model.nc, **self.nms_kw)
+        return {**out, "proto": proto.float()}
+
+    def postprocess(self, out: Dict[str, np.ndarray], bi: int, orig, path, gain, pad, names,
+                    device) -> Results:
+        """The detect result, and each detection's mask (n, h, w) bool as
+        the JAX ``SegmentationOriPredictor`` makes it (see the module
+        docstring); None without detections, as JAX."""
+        keep = out["valid"][bi]
+        coeffs = out["extras"][bi][keep]  # (n, nm)
+        masks = None
+        if coeffs.shape[0]:
+            nm, hp, wp = out["proto"][bi].shape
+            proto = np.ascontiguousarray(out["proto"][bi].transpose(1, 2, 0))  # JAX's (hp, wp, nm)
+            pm = 1.0 / (1.0 + np.exp(-(coeffs @ proto.reshape(-1, nm).T)))
+            pm = pm.reshape(-1, hp, wp)
+            r = hp / self.imgsz
+            bx = out["boxes"][bi][keep] * r
+            py = np.arange(hp)[None, :, None]
+            px = np.arange(wp)[None, None, :]
+            inbox = ((px >= bx[:, 0, None, None]) & (px < bx[:, 2, None, None])
+                     & (py >= bx[:, 1, None, None]) & (py < bx[:, 3, None, None]))
+            pm = np.where(inbox, pm, 0.0)
+            x0, y0 = int(round(pad[0] * r)), int(round(pad[1] * r))
+            x1 = wp - x0 if x0 else wp
+            y1 = hp - y0 if y0 else hp
+            crop = torch.from_numpy(np.ascontiguousarray(pm[:, y0:y1, x0:x1])).to(device)
+            h, w = orig.shape[:2]
+            masks = (resize_linear_f32(crop, h, w) > 0.5).cpu().numpy()
+        return Results(orig, path, names, boxes=_image_boxes(out, bi, orig, gain, pad),
+                       masks=masks, device=device)
+
+
+class ClassificationPredictor(BasePredictor):
+    """Class probabilities of each image (``Results.probs``); the NMS
+    settings are not used."""
+
+    task = "classify"
+
+    def preprocess_u8(self, img: np.ndarray, imgsz: int):
+        """The classify eval transform (float32, normalized on the host: no
+        uint8 path, as in JAX)."""
+        return classify_transform_eval(img, imgsz), 1.0, (0.0, 0.0)
+
+    @torch.inference_mode()
+    def eval_batch(self, model, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"probs": model.predict(images.permute(0, 3, 1, 2).contiguous()).float()}
+
+    def postprocess(self, out: Dict[str, np.ndarray], bi: int, orig, path, gain, pad, names,
+                    device) -> Results:
+        return Results(orig, path, names, probs=out["probs"][bi], device=device)

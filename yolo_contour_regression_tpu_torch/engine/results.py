@@ -4,7 +4,11 @@
 ``keypoints`` (n, K, D) in the image's pixels, a segment result no
 keypoints (None).
 
-``Results.masks`` is lazy: the first read rasterizes the polar contours at
+A segment_ori result carries its masks as computed (``masks``), a classify
+result its probabilities (``probs``, a ``Probs``) and nothing else.
+
+For the polar segment task ``Results.masks`` is lazy: the first read
+rasterizes the polar contours at
 the original image size through ``ops.raster.fill_polygons_cv2`` on the
 predictor's device (the CUDA kernel on a card, the plain version on the
 CPU). Its rule is the JAX facade's, ``cv2.fillPoly`` of the valid vertices
@@ -67,6 +71,26 @@ class Contours:
         return self.points.shape[0]
 
 
+class Probs:
+    """Class probabilities (nc,): ``top1``, ``top5`` (ranked by
+    ``np.argsort(-data)``) and ``top1conf``, as the JAX ``Probs``."""
+
+    def __init__(self, data: np.ndarray):
+        self.data = np.asarray(data, np.float32)
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self):
+        return np.argsort(-self.data)[:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data.max())
+
+
 def contours_to_masks(points: np.ndarray, valid: np.ndarray, height: int, width: int,
                       device="cuda") -> np.ndarray:
     """(n, V, 2) px contours + validity -> (n, H, W) bool masks, filled on
@@ -78,7 +102,8 @@ def contours_to_masks(points: np.ndarray, valid: np.ndarray, height: int, width:
 
 
 class Results:
-    """One image's results: boxes, contours and lazy masks."""
+    """One image's results: boxes, contours and lazy masks (or masks as
+    given), keypoints, or probabilities."""
 
     def __init__(
         self,
@@ -90,6 +115,8 @@ class Results:
         keypoints: Optional[np.ndarray] = None,
         speed: Optional[Dict[str, float]] = None,
         device="cuda",
+        masks: Optional[np.ndarray] = None,
+        probs: Optional[np.ndarray] = None,
     ):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
@@ -102,7 +129,8 @@ class Results:
         self.keypoints = keypoints
         self.device = device
         self.speed = speed or {}
-        self._masks: Optional[Masks] = None
+        self._masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.probs = Probs(probs) if probs is not None else None
 
     @property
     def masks(self) -> Optional[Masks]:

@@ -1,13 +1,15 @@
 """The training step (counterpart of the JAX package's ``engine/step.py``):
-the augmentation on the device, forward in train mode, polar loss,
-backward, gradient clip, optimizer step and EMA, for the segment, detect
-and pose tasks (the loss by the model's ``task``: the polar loss, the stock
-detect loss, or the pose loss on the detect loss's assignment).
+the augmentation on the device, forward in train mode, the loss,
+backward, gradient clip, optimizer step and EMA, for the segment, detect,
+pose, segment_ori and classify tasks (the loss by the model's ``task``: the
+polar loss, the stock detect loss, the pose or the proto-mask loss on the
+detect loss's assignment, or the classify cross-entropy).
 
 The public boundary keeps the JAX layouts: images (B, H, W, 3) f32 in
 [0, 1]; batch ``cls`` (B, N), ``bboxes`` (B, N, 4) normalized xywh,
 ``segments`` (B, N, 360, 2) normalized, ``mask_gt`` (B, N), and for pose
-``keypoints`` (B, N, K, 3), xy normalized and a visibility. With
+``keypoints`` (B, N, K, 3), xy normalized and a visibility; for classify
+``cls`` (B,) alone (its host transforms give float images). With
 ``augment_fn`` (``data/device_augment.py:make_augment_fn``) the step takes
 the loader's raw batches instead, images (B, S, S, 3) uint8 BGR with
 ``content_hw`` and ``pad_tl``, and augments them on the device first, with
@@ -47,9 +49,12 @@ import torch
 from torch import nn
 
 from ..utils import optim as optim_mod
-from ..utils.loss import detect_loss, detect_targets, polar_loss, polar_targets, pose_loss
+from ..utils.loss import (classification_loss, detect_loss, detect_targets, polar_loss,
+                          polar_targets, pose_loss, segmentation_ori_loss)
 
 Mark = Optional[Callable[[str], None]]
+# the tasks whose loss the step takes
+TASKS = ("segment", "detect", "pose", "segment_ori", "classify")
 
 
 def _no_mark(stage: str):
@@ -77,14 +82,13 @@ def init_train_state(model: nn.Module, optimizer: optim_mod.Optimizer,
 
 def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool = False
                  ) -> Callable:
-    """(images (B, H, W, 3), batch) -> (total, items) for the model's task
-    (segment, detect or pose); the model runs as it is (train mode updates its
-    BatchNorm statistics), under bfloat16 autocast with ``amp``. A fused
-    (deploy) model does not train."""
+    """(images (B, H, W, 3), batch) -> (total, items) for the model's task;
+    the model runs as it is (train mode updates its BatchNorm statistics),
+    under bfloat16 autocast with ``amp``. A fused (deploy) model does not
+    train."""
     task = getattr(model, "task", "segment")
-    if task not in ("segment", "detect", "pose"):
-        raise NotImplementedError(f"task {task!r} is not ported; only 'segment', 'detect' and "
-                                  "'pose'")
+    if task not in TASKS:
+        raise NotImplementedError(f"task {task!r} is not ported; only {TASKS}")
     if getattr(model, "fused", False):
         raise ValueError("a fused (deploy) model is inference-only")
     mark = mark or _no_mark
@@ -101,6 +105,12 @@ def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool =
         elif task == "pose":
             res = pose_loss(feats, batch, model.strides, model.nc, hyp, model.kpt_shape,
                             model.reg_max, mark=mark)
+        elif task == "segment_ori":
+            res = segmentation_ori_loss(feats, batch, model.strides, model.nc, hyp, nm=model.nm,
+                                        reg_max=model.reg_max, mark=mark)
+        elif task == "classify":
+            mark("loss")
+            res = classification_loss(feats, batch)
         else:
             targets = polar_targets(feats, batch, model.strides, model.nc, hyp, cand=cand,
                                     mark=mark)

@@ -1,12 +1,15 @@
-"""The trainers of the segment, detect and pose tasks (counterparts of
-``SegmentationTrainer``, ``DetectionTrainer`` and ``PoseTrainer`` in the JAX
-package's ``engine/trainer.py``: its single-device path, one optimizer step
-per dispatch).
+"""The trainers of the segment, detect, pose, segment_ori and classify tasks
+(counterparts of ``SegmentationTrainer``, ``DetectionTrainer``,
+``PoseTrainer``, ``SegmentationOriTrainer`` and ``ClassificationTrainer``
+in the JAX package's ``engine/trainer.py``: its single-device path, one
+optimizer step per dispatch).
 
 ``SegmentationTrainer(overrides=..., device="cuda").train(data)`` trains a
 fresh polar segmentation model, ``DetectionTrainer`` a fresh detect model,
-``PoseTrainer`` a fresh keypoint model (the task is the ``task``
-override's, else the model config's head's, and must be the trainer's):
+``PoseTrainer`` a fresh keypoint model, ``SegmentationOriTrainer`` a fresh
+proto-mask segmentation model, ``ClassificationTrainer`` a fresh classify
+model (the task is the ``task`` override's, else the model config's
+head's, and must be the trainer's):
 the model built from ``args.model`` at
 ``nc = len(data["names"])`` and initialized from ``args.seed``
 (``nn/tasks.py:init_weights``); the train set letterboxed on the host
@@ -23,10 +26,18 @@ at once, not in a thread), and early stopping. At the end ``best.ckpt`` and
 ``last.ckpt`` are stripped (EMA -> params) and the stripped ``best.ckpt``
 is validated again; its metrics are returned.
 
+Classify takes the host path instead, as in JAX (its ``use_device_augment``
+leaves classify out): the fork's grayscale transforms in
+``ClassificationDataset`` (brightness from ``random.Random(seed)``, noise
+from ``numpy.random.default_rng(seed)``), read in batch order by
+``TrainLoader(..., in_order=True)``; float images, one copy to the device a
+batch; no augmentation in the step.
+
 ``data`` holds decoded images: ``{"train": (images, labels), "val":
 (images, labels), "names": {0: "...", ...}}``, images HWC uint8 BGR, labels
 as ``data/dataset.py:ValDataset`` takes them (the port decodes no image
-files). A pose set adds ``"kpt_shape": [K, D]``, which overrides the model
+files; for classify the labels are class indices). A pose set adds
+``"kpt_shape": [K, D]``, which overrides the model
 config's (as the JAX trainer takes the data yaml's), and optionally
 ``"flip_idx"``, the keypoint permutation of a horizontal flip, which goes to
 the augmentation as ``args.flip_idx``.
@@ -36,8 +47,9 @@ Detect batches carry the label files' segments as the JAX dataset does (its
 warped by its contour, a box label's (zero segments) by its box corners.
 
 Not ported (raising ``NotImplementedError`` where asked for): the host cv2
-train pipeline (``device_augment=false``, ``mosaic9``, ``copy_paste``),
-``resume``, the tasks other than segment, detect and pose. Without effect: ``plots`` (the JAX
+train pipeline of the detect-family tasks (``device_augment=false``,
+``mosaic9``, ``copy_paste``), ``resume``, the other families. Without
+effect: ``plots`` (the JAX
 plots need cv2), the multi-step dispatch and ``cache`` options, the
 integration callbacks.
 
@@ -62,14 +74,15 @@ import torch
 from ..cfg import get_cfg
 from ..data.augment import INSTANCE_KEYS
 from ..data.build import TrainLoader, use_device_augment
-from ..data.dataset import TrainDataset
+from ..data.dataset import ClassificationDataset, TrainDataset
 from ..data.device_augment import make_augment_fn
 from ..nn.tasks import TaskModel, build_model, guess_model_task, init_weights, yaml_model_load
 from ..utils.checkpoint import (checkpoint_variables, load_checkpoint, load_jax_variables, plain,
                                 save_checkpoint, strip_optimizer, to_jax_variables)
 from ..utils.optim import build_optimizer
 from .step import init_train_state, make_train_step
-from .validator import DetectionValidator, PoseValidator, SegmentationValidator
+from .validator import (ClassificationValidator, DetectionValidator, PoseValidator,
+                        SegmentationOriValidator, SegmentationValidator)
 
 LOGGER = logging.getLogger(__name__)
 
@@ -103,11 +116,12 @@ def schedule(n_images: int, batch: int, nbs: int, epochs: int):
 def stack_raw_batches(data_iter, n: int):
     """``n`` loader batches stacked into (n, B, ...) arrays, for gradient
     accumulation; the instance axis of each padded to the group's largest
-    (the collate buckets differ between batches)."""
+    (the collate buckets differ between batches; classify batches have
+    none)."""
     micro = [next(data_iter) for _ in range(n)]
-    n_max = max(m["mask_gt"].shape[1] for m in micro)
+    n_max = max(m["mask_gt"].shape[1] for m in micro) if "mask_gt" in micro[0] else 0
     for m in micro:
-        pad = n_max - m["mask_gt"].shape[1]
+        pad = n_max - m["mask_gt"].shape[1] if n_max else 0
         if pad:
             for k in (k for k in INSTANCE_KEYS if k in m):
                 m[k] = np.pad(m[k], [(0, 0), (0, pad)] + [(0, 0)] * (m[k].ndim - 2))
@@ -121,11 +135,13 @@ def _no_mark(stage: str):
 
 class BaseTrainer:
     """The trainer: see the module docstring. A task's trainer gives
-    ``task``, its default model config and its validator's class."""
+    ``task``, its default model config and its validator's class
+    (``device_augment`` False: the host path, see ``get_dataset``)."""
 
     task = ""
     default_model = ""
     validator_cls = DetectionValidator
+    device_augment = True
 
     def __init__(self, overrides: Optional[Dict] = None, device="cuda",
                  mark: Optional[Callable[[str], None]] = None):
@@ -134,14 +150,13 @@ class BaseTrainer:
         cfg = yaml_model_load(model) if isinstance(model, (str, Path)) else model
         task = overrides.pop("task", None) or guess_model_task(cfg)
         if task != self.task:
-            raise NotImplementedError(f"task {task!r} is not this trainer's ({self.task!r}); the "
-                                      f"port trains 'segment', 'detect' and 'pose'")
+            raise NotImplementedError(f"task {task!r} is not this trainer's ({self.task!r})")
         self.args = get_cfg(None, overrides)
         self.args.task = self.task
         if self.args.resume:
             raise NotImplementedError("resume is not ported: the port's optimizer state has no "
                                       "form in the checkpoint")
-        if not use_device_augment(self.args):
+        if self.device_augment and not use_device_augment(self.args):
             raise NotImplementedError(
                 "the host cv2 train pipeline (train_transform, mosaic9, copy_paste, "
                 "device_augment=false) is not ported: train with device_augment=true, "
@@ -177,12 +192,11 @@ class BaseTrainer:
         args.nc = len(names)
         self.model = model = self.build_model(args.nc, names, data)
         max_inst = int(args.max_instances)
-        kpt_shape = getattr(model, "kpt_shape", None)
         if self.task == "pose" and data.get("flip_idx"):
             args.flip_idx = tuple(int(v) for v in data["flip_idx"])
-        train_set = TrainDataset(*data["train"], imgsz=args.imgsz, max_instances=max_inst,
-                                 kpt_shape=kpt_shape)
-        loader = TrainLoader(train_set, args.batch, args.workers, seed=args.seed)
+        train_set = self.get_dataset(data)
+        loader = TrainLoader(train_set, args.batch, args.workers, seed=args.seed,
+                             in_order=not self.device_augment)
         accumulate, steps_per_epoch, iterations = schedule(
             len(train_set), args.batch, args.nbs, args.epochs)
         args.accumulate = accumulate
@@ -190,9 +204,9 @@ class BaseTrainer:
         state = init_train_state(model, optimizer, device=self.device)
 
         def build_step(hyp):
+            aug = make_augment_fn(hyp, args.imgsz, max_inst) if self.device_augment else None
             return make_train_step(model, optimizer, args, cand=args.cand_per_gt,
-                                   accumulate=accumulate, mark=self.mark,
-                                   augment_fn=make_augment_fn(hyp, args.imgsz, max_inst),
+                                   accumulate=accumulate, mark=self.mark, augment_fn=aug,
                                    aug_seed=args.seed, amp=bool(args.amp))
 
         step_fn = build_step(args)
@@ -259,6 +273,13 @@ class BaseTrainer:
                 self.metrics = validator(self.eval_model, *data["val"], names=names)
         self.state = state
         return self.metrics
+
+    def get_dataset(self, data: Dict):
+        """The train set: ``TrainDataset`` (letterboxed raw samples for the
+        device augmentation)."""
+        return TrainDataset(*data["train"], imgsz=self.args.imgsz,
+                            max_instances=int(self.args.max_instances),
+                            kpt_shape=getattr(self.model, "kpt_shape", None))
 
     def get_validator(self):
         args = self.args
@@ -341,3 +362,24 @@ class PoseTrainer(BaseTrainer):
     task = "pose"
     default_model = "yolov8n-pose.yaml"
     validator_cls = PoseValidator
+
+
+class SegmentationOriTrainer(BaseTrainer):
+    task = "segment_ori"
+    default_model = "yolov8n-segori.yaml"
+    validator_cls = SegmentationOriValidator
+
+
+class ClassificationTrainer(BaseTrainer):
+    task = "classify"
+    default_model = "yolov8n-cls.yaml"
+    device_augment = False
+
+    def get_dataset(self, data: Dict):
+        """The train set: ``ClassificationDataset`` with the train
+        transforms, its draws seeded by ``args.seed``."""
+        return ClassificationDataset(*data["train"], imgsz=self.args.imgsz, augment=True,
+                                     seed=int(self.args.seed))
+
+    def get_validator(self):
+        return ClassificationValidator(imgsz=self.args.imgsz, batch=self.args.batch)

@@ -1,8 +1,10 @@
-"""Validators of the detect, segment and pose tasks: box (and mask or
-keypoint) mAP in each image's own frame (counterparts of
-``DetectionValidator``, ``SegmentationValidator`` and ``PoseValidator`` in
-the JAX package's ``engine/validator.py``; COCO JSON, plots, rect val and the
-dispatch grouping are not ported).
+"""Validators of the detect, segment, pose and segment_ori tasks: box (and
+mask or keypoint) mAP in each image's own frame; and of the classify task:
+top-1 and top-5 accuracy (counterparts of ``DetectionValidator``,
+``SegmentationValidator``, ``PoseValidator``, ``SegmentationOriValidator``
+and ``ClassificationValidator`` in the JAX package's
+``engine/validator.py``; COCO JSON, plots, rect val and the dispatch
+grouping are not ported).
 
 Per batch, on the model's device (``eval_batch``). Detect: ``decode_detect``
 and ``xywh2xyxy``, multi-label NMS in float32 with the scores as
@@ -15,9 +17,15 @@ compared by ``polygon_mask_iou`` (the even-odd fill kernel and a product of
 the masks). Pose: as detect, with the decoded keypoints riding through NMS
 as its extras and mapped back by ``scale_coords``; on the host the GT
 keypoints go to the image's frame and the OKS (``kpt_iou``, the GT box area
-x 0.53 as the object's area) decides the keypoint matches. On the host: the
-reference's TP matching at 10 IoU thresholds, ``DetMetrics``,
-``SegmentMetrics`` or ``PoseMetrics`` and the confusion matrix.
+x 0.53 as the object's area) decides the keypoint matches. Segment_ori: as
+detect, NMS carrying the 32 mask coefficients; ``sigmoid(mc @ proto) >
+0.5`` kept inside each box on the proto grid (the half-open test), the GT
+masks filled there by the even-odd fill kernel (``gt_masks_at``), and the
+mask IoUs by a product of the masks, in the letterbox frame at proto size.
+On the host: the reference's TP matching at 10 IoU thresholds,
+``DetMetrics``, ``SegmentMetrics`` or ``PoseMetrics`` and the confusion
+matrix. Classify: the eval transform on the host, the model's
+probabilities on the device, ``ClassifyMetrics`` on the host.
 """
 from __future__ import annotations
 
@@ -28,15 +36,15 @@ import numpy as np
 import torch
 
 from ..data.build import ValLoader
-from ..data.dataset import ValDataset
+from ..data.dataset import ClassificationDataset, ValDataset
 from ..nn.modules.head import finalize_polar_extras
 from ..ops.boxes import box_iou, scale_boxes, scale_coords, xywh2xyxy
 from ..ops.nms import non_max_suppression, non_max_suppression_parts
 from ..ops.polar import NUM_RAYS
-from ..ops.raster import polygon_mask_iou
-from ..utils.loss import OKS_SIGMA
-from ..utils.metrics import (ConfusionMatrix, DetMetrics, PoseMetrics, SegmentMetrics, kpt_iou,
-                             match_predictions)
+from ..ops.raster import mask_products, polygon_mask_iou
+from ..utils.loss import OKS_SIGMA, gt_masks_at, in_box_grid
+from ..utils.metrics import (ClassifyMetrics, ConfusionMatrix, DetMetrics, PoseMetrics,
+                             SegmentMetrics, kpt_iou, match_predictions)
 from .predictor import _as_float, detect_xyxy
 
 EVAL_KEYS = ("img", "bboxes", "segments", "mask_gt", "ori_shape", "ratio_pad")
@@ -279,3 +287,100 @@ class PoseValidator(DetectionValidator):
         k = self.kpt_shape[0]
         self.sigma = OKS_SIGMA.numpy() if k == OKS_SIGMA.shape[0] else np.full(k, 1.0 / k)
         return super().__call__(model, images, labels, names=names)
+
+
+class SegmentationOriValidator(DetectionValidator):
+    """Box and mask mAP of a proto-mask segmentation model over decoded
+    images (see the module docstring). Masks are compared at proto size in
+    the letterbox frame, as JAX compares them; the mask IoUs' counts are
+    exact in float32, so they equal JAX's on the same masks."""
+
+    task = "segment_ori"
+    eval_keys = EVAL_KEYS
+
+    @torch.inference_mode()
+    def eval_batch(self, model, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """As ``DetectionValidator.eval_batch``, NMS carrying the mask
+        coefficients, plus ``ious_mask`` (B, N, max_det) of the GT masks
+        against the detections' masks."""
+        mark = self.mark
+        img = batch["img"]
+        mark("forward_nms")
+        pred, proto = model.predict(_as_float(img).permute(0, 3, 1, 2).contiguous())
+        out = non_max_suppression(detect_xyxy(pred).float(), nc=model.nc, multi_label=True,
+                                  **self.nms_kw)
+        mark("scale_box_iou")
+        boxes_nat, gt_nat, ious_box = self._scale_box_iou(out["boxes"], batch)
+        mark("mask_iou")
+        hp, wp = proto.shape[2:]
+        pm = torch.sigmoid(torch.einsum("bdm,bmhw->bdhw", out["extras"].float(), proto.float()))
+        pm = ((pm > 0.5) & in_box_grid(out["boxes"] * (hp / img.shape[1]), hp, wp)
+              & out["valid"][..., None, None])
+        gm = gt_masks_at(batch["segments"], batch["mask_gt"], hp, wp)
+        ious = []
+        for b in range(img.shape[0]):
+            inter, area_g, area_p = mask_products(gm[b], pm[b])
+            ious.append(inter / (area_g[:, None] + area_p[None, :] - inter + 1e-7))
+        mark("end")
+        return {"boxes": boxes_nat, "scores": out["scores"], "classes": out["classes"],
+                "valid": out["valid"], "ious_box": ious_box, "ious_mask": torch.stack(ious),
+                "gt_boxes": gt_nat}
+
+    def new_metrics(self, names):
+        return SegmentMetrics(names=names)
+
+    def update(self, metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls, batch):
+        super().update(metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls, batch)
+        tp = match_predictions(pred_cls, tcls, out["ious_mask"][bi][gt_keep][:, keep])
+        metrics.seg.update(tp, conf, pred_cls, tcls)
+
+
+class ClassificationValidator:
+    """Top-1 and top-5 accuracy of a classify model over decoded images
+    (HWC uint8 BGR) and their class indices: the eval transform on the host
+    (``ClassificationDataset``), ``batch`` images a forward on the model's
+    device, ``ClassifyMetrics`` on the host. ``mark`` and ``speed`` as
+    ``DetectionValidator``'s (its one device stage is "forward")."""
+
+    task = "classify"
+
+    def __init__(self, imgsz: int = 224, batch: int = 16,
+                 mark: Optional[Callable[[str], None]] = None):
+        self.imgsz, self.batch = int(imgsz), max(int(batch), 1)
+        self.mark = mark or _no_mark
+        self.speed: Dict[str, float] = {}
+
+    @torch.inference_mode()
+    def eval_batch(self, model, images: torch.Tensor) -> torch.Tensor:
+        """images (B, S, S, 3) float32 on the model's device -> (B, nc)."""
+        self.mark("forward")
+        preds = model.predict(images.permute(0, 3, 1, 2).contiguous())
+        self.mark("end")
+        return preds
+
+    def __call__(self, model, images: Sequence[np.ndarray], labels, names=None
+                 ) -> Dict[str, float]:
+        """Validate ``model`` -> the JAX ``results_dict``: top-1, top-5 and
+        fitness (their mean)."""
+        device = next(model.parameters()).device
+        metrics = ClassifyMetrics()
+        loader = ValLoader(ClassificationDataset(images, labels, self.imgsz), self.batch)
+        t = dict.fromkeys(("preprocess", "eval", "matching"), 0.0)
+        n_img = 0
+        batches = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            x = torch.from_numpy(batch["img"]).to(device)
+            t1 = time.perf_counter()
+            preds = self.eval_batch(model, x).float().cpu().numpy()
+            t2 = time.perf_counter()
+            metrics.update(preds, batch["cls"])
+            n_img += len(preds)
+            t["preprocess"] += t1 - t0
+            t["eval"] += t2 - t1
+            t["matching"] += time.perf_counter() - t2
+        self.speed = {k: v * 1e3 / max(n_img, 1) for k, v in t.items()}
+        return metrics.results_dict

@@ -1,6 +1,7 @@
 """Composite blocks in NCHW (counterpart of the JAX package's
-``nn/modules/block.py``): the fork's RepBlock and SPPF, and the stock
-YOLOv8 blocks of the detect graph, DFL, Bottleneck and C2f."""
+``nn/modules/block.py``): the fork's RepBlock and SPPF, the stock
+YOLOv8 blocks of the detect graph, DFL, Bottleneck and C2f, and the mask
+prototypes of the proto-mask head, Proto."""
 from __future__ import annotations
 
 import torch
@@ -99,3 +100,20 @@ class C2f(nn.Module):
         for m in self.m:
             ys.append(m(ys[-1]))
         return self.cv2(torch.cat(ys, 1))
+
+
+class Proto(nn.Module):
+    """Mask prototypes of the proto-mask head: Conv 3x3 to ``c_``, a
+    nearest 2x upsample (the JAX ``_resize2x``), Conv 3x3 to ``c_``, then
+    Conv 1x1 to ``c2`` prototypes. The convs are ``cv1``, ``cv2``, ``cv3``,
+    as in JAX."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2, 1)
+
+    def forward(self, x):
+        x = F.interpolate(self.cv1(x), scale_factor=2, mode="nearest")
+        return self.cv3(self.cv2(x))

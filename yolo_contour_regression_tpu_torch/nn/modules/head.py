@@ -1,10 +1,11 @@
 """The polar-contour segment head, the stock YOLOv8 detect head, the
-keypoint head, and their decodes (counterpart of the JAX package's
-``nn/modules/head.py``).
+keypoint head, the proto-mask segment head, the classify head, and their
+decodes (counterpart of the JAX package's ``nn/modules/head.py``).
 
-``PolarSegment``, ``Detect`` and ``Pose`` return raw per-level maps in NCHW;
-the decode helpers take those maps and produce the JAX package's layouts,
-anchors flattened row-major per level as ``make_anchors`` orders them.
+``PolarSegment``, ``Detect`` and ``Pose`` return raw per-level maps in NCHW,
+``SegmentProto`` those and its prototypes; the decode helpers take those
+maps and produce the JAX package's layouts, anchors flattened row-major per
+level as ``make_anchors`` orders them. ``Classify`` returns probabilities.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from torch import nn
 
 from ...ops import polar as polar_ops
 from ...ops.boxes import dist2bbox
+from .block import Proto
 from .conv import Conv
 
 
@@ -84,6 +86,50 @@ class Pose(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor]):
         return [torch.cat([d, b4(x)], dim=1)
                 for d, x, b4 in zip(self.detect(feats), feats, self.cv4)]
+
+
+class SegmentProto(nn.Module):
+    """The stock proto-mask segment head (the config's ``Segmentori``): a
+    ``Detect`` (the child ``detect``, as the JAX head nests it), a
+    ``Proto`` on the first level (the child ``proto``: ``npr`` channels,
+    ``nm`` prototypes) and per level i ``cv4[i]`` = Conv3x3 -> Conv3x3 ->
+    1x1 (nm mask coefficients, bias), ``c4 = max(ch0 // 4, nm)``. Returns
+    (levels, proto): per level (B, 4 * reg_max + nc + nm, H, W), the detect
+    maps first, and the prototypes (B, nm, 2 H0, 2 W0)."""
+
+    def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256, ch: Sequence[int] = (),
+                 reg_max: int = 16):
+        super().__init__()
+        self.nc, self.nm = nc, nm
+        self.detect = Detect(nc, ch, reg_max)
+        self.proto = Proto(ch[0], npr, nm)
+        c4 = max(ch[0] // 4, nm)
+        self.cv4 = nn.ModuleList(
+            nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, nm, 1)) for x in ch
+        )
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        levels = [torch.cat([d, b4(x)], dim=1)
+                  for d, x, b4 in zip(self.detect(feats), feats, self.cv4)]
+        return levels, self.proto(feats[0])
+
+
+class Classify(nn.Module):
+    """The classify head: Conv 1x1 to 1280 channels (not width-scaled, as in
+    JAX), a global average pool, ``Dropout(0.0)`` (a no-op in both modes, as
+    JAX's), ``linear`` to nc, and the fork's sigmoid on every output.
+    (B, C, H, W) -> (B, nc) probabilities."""
+
+    c_ = 1280
+
+    def __init__(self, nc: int, ch: int):
+        super().__init__()
+        self.conv = Conv(ch, self.c_, 1, 1)
+        self.drop = nn.Dropout(0.0)
+        self.linear = nn.Linear(self.c_, nc)
+
+    def forward(self, x):
+        return torch.sigmoid(self.linear(self.drop(self.conv(x).mean((2, 3)))))
 
 
 def flatten_levels(outs: Sequence[torch.Tensor]) -> torch.Tensor:

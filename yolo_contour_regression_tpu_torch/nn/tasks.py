@@ -10,10 +10,13 @@ yaml parser is needed. Layers are registered as ``model.{i}`` so the
 state-dict keys are the reference's. Strides are tracked through the graph
 instead of calibrated by a dummy forward.
 
-Three task models: ``SegmentationModel`` (the polar ``Segment`` head),
-``DetectionModel`` (the stock ``Detect`` head with DFL) and ``PoseModel``
-(the ``Pose`` head: ``Detect`` and a keypoint branch); ``build_model`` picks
-one by the config's head (``guess_model_task``).
+Five task models: ``SegmentationModel`` (the polar ``Segment`` head),
+``DetectionModel`` (the stock ``Detect`` head with DFL), ``PoseModel``
+(the ``Pose`` head: ``Detect`` and a keypoint branch),
+``SegmentationOriModel`` (the proto-mask ``Segmentori`` head: ``Detect``,
+mask coefficients and prototypes) and ``ClassificationModel`` (the
+``Classify`` head); ``build_model`` picks one by the config's head
+(``guess_model_task``).
 ``yaml_model_load`` maps a model name to its config dict, and
 ``init_weights`` gives a fresh model the JAX package's initialization.
 """
@@ -119,6 +122,27 @@ YOLOV8_POSE: Dict[str, Any] = {
     ],
 }
 
+# cfg/models/yolov8-segori.yaml of the JAX package as a dict: the yolov8
+# graph with the stock proto-mask head, 32 prototypes of 256 channels (the
+# JAX parser scales neither)
+YOLOV8_SEGORI: Dict[str, Any] = {
+    "nc": 9,
+    "scales": copy.deepcopy(YOLOV8_SEG["scales"]),
+    "backbone": copy.deepcopy(YOLOV8["backbone"]),
+    "head": copy.deepcopy(YOLOV8["head"][:-1]) + [
+        [[15, 18, 21], 1, "Segmentori", ["nc", 32, 256]],  # 22 Segmentori(P3, P4, P5)
+    ],
+}
+
+# cfg/models/yolov8-cls.yaml of the JAX package as a dict: the C2f backbone
+# without SPPF and the Classify head, nc 2 (the fork's)
+YOLOV8_CLS: Dict[str, Any] = {
+    "nc": 2,
+    "scales": copy.deepcopy(YOLOV8_SEG["scales"]),
+    "backbone": copy.deepcopy(YOLOV8["backbone"][:9]),
+    "head": [[-1, 1, "Classify", ["nc"]]],  # 9
+}
+
 # config name -> (module class, positional field names after c1, kind)
 REGISTRY = {
     "Conv": (conv_mod.Conv, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
@@ -133,6 +157,8 @@ REGISTRY = {
     "Segment": (head_mod.PolarSegment, ("nc", "nm", "npr"), "head"),
     "Detect": (head_mod.Detect, ("nc",), "head"),
     "Pose": (head_mod.Pose, ("nc", "kpt_shape"), "head"),
+    "Segmentori": (head_mod.SegmentProto, ("nc", "nm", "npr"), "head"),
+    "Classify": (head_mod.Classify, ("nc",), "head"),
 }
 # a head's config name -> its task (the JAX ``HEAD_TASKS``)
 HEAD_TASKS = {"Segment": "segment", "Segmentori": "segment_ori", "Detect": "detect",
@@ -285,7 +311,8 @@ class TaskModel(GraphModel):
             raise ValueError(f"{type(self).__name__} needs a '{self.head_name}' head")
         self.yaml = cfg
         self.nc = cfg["nc"]
-        self.strides = tuple(int(s) for s in self.head_spec.stride)
+        stride = self.head_spec.stride  # a list per level; one number for Classify
+        self.strides = tuple(int(s) for s in stride) if isinstance(stride, list) else ()
         self.names = {i: f"class{i}" for i in range(self.nc)}
         self.fused = False
 
@@ -356,7 +383,47 @@ class PoseModel(TaskModel):
         return torch.cat([y, k.reshape(k.shape[0], k.shape[1], nk).transpose(1, 2)], dim=1)
 
 
-TASK_MODELS = {"segment": SegmentationModel, "detect": DetectionModel, "pose": PoseModel}
+class SegmentationOriModel(TaskModel):
+    """The stock proto-mask segmentation model: ``predict`` gives ((B, 4 +
+    nc + nm, A), proto): the detect decode (xywh boxes in pixels, sigmoid
+    scores), then the nm mask coefficients of each anchor, and the
+    prototypes (B, nm, hp, wp), NCHW where JAX keeps (B, hp, wp, nm)."""
+
+    task = "segment_ori"
+    head_name = "Segmentori"
+    reg_max = 16
+
+    def __init__(self, cfg: Optional[dict] = None, nc: Optional[int] = None, ch: int = 3):
+        super().__init__(cfg if cfg is not None else YOLOV8_SEGORI, nc=nc, ch=ch)
+        self.nm = int(self.head_spec.kwargs.get("nm", 32))
+
+    def predict(self, x):
+        """x (B, 3, H, W) float -> ((B, 4 + nc + nm, A), proto)."""
+        levels, proto = self(x)
+        nm = self.nm
+        y = head_mod.decode_detect([o[:, :o.shape[1] - nm] for o in levels], self.strides,
+                                   self.nc, self.reg_max)
+        mc = head_mod.flatten_levels([o[:, -nm:] for o in levels])
+        return torch.cat([y, mc.transpose(1, 2)], dim=1), proto
+
+
+class ClassificationModel(TaskModel):
+    """The classify model: ``predict`` (its decode is the identity) gives
+    (B, nc) sigmoid probabilities. It has no strides."""
+
+    task = "classify"
+    head_name = "Classify"
+
+    def __init__(self, cfg: Optional[dict] = None, nc: Optional[int] = None, ch: int = 3):
+        super().__init__(cfg if cfg is not None else YOLOV8_CLS, nc=nc, ch=ch)
+
+    def predict(self, x):
+        """x (B, 3, H, W) float -> (B, nc)."""
+        return self(x)
+
+
+TASK_MODELS = {"segment": SegmentationModel, "detect": DetectionModel, "pose": PoseModel,
+               "segment_ori": SegmentationOriModel, "classify": ClassificationModel}
 
 
 def guess_model_task(cfg: dict) -> str:
@@ -376,7 +443,8 @@ def build_model(cfg: dict, nc: Optional[int] = None) -> TaskModel:
 
 # the ported model configs, by the base name of their yaml in the JAX package
 MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG, "yolov8": YOLOV8,
-                                         "yolov8-pose": YOLOV8_POSE}
+                                         "yolov8-pose": YOLOV8_POSE,
+                                         "yolov8-segori": YOLOV8_SEGORI, "yolov8-cls": YOLOV8_CLS}
 
 
 def yaml_model_load(name) -> Dict[str, Any]:
@@ -419,11 +487,13 @@ def init_weights(model: TaskModel, generator: torch.Generator):
     BatchNorm scale 1, bias 0, running mean 0 and variance 1; then the head
     priors of JAX ``BaseModel.init``: each class bias ``log(5 / nc / (640 /
     stride)^2)``, and on the polar head each ray bias 1 (the detect head's
-    box bias keeps its 0; the pose head's priors go to its ``detect`` child,
-    its keypoint biases keep their 0). The draws come from ``generator`` (a
-    CPU ``torch.Generator``), not JAX's."""
+    box bias keeps its 0; the pose and proto-mask heads' priors go to their
+    ``detect`` child, their keypoint and coefficient biases keep their 0;
+    the classify head has no priors, its ``linear`` drawn as a conv with
+    ``fan_in`` its input width and its bias 0, as flax's ``Dense``). The
+    draws come from ``generator`` (a CPU ``torch.Generator``), not JAX's."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             w = torch.empty(m.weight.shape)
             _trunc_normal_(w, math.sqrt(1.0 / m.weight[0].numel()) / TRUNC_NORMAL_STD, generator)
             m.weight.copy_(w)
@@ -431,6 +501,8 @@ def init_weights(model: TaskModel, generator: torch.Generator):
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
+    if model.task == "classify":
+        return model
     head = model.model[-1]
     head = getattr(head, "detect", head)
     for i, s in enumerate(model.strides):

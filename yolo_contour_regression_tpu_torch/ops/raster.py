@@ -378,7 +378,7 @@ fill_polygons_cv2.launches = 0
 IOU_BLOCK_ELEMS = 1 << 24
 
 
-def _mask_products(ma: torch.Tensor, mb: torch.Tensor):
+def mask_products(ma: torch.Tensor, mb: torch.Tensor):
     """Masks ma (N, H, W) and mb (M, H, W) bool -> (inter (N, M), area_a
     (N,), area_b (M,)), float32 pixel counts, exact below 2^24 in any order
     of the sums. The masks are widened to float32 in row blocks of at most
@@ -412,7 +412,7 @@ def polygon_mask_iou(pts_a: torch.Tensor, valid_a: torch.Tensor, pts_b: torch.Te
     with ``fill_polygons`` (the even-odd kernel, two launches counted in
     ``fill_polygons.launches``), then take the intersections and areas as a
     product of the 0/1 masks widened to float32 in row blocks
-    (``_mask_products``). The counts are exact in float32 (and in TF32), so
+    (``mask_products``). The counts are exact in float32 (and in TF32), so
     the result equals the plain version's. The masks of one call are
     (N + M) * height * width bytes; a caller with many images calls once per
     image. Any other device raises.
@@ -427,5 +427,5 @@ def polygon_mask_iou(pts_a: torch.Tensor, valid_a: torch.Tensor, pts_b: torch.Te
     n, m = ma.shape[0], mb.shape[0]
     if not (n and m):
         return torch.zeros((n, m), dtype=torch.float32, device=ma.device)
-    inter, aa, ab = _mask_products(ma, mb)
+    inter, aa, ab = mask_products(ma, mb)
     return inter / (aa[:, None] + ab[None, :] - inter + eps)

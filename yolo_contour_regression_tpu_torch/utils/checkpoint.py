@@ -17,8 +17,11 @@ inverts the name map of the JAX package's
   model.{i}.cv2.{a}.{b}....  (heads)   layer{i}.cv2_{a}_{b}....
   model.{i}.m.{j}....  (C2f)           layer{i}.m{j}....
   model.{i}.detect.cv2.{a}.{b}....     layer{i}.detect.cv2_{a}_{b}....
-    (Pose: the head keeps JAX's nested ``detect`` child, beside its
-    ``cv4.{a}.{b}`` = ``cv4_{a}_{b}``; no rule of its own is needed)
+    (Pose and Segmentori: the head keeps JAX's nested ``detect`` child,
+    beside its ``cv4.{a}.{b}`` = ``cv4_{a}_{b}`` and Segmentori's
+    ``proto.cv{1,2,3}``; no rule of their own is needed)
+  model.{i}.linear.weight (out, in)    params.layer{i}.linear.kernel (in, out)
+    (Classify's Dense, transposed; its ``conv`` is a Conv like any other)
   RepConv conv1.conv/conv1.bn/         RepConv conv1/bn1/
           conv2.conv/conv2.bn/bn               conv2/bn2/bn_id
 """
@@ -114,7 +117,8 @@ def _leaves(tree, prefix=()):
 def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``params``/``batch_stats`` numpy trees -> a state dict with the
     reference's ``model.{i}....`` keys. Conv kernels go HWIO -> OIHW; every
-    leaf maps to exactly one key (a collision raises)."""
+    leaf maps to exactly one key (a collision raises); Dense kernels go
+    (in, out) -> (out, in)."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for coll, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, arr in _leaves(tree):
@@ -123,9 +127,10 @@ def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, tor
                 raise KeyError(f"no mapping for {coll}/{'/'.join(path)}")
             arr = np.asarray(arr, np.float32)
             if path[-1] == "kernel":
-                if arr.ndim != 4:
-                    raise ValueError(f"{'/'.join(path)}: expected an HWIO kernel, got {arr.shape}")
-                arr = arr.transpose(3, 2, 0, 1)
+                if arr.ndim not in (2, 4):
+                    raise ValueError(f"{'/'.join(path)}: expected an HWIO or a Dense kernel, "
+                                     f"got {arr.shape}")
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             key = ".".join(_module_path(path[:-1]) + (leaf,))
             if key in sd:
                 raise KeyError(f"two JAX leaves map to {key}")
@@ -182,7 +187,8 @@ def _jax_module_path(tokens, keys) -> Tuple[str, ...]:
 def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
     """A state dict with the reference's keys (or a dict of parameters
     only, such as the EMA) -> JAX ``(params, batch_stats)`` numpy trees; the
-    exact inverse of ``from_jax_variables``. Conv kernels go OIHW -> HWIO;
+    exact inverse of ``from_jax_variables``. Conv kernels go OIHW -> HWIO,
+    Linear weights (out, in) -> Dense kernels (in, out);
     BatchNorm's ``num_batches_tracked`` has no JAX counterpart and is
     dropped."""
     keys = set(state_dict)
@@ -202,6 +208,9 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict
         elif leaf == "weight" and arr.ndim == 4:
             coll, jleaf = "params", "kernel"
             arr = arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and arr.ndim == 2:
+            coll, jleaf = "params", "kernel"
+            arr = arr.T
         elif leaf == "weight" and arr.ndim == 1:
             coll, jleaf = "params", "scale"
         else:

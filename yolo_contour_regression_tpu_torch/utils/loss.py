@@ -1,10 +1,12 @@
-"""The training losses of the segment, detect and pose tasks (counterparts
-of ``segmentation_loss``, ``detection_loss`` and ``pose_loss`` in the JAX
-package's ``utils/loss.py``; its classify loss is not ported yet):
-polar-IoU ray loss plus BCE class loss with the polar task-aligned
-assignment; CIoU box loss, DFL and BCE class loss with the stock one; and
-for pose, on the detect loss's assignment, the OKS keypoint loss and the
-keypoint visibility BCE.
+"""The training losses of the segment, detect, pose, segment_ori and
+classify tasks (counterparts of ``segmentation_loss``, ``detection_loss``,
+``pose_loss``, ``segmentation_ori_loss`` and ``classification_loss`` in the
+JAX package's ``utils/loss.py``): polar-IoU ray loss plus BCE class loss
+with the polar task-aligned assignment; CIoU box loss, DFL and BCE class
+loss with the stock one; for pose, on the detect loss's assignment, the OKS
+keypoint loss and the keypoint visibility BCE; for the proto-mask task, on
+that assignment, the mask BCE of the top foreground anchors against the GT
+masks filled at proto size; and the classify cross-entropy.
 
 GT batches arrive dense: (B, N_max) padded instances with a validity mask.
 Contour GT is scaled per point (x * w, y * h), the JAX package's deliberate
@@ -21,6 +23,8 @@ import torch.nn.functional as F
 from ..nn.modules.head import flatten_levels
 from ..ops import polar as polar_ops
 from ..ops.boxes import bbox2dist, bbox_iou, dist2bbox, xywh2xyxy
+from ..ops.nms import _top
+from ..ops.raster import fill_polygons
 from .tal import AssignResult, polar_task_aligned_assign, resolve_cand, task_aligned_assign
 
 
@@ -252,3 +256,99 @@ def pose_loss(feats, batch, strides, nc: int, hyp, kpt_shape: Tuple[int, int] = 
     total = det.total + (loss_kpt * hyp.pose + loss_kobj * hyp.kobj) * b
     return LossOut(total, {**det.items, "pose_loss": loss_kpt * hyp.pose,
                            "kobj_loss": loss_kobj * hyp.kobj})
+
+
+def gt_masks_at(segments: torch.Tensor, mask_gt: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """GT masks (B, N, hp, wp) bool from the normalized contours (B, N, V,
+    2): points ``segments * [wp, hp]``, every vertex of an instance valid
+    where ``mask_gt`` is, filled by the even-odd ``fill_polygons`` (the CUDA
+    kernel on the card, one launch; the plain version on the CPU), as the
+    JAX loss and validator fill them with the jnp ``fill_polygons``."""
+    b, n, v, _ = segments.shape
+    dt = torch.float32
+    pts = segments.to(dt) * torch.tensor([wp, hp], dtype=dt, device=segments.device)
+    valid = mask_gt.bool()[..., None].expand(b, n, v)
+    return fill_polygons(pts.reshape(b * n, v, 2).contiguous(),
+                         valid.reshape(b * n, v).contiguous(), hp, wp).reshape(b, n, hp, wp)
+
+
+def in_box_grid(boxes: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """boxes (..., 4) xyxy on the proto grid -> (..., hp, wp) bool, the
+    half-open test ``x1 <= px < x2`` and ``y1 <= py < y2`` at integer pixels,
+    as JAX crops (float32 pixel indices)."""
+    py = torch.arange(hp, dtype=boxes.dtype, device=boxes.device)[:, None]
+    px = torch.arange(wp, dtype=boxes.dtype, device=boxes.device)[None, :]
+    b = boxes[..., None, None, :]
+    return ((px >= b[..., 0]) & (px < b[..., 2]) & (py >= b[..., 1]) & (py < b[..., 3]))
+
+
+def segmentation_ori_loss(outs, batch, strides, nc: int, hyp, nm: int = 32, reg_max: int = 16,
+                          max_fg: int = 64, mark: Optional[Callable[[str], None]] = None
+                          ) -> LossOut:
+    """The proto-mask segmentation loss (JAX ``segmentation_ori_loss``).
+    ``outs`` = (levels, proto): per level (B, 4 * reg_max + nc + nm, H, W)
+    and the prototypes (B, nm, hp, wp); ``batch`` as the polar loss takes it
+    (``segments`` (B, N, V, 2) normalized, ``mask_gt``).
+
+    The detect loss and its assignment on the detect channels; the GT masks
+    at proto size (``gt_masks_at``); the top ``max_fg`` anchors of each
+    image by ``target_scores.sum(-1) * fg_mask`` (a stable descending sort:
+    ties go to the lowest anchor index, as ``lax.top_k``), each carrying
+    the mask loss if it is foreground with a positive score: the BCE of
+    ``mc @ proto`` against its GT's mask, summed inside its target box on
+    the proto grid (``in_box_grid``) and divided by the box's area there,
+    clipped at 1; averaged over those anchors. The total adds ``mask *
+    box * B``. Math in f32; ``mark("loss")`` is called between the
+    assignment and the losses."""
+    levels, proto = outs
+    dt = torch.float32
+    dev = levels[0].device
+    targets = detect_targets([o[:, :o.shape[1] - nm] for o in levels], batch, strides, nc,
+                             reg_max)
+    if mark is not None:
+        mark("loss")
+    det = detect_loss(targets, hyp)
+    assign = targets.assign
+    b = levels[0].shape[0]
+    img_h = levels[0].shape[2] * strides[0]
+    img_w = levels[0].shape[3] * strides[0]
+    hp, wp = proto.shape[2], proto.shape[3]
+
+    mc = flatten_levels([o[:, -nm:] for o in levels]).to(dt)  # (B, A, nm)
+    gt_masks = gt_masks_at(batch["segments"], batch["mask_gt"], hp, wp)  # (B, N, hp, wp)
+
+    fg_score = assign.target_scores.sum(-1) * assign.fg_mask  # (B, A)
+    topv, topi = _top(fg_score, min(max_fg, fg_score.shape[1]))  # (B, K)
+    k = topi.shape[1]
+    sel_mc = torch.gather(mc, 1, topi[..., None].expand(b, k, nm))
+    sel_gt_idx = torch.gather(assign.target_gt_idx, 1, topi)
+    sel_fg = torch.gather(assign.fg_mask, 1, topi) & (topv > 0)
+    sel_boxes = torch.gather(assign.target_bboxes, 1, topi[..., None].expand(b, k, 4))
+    sel_gt_masks = gt_masks[torch.arange(b, device=dev)[:, None], sel_gt_idx].to(dt)
+
+    pred_masks = torch.einsum("bkm,bmhw->bkhw", sel_mc, proto.to(dt))
+    bce = F.binary_cross_entropy_with_logits(pred_masks, sel_gt_masks, reduction="none")
+    bx = sel_boxes * torch.tensor([wp / img_w, hp / img_h, wp / img_w, hp / img_h], dtype=dt,
+                                  device=dev)
+    area = ((bx[..., 2] - bx[..., 0]) * (bx[..., 3] - bx[..., 1])).clamp_min(1.0)
+    per_inst = (bce * in_box_grid(bx, hp, wp)).sum((-2, -1)) / area  # (B, K)
+    loss_mask = (per_inst * sel_fg).sum() / sel_fg.sum().to(dt).clamp_min(1.0)
+
+    total = det.total + loss_mask * hyp.box * b
+    return LossOut(total, {**det.items, "mask_loss": loss_mask * hyp.box})
+
+
+def classification_loss(preds: torch.Tensor, batch: Dict[str, torch.Tensor]) -> LossOut:
+    """The classify loss (JAX ``classification_loss``): on the head's
+    sigmoid outputs ``p`` (B, nc), ``log(clip(p, 1e-7, 1))`` renormalized by
+    its ``logsumexp``, the negative log-likelihood of each int label, summed
+    and divided by 64. In the outputs' dtype, as JAX. The clip is JAX's
+    ``min(max(p, lo), hi)``: a ``p`` at a bound (a saturated sigmoid's 1)
+    gets half the gradient, as ``lax.max`` and ``torch.maximum`` split ties;
+    ``clamp`` would pass all of it."""
+    labels = batch["cls"].long().reshape(-1)
+    lo, hi = preds.new_tensor(1e-7), preds.new_tensor(1.0)
+    logp = torch.log(torch.minimum(torch.maximum(preds, lo), hi))
+    logp = logp - torch.logsumexp(logp, -1, keepdim=True)
+    loss = -logp.gather(-1, labels[:, None]).sum() / 64.0
+    return LossOut(loss, {"cls_loss": loss})

@@ -7,7 +7,8 @@ IoU, one per detection, then one per label); ``compute_ap`` the 101-point
 interpolated AP; ``ap_per_class`` per-class P, R and AP at the 10 IoU
 thresholds; ``kpt_iou`` the keypoints' OKS; ``Metric``, ``DetMetrics``,
 ``SegmentMetrics`` and ``PoseMetrics`` accumulate per-image TP tables and
-give ``results_dict``. Host-side numpy: the tables are small.
+give ``results_dict``; ``ClassifyMetrics`` counts top-1 and top-5 hits.
+Host-side numpy: the tables are small.
 """
 from __future__ import annotations
 
@@ -287,4 +288,39 @@ class PoseMetrics(DetMetrics):
                 "metrics/mAP50-95(P)": self.pose.map,
             }
         )
+        return d
+
+
+class ClassifyMetrics:
+    """Top-1 and top-5 accuracy (JAX ``ClassifyMetrics``): the classes
+    ranked by ``np.argsort(-preds)`` (ties by lower class index), fitness
+    their mean."""
+
+    def __init__(self):
+        self.top1 = 0.0
+        self.top5 = 0.0
+        self._correct1 = 0
+        self._correct5 = 0
+        self._n = 0
+
+    def update(self, preds: np.ndarray, labels: np.ndarray):
+        top5 = np.argsort(-preds, axis=1)[:, :5]
+        self._correct1 += int((top5[:, 0] == labels).sum())
+        self._correct5 += int((top5 == labels[:, None]).any(1).sum())
+        self._n += labels.shape[0]
+
+    def process(self):
+        if self._n:
+            self.top1 = self._correct1 / self._n
+            self.top5 = self._correct5 / self._n
+        return {"metrics/accuracy_top1": self.top1, "metrics/accuracy_top5": self.top5}
+
+    @property
+    def fitness(self) -> float:
+        return (self.top1 + self.top5) / 2
+
+    @property
+    def results_dict(self) -> Dict[str, float]:
+        d = self.process()
+        d["fitness"] = self.fitness
         return d
