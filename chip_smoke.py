@@ -128,10 +128,36 @@ Phases, one timestamped line each (elapsed seconds):
      ``YOLO("yolov8n-cls.yaml").train`` from scratch at the floor.json
      config (60 epochs at 64 on the 96 committed train images) must meet
      the floor (top-1) and predict. Classify launches no kernel.
-  22. compare: the fork's headline, printed and not gated: ms an image on
+  22. rtdetr predict: ``YOLO(runs/floor_rtdetr/best.ckpt).predict`` at
+     imgsz 192 batch 1 on the RT-DETR floor images, and yolov8n-rtdetr at
+     full width (nc 2, a fresh init from a seed) at 640, batch 1 and 8, on
+     480x640 frames (ms per image); the floor model on the card against the
+     port on the CPU at 192: decoder outputs 1e-3 (the two sides' queries
+     matched by encoder token, ``query_perm``), the same kept queries,
+     boxes 0.05 px, scores 1e-4.
+  23. rtdetr validate: (a) the RT-DETR floor set at 192 batch 4: box
+     mAP50-95 at least ``floor.json``'s and each metric within 0.01 of the
+     JAX validator's (stored with the set); (b) the full-width model at 640
+     batch 16 on 32 frames, split as in 10 (b) (forward is the graph and the
+     decoder; no NMS), and its peak memory.
+  24. rtdetr train step: (a) floor_rtdetr at 192 batch 4 with one set of dn
+     groups drawn on the CPU and used on both sides, card against CPU, the
+     networks in float64 (float32 printed, not held: the card's float32
+     sums leave a neck BatchNorm bias 1.5e-3 apart): loss 1e-4 relative,
+     every layer's assignment (as encoder tokens), gradients 1e-3 of each
+     tensor's largest; (b) at 640 batch 16 with AdamW, as 6 (b),
+     split into forward (the CDN draw in it), matching (the cost and the
+     auction), loss, backward and clip + optimizer + EMA, with the auction's
+     rounds and host syncs a step, then one step's device kernels by name
+     (``torch.profiler``).
+  25. rtdetr fuse: the fused floor model against the unfused on the card
+     (decoder outputs 1e-3, the same kept queries) and validated on the
+     floor set (each metric within 0.01, and the floor). RT-DETR launches
+     no kernel: each phase's counts are printed and must be 0.
+  26. compare: the fork's headline, printed and not gated: ms an image on
      the card at 640, batch 1 and 8, of yolov8n-seg polar (contours, no
      masks) and yolov8n detect, fused and unfused, and seg / detect.
-  23. report: a JSON line of the kernels (launches summed over the predict,
+  27. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs of every task),
      the card's line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
@@ -164,6 +190,12 @@ from yolo_contour_regression_tpu_torch.engine.predictor import (
     SegmentationPredictor)
 from yolo_contour_regression_tpu_torch.engine.results import Masks, contours_to_masks
 from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
+from yolo_contour_regression_tpu_torch.models.rtdetr.predict import RTDETRPredictor
+from yolo_contour_regression_tpu_torch.models.rtdetr.val import RTDETRValidator
+from yolo_contour_regression_tpu_torch.models.utils import loss as loss_mod
+from yolo_contour_regression_tpu_torch.models.utils.loss import (hungarian_assign, rtdetr_assign,
+                                                                 rtdetr_loss)
+from yolo_contour_regression_tpu_torch.models.utils.ops import cdn_generator, get_cdn_group
 from yolo_contour_regression_tpu_torch.engine.validator import (
     EVAL_KEYS, DetectionValidator, PoseValidator, SegmentationOriValidator, SegmentationValidator,
     grid_scale)
@@ -284,6 +316,18 @@ FLOOR_CLS_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_classify_train96.n
 FLOOR_CLS_VAL = ROOT / "tests" / "data" / "torch_port_floor_classify_val32.npz"
 CLS_PREDICT_IMGSZ, PROB_ATOL, FUSE_PROB_ATOL = 224, 1e-4, 1e-3
 CLS_TRAIN_KEYS = ("epochs", "imgsz", "batch", "nbs", "seed", "amp", "patience", "workers")
+# the RT-DETR slice: the floor_rtdetr checkpoint (yolov8n-rtdetr, nc 2) and
+# its floor set (16 val images at 192 px, decoded by cv2, with their label
+# lines and the JAX validator's metrics of the checkpoint at batch 4;
+# tests/test_torch_port_rtdetr_val.py regenerates them); yolov8n-rtdetr at
+# full width (nc 2) from a fresh init drawn from this seed
+RTDETR_CKPT = ROOT / "runs" / "floor_rtdetr" / "best.ckpt"
+RTDETR_FLOOR_JSON = ROOT / "runs" / "floor_rtdetr" / "floor.json"
+FLOOR_RTDETR_VAL = ROOT / "tests" / "data" / "torch_port_floor_rtdetr_val16.npz"
+RTDETR_IMGSZ, RTDETR_SEED = 192, 0
+# a gradient that is 0 in exact arithmetic (the attention's key biases), of
+# the largest gradient of any tensor
+ZERO_GRAD_TOL = 1e-6
 
 
 def log(phase: str, msg: str):
@@ -1225,8 +1269,8 @@ def train_full_width(ckpt, card: str, phase: str = "train", model=None):
     with no warmup: 3 warm-up steps, then TRAIN_STEPS steps of
     ``make_train_step`` on one repeated batch (counts zeroed just before,
     read just after), each timed on the host clock and split into its
-    stages by the step's own marks (``StageTimer``). Pose batches are
-    ``pose_batch``'s."""
+    stages by the step's own marks (``StageTimer``), and its peak device
+    memory (from the warm-up steps on). Pose batches are ``pose_batch``'s."""
     hyp = train_hyp(ckpt, optimizer="AdamW", warmup_epochs=0.0, batch=TRAIN_B)
     model = ckpt_model(ckpt, "cuda") if model is None else model.to("cuda").train()
     opt = optim.build_optimizer(model, hyp, steps_per_epoch=1000, iterations=1000)
@@ -1237,9 +1281,12 @@ def train_full_width(ckpt, card: str, phase: str = "train", model=None):
     if model.task == "pose":
         pose_batch(batch, model.kpt_shape[0])
     x, b = to_device(images, batch, "cuda")
+    torch.cuda.reset_peak_memory_stats()
     losses = [step(state, x, b)["loss"].item() for _ in range(3)]
     timer.marks = []
     zero_launch_counts()
+    for k in ("rounds", "syncs", "solves"):
+        setattr(hungarian_assign, k, 0)
     times, splits = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -1258,7 +1305,13 @@ def train_full_width(ckpt, card: str, phase: str = "train", model=None):
         raise AssertionError(f"the segment_ori step fills its GT masks once a step: {counts}")
     name = (f"yolov8n-pose (K {model.kpt_shape[0]})" if model.task == "pose"
             else {"segment": "yolov8n-seg", "detect": "yolov8n",
-                  "segment_ori": "yolov8n-segori"}[model.task])
+                  "segment_ori": "yolov8n-segori", "rtdetr": "yolov8n-rtdetr"}[model.task])
+    if model.task == "rtdetr":
+        log(phase, f"the auction over the {TRAIN_STEPS} timed steps (7 layers x {TRAIN_B} "
+            f"images solved as one batch a step, the host asked every "
+            f"{loss_mod.CHECK_EVERY} rounds): {hungarian_assign.rounds / TRAIN_STEPS:.1f} "
+            f"rounds and {hungarian_assign.syncs / TRAIN_STEPS:.1f} host syncs a step, "
+            f"{hungarian_assign.solves} solves | {card}")
     log(phase, f"{name} full width, imgsz {TRAIN_IMGSZ} batch {TRAIN_B} N_pad "
         f"{TRAIN_NPAD}, AdamW lr0 {hyp.lr0}: loss {losses[0]:.4f} at step 0, {losses[-1]:.4f} "
         f"at step {len(losses) - 1}, all finite; {int(batch['mask_gt'].sum())} GT instances; "
@@ -1567,6 +1620,19 @@ def floor_pose_jax_metrics() -> dict:
     return _jax_metrics(FLOOR_POSE_VAL)
 
 
+def floor_rtdetr_val_set():
+    """The 16 val images of the RT-DETR floor set (``make_shape_dataset(
+    n_train=64, n_val=16, imgsz=192, seed=0)``, decoded by cv2) and their
+    labels, parsed from the committed label lines."""
+    return _decoded_set(FLOOR_RTDETR_VAL)
+
+
+def floor_rtdetr_jax_metrics() -> dict:
+    """The JAX validator's metrics of ``runs/floor_rtdetr/best.ckpt`` on the
+    RT-DETR floor set at imgsz 192, batch 4, stored with the set."""
+    return _jax_metrics(FLOOR_RTDETR_VAL)
+
+
 # per task: the floor checkpoint, its floor.json, the model a trainer starts
 # from, the floor set's train and val images, and the JAX validator's
 # metrics stored with the val set (the seg160 set's are checked by
@@ -1582,6 +1648,9 @@ FLOOR_RUNS = {
     # no segment_ori floor: the seg160 set and config, the metrics recorded
     "segment_ori": (CKPT, FLOOR_JSON, "yolov8n-segori.yaml", floor_train_set, floor_val_set,
                     None),
+    # no RT-DETR trainer (JAX trains it through the host cv2 pipeline)
+    "rtdetr": (RTDETR_CKPT, RTDETR_FLOOR_JSON, "yolov8n-rtdetr.yaml", None, floor_rtdetr_val_set,
+               floor_rtdetr_jax_metrics),
 }
 
 
@@ -1763,7 +1832,8 @@ def validate_full_width(model, card: str, passes: int = 3, phase: str = "validat
     timer = StageTimer()
     seg = model.task == "segment"
     v = {"segment": SegmentationValidator, "detect": DetectionValidator,
-         "pose": PoseValidator, "segment_ori": SegmentationOriValidator}[model.task](
+         "pose": PoseValidator, "segment_ori": SegmentationOriValidator,
+         "rtdetr": RTDETRValidator}[model.task](
         imgsz=640, batch=VAL640_B, conf=VAL_CONF, iou=VAL_IOU, mark=timer)
     v(model.model, images, labels)  # warm-up
     timer.marks = []
@@ -1837,7 +1907,7 @@ def predict_ms(model, images, imgsz: int, batch: int, masks: bool, conf: float =
 def predictor_of(model):
     return {"segment": SegmentationPredictor, "detect": DetectionPredictor,
             "pose": PosePredictor, "segment_ori": SegmentationOriPredictor,
-            "classify": ClassificationPredictor}[model.task]
+            "classify": ClassificationPredictor, "rtdetr": RTDETRPredictor}[model.task]
 
 
 def head_maps(out):
@@ -1989,8 +2059,8 @@ def detect_predict(card: str):
 
 def validate_floor_jax(model, card: str, task: str):
     """``YOLO(floor checkpoint).val`` on the card over the task's floor set
-    (detect or pose) at its imgsz, batch 4: the floor met (box mAP50-95, and
-    for pose the keypoints' too), and each metric within
+    (detect, pose or rtdetr) at its imgsz, batch 4: the floor met (box
+    mAP50-95, and for pose the keypoints' too), and each metric within
     ``DETECT_METRIC_ATOL`` of the JAX validator's (stored with the set)."""
     ckpt_path, floor_json, _, _, val_set, jax_metrics = FLOOR_RUNS[task]
     images, labels = val_set()
@@ -2234,6 +2304,314 @@ def classify_phases(card: str) -> dict:
     return {k: counts[k] + tcounts[k] for k in counts}
 
 
+class EncoderOrder:
+    """Context manager: the RT-DETR encoder's token order of each forward of
+    ``model`` inside it (a hook on ``enc_score_head``; the stable descending
+    sort of the best class score the decoder selects its queries by):
+    ``order`` (B, nq) token indices and ``scores`` (B, V), of the last
+    forward, on the CPU."""
+
+    def __init__(self, model):
+        self.head = model.model[-1]
+
+    def _hook(self, module, inputs, out):
+        best = out.detach().amax(-1).float().cpu()
+        nq = min(self.head.nq, best.shape[1])
+        self.order = torch.sort(best, dim=-1, descending=True, stable=True)[1][:, :nq]
+        self.scores = best
+
+    def __enter__(self):
+        self.handle = self.head.enc_score_head.register_forward_hook(self._hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def query_perm(got: EncoderOrder, want: EncoderOrder, what: str) -> torch.Tensor:
+    """(B, nq) indices that put ``got``'s queries in ``want``'s order, their
+    tokens matched. The decoder treats its queries as a set (its output
+    rows follow them), so two sides whose encoder scores sort near-equal
+    tokens in other orders agree up to this permutation. Raises if the two
+    select other tokens, naming each and its score's distance to the
+    selection's edge."""
+    perm = []
+    for b, (g, w) in enumerate(zip(got.order.tolist(), want.order.tolist())):
+        if set(g) != set(w):
+            edge = want.scores[b][w[-1]].item()
+            diff = {t: want.scores[b][t].item() - edge for t in set(g) ^ set(w)}
+            raise AssertionError(f"{what}: image {b} selects other encoder tokens: {diff} (score "
+                                 f"minus the {len(w)}th's)")
+        pos = {t: i for i, t in enumerate(g)}
+        perm.append([pos[t] for t in w])
+    return torch.tensor(perm)
+
+
+def take_rows(x: torch.Tensor, perm: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """x (B, T, ...) with rows ``start:`` permuted by ``perm`` (B, T - start)."""
+    idx = torch.cat([torch.arange(start).expand(len(perm), start), perm + start], 1)
+    return x.gather(1, idx.view(*idx.shape, *([1] * (x.dim() - 2))).expand_as(x))
+
+
+def fresh_rtdetr_model(device="cuda") -> YOLO:
+    """The published yolov8n-rtdetr at full width (nc 2), a fresh init from
+    ``RTDETR_SEED`` (``fresh_model``)."""
+    return fresh_model("yolov8n-rtdetr.yaml", SHAPE_NAMES, RTDETR_SEED, device)
+
+
+def rtdetr_pair(a, b, images, imgsz: int, phase: str) -> dict:
+    """Two RT-DETR handles (``a`` on the card; ``b`` on the card or the
+    CPU) on the same letterboxed images through ``RTDETRPredictor``: the
+    largest gap of their decoder outputs, their queries matched by encoder
+    token (``query_perm``), then of the predictions (queries scoring 0.25
+    or more), which must be the same ones. Returns the gaps, the kept
+    count and the images whose queries were reordered."""
+    pred = RTDETRPredictor(imgsz=imgsz, conf=0.25)
+    out = dict.fromkeys(("decoder", "box", "score", "kept", "reordered"), 0)
+    dev_b = next(b.model.parameters()).device
+    for img in images:
+        x, gain, pad = pred.preprocess_u8(img, imgsz)
+        xt = torch.from_numpy(x[None])
+        with EncoderOrder(a.model) as oa:
+            pa = pred.eval_batch(a.model, xt.cuda())["pred"].cpu()
+        with EncoderOrder(b.model) as ob:
+            pb = pred.eval_batch(b.model, xt.to(dev_b))["pred"].cpu()
+        perm = query_perm(oa, ob, phase)
+        out["reordered"] += int((perm != torch.arange(perm.shape[1])).any())
+        pa = take_rows(pa, perm)
+        out["decoder"] = max(out["decoder"], float((pa - pb).abs().max()))
+        ra, rb = (pred.postprocess({"pred": p.numpy()}, 0, img, "a", gain, pad, SHAPE_NAMES,
+                                   "cpu").boxes.data for p in (pa, pb))
+        if ra.shape != rb.shape or not np.array_equal(ra[:, 5], rb[:, 5]):
+            raise AssertionError(f"{phase}: the two keep different queries ({len(ra)} and "
+                                 f"{len(rb)})")
+        if len(rb):
+            out["box"] = max(out["box"], float(np.abs(ra[:, :4] - rb[:, :4]).max()))
+            out["score"] = max(out["score"], float(np.abs(ra[:, 4] - rb[:, 4]).max()))
+        out["kept"] += len(rb)
+    return out
+
+
+def rtdetr_card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str):
+    """``rtdetr_pair`` of the card and the port on the CPU: decoder outputs
+    within ``HEAD_ATOL``, the same kept queries, boxes within ``BOX_ATOL``
+    px, scores within ``SCORE_ATOL``."""
+    worst = rtdetr_pair(model, cpu, images, imgsz, phase)
+    limits = {"decoder": HEAD_ATOL, "box": BOX_ATOL, "score": SCORE_ATOL}
+    if any(worst[k] > limits[k] for k in limits) or worst["kept"] == 0:
+        raise AssertionError(f"{phase} card vs CPU: {worst} (limits {limits})")
+    log(phase, f"card vs CPU at imgsz {imgsz} on {len(images)} images: decoder output max abs "
+        f"{worst['decoder']:.2e} (limit {HEAD_ATOL}; {worst['reordered']} images with near-equal "
+        f"encoder tokens sorted in another order, matched by token), the same {worst['kept']} "
+        f"kept queries, boxes max abs {worst['box']:.2e} px (limit {BOX_ATOL}), scores "
+        f"{worst['score']:.2e} (limit {SCORE_ATOL}) | {card}")
+
+
+def rtdetr_predict(card: str):
+    """``YOLO(runs/floor_rtdetr/best.ckpt).predict`` on the RT-DETR floor
+    set's val images at imgsz 192 (batch 1), and the fresh full-width
+    yolov8n-rtdetr (``fresh_rtdetr_model``) on 480x640 frames at 640, batch 1
+    and 8 (conf ``VAL_CONF``: random weights score near the 0.01 prior),
+    launch counts zeroed just before and read just after (RT-DETR reaches no
+    kernel: all 0); ms per image; then the floor model on the card against
+    the port on the CPU at 192."""
+    model = YOLO(RTDETR_CKPT, device="cuda")
+    full = fresh_rtdetr_model()
+    imgs192 = floor_rtdetr_val_set()[0]
+    frames = shape_images(8, *RASTER_HW, seed=2)
+    zero_launch_counts()
+    n192 = sum(len(r) for r in model.predict(imgs192, imgsz=RTDETR_IMGSZ))
+    res640 = full.predict(frames, imgsz=640, batch=8, conf=VAL_CONF)
+    boxes = np.concatenate([r.boxes.data for r in res640])
+    lat = {}
+    for name, m, images, imgsz, batch, conf in (
+            ("floor_rtdetr", model, imgs192[:1], RTDETR_IMGSZ, 1, 0.25),
+            ("yolov8n-rtdetr", full, frames[:1], 640, 1, VAL_CONF),
+            ("yolov8n-rtdetr", full, frames, 640, 8, VAL_CONF)):
+        predict_ms(m, images, imgsz, batch, masks=False, conf=conf)  # warm-up
+        runs = [predict_ms(m, images, imgsz, batch, masks=False, conf=conf) for _ in range(10)]
+        lat[(name, imgsz, batch)] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    counts = launch_counts()
+    if n192 == 0 or len(boxes) == 0 or not np.isfinite(boxes).all() or any(counts.values()):
+        raise AssertionError(f"rtdetr predict: {n192} detections at 192, {len(boxes)} at 640, "
+                             f"launches {counts}")
+    log("rtdetr_predict", f"floor_rtdetr at imgsz {RTDETR_IMGSZ}: {n192} detections on "
+        f"{len(imgs192)} floor images; yolov8n-rtdetr full width ({full.model.num_params} "
+        f"parameters, random weights from seed {RTDETR_SEED}) at imgsz 640 batch 8, conf "
+        f"{VAL_CONF}: {len(boxes)} kept queries on {len(frames)} frames, all finite; launches "
+        f"{counts} | {card}")
+    for (name, imgsz, batch), parts in lat.items():
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        log("rtdetr_predict", f"{name} imgsz {imgsz} batch {batch}, ms per image (host clock, "
+            f"median of 10 calls): {parts} | {card}")
+    rtdetr_card_vs_cpu_predict(model, YOLO(RTDETR_CKPT, device="cpu"), imgs192[:8],
+                               RTDETR_IMGSZ, "rtdetr_predict", card)
+    return model, full, counts
+
+
+def rtdetr_train_card_vs_cpu(ckpt, card: str, b: int = 4, dtype=torch.float64,
+                             hold: bool = True):
+    """floor_rtdetr in train mode at imgsz 192, batch ``b``, N_pad 8, with
+    one set of dn groups drawn on the CPU and used on both sides: the loss
+    (relative ``TRAIN_LOSS_RTOL``), every layer's assignment (as encoder
+    tokens, the two sides' queries matched by ``query_perm``) and every
+    gradient (``TRAIN_GRAD_TOL`` of its tensor's largest) on the card
+    against the CPU, the networks in ``dtype``; printed and, with ``hold``,
+    held. In float32 on an H100 the gradient of a neck BatchNorm bias
+    (``model.18.cv2.bn``) came out 1.5e-3 of its largest from the CPU's,
+    whose float32 is within 8e-5 of its float64: the card's float32 sums,
+    not the port, so the step is held in float64 and its float32 figures
+    printed."""
+    images, batch = shape_batch(b, RTDETR_IMGSZ, 8, seed=3)
+    batch = {k: batch[k] for k in ("cls", "bboxes", "mask_gt")}
+    nc = ckpt["model_yaml"]["nc"]
+    dn = get_cdn_group({k: torch.from_numpy(v) for k, v in batch.items()}, nc, cdn_generator(0))
+    dn_q = int(np.prod(dn["labels"].shape[1:]))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = ckpt_model(ckpt, dev).to(dtype)
+        x, bt = to_device(images, batch, dev)
+        with EncoderOrder(model) as order:
+            outs = model(x.to(dtype).permute(0, 3, 1, 2).contiguous(),
+                         dn={k: v.to(dev) for k, v in dn.items()})
+        assign = rtdetr_assign(outs, bt, dn_q)
+        total, _ = rtdetr_loss(outs, bt, nc, dn=dn, assign=assign)
+        total.backward()
+        res[dev] = (total.item(), assign.cpu(), order,
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+        del model
+    (lc, ac, oc, gc), (lg, ag, og, gg) = res["cpu"], res["cuda"]
+    query_perm(og, oc, "rtdetr_train")  # the same tokens selected
+    tok = lambda a, o: torch.where(a >= 0, o.order[None].expand(a.shape[0], -1, -1).gather(  # noqa: E731
+        2, a.clamp_min(0)), -1)
+    same = torch.equal(tok(ac, oc), tok(ag, og)) and bool((ac >= 0).any())
+    loss_rel = abs(lg - lc) / abs(lc)
+    # the self-attention's key biases have no gradient (a softmax does not
+    # see a shift common to its row): both sides' are rounding noise, held
+    # to ZERO_GRAD_TOL of the largest gradient of any tensor
+    zero = [n for n in gc if n.endswith("self_attn.key.bias")]
+    scale = max(float(g.abs().max()) for g in gc.values())
+    noise = max(float(t[n].abs().max()) for t in (gc, gg) for n in zero) / scale
+    grad_rel, worst = max((float((gg[n] - gc[n]).abs().max()
+                                 / gc[n].abs().max().clamp_min(1e-30)), n)
+                          for n in gc if n not in zero)
+    log("rtdetr_train", f"card vs CPU{'' if hold else ' (printed, not held)'}, floor_rtdetr "
+        f"({str(dtype)[6:]}) at imgsz {RTDETR_IMGSZ} "
+        f"batch {b}, {dn_q} dn queries drawn on the CPU: loss {lg:.6f} vs {lc:.6f} (rel "
+        f"{loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); the same assignment in every layer: {same} "
+        f"({int((ac >= 0).sum())} matches over {ac.shape[0]} layers); worst gradient "
+        f"{grad_rel:.2e} of its tensor's max, {worst} (limit {TRAIN_GRAD_TOL}); the {len(zero)} "
+        f"key biases' gradients (0 in exact arithmetic) at most {noise:.2e} of the largest "
+        f"gradient (limit {ZERO_GRAD_TOL}) | {card}")
+    if hold and (not same or loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_TOL
+                 or noise > ZERO_GRAD_TOL):
+        raise AssertionError(f"rtdetr train card vs CPU: same assignment {same}, loss rel "
+                             f"{loss_rel:.2e}, grad {grad_rel:.2e} at {worst}, key-bias noise "
+                             f"{noise:.2e}")
+
+
+def kernel_family(name: str) -> str:
+    """A device kernel's name without its namespaces, template arguments and
+    parameters (``void at::native::elementwise_kernel<...>(...)`` ->
+    ``elementwise_kernel``)."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1]
+
+
+def rtdetr_step_kernels(state, ckpt, card: str):
+    """One more RT-DETR train step of ``state`` at 640 batch 16 under
+    ``torch.profiler``: how many device kernels it launches, their device
+    time summed against the step's host-clock time (the profiler's cost
+    included), and the costliest kernel families (``kernel_family``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    hyp = train_hyp(ckpt, optimizer="AdamW", warmup_epochs=0.0, batch=TRAIN_B)
+    step = make_train_step(state.model, state.optimizer, hyp)
+    x, b = to_device(*shape_batch(TRAIN_B, TRAIN_IMGSZ, TRAIN_NPAD, seed=4), "cuda")
+    step(state, x, b)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, x, b)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        log("rtdetr_train", f"one step under torch.profiler: no device activity recorded "
+            f"(kernels not measured) | {card}")
+        return
+    by_family = {}
+    for e in events:
+        n, total = by_family.get(kernel_family(e.name), (0, 0.0))
+        by_family[kernel_family(e.name)] = (n + 1, total + e.time_range.elapsed_us())
+    top = sorted(by_family.items(), key=lambda kv: -kv[1][1])[:8]
+    busy = sum(us for _, us in by_family.values()) / 1e3
+    log("rtdetr_train", f"one step at {TRAIN_IMGSZ} batch {TRAIN_B} under torch.profiler: "
+        f"{len(events)} device kernels of {len(by_family)} families, {busy:.3f} ms of device "
+        f"time against {wall:.3f} ms on the host clock (profiled); the costliest families "
+        f"(launches, ms summed): " + ", ".join(f"{n} ({c}, {us / 1e3:.3f})" for n, (c, us) in top)
+        + f" | {card}")
+
+
+def rtdetr_fuse_check(card: str) -> dict:
+    """``YOLO(runs/floor_rtdetr/best.ckpt).fuse()`` on the card against the
+    unfused model there on the floor images (``rtdetr_pair``): decoder
+    outputs within ``FUSE_HEAD_ATOL``, the same kept queries, boxes within
+    ``BOX_ATOL``; then both validated on the floor set (launch counts zeroed
+    just before the fused run, read just after): each metric within
+    ``FUSE_METRIC_ATOL`` of the unfused model's, and the floor met."""
+    record = json.loads(RTDETR_FLOOR_JSON.read_text())
+    images, labels = floor_rtdetr_val_set()
+    plain = YOLO(RTDETR_CKPT, device="cuda")
+    fused = YOLO(RTDETR_CKPT, device="cuda").fuse()
+    worst = rtdetr_pair(fused, plain, images[:8], RTDETR_IMGSZ, "rtdetr_fuse")
+    want = plain.val(images, labels, imgsz=RTDETR_IMGSZ, batch=VAL_B, conf=VAL_CONF, iou=VAL_IOU)
+    zero_launch_counts()
+    got = fused.val(images, labels, imgsz=RTDETR_IMGSZ, batch=VAL_B, conf=VAL_CONF, iou=VAL_IOU)
+    counts = launch_counts()
+    gaps = {k: abs(got[k] - want[k]) for k in want}
+    below = {k: (got[k], record["floor"][n]) for k, n in record["floor_keys"].items()
+             if not got[k] >= record["floor"][n]}
+    metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in got.items() if k != "fitness")
+    log("rtdetr_fuse", f"floor_rtdetr fused on the card vs unfused on the card, 8 images at "
+        f"imgsz {RTDETR_IMGSZ}: decoder output max abs {worst['decoder']:.2e} (limit "
+        f"{FUSE_HEAD_ATOL}), the same {worst['kept']} kept queries, boxes max abs "
+        f"{worst['box']:.2e} px; {plain.model.num_params} -> {fused.model.num_params} "
+        f"parameters | {card}")
+    log("rtdetr_fuse", f"fused, validated on the floor set at imgsz {RTDETR_IMGSZ} batch {VAL_B}: "
+        f"{metrics}; worst gap to the unfused model {max(gaps.values()):.2e} (limit "
+        f"{FUSE_METRIC_ATOL}); floor {record['floor']}; launches {counts} | {card}")
+    if worst["decoder"] > FUSE_HEAD_ATOL or worst["box"] > BOX_ATOL or worst["kept"] == 0:
+        raise AssertionError(f"rtdetr fuse: {worst}")
+    if max(gaps.values()) > FUSE_METRIC_ATOL or below or any(counts.values()):
+        raise AssertionError(f"rtdetr fuse: metric gaps {gaps}, below the floor {below}, "
+                             f"launches {counts}")
+    return counts
+
+
+def rtdetr_phases(card: str) -> dict:
+    """The RT-DETR phases: predict, validate (the floor set against JAX's
+    stored metrics and the floor; the full-width model at 640), the train
+    step (card against CPU at 192, then full width at 640), the fuse. Their
+    launch counts, all 0, by phase."""
+    model, full, predict_counts = rtdetr_predict(card)
+    validate_floor_jax(model, card, "rtdetr")
+    floor_counts = launch_counts()
+    _, val640_counts, _, _ = validate_full_width(full, card, phase="rtdetr_validate")
+    ckpt = load_checkpoint(RTDETR_CKPT)
+    rtdetr_train_card_vs_cpu(ckpt, card, dtype=torch.float32, hold=False)
+    rtdetr_train_card_vs_cpu(ckpt, card)
+    state, step_counts, _, _ = train_full_width(ckpt, card, phase="rtdetr_train")
+    rtdetr_step_kernels(state, ckpt, card)
+    fuse_counts = rtdetr_fuse_check(card)
+    out = {"predict": predict_counts,
+           "validate": {k: floor_counts[k] + val640_counts[k] for k in KERNEL_WRAPPERS},
+           "train step": step_counts, "fused validate": fuse_counts}
+    if any(v for c in out.values() for v in c.values()):
+        raise AssertionError(f"RT-DETR reaches no kernel, yet launched {out}")
+    return out
+
+
 def paper_comparison(card: str) -> dict:
     """The fork's headline, printed and not gated: ms an image on the card
     at imgsz 640, batch 1 and batch 8, of yolov8n-seg polar (boxes, scores
@@ -2443,18 +2821,24 @@ def main() -> int:
     phase_start["classify"] = time.perf_counter()
     classify_counts = classify_phases(card)
 
-    # 22. the fork's headline comparison, seg against detect, at 640
+    # 22-25. RT-DETR: predict, validate, the train step and the fuse (no
+    # kernel: each phase's launch counts are printed, all 0)
+    phase_start["rtdetr"] = time.perf_counter()
+    rtdetr_counts = rtdetr_phases(card)
+
+    # 26. the fork's headline comparison, seg against detect, at 640
     phase_start["compare"] = time.perf_counter()
     paper_comparison(card)
 
-    # 23. report: launches summed over the main paths' runs
+    # 27. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,
                      "fused validate": segori_fuse_counts}
     launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k] + trainer_counts[k]
                 + fuse_counts[k] + sum(c[k] for c in segori_counts.values())
-                + classify_counts[k] for k in KERNEL_WRAPPERS}
+                + classify_counts[k] + sum(c[k] for c in rtdetr_counts.values())
+                for k in KERNEL_WRAPPERS}
     at_480 = fill_rows["fill_polygons_480x640"]
     at_segori = {f"{key}_N{n}_V360_160x160": segori_fill[n][key] for n in SEGORI_FILL_N
                  for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -2486,7 +2870,8 @@ def main() -> int:
         f"trainer {trainer_counts} (the floor run and 640), fused validate {fuse_counts} (the "
         f"seg160, detect and pose floor sets; the detect and pose paths have no kernel of their "
         f"own), segment_ori {segori_counts} (its GT masks: one fill a train step and a "
-        f"validated batch), classify {classify_counts} (no kernel of its own); "
+        f"validated batch), classify {classify_counts} (no kernel of its own), rtdetr "
+        f"{rtdetr_counts} (no kernel of its own); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
         "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "

@@ -11,8 +11,10 @@ predicts and validates, fused and unfused, and ``YOLO("yolov8n.yaml")
 .train`` runs one epoch on four of the detect floor set's images; then the
 classify task (the floor_classify checkpoint validates to JAX's top-1 on
 the committed set, and ``YOLO("yolov8n-cls.yaml").train`` runs one epoch
-on the host path) and the segment_ori task (the narrow checkpoint of the
-CPU tests predicts masks)."""
+on the host path), the segment_ori task (the narrow checkpoint of the
+CPU tests predicts masks) and RT-DETR (the floor_rtdetr checkpoint predicts
+and validates, and one CPU train step with contrastive denoising runs on
+it); and scipy was never imported."""
 import subprocess
 import sys
 from pathlib import Path
@@ -37,6 +39,8 @@ for name in list(sys.modules):  # anything a site hook imported already
 sys.meta_path.insert(0, Refuse())
 
 import numpy as np
+import torch
+torch.set_num_threads(2)  # beside the suite's parallel workers
 import yolo_contour_regression_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
@@ -105,8 +109,20 @@ so = pkg.YOLO("tests/data/torch_port_segori_narrow64.ckpt", device="cpu")
 so_res = so.predict(chip_smoke.shape_val_set(4, 48, 64, 41)[0], conf=0.001)
 assert sum(len(r) for r in so_res) > 0
 assert all(r.masks.data.shape[1:] == (48, 64) for r in so_res if len(r))
+rt = pkg.YOLO("runs/floor_rtdetr/best.ckpt", device="cpu")
+rt_images, rt_labels = chip_smoke.floor_rtdetr_val_set()
+assert sum(len(r) for r in rt.predict(rt_images[:2])) > 0
+rt_val = rt.val(rt_images[:2], rt_labels[:2], imgsz=192, batch=2)
+assert 0.0 < rt_val["metrics/mAP50-95(B)"] <= 1.0, rt_val
+rt_opt = optim.build_optimizer(rt.model, hyp, 1, 1)
+rt_state = init_train_state(rt.model, rt_opt, device="cpu")
+rt_images, rt_batch = chip_smoke.shape_batch(2, 64, 3, seed=0)
+rt_metrics = make_train_step(rt.model, rt_opt, hyp)(
+    rt_state, torch.from_numpy(rt_images), {k: torch.from_numpy(v) for k, v in rt_batch.items()})
+assert "dn_cls_loss" in rt_metrics and torch.isfinite(rt_metrics["loss"]), rt_metrics
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
+assert not [n for n in sys.modules if n.split(".")[0] == "scipy"]
 print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;",
       "val mask mAP50-95", val["metrics/mAP50-95(M)"], ";", "train step loss",
       float(metrics["loss"]), ";", "YOLO.train steps", trained, "; detect", n_det, "detections")

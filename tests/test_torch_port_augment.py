@@ -31,6 +31,17 @@ from yolo_contour_regression_tpu_torch.data import device_augment as tda
 from yolo_contour_regression_tpu_torch.data.build import TrainLoader, use_device_augment
 from yolo_contour_regression_tpu_torch.data.instance import Instances as TInstances
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 # images, in uint8 levels: against JAX's float32 warps (the gather
 # ``_warp_image``, and ``_warp_image_separable(dtype=float32)``, which JAX's
 # own test holds to each other within 5e-3 at S=32; 2.4e-3 apart at S=64)

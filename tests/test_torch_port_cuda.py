@@ -578,3 +578,48 @@ def test_segori_and_classify_predict_card_equal_cpu(cuda, full_f32):
     want = YOLO(CLS_CKPT, device="cpu").predict(frames, imgsz=64)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.probs.data, w.probs.data, atol=1e-4)
+
+
+def test_rtdetr_predict_card_equals_cpu(cuda, full_f32):
+    """``YOLO(runs/floor_rtdetr/best.ckpt)`` defaults to the card; its
+    decoder outputs and predictions equal the CPU port's on the floor
+    images: outputs within 1e-3 (queries matched by encoder token), the same
+    kept queries, boxes within 0.05 px, scores within 1e-4
+    (``chip_smoke.rtdetr_card_vs_cpu_predict``); it launches no kernel."""
+    from chip_smoke import (RTDETR_CKPT, RTDETR_IMGSZ, floor_rtdetr_val_set, launch_counts,
+                            rtdetr_card_vs_cpu_predict, zero_launch_counts)
+    from yolo_contour_regression_tpu_torch import YOLO
+
+    model = YOLO(RTDETR_CKPT)
+    assert model.task == "rtdetr" and all(p.is_cuda for p in model.model.parameters())
+    zero_launch_counts()
+    rtdetr_card_vs_cpu_predict(model, YOLO(RTDETR_CKPT, device="cpu"),
+                               floor_rtdetr_val_set()[0][:8], RTDETR_IMGSZ, "test", "card")
+    assert not any(launch_counts().values())
+
+
+def test_rtdetr_train_step_card_equals_cpu(cuda, full_f32):
+    """floor_rtdetr's train-mode loss, every layer's assignment and every
+    gradient at 192 px batch 4 on the card equal the CPU's with the same dn
+    groups, the networks in float64 (loss 1e-4 relative, gradients 1e-3 of
+    each tensor's largest; ``chip_smoke.rtdetr_train_card_vs_cpu``); then
+    ``make_train_step`` on a
+    state that defaults to the card takes two steps with finite losses."""
+    from types import SimpleNamespace
+
+    from chip_smoke import RTDETR_CKPT, ckpt_model, rtdetr_train_card_vs_cpu, shape_batch
+    from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
+    from yolo_contour_regression_tpu_torch.utils import optim
+    from yolo_contour_regression_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(RTDETR_CKPT)
+    rtdetr_train_card_vs_cpu(ckpt, "card")
+    model = ckpt_model(ckpt, "cpu")
+    hyp = SimpleNamespace(**{**ckpt["train_args"], "optimizer": "AdamW", "warmup_epochs": 0.0})
+    opt = optim.build_optimizer(model, hyp, 10, 100)
+    state = init_train_state(model, opt)
+    step = make_train_step(model, opt, hyp)
+    images, batch = shape_batch(4, 192, 8, seed=5)
+    x, b = torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in batch.items()}
+    losses = [step(state, x, b)["loss"].item() for _ in range(2)]
+    assert state.device.type == "cuda" and all(np.isfinite(losses)), losses

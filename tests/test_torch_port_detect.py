@@ -45,6 +45,17 @@ from tests.test_nms import numpy_greedy_nms
 from tests.test_torch_port_modules import _carry, _init, _randomize, _run_pair, _x
 from tests.test_torch_port_train import _f64, _np, _t
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 DETECT_CKPT = "runs/floor_detect/best.ckpt"
 # modules: f32 convs summed in another order than XLA's (CPU)
 MODULE_ATOL = 1e-4

@@ -33,6 +33,17 @@ from yolo_contour_regression_tpu_torch.engine.validator import DetectionValidato
 from yolo_contour_regression_tpu_torch.nn.tasks import YOLOV8, DetectionModel
 from yolo_contour_regression_tpu_torch.utils import checkpoint as tckpt
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 NARROW = copy.deepcopy(YOLOV8)
 NARROW.update(nc=2, scale="t", scales={"t": [0.33, 0.125, 256]})
 TRAIN = dict(task="detect", model=NARROW, epochs=2, imgsz=64, batch=4, nbs=4, workers=1,

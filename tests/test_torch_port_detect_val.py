@@ -13,6 +13,7 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+import torch
 
 from chip_smoke import (FLOOR_DETECT_TRAIN, FLOOR_DETECT_VAL, floor_detect_jax_metrics,
                         floor_detect_train_set, floor_detect_val_set)
@@ -23,6 +24,17 @@ from yolo_contour_regression_tpu.engine.validator import DetectionValidator as J
 from yolo_contour_regression_tpu_torch import YOLO
 from yolo_contour_regression_tpu_torch.data import dataset as tdataset
 from yolo_contour_regression_tpu_torch.engine.validator import DetectionValidator
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "runs" / "floor_detect" / "best.ckpt"

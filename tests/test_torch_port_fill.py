@@ -20,6 +20,17 @@ from yolo_contour_regression_tpu_torch.data import augment as taug
 from yolo_contour_regression_tpu_torch.engine.results import contours_to_masks
 from yolo_contour_regression_tpu_torch.ops import raster
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 CKPT = Path(__file__).resolve().parent.parent / "runs" / "floor_seg160" / "best.ckpt"
 H, W = 120, 160
 

@@ -30,6 +30,17 @@ from yolo_contour_regression_tpu_torch.utils.checkpoint import (from_jax_variabl
 
 from tests.test_torch_port_modules import _carry, _init, _randomize, _x
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 # fused against unfused (tests/test_fuse.py's tolerance): BatchNorm folded
 # into the kernel changes the f32 rounding
 FUSE_TOL = 1e-3

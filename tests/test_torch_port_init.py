@@ -25,6 +25,17 @@ from yolo_contour_regression_tpu_torch.nn.tasks import (
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     load_jax_variables, to_jax_variables)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 NARROW = copy.deepcopy(YOLOV8_SEG)
 NARROW.update(nc=2, scale="t", scales={"t": [0.33, 0.125, 256]})
 # a random kernel's std against JAX's (relative), where it has this many entries
@@ -72,14 +83,14 @@ def test_get_cfg_checks_probabilities():
                                   "yolov8l-seg.yaml", "yolov8x-seg.yaml", "yolov8-seg.yaml"])
 def test_yaml_model_load_matches_jax(name):
     """The config and scale letter JAX's ``yaml_model_load`` reads for the
-    name, and for its pose, proto-mask and classify counterparts (its
-    ``yaml_file`` path aside); other names (RT-DETR) are not ported."""
-    for n in (name, *(name.replace("-seg", t) for t in ("-pose", "-segori", "-cls"))):
+    name, and for its pose, proto-mask, classify and RT-DETR counterparts
+    (its ``yaml_file`` path aside); a name not ported raises."""
+    for n in (name, *(name.replace("-seg", t) for t in ("-pose", "-segori", "-cls", "-rtdetr"))):
         want = jax_yaml_model_load(n)
         want.pop("yaml_file")
         assert yaml_model_load(n) == want, n
     with pytest.raises(NotImplementedError, match="not ported"):
-        yaml_model_load(name.replace("-seg", "-rtdetr"))
+        yaml_model_load(name.replace("-seg", "-p6"))
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,17 @@ from yolo_contour_regression_tpu_torch.nn.tasks import YOLOV8_SEG, SegmentationM
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     from_jax_variables, load_jax_variables)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 # f32 convs summed in another order than XLA's (CPU): 1e-4 absolute on O(1)
 # activations after a few layers
 MODULE_ATOL = 1e-4

@@ -25,6 +25,17 @@ from yolo_contour_regression_tpu_torch.ops import raster as traster
 from chip_smoke import ray_contours, ray_inputs, ray_mismatches
 from tests.test_nms import numpy_greedy_nms
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 # f32 decode math in a different op order / fusion than XLA's: 1e-5 absolute
 # on pixel-scale values (< 1e3) is a few ulps
 DECODE_ATOL = 1e-5

@@ -34,6 +34,17 @@ from tests.test_torch_port_detect import _det_batch, _leaves
 from tests.test_torch_port_modules import _carry, _init, _randomize, _x
 from tests.test_torch_port_train import _f64, _np, _t
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 # the head's maps and the decode (f32 convs summed in other orders)
 HEAD_ATOL = 1e-3
 # the pose loss on the same head maps (relative), its gradient (relative,

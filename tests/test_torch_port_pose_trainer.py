@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests.helpers import make_pose_dataset
 from tests.test_torch_port_trainer import IDENTITY_AUG, LOSS_RTOL, METRIC_ATOL, _np_tree, _rows
@@ -33,6 +34,17 @@ from yolo_contour_regression_tpu_torch.engine import trainer as ttrainer
 from yolo_contour_regression_tpu_torch.engine.validator import PoseValidator
 from yolo_contour_regression_tpu_torch.nn.tasks import YOLOV8_POSE, PoseModel
 from yolo_contour_regression_tpu_torch.utils import checkpoint as tckpt
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 NARROW = copy.deepcopy(YOLOV8_POSE)
 NARROW.update(nc=1, scale="t", scales={"t": [0.33, 0.125, 256]})

@@ -53,6 +53,17 @@ from yolo_contour_regression_tpu_torch.utils import metrics as tmetrics
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     checkpoint_variables, load_checkpoint, load_jax_variables, to_jax_variables)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "runs" / "floor_pose" / "best.ckpt"
 FLOOR = json.loads((ROOT / "runs" / "floor_pose" / "floor.json").read_text())

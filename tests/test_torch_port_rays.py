@@ -36,6 +36,17 @@ import torch
 from chip_smoke import RAY_SCENES, ray_contours, ray_inputs, ray_scenes
 from yolo_contour_regression_tpu_torch.ops import polar
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 F = np.float32
 BINS = polar.NUM_CONTOUR_POINTS  # csrc/gt_rays.cu: kBins, 1 degree each
 BINS_PER_RAY = BINS // polar.NUM_RAYS

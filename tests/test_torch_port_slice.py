@@ -23,6 +23,17 @@ from yolo_contour_regression_tpu_torch.ops.polar import VALID_RAY_THRESH
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     checkpoint_variables, from_jax_variables, load_checkpoint, load_jax_variables)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 CKPT = Path(__file__).resolve().parent.parent / "runs" / "floor_seg160" / "best.ckpt"
 IMGSZ = 160
 # f32 on both sides; conv sums in other orders (XLA CPU vs oneDNN)

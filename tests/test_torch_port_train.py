@@ -41,6 +41,17 @@ from yolo_contour_regression_tpu_torch.utils.checkpoint import (
 from tests.test_torch_port_modules import _carry, _randomize
 from tests.test_torch_port_slice import CKPT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 # BatchNorm running statistics after one update: O(1) values, a few ulps
 BN_TOL = 1e-6
 # assigner targets: f32 on both sides, summed in other orders

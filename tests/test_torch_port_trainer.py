@@ -19,6 +19,7 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+import torch
 
 from tests.helpers import make_shape_dataset
 from yolo_contour_regression_tpu.data import build as jbuild
@@ -31,6 +32,17 @@ from yolo_contour_regression_tpu_torch import YOLO
 from yolo_contour_regression_tpu_torch.engine import trainer as ttrainer
 from yolo_contour_regression_tpu_torch.nn.tasks import YOLOV8_SEG
 from yolo_contour_regression_tpu_torch.utils import checkpoint as tckpt
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    """Two torch threads while this module runs: under the suite's parallel
+    workers torch's default, one thread per core in every worker,
+    oversubscribes the CPU and slows the port's side many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 NARROW = copy.deepcopy(YOLOV8_SEG)
 NARROW.update(nc=2, scale="t", scales={"t": [0.33, 0.125, 256]})
@@ -335,17 +347,19 @@ def test_strip_optimizer_matches_jax(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    """The host cv2 train pipeline, resume, another task's model and the
-    models of tasks not ported raise ``NotImplementedError`` naming what is
-    missing."""
+    """The host cv2 train pipeline, resume and another task's model raise
+    ``NotImplementedError`` naming what is missing; the RT-DETR facade
+    builds, and its ``train`` raises naming the host pipeline it needs."""
     for over, match in ((dict(device_augment=False), "host cv2 train pipeline"),
                         (dict(mosaic9=0.5), "mosaic9"), (dict(copy_paste=0.1), "copy_paste"),
                         (dict(resume=True), "resume"), (dict(task="detect"), "task")):
         with pytest.raises(NotImplementedError, match=match):
             ttrainer.SegmentationTrainer(overrides={**over, "project": str(tmp_path)},
                                          device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        YOLO("yolov8n-rtdetr.yaml", device="cpu")
+    rtdetr = YOLO("yolov8n-rtdetr.yaml", device="cpu")
+    assert rtdetr.task == "rtdetr" and rtdetr.model is None
+    with pytest.raises(NotImplementedError, match="host cv2 train pipeline"):
+        rtdetr.train(data={}, project=str(tmp_path))
 
 
 def test_a_fresh_facade_has_no_weights_until_trained():

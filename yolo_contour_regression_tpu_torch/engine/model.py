@@ -1,5 +1,5 @@
-"""The ``YOLO`` facade of the segment, detect, pose, segment_ori and classify
-tasks (counterpart of the JAX package's ``engine/model.py``)::
+"""The ``YOLO`` facade of the segment, detect, pose, segment_ori, classify
+and rtdetr tasks (counterpart of the JAX package's ``engine/model.py``)::
 
     model = YOLO("yolov8n-seg.yaml", device="cuda")     # a fresh polar model
     metrics = model.train(data={"train": (images, labels), "val": (images, labels),
@@ -12,13 +12,15 @@ tasks (counterpart of the JAX package's ``engine/model.py``)::
     YOLO("yolov8n-segori.yaml").train(data=...)          # proto masks: results[0].masks
     model = YOLO("runs/floor_classify/best.ckpt")        # classify: results[0].probs
     metrics = model.val([img_bgr_u8, ...], [0, 1, ...], imgsz=64)  # labels: class indices
+    model = YOLO("runs/floor_rtdetr/best.ckpt")          # RT-DETR: no NMS; predict, val, fuse
 
 A name ending in ``.yaml`` names a fresh model (``nn/tasks.py``:
 ``yaml_model_load``; ``yolov8n-seg.yaml`` is the polar segment task,
 ``yolov8n.yaml`` detect, ``yolov8n-pose.yaml`` pose, ``yolov8n-segori.yaml``
-segment_ori, ``yolov8n-cls.yaml`` classify) that has no weights until
-``train`` builds and initializes it from ``seed`` and adopts its
-``best.ckpt``; anything else is a checkpoint of one of those tasks of the
+segment_ori, ``yolov8n-cls.yaml`` classify, ``yolov8n-rtdetr.yaml`` rtdetr)
+that has no weights until ``train`` builds and initializes it from ``seed``
+and adopts its ``best.ckpt`` (RT-DETR trains through JAX's host cv2
+pipeline, which is not ported: its ``train`` raises); anything else is a checkpoint of one of those tasks of the
 JAX package, in its
 training form or fused (``deploy == "fused"``, as the JAX ``YOLO.save``
 writes it after ``fuse()``), or one the port's trainer wrote. The task
@@ -32,6 +34,8 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from ..models.rtdetr.predict import RTDETRPredictor
+from ..models.rtdetr.val import RTDETRValidator
 from ..nn.fuse import fuse_model
 from ..nn.tasks import TASK_MODELS, TaskModel, build_model, guess_model_task, yaml_model_load
 from ..utils.checkpoint import checkpoint_variables, load_checkpoint, load_jax_variables
@@ -41,6 +45,16 @@ from .trainer import (ClassificationTrainer, DetectionTrainer, PoseTrainer, Segm
                       SegmentationTrainer)
 from .validator import (ClassificationValidator, DetectionValidator, PoseValidator,
                         SegmentationOriValidator, SegmentationValidator)
+
+
+class RTDETRTrainer:
+    """JAX trains RT-DETR through its host cv2 train pipeline
+    (``data/build.py`` admits only detect, segment, segment_ori and pose to
+    the device augmentation), which is not ported: raises."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError("the RT-DETR trainer needs the host cv2 train pipeline "
+                                  "(device_augment=false), which is not ported")
 
 # each task's predictor, validator and trainer (the JAX ``TASK_MAP``, for the ported tasks)
 TASK_MAP = {
@@ -53,6 +67,8 @@ TASK_MAP = {
                     "trainer": SegmentationOriTrainer},
     "classify": {"predictor": ClassificationPredictor, "validator": ClassificationValidator,
                  "trainer": ClassificationTrainer},
+    "rtdetr": {"predictor": RTDETRPredictor, "validator": RTDETRValidator,
+               "trainer": RTDETRTrainer},
 }
 
 
@@ -63,15 +79,18 @@ def _check_task(task: str) -> str:
 
 
 class YOLO:
-    """User-facing model handle: a model's weights on ``device``."""
+    """User-facing model handle: a model's weights on ``device``. ``task``,
+    if given, must be the model's (``RTDETR`` passes "rtdetr")."""
 
-    def __init__(self, model: Union[str, Path], device="cuda"):
+    def __init__(self, model: Union[str, Path], device="cuda", task: Optional[str] = None):
         self.device = torch.device(device)
         self.ckpt_path: Optional[Path] = None
         if str(model).endswith((".yaml", ".yml")):
             self._new(str(model))
         else:
             self._load(model)
+        if task is not None and task != self.task:
+            raise ValueError(f"{model} is a {self.task!r} model, not {task!r}")
 
     def _new(self, name: str):
         self.task = _check_task(guess_model_task(yaml_model_load(name)))

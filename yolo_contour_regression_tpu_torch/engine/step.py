@@ -1,9 +1,17 @@
 """The training step (counterpart of the JAX package's ``engine/step.py``):
 the augmentation on the device, forward in train mode, the loss,
 backward, gradient clip, optimizer step and EMA, for the segment, detect,
-pose, segment_ori and classify tasks (the loss by the model's ``task``: the
-polar loss, the stock detect loss, the pose or the proto-mask loss on the
-detect loss's assignment, or the classify cross-entropy).
+pose, segment_ori, classify and rtdetr tasks (the loss by the model's
+``task``: the polar loss, the stock detect loss, the pose or the
+proto-mask loss on the detect loss's assignment, the classify
+cross-entropy, or the RT-DETR criterion with contrastive denoising).
+
+RT-DETR: each step draws its CDN groups (``models/utils/ops.py``) from a
+generator seeded from ``(17, step)``, as the JAX step folds ``step`` into
+``PRNGKey(17)`` (the draws are not JAX's); ``dn_fn(batch, step)``, if
+given, makes the dn dict instead (a test hands the port JAX's). Its marks
+are "forward" (the CDN draw included), "matching" (the cost and the
+auction), "loss", "backward" and "clip_optimizer_ema".
 
 The public boundary keeps the JAX layouts: images (B, H, W, 3) f32 in
 [0, 1]; batch ``cls`` (B, N), ``bboxes`` (B, N, 4) normalized xywh,
@@ -48,13 +56,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.utils.loss import rtdetr_loss
+from ..models.utils.ops import cdn_generator, get_cdn_group
 from ..utils import optim as optim_mod
 from ..utils.loss import (classification_loss, detect_loss, detect_targets, polar_loss,
                           polar_targets, pose_loss, segmentation_ori_loss)
 
 Mark = Optional[Callable[[str], None]]
 # the tasks whose loss the step takes
-TASKS = ("segment", "detect", "pose", "segment_ori", "classify")
+TASKS = ("segment", "detect", "pose", "segment_ori", "classify", "rtdetr")
 
 
 def _no_mark(stage: str):
@@ -80,12 +90,13 @@ def init_train_state(model: nn.Module, optimizer: optim_mod.Optimizer,
     return TrainState(model=model, optimizer=optimizer, ema=ema, device=device, step=0)
 
 
-def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool = False
-                 ) -> Callable:
-    """(images (B, H, W, 3), batch) -> (total, items) for the model's task;
-    the model runs as it is (train mode updates its BatchNorm statistics),
-    under bfloat16 autocast with ``amp``. A fused (deploy) model does not
-    train."""
+def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool = False,
+                 dn_fn: Optional[Callable] = None) -> Callable:
+    """(images (B, H, W, 3), batch, step=0) -> (total, items) for the
+    model's task; the model runs as it is (train mode updates its BatchNorm
+    statistics), under bfloat16 autocast with ``amp``. ``step`` seeds
+    RT-DETR's CDN draws (``dn_fn``: see the module docstring). A fused
+    (deploy) model does not train."""
     task = getattr(model, "task", "segment")
     if task not in TASKS:
         raise NotImplementedError(f"task {task!r} is not ported; only {TASKS}")
@@ -93,8 +104,16 @@ def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool =
         raise ValueError("a fused (deploy) model is inference-only")
     mark = mark or _no_mark
 
-    def loss_fn(images, batch):
+    def loss_fn(images, batch, step: int = 0):
         mark("forward")
+        if task == "rtdetr":
+            dn = (dn_fn(batch, step) if dn_fn is not None
+                  else get_cdn_group(batch, model.nc, cdn_generator(step)))
+            with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=amp):
+                outs = model(images.permute(0, 3, 1, 2).contiguous(), dn=dn)
+            if amp:  # the criterion in float32 on the bfloat16 outputs
+                outs = tuple(o.float() for o in outs)
+            return rtdetr_loss(outs, batch, model.nc, dn=dn, mark=mark)
         with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=amp):
             feats = model(images.permute(0, 3, 1, 2).contiguous())
         mark("assigner")
@@ -123,11 +142,11 @@ def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool =
 
 def make_train_step(model: nn.Module, optimizer: optim_mod.Optimizer, hyp, cand=128,
                     accumulate: int = 1, mark: Mark = None, augment_fn=None, aug_seed: int = 0,
-                    amp: bool = False) -> Callable:
+                    amp: bool = False, dn_fn: Optional[Callable] = None) -> Callable:
     """The step: ``step(state, images, batch) -> metrics``, 0-dim tensors
     left on the device (reading them is the caller's sync). ``mark``,
-    ``augment_fn`` and ``amp``: see the module docstring."""
-    loss_fn = make_loss_fn(model, hyp, cand=cand, mark=mark, amp=amp)
+    ``augment_fn``, ``amp`` and ``dn_fn``: see the module docstring."""
+    loss_fn = make_loss_fn(model, hyp, cand=cand, mark=mark, amp=amp, dn_fn=dn_fn)
     mark = mark or _no_mark
 
     def micro_loss(state, images, batch, *micro):
@@ -135,7 +154,7 @@ def make_train_step(model: nn.Module, optimizer: optim_mod.Optimizer, hyp, cand=
             mark("augment")
             rng = np.random.default_rng([int(aug_seed), state.step, *micro])
             images, batch = augment_fn(rng, images, batch)
-        total, items = loss_fn(images, batch)
+        total, items = loss_fn(images, batch, state.step)
         mark("backward")
         total.backward()
         return total.detach(), {k: v.detach() for k, v in items.items()}

@@ -75,6 +75,7 @@ class DetectionValidator:
 
     task = "detect"
     eval_keys = DETECT_EVAL_KEYS
+    confusion = True  # the confusion matrix (JAX's RT-DETR validator keeps none)
 
     def __init__(self, imgsz: int = 640, batch: int = 16, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024,
@@ -135,7 +136,7 @@ class DetectionValidator:
         device = next(model.parameters()).device
         names = names if names is not None else getattr(model, "names", {})
         metrics = self.new_metrics(names)
-        cm = ConfusionMatrix(model.nc)
+        cm = ConfusionMatrix(model.nc) if self.confusion else None
         t = dict.fromkeys(("preprocess", "eval", "matching"), 0.0)
         n_img = 0
         batches = iter(self.loader(images, labels))
@@ -155,8 +156,9 @@ class DetectionValidator:
                 conf = out["scores"][bi][keep]
                 tcls = batch["cls"][bi][gt_keep]
                 self.update(metrics, out, bi, keep, gt_keep, pred_cls, conf, tcls, batch)
-                cm.process_batch(out["boxes"][bi][keep], pred_cls, conf,
-                                 out["gt_boxes"][bi][gt_keep], tcls)
+                if cm is not None:
+                    cm.process_batch(out["boxes"][bi][keep], pred_cls, conf,
+                                     out["gt_boxes"][bi][gt_keep], tcls)
             n_img += batch["img"].shape[0]
             t3 = time.perf_counter()
             t["preprocess"] += t1 - t0

@@ -1,6 +1,7 @@
 """The polar-contour segment head, the stock YOLOv8 detect head, the
-keypoint head, the proto-mask segment head, the classify head, and their
-decodes (counterpart of the JAX package's ``nn/modules/head.py``).
+keypoint head, the proto-mask segment head, the classify head, their
+decodes, and the RT-DETR decoder head (counterpart of the JAX package's
+``nn/modules/head.py``).
 
 ``PolarSegment``, ``Detect`` and ``Pose`` return raw per-level maps in NCHW,
 ``SegmentProto`` those and its prototypes; the decode helpers take those
@@ -9,6 +10,7 @@ level as ``make_anchors`` orders them. ``Classify`` returns probabilities.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -18,6 +20,7 @@ from ...ops import polar as polar_ops
 from ...ops.boxes import dist2bbox
 from .block import Proto
 from .conv import Conv
+from .transformer import LN_EPS, MLP, DeformableTransformerDecoderLayer, Embed, inverse_sigmoid
 
 
 class PolarSegment(nn.Module):
@@ -203,3 +206,134 @@ def decode_pose(kpt_raw: torch.Tensor, strides: Sequence[int], feat_hw, kpt_shap
     if kpt_shape[1] == 3:
         return torch.cat([xy, torch.sigmoid(k[..., 2:3])], dim=-1)
     return xy
+
+
+def _grid_anchors(shapes, device) -> torch.Tensor:
+    """The decoder's grid anchors (1, V, 4), normalized cxcywh in float32:
+    centers ``((x + 0.5) / w, (y + 0.5) / h)`` row-major per level (JAX
+    normalizes x by w and y by h, fixing the reference's swap), sizes
+    ``0.05 * 2^level``."""
+    out = []
+    for i, (h, w) in enumerate(shapes):
+        gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+                                torch.arange(w, dtype=torch.float32, device=device),
+                                indexing="ij")
+        xy = torch.stack([(gx + 0.5) / w, (gy + 0.5) / h], -1).reshape(-1, 2)
+        out.append(torch.cat([xy, torch.full_like(xy, 0.05 * (2.0 ** i))], -1))
+    return torch.cat(out, 0)[None]
+
+
+def dn_attn_mask(G: int, per_group: int, nq: int, device) -> torch.Tensor:
+    """The self-attention mask (1, 1, T, T), True where a row may attend,
+    for ``G`` dn groups of ``per_group`` queries ahead of ``nq`` matching
+    queries: matching rows see only matching queries; dn rows see their own
+    group and the matching queries."""
+    gid = torch.arange(G, device=device).repeat_interleave(per_group)
+    row_g = torch.cat([gid, torch.full((nq,), -1, device=device, dtype=gid.dtype)])
+    is_match = row_g < 0
+    same_group = row_g[:, None] == row_g[None, :]
+    allow = ((is_match[:, None] & is_match[None, :]) | (~is_match[:, None] & is_match[None, :])
+             | (same_group & ~is_match[:, None]))
+    return allow[None, None]
+
+
+class RTDETRDecoder(nn.Module):
+    """The RT-DETR decoder head: a 1x1 Conv + BN (no activation)
+    ``input_proj{i}`` a level to ``hd`` channels, the levels' tokens
+    concatenated (each flattened row-major over (h, w) from NHWC), an
+    encoder head (``enc_output`` Dense + ``enc_output_ln``) scoring every
+    token, the top ``min(nq, V)`` tokens by their best class score (a
+    stable descending sort: ties to the lowest index, as ``lax.top_k``)
+    as queries with their anchors' boxes refined by ``enc_bbox_head``, then
+    ``ndl`` deformable decoder layers, each refining the boxes
+    (``dec_bbox_head{i}``) and scoring them (``dec_score_head{i}``).
+
+    Anchors outside (0.01, 0.99) get zero features and a ``+inf`` logit
+    (``sigmoid`` 1, gradient 0). Eval (``self.training`` False) gives (B,
+    nq, 4 + nc): the last layer's normalized cxcywh boxes and sigmoid
+    scores. Train gives (dec_bboxes (ndl, B, T, 4), dec_scores (ndl, B, T,
+    nc) logits, enc_bboxes (B, nq, 4), enc_scores (B, nq, nc) logits); with
+    a ``dn`` dict (``models/utils/ops.py:get_cdn_group``) its G x 2 x N
+    noised queries go ahead of the nq matching queries (T = G * 2 * N +
+    nq) under ``dn_attn_mask``. In train mode the query features and their
+    refer boxes are detached; layer i > 0's box comes from the undetached
+    previous refinement, while the refer fed forward is detached (JAX's
+    ``last_refined`` chain)."""
+
+    def __init__(self, nc: int = 80, ch: Sequence[int] = (), hd: int = 256, nq: int = 300,
+                 ndp: int = 4, nh: int = 8, ndl: int = 6, d_ffn: int = 1024):
+        super().__init__()
+        self.nc, self.hd, self.nq, self.ndl = nc, hd, nq, ndl
+        self.nl = len(ch)
+        for i, c in enumerate(ch):
+            self.add_module(f"input_proj{i}", Conv(c, hd, 1, 1, act=False))
+        self.enc_output = nn.Linear(hd, hd)
+        self.enc_output_ln = nn.LayerNorm(hd, eps=LN_EPS)
+        self.enc_score_head = nn.Linear(hd, nc)
+        self.enc_bbox_head = MLP(hd, hd, 4, 3)
+        self.denoising_class_embed = Embed(nc, hd)
+        self.query_pos_head = MLP(4, 2 * hd, hd, 2)
+        for i in range(ndl):
+            self.add_module(f"dec_layer{i}", DeformableTransformerDecoderLayer(
+                hd, nh, d_ffn, self.nl, ndp))
+            self.add_module(f"dec_bbox_head{i}", MLP(hd, hd, 4, 3))
+            self.add_module(f"dec_score_head{i}", nn.Linear(hd, nc))
+
+    def forward(self, feats: Sequence[torch.Tensor], dn=None):
+        train = self.training
+        shapes = [(f.shape[2], f.shape[3]) for f in feats]
+        B = feats[0].shape[0]
+        tokens = [getattr(self, f"input_proj{i}")(f).permute(0, 2, 3, 1).reshape(B, -1, self.hd)
+                  for i, f in enumerate(feats)]
+        feats_flat = torch.cat(tokens, 1)  # (B, V, hd)
+        dtype = feats_flat.dtype
+        anchors = _grid_anchors(shapes, feats_flat.device)
+        valid = ((anchors > 1e-2) & (anchors < 1 - 1e-2)).all(-1, keepdim=True)
+        anchors_logit = torch.where(valid, inverse_sigmoid(anchors),
+                                    torch.full_like(anchors, math.inf)).to(dtype)
+
+        enc_feats = self.enc_output_ln(self.enc_output(feats_flat * valid))
+        enc_scores_all = self.enc_score_head(enc_feats)
+        nq = min(self.nq, enc_scores_all.shape[1])
+        order = torch.sort(enc_scores_all.amax(-1), dim=-1, descending=True, stable=True)[1]
+        topk = order[:, :nq]  # (B, nq)
+        top_feats = enc_feats.gather(1, topk[..., None].expand(-1, -1, self.hd))
+        top_anchors = anchors_logit.expand(B, -1, -1).gather(1, topk[..., None].expand(-1, -1, 4))
+        refer_logit = self.enc_bbox_head(top_feats) + top_anchors
+        enc_bboxes = torch.sigmoid(refer_logit)
+        enc_scores = enc_scores_all.gather(1, topk[..., None].expand(-1, -1, self.nc))
+
+        embed = top_feats.detach() if train else top_feats
+        refer_l = refer_logit.detach() if train else refer_logit
+        attn_mask = None
+        if train and dn is not None:
+            _, G, two, N = dn["labels"].shape
+            dn_q = G * two * N
+            labels = dn["labels"].clamp(0, self.nc - 1)
+            dn_embed = self.denoising_class_embed(labels).reshape(B, dn_q, self.hd)
+            dn_bbox = dn["boxes_logit"].reshape(B, dn_q, 4).to(dtype)
+            embed = torch.cat([dn_embed, embed], 1)
+            refer_l = torch.cat([dn_bbox, refer_l], 1)
+            attn_mask = dn_attn_mask(G, two * N, nq, embed.device)
+        refer = torch.sigmoid(refer_l)
+
+        dec_bboxes, dec_scores = [], []
+        last_refined = None
+        for i in range(self.ndl):
+            embed = getattr(self, f"dec_layer{i}")(embed, refer, feats_flat, shapes,
+                                                   attn_mask=attn_mask,
+                                                   query_pos=self.query_pos_head(refer))
+            delta = getattr(self, f"dec_bbox_head{i}")(embed)
+            refined = torch.sigmoid(delta + inverse_sigmoid(refer))
+            if train:
+                dec_scores.append(getattr(self, f"dec_score_head{i}")(embed))
+                dec_bboxes.append(refined if i == 0 else
+                                  torch.sigmoid(delta + inverse_sigmoid(last_refined)))
+                last_refined = refined
+                refer = refined.detach()
+            else:
+                refer = refined
+        if train:
+            return torch.stack(dec_bboxes), torch.stack(dec_scores), enc_bboxes, enc_scores
+        scores = getattr(self, f"dec_score_head{self.ndl - 1}")(embed)
+        return torch.cat([refer, torch.sigmoid(scores)], -1)  # (B, nq, 4 + nc)

@@ -10,12 +10,13 @@ yaml parser is needed. Layers are registered as ``model.{i}`` so the
 state-dict keys are the reference's. Strides are tracked through the graph
 instead of calibrated by a dummy forward.
 
-Five task models: ``SegmentationModel`` (the polar ``Segment`` head),
+Six task models: ``SegmentationModel`` (the polar ``Segment`` head),
 ``DetectionModel`` (the stock ``Detect`` head with DFL), ``PoseModel``
 (the ``Pose`` head: ``Detect`` and a keypoint branch),
 ``SegmentationOriModel`` (the proto-mask ``Segmentori`` head: ``Detect``,
-mask coefficients and prototypes) and ``ClassificationModel`` (the
-``Classify`` head); ``build_model`` picks one by the config's head
+mask coefficients and prototypes), ``ClassificationModel`` (the
+``Classify`` head) and ``RTDETRDetectionModel`` (the ``RTDETRDecoder``
+head); ``build_model`` picks one by the config's head
 (``guess_model_task``).
 ``yaml_model_load`` maps a model name to its config dict, and
 ``init_weights`` gives a fresh model the JAX package's initialization.
@@ -34,6 +35,7 @@ from torch import nn
 from .modules import block as block_mod
 from .modules import conv as conv_mod
 from .modules import head as head_mod
+from .modules import transformer as tr_mod
 
 # cfg/models/yolov8-seg.yaml of the JAX package as a dict: RepConv/RepBlock
 # backbone, SPPF, Conv2 PAN neck and the polar Segment head (36 rays).
@@ -143,6 +145,18 @@ YOLOV8_CLS: Dict[str, Any] = {
     "head": [[-1, 1, "Classify", ["nc"]]],  # 9
 }
 
+# cfg/models/yolov8-rtdetr.yaml of the JAX package as a dict: the yolov8
+# graph with the RT-DETR decoder head (hd 256, nq 300, 8 heads, 4 points, 6
+# layers, d_ffn 1024, the JAX module's defaults)
+YOLOV8_RTDETR: Dict[str, Any] = {
+    "nc": 80,
+    "scales": copy.deepcopy(YOLOV8_SEG["scales"]),
+    "backbone": copy.deepcopy(YOLOV8["backbone"]),
+    "head": copy.deepcopy(YOLOV8["head"][:-1]) + [
+        [[15, 18, 21], 1, "RTDETRDecoder", ["nc"]],  # 22
+    ],
+}
+
 # config name -> (module class, positional field names after c1, kind)
 REGISTRY = {
     "Conv": (conv_mod.Conv, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
@@ -159,6 +173,7 @@ REGISTRY = {
     "Pose": (head_mod.Pose, ("nc", "kpt_shape"), "head"),
     "Segmentori": (head_mod.SegmentProto, ("nc", "nm", "npr"), "head"),
     "Classify": (head_mod.Classify, ("nc",), "head"),
+    "RTDETRDecoder": (head_mod.RTDETRDecoder, ("nc",), "head"),
 }
 # a head's config name -> its task (the JAX ``HEAD_TASKS``)
 HEAD_TASKS = {"Segment": "segment", "Segmentori": "segment_ori", "Detect": "detect",
@@ -280,7 +295,9 @@ class GraphModel(nn.Module):
         self.specs, self.save, self.head_spec = parse_model(cfg, ch=ch)
         self.model = nn.ModuleList(build_layer(s) for s in self.specs)
 
-    def forward(self, x):
+    def forward(self, x, **head_kw):
+        """x (B, 3, H, W) -> the head's output; ``head_kw`` goes to the head
+        alone (RT-DETR's ``dn``)."""
         y: Dict[int, Any] = {}
         out = x
         for spec, m in zip(self.specs, self.model):
@@ -288,7 +305,7 @@ class GraphModel(nn.Module):
                 inp = out if spec.f == -1 else y[spec.f]
             else:
                 inp = [out if j == -1 else y[j] for j in spec.f]
-            out = m(inp)
+            out = m(inp, **head_kw) if head_kw and spec is self.head_spec else m(inp)
             if spec.i in self.save:
                 y[spec.i] = out
         return out  # head output
@@ -422,8 +439,27 @@ class ClassificationModel(TaskModel):
         return self(x)
 
 
+class RTDETRDetectionModel(TaskModel):
+    """The RT-DETR model: ``forward(x, dn=None)`` gives the decoder's train
+    or eval output (``RTDETRDecoder``), ``predict`` (its decode is the
+    identity) (B, nq, 4 + nc), normalized cxcywh boxes and sigmoid scores;
+    no anchors, no NMS. Strides (8, 16, 32), as JAX's."""
+
+    task = "rtdetr"
+    head_name = "RTDETRDecoder"
+
+    def __init__(self, cfg: Optional[dict] = None, nc: Optional[int] = None, ch: int = 3):
+        super().__init__(cfg if cfg is not None else YOLOV8_RTDETR, nc=nc, ch=ch)
+        self.strides = (8, 16, 32)
+
+    def predict(self, x):
+        """x (B, 3, H, W) float -> (B, nq, 4 + nc)."""
+        return self(x)
+
+
 TASK_MODELS = {"segment": SegmentationModel, "detect": DetectionModel, "pose": PoseModel,
-               "segment_ori": SegmentationOriModel, "classify": ClassificationModel}
+               "segment_ori": SegmentationOriModel, "classify": ClassificationModel,
+               "rtdetr": RTDETRDetectionModel}
 
 
 def guess_model_task(cfg: dict) -> str:
@@ -444,7 +480,8 @@ def build_model(cfg: dict, nc: Optional[int] = None) -> TaskModel:
 # the ported model configs, by the base name of their yaml in the JAX package
 MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG, "yolov8": YOLOV8,
                                          "yolov8-pose": YOLOV8_POSE,
-                                         "yolov8-segori": YOLOV8_SEGORI, "yolov8-cls": YOLOV8_CLS}
+                                         "yolov8-segori": YOLOV8_SEGORI, "yolov8-cls": YOLOV8_CLS,
+                                         "yolov8-rtdetr": YOLOV8_RTDETR}
 
 
 def yaml_model_load(name) -> Dict[str, Any]:
@@ -491,7 +528,13 @@ def init_weights(model: TaskModel, generator: torch.Generator):
     ``detect`` child, their keypoint and coefficient biases keep their 0;
     the classify head has no priors, its ``linear`` drawn as a conv with
     ``fan_in`` its input width and its bias 0, as flax's ``Dense``). The
-    draws come from ``generator`` (a CPU ``torch.Generator``), not JAX's."""
+    draws come from ``generator`` (a CPU ``torch.Generator``), not JAX's.
+
+    RT-DETR (``_init_rtdetr``): every Dense and attention kernel is drawn
+    as a conv's (the attention's DenseGeneral with ``fan_in`` its input
+    width), LayerNorm scale 1 and bias 0, the ``nn.Embed`` table flax's
+    untruncated normal of std ``sqrt(1 / hd)``; then the head's own priors
+    in place of the anchor heads'."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             w = torch.empty(m.weight.shape)
@@ -499,8 +542,20 @@ def init_weights(model: TaskModel, generator: torch.Generator):
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
+        elif isinstance(m, tr_mod.DenseGeneral):
+            fan_in = math.prod(m.in_shape)
+            w = torch.empty(fan_in, math.prod(m.out_shape))
+            _trunc_normal_(w, math.sqrt(1.0 / fan_in) / TRUNC_NORMAL_STD, generator)
+            m.kernel.copy_(w.reshape(m.kernel.shape))
+            m.bias.zero_()
+        elif isinstance(m, tr_mod.Embed):
+            m.embedding.copy_(torch.randn(m.embedding.shape, generator=generator)
+                              * math.sqrt(1.0 / m.embedding.shape[1]))
+    if model.task == "rtdetr":
+        _init_rtdetr(model.model[-1])
+        return model
     if model.task == "classify":
         return model
     head = model.model[-1]
@@ -510,3 +565,24 @@ def init_weights(model: TaskModel, generator: torch.Generator):
         if model.task == "segment":
             head.cv2[i][2].bias.fill_(1.0)
     return model
+
+
+def _init_rtdetr(head: head_mod.RTDETRDecoder):
+    """The RT-DETR head's priors (JAX ``RTDETRDecoder`` and its modules'
+    initializers): each score head's bias ``-log((1 - 0.01) / 0.01)``, the
+    last layer of every bbox MLP zeroed, and in each ``MSDeformAttn`` the
+    ``sampling_offsets`` kernel zeroed with its bias the directional grid
+    and ``attention_weights`` zeroed. (JAX's anchor-head bias pass leaves an
+    empty ``detect`` subtree here; ``utils/checkpoint.py`` restores it.)"""
+    prior = -math.log((1 - 0.01) / 0.01)
+    for i in range(head.ndl):
+        getattr(head, f"dec_score_head{i}").bias.fill_(prior)
+        getattr(head, f"dec_bbox_head{i}").layers2.weight.zero_()
+        attn = getattr(head, f"dec_layer{i}").cross_attn
+        attn.sampling_offsets.weight.zero_()
+        attn.sampling_offsets.bias.copy_(
+            tr_mod.offset_bias(attn.n_heads, attn.n_levels, attn.n_points))
+        attn.attention_weights.weight.zero_()
+        attn.attention_weights.bias.zero_()
+    head.enc_score_head.bias.fill_(prior)
+    head.enc_bbox_head.layers2.weight.zero_()

@@ -24,6 +24,16 @@ inverts the name map of the JAX package's
     (Classify's Dense, transposed; its ``conv`` is a Conv like any other)
   RepConv conv1.conv/conv1.bn/         RepConv conv1/bn1/
           conv2.conv/conv2.bn/bn               conv2/bn2/bn_id
+  model.{i}.{...}.norm1.weight         params.layer{i}.{...}.norm1.scale
+    (LayerNorm: its 1-D weight is the scale, as BatchNorm's)
+  model.{i}.{...}.embedding            params.layer{i}.{...}.embedding
+    (nn.Embed's table, as it is)
+  model.{i}.{...}.query.kernel         params.layer{i}.{...}.query.kernel
+    (the attention's DenseGeneral kernels, (C, nh, hd) and (nh, hd, C),
+    and their biases, in JAX's shapes)
+  (none)                               params.layer{i}.detect = {}
+    (RT-DETR: JAX's anchor-head bias pass leaves an empty ``detect``
+    subtree in the decoder head; ``to_jax_variables`` puts it back)
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ _LEAF_MAP = {
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
     ("params", "kernel"): "weight",
+    ("params", "embedding"): "embedding",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -126,10 +137,12 @@ def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, tor
             if leaf is None:
                 raise KeyError(f"no mapping for {coll}/{'/'.join(path)}")
             arr = np.asarray(arr, np.float32)
-            if path[-1] == "kernel":
+            if path[-1] == "kernel" and arr.ndim == 3:  # DenseGeneral: kept as it is
+                leaf = "kernel"
+            elif path[-1] == "kernel":
                 if arr.ndim not in (2, 4):
-                    raise ValueError(f"{'/'.join(path)}: expected an HWIO or a Dense kernel, "
-                                     f"got {arr.shape}")
+                    raise ValueError(f"{'/'.join(path)}: expected an HWIO, a Dense or a "
+                                     f"DenseGeneral kernel, got {arr.shape}")
                 arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             key = ".".join(_module_path(path[:-1]) + (leaf,))
             if key in sd:
@@ -188,9 +201,11 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict
     """A state dict with the reference's keys (or a dict of parameters
     only, such as the EMA) -> JAX ``(params, batch_stats)`` numpy trees; the
     exact inverse of ``from_jax_variables``. Conv kernels go OIHW -> HWIO,
-    Linear weights (out, in) -> Dense kernels (in, out);
-    BatchNorm's ``num_batches_tracked`` has no JAX counterpart and is
-    dropped."""
+    Linear weights (out, in) -> Dense kernels (in, out), LayerNorm weights
+    -> scales, DenseGeneral kernels and Embed tables as they are, and an
+    RT-DETR head (one with ``enc_score_head``) gets JAX's empty ``detect``
+    subtree; BatchNorm's ``num_batches_tracked`` has no JAX counterpart and
+    is dropped."""
     keys = set(state_dict)
     trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
@@ -203,8 +218,8 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict
             coll, jleaf = "batch_stats", "mean"
         elif leaf == "running_var":
             coll, jleaf = "batch_stats", "var"
-        elif leaf == "bias":
-            coll, jleaf = "params", "bias"
+        elif leaf in ("bias", "kernel", "embedding"):
+            coll, jleaf = "params", leaf
         elif leaf == "weight" and arr.ndim == 4:
             coll, jleaf = "params", "kernel"
             arr = arr.transpose(2, 3, 1, 0)
@@ -221,6 +236,9 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict
         if jleaf in node:
             raise KeyError(f"two keys map to {coll}/{key}")
         node[jleaf] = np.ascontiguousarray(arr)
+    for layer in trees["params"].values():
+        if "enc_score_head" in layer:
+            layer.setdefault("detect", {})
     return trees["params"], trees["batch_stats"]
 
 

@@ -1,10 +1,12 @@
 """Optimizer, schedules and EMA (counterpart of the JAX package's
 ``utils/optim.py``).
 
-- Three parameter groups: every ``.bias`` (BatchNorm biases included) is
-  "bias" (no weight decay, its own warmup lr), the other BatchNorm leaves
-  are "norm" (no decay), conv kernels are "weight" (decayed by
-  ``weight_decay * batch * accumulate / nbs``).
+- Three parameter groups, by the JAX leaf's path as JAX labels it: every
+  ``.bias`` (BatchNorm, LayerNorm and attention biases included) is "bias"
+  (no weight decay, its own warmup lr), the other BatchNorm leaves and
+  every LayerNorm scale are "norm" (no decay), conv, Dense, attention
+  kernels and Embed tables are "weight" (decayed by ``weight_decay *
+  batch * accumulate / nbs``).
 - ``auto`` picks SGD (lr 0.01, nesterov) for runs of more than 10,000
   iterations and AdamW (lr fit to nc) otherwise. AdamW and SGD-nesterov are
   ported; any other name raises ``NotImplementedError``.
@@ -34,14 +36,21 @@ GROUPS = ("weight", "bias", "norm")
 CLIP_NORM = 10.0
 
 
-def param_group_label(name: str) -> str:
-    """bias / norm / weight group of a parameter by its dotted name."""
+def param_group_label(name: str, norm_scale: bool = False) -> str:
+    """bias / norm / weight group of a parameter by its dotted name;
+    ``norm_scale`` marks a LayerNorm weight (JAX's ``scale`` leaf)."""
     keys = name.split(".")
     if keys[-1] == "bias":
         return "bias"
-    if any("bn" in k.lower() or "batchnorm" in k.lower() for k in keys[:-1]):
+    if norm_scale or any("bn" in k.lower() or "batchnorm" in k.lower() for k in keys[:-1]):
         return "norm"
     return "weight"
+
+
+def layer_norm_scales(model: nn.Module) -> set:
+    """The names of ``model``'s LayerNorm weights."""
+    return {f"{n}.weight" if n else "weight" for n, m in model.named_modules()
+            if isinstance(m, nn.LayerNorm)}
 
 
 def _warmup_steps(hyp, steps_per_epoch: int) -> int:
@@ -154,8 +163,9 @@ def build_optimizer(model: nn.Module, hyp, steps_per_epoch: int, iterations: int
     wd = (hyp.weight_decay * getattr(hyp, "batch", 16) * getattr(hyp, "accumulate", 1)
           / getattr(hyp, "nbs", 64))
     groups = {g: [] for g in GROUPS}
+    scales = layer_norm_scales(model)
     for pname, p in model.named_parameters():
-        groups[param_group_label(pname)].append(p)
+        groups[param_group_label(pname, pname in scales)].append(p)
     param_groups = [{"params": groups[g], "name": g, "weight_decay": wd if g == "weight" else 0.0}
                     for g in GROUPS if groups[g]]
     sched = lr_schedule(hyp, steps_per_epoch)
