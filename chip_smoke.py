@@ -154,10 +154,29 @@ Phases, one timestamped line each (elapsed seconds):
      (decoder outputs 1e-3, the same kept queries) and validated on the
      floor set (each metric within 0.01, and the floor). RT-DETR launches
      no kernel: each phase's counts are printed and must be 0.
-  26. compare: the fork's headline, printed and not gated: ms an image on
+  26. host pipeline: the host train chain (``data/augment.py``) timed on
+     the host, ms a sample for each transform at imgsz 160 (the seg160 set)
+     and 640 (480x640 frames); then ``YOLO("yolov8n-seg.yaml").train`` from
+     scratch on the seg160 set with ``device_augment=false``, ``mosaic9``
+     0.5 and ``copy_paste`` 0.5 for 5 epochs at the floor config (launch
+     counts zeroed just before, read just after): finite losses falling
+     from epoch 1 to 5, a ``results.csv`` row an epoch, and the GT-ray and
+     fill kernels launched.
+  27. rtdetr trainer: ``YOLO("yolov8n-rtdetr.yaml").train`` from scratch on
+     the RT-DETR floor set (64 train, 16 val images at 192,
+     ``tests/data/``) at JAX's floor recipe (300 epochs, batch 16, AdamW
+     lr0 2e-4, warmup 2, no mosaic or MixUp, on the host chain): the
+     stripped ``best.ckpt`` must meet ``runs/floor_rtdetr/floor.json``;
+     metrics, wall and the train / val / save split printed.
+  28. rtdetr-l: the fresh rtdetr-l (nc 80, a seeded init) on the card:
+     predict at 640, batch 1 and 8, against the port on the CPU (queries
+     matched by encoder token), one train step at 320 batch 2 in float64
+     against the CPU, fused against unfused; its parameters, ms an image,
+     peak memory and launches (0).
+  29. compare: the fork's headline, printed and not gated: ms an image on
      the card at 640, batch 1 and 8, of yolov8n-seg polar (contours, no
      masks) and yolov8n detect, fused and unfused, and seg / detect.
-  27. report: a JSON line of the kernels (launches summed over the predict,
+  30. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs of every task),
      the card's line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
@@ -169,6 +188,7 @@ import csv
 import ctypes
 import json
 import math
+import random
 import re
 import shutil
 import statistics
@@ -184,7 +204,10 @@ import numpy as np
 import torch
 
 from yolo_contour_regression_tpu_torch import YOLO
-from yolo_contour_regression_tpu_torch.data.dataset import parse_label_lines
+from yolo_contour_regression_tpu_torch.cfg import get_cfg
+from yolo_contour_regression_tpu_torch.data import augment, imgproc
+from yolo_contour_regression_tpu_torch.data.dataset import TrainDataset, parse_label_lines
+from yolo_contour_regression_tpu_torch.nn.fuse import fuse_model
 from yolo_contour_regression_tpu_torch.engine.predictor import (
     ClassificationPredictor, DetectionPredictor, PosePredictor, SegmentationOriPredictor,
     SegmentationPredictor)
@@ -324,6 +347,20 @@ CLS_TRAIN_KEYS = ("epochs", "imgsz", "batch", "nbs", "seed", "amp", "patience", 
 RTDETR_CKPT = ROOT / "runs" / "floor_rtdetr" / "best.ckpt"
 RTDETR_FLOOR_JSON = ROOT / "runs" / "floor_rtdetr" / "floor.json"
 FLOOR_RTDETR_VAL = ROOT / "tests" / "data" / "torch_port_floor_rtdetr_val16.npz"
+FLOOR_RTDETR_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_rtdetr_train64.npz"
+# the RT-DETR floor run: JAX's recipe (examples/scripts/train_floor.py), the
+# keys the floor checkpoint's train_args give; the loader's thread count,
+# which leaves the draws as they are, raised for the host chain
+RTDETR_TRAIN_KEYS = FLOOR_TRAIN_KEYS + ("optimizer", "lr0", "warmup_epochs", "mosaic",
+                                        "save_last_every")
+HOST_WORKERS = 8
+# the host pipeline phase: the seg160 floor config, 5 epochs, the host chain
+HOST_TRAIN = dict(epochs=5, device_augment=False, mosaic9=0.5, copy_paste=0.5)
+# rtdetr-l: the published config (nc 80; JAX's build of it has this many
+# parameters) from a fresh init drawn from this seed; its train step at 320
+# batch 2
+RTDETR_L_PARAMS, RTDETR_L_SEED = 32_986_636, 0
+RTDETR_L_TRAIN = (320, 2)
 RTDETR_IMGSZ, RTDETR_SEED = 192, 0
 # a gradient that is 0 in exact arithmetic (the attention's key biases), of
 # the largest gradient of any tensor
@@ -2359,48 +2396,54 @@ def fresh_rtdetr_model(device="cuda") -> YOLO:
     return fresh_model("yolov8n-rtdetr.yaml", SHAPE_NAMES, RTDETR_SEED, device)
 
 
-def rtdetr_pair(a, b, images, imgsz: int, phase: str) -> dict:
+def rtdetr_pair(a, b, images, imgsz: int, phase: str, conf: float = 0.25,
+                batch: int = 1) -> dict:
     """Two RT-DETR handles (``a`` on the card; ``b`` on the card or the
-    CPU) on the same letterboxed images through ``RTDETRPredictor``: the
-    largest gap of their decoder outputs, their queries matched by encoder
-    token (``query_perm``), then of the predictions (queries scoring 0.25
-    or more), which must be the same ones. Returns the gaps, the kept
-    count and the images whose queries were reordered."""
-    pred = RTDETRPredictor(imgsz=imgsz, conf=0.25)
+    CPU) on the same letterboxed images through ``RTDETRPredictor``,
+    ``batch`` images a forward: the largest gap of their decoder outputs,
+    their queries matched by encoder token (``query_perm``), then of the
+    predictions (queries scoring ``conf`` or more), which must be the same
+    ones. Returns the gaps, the kept count and the images whose queries
+    were reordered."""
+    pred = RTDETRPredictor(imgsz=imgsz, conf=conf)
     out = dict.fromkeys(("decoder", "box", "score", "kept", "reordered"), 0)
     dev_b = next(b.model.parameters()).device
-    for img in images:
-        x, gain, pad = pred.preprocess_u8(img, imgsz)
-        xt = torch.from_numpy(x[None])
+    for i in range(0, len(images), batch):
+        chunk = images[i:i + batch]
+        prep = [pred.preprocess_u8(img, imgsz) for img in chunk]
+        xt = torch.from_numpy(np.stack([x for x, _, _ in prep]))
         with EncoderOrder(a.model) as oa:
             pa = pred.eval_batch(a.model, xt.cuda())["pred"].cpu()
         with EncoderOrder(b.model) as ob:
             pb = pred.eval_batch(b.model, xt.to(dev_b))["pred"].cpu()
         perm = query_perm(oa, ob, phase)
-        out["reordered"] += int((perm != torch.arange(perm.shape[1])).any())
+        out["reordered"] += int((perm != torch.arange(perm.shape[1])).any(1).sum())
         pa = take_rows(pa, perm)
         out["decoder"] = max(out["decoder"], float((pa - pb).abs().max()))
-        ra, rb = (pred.postprocess({"pred": p.numpy()}, 0, img, "a", gain, pad, SHAPE_NAMES,
-                                   "cpu").boxes.data for p in (pa, pb))
-        if ra.shape != rb.shape or not np.array_equal(ra[:, 5], rb[:, 5]):
-            raise AssertionError(f"{phase}: the two keep different queries ({len(ra)} and "
-                                 f"{len(rb)})")
-        if len(rb):
-            out["box"] = max(out["box"], float(np.abs(ra[:, :4] - rb[:, :4]).max()))
-            out["score"] = max(out["score"], float(np.abs(ra[:, 4] - rb[:, 4]).max()))
-        out["kept"] += len(rb)
+        for bi, (img, (_, gain, pad)) in enumerate(zip(chunk, prep)):
+            ra, rb = (pred.postprocess({"pred": p.numpy()}, bi, img, "a", gain, pad,
+                                       a.model.names, "cpu").boxes.data for p in (pa, pb))
+            if ra.shape != rb.shape or not np.array_equal(ra[:, 5], rb[:, 5]):
+                raise AssertionError(f"{phase}: the two keep different queries ({len(ra)} and "
+                                     f"{len(rb)})")
+            if len(rb):
+                out["box"] = max(out["box"], float(np.abs(ra[:, :4] - rb[:, :4]).max()))
+                out["score"] = max(out["score"], float(np.abs(ra[:, 4] - rb[:, 4]).max()))
+            out["kept"] += len(rb)
     return out
 
 
-def rtdetr_card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str):
+def rtdetr_card_vs_cpu_predict(model, cpu, images, imgsz: int, phase: str, card: str,
+                               conf: float = 0.25, batch: int = 1):
     """``rtdetr_pair`` of the card and the port on the CPU: decoder outputs
     within ``HEAD_ATOL``, the same kept queries, boxes within ``BOX_ATOL``
     px, scores within ``SCORE_ATOL``."""
-    worst = rtdetr_pair(model, cpu, images, imgsz, phase)
+    worst = rtdetr_pair(model, cpu, images, imgsz, phase, conf=conf, batch=batch)
     limits = {"decoder": HEAD_ATOL, "box": BOX_ATOL, "score": SCORE_ATOL}
     if any(worst[k] > limits[k] for k in limits) or worst["kept"] == 0:
         raise AssertionError(f"{phase} card vs CPU: {worst} (limits {limits})")
-    log(phase, f"card vs CPU at imgsz {imgsz} on {len(images)} images: decoder output max abs "
+    log(phase, f"card vs CPU at imgsz {imgsz} batch {batch} on {len(images)} images: decoder "
+        f"output max abs "
         f"{worst['decoder']:.2e} (limit {HEAD_ATOL}; {worst['reordered']} images with near-equal "
         f"encoder tokens sorted in another order, matched by token), the same {worst['kept']} "
         f"kept queries, boxes max abs {worst['box']:.2e} px (limit {BOX_ATOL}), scores "
@@ -2450,7 +2493,8 @@ def rtdetr_predict(card: str):
 
 
 def rtdetr_train_card_vs_cpu(ckpt, card: str, b: int = 4, dtype=torch.float64,
-                             hold: bool = True):
+                             hold: bool = True, model=None, imgsz: int = RTDETR_IMGSZ,
+                             phase: str = "rtdetr_train"):
     """floor_rtdetr in train mode at imgsz 192, batch ``b``, N_pad 8, with
     one set of dn groups drawn on the CPU and used on both sides: the loss
     (relative ``TRAIN_LOSS_RTOL``), every layer's assignment (as encoder
@@ -2461,51 +2505,58 @@ def rtdetr_train_card_vs_cpu(ckpt, card: str, b: int = 4, dtype=torch.float64,
     (``model.18.cv2.bn``) came out 1.5e-3 of its largest from the CPU's,
     whose float32 is within 8e-5 of its float64: the card's float32 sums,
     not the port, so the step is held in float64 and its float32 figures
-    printed."""
-    images, batch = shape_batch(b, RTDETR_IMGSZ, 8, seed=3)
+    printed. With ``model`` (and no ``ckpt``), a copy of that model at
+    ``imgsz``, its class count its own."""
+    images, batch = shape_batch(b, imgsz, 8, seed=3)
     batch = {k: batch[k] for k in ("cls", "bboxes", "mask_gt")}
-    nc = ckpt["model_yaml"]["nc"]
+    nc = model.nc if model is not None else ckpt["model_yaml"]["nc"]
     dn = get_cdn_group({k: torch.from_numpy(v) for k, v in batch.items()}, nc, cdn_generator(0))
     dn_q = int(np.prod(dn["labels"].shape[1:]))
     res = {}
     for dev in ("cpu", "cuda"):
-        model = ckpt_model(ckpt, dev).to(dtype)
+        net = (ckpt_model(ckpt, dev) if model is None
+               else copy.deepcopy(model).to(dev).train()).to(dtype)
         x, bt = to_device(images, batch, dev)
-        with EncoderOrder(model) as order:
-            outs = model(x.to(dtype).permute(0, 3, 1, 2).contiguous(),
-                         dn={k: v.to(dev) for k, v in dn.items()})
+        with EncoderOrder(net) as order:
+            outs = net(x.to(dtype).permute(0, 3, 1, 2).contiguous(),
+                       dn={k: v.to(dev) for k, v in dn.items()})
         assign = rtdetr_assign(outs, bt, dn_q)
         total, _ = rtdetr_loss(outs, bt, nc, dn=dn, assign=assign)
         total.backward()
         res[dev] = (total.item(), assign.cpu(), order,
-                    {n: p.grad.cpu() for n, p in model.named_parameters()})
-        del model
+                    {n: p.grad.cpu() for n, p in net.named_parameters()})
+        del net
     (lc, ac, oc, gc), (lg, ag, og, gg) = res["cpu"], res["cuda"]
-    query_perm(og, oc, "rtdetr_train")  # the same tokens selected
+    query_perm(og, oc, phase)  # the same tokens selected
     tok = lambda a, o: torch.where(a >= 0, o.order[None].expand(a.shape[0], -1, -1).gather(  # noqa: E731
         2, a.clamp_min(0)), -1)
     same = torch.equal(tok(ac, oc), tok(ag, og)) and bool((ac >= 0).any())
     loss_rel = abs(lg - lc) / abs(lc)
-    # the self-attention's key biases have no gradient (a softmax does not
-    # see a shift common to its row): both sides' are rounding noise, held
-    # to ZERO_GRAD_TOL of the largest gradient of any tensor
-    zero = [n for n in gc if n.endswith("self_attn.key.bias")]
+    # the attention key biases have no gradient (a softmax does not see a
+    # shift common to its row), nor has a shift that a train-mode BatchNorm
+    # takes out again (rtdetr-l's BatchNorm biases without an activation
+    # after them, AIFI's last LayerNorm bias): both sides' are rounding
+    # noise, held to ZERO_GRAD_TOL of the largest gradient of any tensor
     scale = max(float(g.abs().max()) for g in gc.values())
+    zero = [n for n in gc if n.endswith("key.bias")
+            or float(gc[n].abs().max()) <= ZERO_GRAD_TOL * scale]
     noise = max(float(t[n].abs().max()) for t in (gc, gg) for n in zero) / scale
     grad_rel, worst = max((float((gg[n] - gc[n]).abs().max()
                                  / gc[n].abs().max().clamp_min(1e-30)), n)
                           for n in gc if n not in zero)
-    log("rtdetr_train", f"card vs CPU{'' if hold else ' (printed, not held)'}, floor_rtdetr "
-        f"({str(dtype)[6:]}) at imgsz {RTDETR_IMGSZ} "
+    what = "floor_rtdetr" if model is None else f"a fresh {type(model).__name__} of " \
+        f"{model.num_params} parameters"
+    log(phase, f"card vs CPU{'' if hold else ' (printed, not held)'}, {what} "
+        f"({str(dtype)[6:]}) at imgsz {imgsz} "
         f"batch {b}, {dn_q} dn queries drawn on the CPU: loss {lg:.6f} vs {lc:.6f} (rel "
         f"{loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); the same assignment in every layer: {same} "
         f"({int((ac >= 0).sum())} matches over {ac.shape[0]} layers); worst gradient "
         f"{grad_rel:.2e} of its tensor's max, {worst} (limit {TRAIN_GRAD_TOL}); the {len(zero)} "
-        f"key biases' gradients (0 in exact arithmetic) at most {noise:.2e} of the largest "
-        f"gradient (limit {ZERO_GRAD_TOL}) | {card}")
+        f"gradients that are 0 in exact arithmetic (key biases, shifts a BatchNorm takes out) "
+        f"at most {noise:.2e} of the largest gradient (limit {ZERO_GRAD_TOL}) | {card}")
     if hold and (not same or loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_TOL
                  or noise > ZERO_GRAD_TOL):
-        raise AssertionError(f"rtdetr train card vs CPU: same assignment {same}, loss rel "
+        raise AssertionError(f"{phase} card vs CPU: same assignment {same}, loss rel "
                              f"{loss_rel:.2e}, grad {grad_rel:.2e} at {worst}, key-bias noise "
                              f"{noise:.2e}")
 
@@ -2610,6 +2661,282 @@ def rtdetr_phases(card: str) -> dict:
     if any(v for c in out.values() for v in c.values()):
         raise AssertionError(f"RT-DETR reaches no kernel, yet launched {out}")
     return out
+
+
+def host_samples(images, labels, imgsz: int):
+    """Raw samples of a set at ``imgsz`` as the host chain reads them
+    (``TrainDataset.load_raw``: long side at imgsz, labels in pixels)."""
+    ds = TrainDataset(images, labels, imgsz=imgsz, device_augment=False, hyp=get_cfg(None, {}))
+    return [ds.load_raw(i) for i in range(len(ds))]
+
+
+def _fresh(samples, i):
+    s = samples[i % len(samples)]
+    return augment.Sample(s.img.copy(), s.inst.copy())
+
+
+def transform_ms(samples, imgsz: int, reps: int = 8) -> dict:
+    """Host ms a sample (median of ``reps`` calls, each on fresh copies) of
+    each transform of the host chain on ``samples`` at ``imgsz``: the two
+    mosaics, copy-paste (p 0.5, on a mosaic), the warp after a mosaic (2
+    imgsz -> imgsz, affine and perspective) and after a letterbox, MixUp,
+    each pixel branch (blur and median at k 7) and the four forced
+    together (k 3), HSV, the flips, and the whole chain at the
+    default settings with mosaic9 and copy-paste 0.5 (its plan, the
+    draws without pixels, apart)."""
+    rng = random.Random(0)
+    hyp = get_cfg(None, {"mosaic9": 0.5, "copy_paste": 0.5})
+    n = len(samples)
+    mos = augment.mosaic4([_fresh(samples, i) for i in range(4)], imgsz, rng)
+    warped = augment.random_perspective(
+        augment.Sample(mos.img.copy(), mos.inst.copy()), imgsz, rng, border=(-imgsz // 2,) * 2)
+    img = warped.img
+    branches = {
+        "mosaic4": lambda i: augment.mosaic4([_fresh(samples, i + k) for k in range(4)], imgsz,
+                                             rng),
+        "mosaic9": lambda i: augment.mosaic9([_fresh(samples, i + k) for k in range(9)], imgsz,
+                                             rng),
+        "copy_paste": lambda i: augment.copy_paste(augment.Sample(mos.img, mos.inst.copy()), 0.5,
+                                                   rng),
+        "warp_affine_mosaic": lambda i: augment.random_perspective(
+            augment.Sample(mos.img, mos.inst.copy()), imgsz, rng, 10.0, 0.1, 0.5, 2.0, 0.0,
+            (-imgsz // 2, -imgsz // 2)),
+        "warp_perspective_mosaic": lambda i: augment.random_perspective(
+            augment.Sample(mos.img, mos.inst.copy()), imgsz, rng, 10.0, 0.1, 0.5, 2.0, 0.0005,
+            (-imgsz // 2, -imgsz // 2)),
+        "letterbox_warp": lambda i: augment.random_perspective(
+            augment.letterbox_sample(_fresh(samples, i), imgsz), imgsz, rng),
+        "mixup": lambda i: augment.mixup(warped, warped, np.random.default_rng(i)),
+        "blur": lambda i: imgproc.box_blur(img, 7),
+        "median_blur": lambda i: imgproc.median_blur(img, 7),
+        "gray": lambda i: np.repeat(augment.bgr_to_gray(img)[..., None], 3, -1),
+        "clahe_lab": lambda i: _clahe_lab(img),
+        "pixel_augment_all4": lambda i: augment.pixel_augment(img, _Always(), p=1.0),
+        "hsv": lambda i: augment.random_hsv(img, rng),
+        "flip": lambda i: augment.random_flip(augment.Sample(img, warped.inst.copy()), rng, 0.5,
+                                              0.5),
+        "train_transform": lambda i: augment.train_transform(
+            lambda j: _fresh(samples, j), i % n, n, imgsz, hyp, rng, np.random.default_rng(i)),
+        "train_transform_plan": lambda i: augment.train_transform(
+            lambda j: augment.Sample(None, samples[j].inst.copy(), hw=samples[j].hw), i % n, n,
+            imgsz, hyp, rng, np.random.default_rng(i)),
+    }
+    out = {}
+    for name, fn in branches.items():
+        times = []
+        for i in range(reps):
+            t = time.perf_counter()
+            fn(i)
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(times)
+    return out
+
+
+def _clahe_lab(img):
+    """``pixel_augment``'s CLAHE branch alone: L of Lab equalized."""
+    lab = imgproc.bgr_to_lab(img)
+    lab[..., 0] = imgproc.clahe(lab[..., 0])
+    return imgproc.lab_to_bgr(lab)
+
+
+class _Always(random.Random):
+    """A generator whose ``random()`` is 0 and picks the first of a choice:
+    forces every ``pixel_augment`` branch, at kernel 3."""
+
+    def random(self):
+        return 0.0
+
+    def choice(self, seq):
+        return seq[0]
+
+
+def host_pipeline(card: str) -> dict:
+    """The host train chain: ``transform_ms`` at imgsz 160 (the seg160
+    set) and 640 (480x640 frames); then ``YOLO("yolov8n-seg.yaml").train``
+    from scratch on the seg160 floor set at the floor checkpoint's
+    train_args with ``HOST_TRAIN`` (the host chain: device_augment off,
+    mosaic9 and copy_paste 0.5) and ``HOST_WORKERS`` loader threads,
+    launch counts zeroed just before and read just after: finite losses
+    that fall from the first epoch to the last, a results.csv row an epoch,
+    and the GT-ray and fill kernels launched (the step's assigner, the
+    validator's mask IoU)."""
+    train, val = floor_train_set(), floor_val_set()
+    frames = shape_val_set(16, *VAL640_HW, seed=7)
+    for imgsz, (images, labels), what in ((160, train, "the seg160 set"),
+                                          (640, frames, "480x640 frames")):
+        ms = transform_ms(host_samples(images, labels, imgsz), imgsz)
+        log("host_pipeline", f"host ms a sample at imgsz {imgsz} on {what} (median of 8): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" | {card}")
+    ckpt = load_checkpoint(CKPT)
+    over = {**{k: ckpt["train_args"][k] for k in FLOOR_TRAIN_KEYS}, **HOST_TRAIN,
+            "workers": HOST_WORKERS}
+    timer = TrainTotals(skip=len(train[0]) // over["batch"])
+    with tempfile.TemporaryDirectory() as d:
+        model = YOLO("yolov8n-seg.yaml", device="cuda")
+        zero_launch_counts()
+        t = time.perf_counter()
+        res = model.train(data={"train": train, "val": val, "names": ckpt["names"]}, mark=timer,
+                          project=d, name="host", **over)
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        with open(model.trainer.csv) as fh:
+            rows = list(csv.DictReader(fh))
+    trainer = model.trainer
+    losses = [float(r["train/loss"]) for r in rows]
+    split = epoch_split(trainer)
+    metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in res.items() if k != "fitness")
+    log("host_pipeline", f"yolov8n-seg from scratch on the seg160 set, host chain {over}: "
+        f"{len(rows)} results.csv rows, train loss by epoch {[round(v, 3) for v in losses]}, "
+        f"{wall:.2f}s wall; final eval {metrics} (printed, not held); launches {counts} | {card}")
+    log("host_pipeline", "host clock, s summed over the epochs: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split["sum"].items())
+        + "; ms per step by the host clock "
+        + f"{1e3 * split['sum']['train_s'] / max(timer.seen, 1):.3f}"
+        + "; device ms per step by CUDA events after the first epoch: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timer.per_step().items()) + f" | {card}")
+    if trainer.device_augment or len(rows) != over["epochs"]:
+        raise AssertionError(f"host_pipeline: device_augment {trainer.device_augment}, "
+                             f"{len(rows)} rows")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"host_pipeline: losses by epoch {losses} are not finite and falling")
+    if counts["gt_rays_rows"] == 0 or counts["fill_polygons"] == 0:
+        raise AssertionError(f"host_pipeline: a kernel of the path never launched: {counts}")
+    return counts
+
+
+def rtdetr_trainer(card: str) -> dict:
+    """``YOLO("yolov8n-rtdetr.yaml").train`` from scratch on the RT-DETR
+    floor set (``FLOOR_RTDETR_TRAIN``, validated on ``FLOOR_RTDETR_VAL``)
+    at JAX's floor recipe (the floor checkpoint's train_args of
+    ``RTDETR_TRAIN_KEYS``; ``HOST_WORKERS`` loader threads), launch counts
+    zeroed just before and read just after (all 0): the final validation of
+    the stripped ``best.ckpt`` must meet ``RTDETR_FLOOR_JSON``. Prints the
+    metrics, the wall time, the train / val / save split and every 25th
+    epoch's train loss beside the JAX run's."""
+    record = json.loads(RTDETR_FLOOR_JSON.read_text())
+    ckpt = load_checkpoint(RTDETR_CKPT)
+    over = {k: ckpt["train_args"][k] for k in RTDETR_TRAIN_KEYS}
+    over.update(close_mosaic=0, mixup=0.0, workers=HOST_WORKERS)
+    train, val = _decoded_set(FLOOR_RTDETR_TRAIN), floor_rtdetr_val_set()
+    timer = TrainTotals(skip=len(train[0]) // over["batch"])
+    with tempfile.TemporaryDirectory() as d:
+        model = YOLO("yolov8n-rtdetr.yaml", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t = time.perf_counter()
+        res = model.train(data={"train": train, "val": val, "names": ckpt["names"]}, mark=timer,
+                          project=d, name="floor", **over)
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(model.trainer.csv) as fh:
+            rows = list(csv.DictReader(fh))
+        n_det = sum(len(r) for r in model.predict(val[0], imgsz=over["imgsz"]))
+    trainer = model.trainer
+    split = epoch_split(trainer)
+    metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in res.items() if k != "fitness")
+    best = max(range(len(rows)), key=lambda e: float(rows[e]["metrics/mAP50-95(B)"]))
+    log("rtdetr_trainer", f"yolov8n-rtdetr from scratch on the RT-DETR floor set "
+        f"({len(train[0])} train, {len(val[0])} val images at {over['imgsz']}), {over}: "
+        f"{len(rows)} epochs, {timer.seen} steps in {wall:.2f}s wall; final eval of the stripped "
+        f"best.ckpt: {metrics}; best epoch {best} (box mAP50-95 "
+        f"{float(rows[best]['metrics/mAP50-95(B)']):.4f}); floor {record['floor']}; predict "
+        f"from it: {n_det} detections on the val images; launches {counts}; peak memory "
+        f"{peak / 2**30:.3f} GiB | {card}")
+    with open(RTDETR_CKPT.parent / "results.csv") as fh:
+        jax_rows = list(csv.DictReader(fh))
+    pairs = [f"{e}: {float(rows[e]['train/loss']):.3f} vs {float(jax_rows[e]['train/loss']):.3f}"
+             f" (mAP50-95 {float(rows[e]['metrics/mAP50-95(B)']):.3f} vs "
+             f"{float(jax_rows[e]['metrics/mAP50-95(B)']):.3f})"
+             for e in range(24, min(len(rows), len(jax_rows)), 25)]
+    log("rtdetr_trainer", f"every 25th epoch, this run vs the JAX run's results.csv (bf16 on a "
+        f"TPU; a yardstick, not a gate): {'; '.join(pairs)} | {card}")
+    tot = split["sum"]
+    log("rtdetr_trainer", "host clock, s summed over the run: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in tot.items())
+        + f"; wall {wall:.2f}; ms per step by the host clock "
+        f"{1e3 * tot['train_s'] / max(timer.seen, 1):.3f}; device ms per step by CUDA events "
+        "after the first epoch: " + ", ".join(f"{k} {v:.3f}" for k, v in timer.per_step().items())
+        + f" | {card}")
+    below = {k: (res[k], record["floor"][n]) for k, n in record["floor_keys"].items()
+             if not res[k] >= record["floor"][n]}
+    if below or any(counts.values()) or n_det == 0:
+        raise AssertionError(f"rtdetr_trainer: below the floor {below}, launches {counts}, "
+                             f"{n_det} detections")
+    return counts
+
+
+def off_the_pixel_grid(model, std: float = 1e-3, seed: int = 0):
+    """A copy of a fresh RT-DETR with its deformable attention's
+    ``sampling_offsets`` moved by a seeded draw: N(0, std) for the kernels
+    (zero at init) and added to the biases (the directional grid at
+    init). At init every sampling point sits on a quarter-pixel of its map
+    (the grid's offsets from anchor centres), often on a pixel's edge, where
+    the bilinear sample has no derivative (its one-sided ones differ) and
+    the card's and the CPU's ``grid_sample``, rounding the point's
+    coordinate in other orders, take different sides; the draw moves every
+    point off those edges."""
+    model = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".sampling_offsets." in name:
+                p.add_(torch.randn(p.shape, generator=gen, dtype=p.dtype) * std)
+    return model
+
+
+def rtdetr_l(card: str) -> dict:
+    """A fresh rtdetr-l (nc 80, ``RTDETR_L_SEED``) on the card: its
+    parameter count (``RTDETR_L_PARAMS``, JAX's); predict at 640, batch 1
+    and 8, against the port on the CPU (``rtdetr_card_vs_cpu_predict`` at
+    conf ``VAL_CONF``: random weights score near the 0.01 prior) with ms an
+    image and peak memory, launch counts zeroed before and read after (0);
+    one train step at ``RTDETR_L_TRAIN`` in float64, card against CPU
+    (``rtdetr_train_card_vs_cpu``, the sampling offsets moved off the pixel
+    edges by ``off_the_pixel_grid``); the fused model against the unfused on
+    the card (decoder outputs within ``FUSE_HEAD_ATOL``)."""
+    names = {i: f"class{i}" for i in range(80)}
+    model = fresh_model("rtdetr-l.yaml", names, RTDETR_L_SEED)
+    cpu = fresh_model("rtdetr-l.yaml", names, RTDETR_L_SEED, device="cpu")
+    n_params = model.model.num_params
+    if n_params != RTDETR_L_PARAMS:
+        raise AssertionError(f"rtdetr-l has {n_params} parameters, JAX's build {RTDETR_L_PARAMS}")
+    frames = shape_images(8, *RASTER_HW, seed=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    kept = sum(len(r) for r in model.predict(frames, imgsz=640, batch=8, conf=VAL_CONF))
+    lat = {}
+    for batch, images in ((1, frames[:1]), (8, frames)):
+        predict_ms(model, images, 640, batch, masks=False, conf=VAL_CONF)  # warm-up
+        runs = [predict_ms(model, images, 640, batch, masks=False, conf=VAL_CONF)
+                for _ in range(10)]
+        lat[batch] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("rtdetr_l", f"rtdetr-l fresh from seed {RTDETR_L_SEED}: {n_params} parameters (JAX's "
+        f"build {RTDETR_L_PARAMS}); predict at 640 batch 8, conf {VAL_CONF}: {kept} kept queries "
+        f"on {len(frames)} frames; peak memory {peak / 2**30:.3f} GiB; launches {counts} | {card}")
+    for batch, parts in lat.items():
+        log("rtdetr_l", f"imgsz 640 batch {batch}, ms per image (host clock, median of 10 "
+            f"calls): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" | {card}")
+    for batch, images in ((1, frames[:2]), (8, frames)):
+        rtdetr_card_vs_cpu_predict(model, cpu, images, 640, "rtdetr_l", card, conf=VAL_CONF,
+                                   batch=batch)
+    imgsz, b = RTDETR_L_TRAIN
+    rtdetr_train_card_vs_cpu(None, card, b=b, model=off_the_pixel_grid(cpu.model), imgsz=imgsz,
+                             phase="rtdetr_l")
+    fused = YOLO("rtdetr-l.yaml", device="cuda")
+    fused.model = fuse_model(copy.deepcopy(model.model))
+    worst = rtdetr_pair(fused, model, frames, 640, "rtdetr_l_fuse", conf=VAL_CONF, batch=8)
+    log("rtdetr_l", f"fused vs unfused on the card at 640 batch 8: decoder output max abs "
+        f"{worst['decoder']:.2e} (limit {FUSE_HEAD_ATOL}), the same {worst['kept']} kept "
+        f"queries, boxes max abs {worst['box']:.2e} px; {n_params} -> "
+        f"{fused.model.num_params} parameters | {card}")
+    if worst["decoder"] > FUSE_HEAD_ATOL or worst["kept"] == 0 or any(counts.values()):
+        raise AssertionError(f"rtdetr_l: fuse {worst}, launches {counts}")
+    return counts
 
 
 def paper_comparison(card: str) -> dict:
@@ -2826,11 +3153,20 @@ def main() -> int:
     phase_start["rtdetr"] = time.perf_counter()
     rtdetr_counts = rtdetr_phases(card)
 
-    # 26. the fork's headline comparison, seg against detect, at 640
+    # 26-28. the host train chain (a seg trainer on it launches both
+    # kernels), the RT-DETR trainer to its floor, and rtdetr-l
+    phase_start["host_pipeline"] = time.perf_counter()
+    host_counts = host_pipeline(card)
+    phase_start["rtdetr_trainer"] = time.perf_counter()
+    rtdetr_counts["trainer"] = rtdetr_trainer(card)
+    phase_start["rtdetr_l"] = time.perf_counter()
+    rtdetr_counts["rtdetr-l"] = rtdetr_l(card)
+
+    # 29. the fork's headline comparison, seg against detect, at 640
     phase_start["compare"] = time.perf_counter()
     paper_comparison(card)
 
-    # 27. report: launches summed over the main paths' runs
+    # 30. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,
@@ -2838,7 +3174,7 @@ def main() -> int:
     launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k] + trainer_counts[k]
                 + fuse_counts[k] + sum(c[k] for c in segori_counts.values())
                 + classify_counts[k] + sum(c[k] for c in rtdetr_counts.values())
-                for k in KERNEL_WRAPPERS}
+                + host_counts[k] for k in KERNEL_WRAPPERS}
     at_480 = fill_rows["fill_polygons_480x640"]
     at_segori = {f"{key}_N{n}_V360_160x160": segori_fill[n][key] for n in SEGORI_FILL_N
                  for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -2849,7 +3185,8 @@ def main() -> int:
          "launches": launches["fill_polygons"], **fill_rows["fill_polygons"], "library_ms": None,
          "ms_480x640": at_480["ms"], "plain_ms_480x640": at_480["plain_ms"],
          "bound_ms_480x640": at_480["bound_ms"], **at_segori,
-         "launches_segment_ori": {k: c["fill_polygons"] for k, c in segori_counts.items()}},
+         "launches_segment_ori": {k: c["fill_polygons"] for k, c in segori_counts.items()},
+         "launches_host_pipeline": host_counts["fill_polygons"]},
         {"name": "fill_polygons_cv2", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
                      "no TPU kernel)",
@@ -2858,7 +3195,7 @@ def main() -> int:
         {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
          "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_NPAD]),
-         "library_ms": None,
+         "library_ms": None, "launches_host_pipeline": host_counts["gt_rays_rows"],
          **{f"{k}_R512_K48": v for k, v in report_row(rows_checks[TRAINER_NPAD]).items()
             if k in ("ms", "plain_ms", "bound_ms")}},
         {"name": "gt_rays_pairs", "route": "cuda", "source": src + "gt_rays.cu",
@@ -2871,7 +3208,9 @@ def main() -> int:
         f"seg160, detect and pose floor sets; the detect and pose paths have no kernel of their "
         f"own), segment_ori {segori_counts} (its GT masks: one fill a train step and a "
         f"validated batch), classify {classify_counts} (no kernel of its own), rtdetr "
-        f"{rtdetr_counts} (no kernel of its own); "
+        f"{rtdetr_counts} (no kernel of its own; its trainer and rtdetr-l included), host "
+        f"pipeline {host_counts} (the seg trainer on the host chain: its assigner's GT rays, its "
+        f"validator's fill); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
         "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "

@@ -3,6 +3,8 @@ They skip where there is no card; on one, run
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -623,3 +625,63 @@ def test_rtdetr_train_step_card_equals_cpu(cuda, full_f32):
     x, b = torch.from_numpy(images), {k: torch.from_numpy(v) for k, v in batch.items()}
     losses = [step(state, x, b)["loss"].item() for _ in range(2)]
     assert state.device.type == "cuda" and all(np.isfinite(losses)), losses
+
+
+def test_rtdetr_l_card_equals_cpu(cuda, full_f32):
+    """A fresh rtdetr-l (nc 80, seed 0) on the card against the same model
+    on the CPU at 640, batch 2: decoder outputs within 1e-3 (queries
+    matched by encoder token), the same kept queries at conf 0.001, boxes
+    within 0.05 px, scores within 1e-4; its fused form against the unfused
+    within 1e-3; no kernel launched."""
+    from chip_smoke import (FUSE_HEAD_ATOL, RASTER_HW, RTDETR_L_PARAMS, RTDETR_L_SEED, VAL_CONF,
+                            fresh_model, launch_counts, rtdetr_card_vs_cpu_predict, rtdetr_pair,
+                            shape_images, zero_launch_counts)
+    from yolo_contour_regression_tpu_torch import YOLO
+    from yolo_contour_regression_tpu_torch.nn.fuse import fuse_model
+
+    names = {i: f"class{i}" for i in range(80)}
+    model = fresh_model("rtdetr-l.yaml", names, RTDETR_L_SEED)
+    assert model.model.num_params == RTDETR_L_PARAMS
+    frames = shape_images(2, *RASTER_HW, seed=2)
+    zero_launch_counts()
+    rtdetr_card_vs_cpu_predict(model, fresh_model("rtdetr-l.yaml", names, RTDETR_L_SEED, "cpu"),
+                               frames, 640, "test", "card", conf=VAL_CONF, batch=2)
+    fused = YOLO("rtdetr-l.yaml")
+    fused.model = fuse_model(copy.deepcopy(model.model))
+    worst = rtdetr_pair(fused, model, frames, 640, "test", conf=VAL_CONF, batch=2)
+    assert worst["decoder"] <= FUSE_HEAD_ATOL and worst["kept"] > 0
+    assert not any(launch_counts().values())
+
+
+def test_host_chain_seg_step_card_equals_cpu(cuda, full_f32):
+    """One batch of the host train chain (``TrainDataset`` with
+    ``device_augment=False``, mosaic9 and copy_paste 0.5 on the seg160
+    set) through one train step of the seg160 model, on the card and on
+    the CPU from the same weights: the losses within 1e-4 relative (the
+    host chain's batch is the same bytes on both); the card's step
+    launches the GT-ray kernel."""
+    from chip_smoke import CKPT, ckpt_model, floor_train_set, train_hyp
+    from yolo_contour_regression_tpu_torch.cfg import get_cfg
+    from yolo_contour_regression_tpu_torch.data.augment import collate
+    from yolo_contour_regression_tpu_torch.data.dataset import TrainDataset
+    from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
+    from yolo_contour_regression_tpu_torch.utils import optim
+    from yolo_contour_regression_tpu_torch.utils.checkpoint import load_checkpoint
+
+    images, labels = floor_train_set()
+    ds = TrainDataset(images, labels, imgsz=160, device_augment=False,
+                      hyp=get_cfg(None, {"mosaic9": 0.5, "copy_paste": 0.5}))
+    batch = collate([ds[i] for i in range(4)])
+    x = torch.from_numpy(batch.pop("img")).float() / 255.0
+    ckpt = load_checkpoint(CKPT)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        model = ckpt_model(ckpt, dev)
+        hyp = train_hyp(ckpt, optimizer="AdamW", warmup_epochs=0.0, batch=4)
+        opt = optim.build_optimizer(model, hyp, 10, 100)
+        state = init_train_state(model, opt, device=dev)
+        rays = gt_rays.gt_rays_rows_fast.launches
+        losses[dev] = make_train_step(model, opt, hyp, cand=hyp.cand_per_gt)(
+            state, x, {k: torch.from_numpy(v) for k, v in batch.items()})["loss"].item()
+        assert (gt_rays.gt_rays_rows_fast.launches > rays) == (dev == "cuda")
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"]), losses

@@ -156,9 +156,9 @@ def test_jax_validates_the_port_checkpoint_and_the_facade_adopts_it(runs):
 
 def test_the_task_picks_the_pose_trainer(tmp_path):
     """A pose config trains with ``PoseTrainer`` (by default
-    ``yolov8n-pose.yaml``); a mismatch raises; a classify task raises in
-    any trainer, as the port has no host train pipeline; the facade takes
-    the task's trainer."""
+    ``yolov8n-pose.yaml``); a mismatch raises; a classify task in any
+    trainer takes the host path (JAX's ``use_device_augment`` leaves it
+    out); the facade takes the task's trainer."""
     over = {"project": str(tmp_path)}
     t = ttrainer.PoseTrainer(overrides=over, device="cpu")
     assert t.args.task == "pose" and t.args.model is None
@@ -169,7 +169,6 @@ def test_the_task_picks_the_pose_trainer(tmp_path):
         ttrainer.DetectionTrainer(overrides={**over, "model": "yolov8n-pose.yaml"}, device="cpu")
     cls_trainer = type("T", (ttrainer.BaseTrainer,), {"task": "classify",
                                                       "default_model": "yolov8n.yaml"})
-    with pytest.raises(NotImplementedError, match="host"):
-        cls_trainer(overrides={**over, "task": "classify"}, device="cpu")
+    assert not cls_trainer(overrides={**over, "task": "classify"}, device="cpu").device_augment
     m = YOLO("yolov8n-pose.yaml", device="cpu")
     assert m.task == "pose" and m.model is None

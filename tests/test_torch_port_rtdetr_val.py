@@ -16,8 +16,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import (FLOOR_RTDETR_VAL, RTDETR_CKPT, floor_rtdetr_jax_metrics,
-                        floor_rtdetr_val_set, shape_images)
+from chip_smoke import (FLOOR_RTDETR_TRAIN, FLOOR_RTDETR_VAL, RTDETR_CKPT,
+                        floor_rtdetr_jax_metrics, floor_rtdetr_val_set, shape_images)
 from tests.helpers import make_shape_dataset
 from yolo_contour_regression_tpu.engine.model import YOLO as JaxYOLO
 from yolo_contour_regression_tpu.ops.boxes import box_iou as jbox_iou
@@ -90,6 +90,15 @@ def write_floor_file(root: Path):
                         jax_metrics=np.array([float(v) for v in want.values()]))
 
 
+def write_train_file(root: Path):
+    """Write ``tests/data/torch_port_floor_rtdetr_train64.npz`` from a fresh
+    floor set under ``root``: the decoded train images and their label
+    text (the set the card's floor run trains on)."""
+    make_floor_set(root)
+    images, texts = floor_arrays(root, "train")
+    np.savez_compressed(FLOOR_RTDETR_TRAIN, images=images, labels=texts)
+
+
 @pytest.fixture(scope="module")
 def floor_dir(tmp_path_factory):
     root = tmp_path_factory.mktemp("floor_rtdetr")
@@ -124,6 +133,20 @@ def test_floor_set_file_is_the_floor_set(floor_dir):
             np.testing.assert_array_equal(g, w)
 
 
+def test_train_set_file_is_the_floor_set(floor_dir):
+    """``tests/data/torch_port_floor_rtdetr_train64.npz`` (what the card's
+    floor run trains on; ``write_train_file`` writes it) holds exactly the
+    floor set's 64 train images, decoded by cv2, and their label files'
+    text: regenerated here and compared byte for byte."""
+    root, _ = floor_dir
+    images, texts = floor_arrays(root, "train")
+    z = np.load(FLOOR_RTDETR_TRAIN)
+    assert sorted(z.files) == ["images", "labels"]
+    assert z["images"].dtype == np.uint8 and z["images"].shape == (64, 192, 192, 3)
+    assert z["images"].tobytes() == images.tobytes()
+    assert z["labels"].dtype == texts.dtype and z["labels"].tobytes() == texts.tobytes()
+
+
 def test_floor_set_file_holds_the_jax_metrics(jax_metrics):
     """The JAX validator's metrics stored with the set are what it gives on
     the regenerated set now, and meet the floor."""
@@ -136,15 +159,15 @@ def test_floor_set_file_holds_the_jax_metrics(jax_metrics):
 
 def test_yolo_loads_the_rtdetr_checkpoint(models):
     """The facade takes the task from the checkpoint; ``RTDETR`` is the
-    same facade bound to the task."""
+    same facade bound to the task, by default on rtdetr-l."""
     _, ty = models
     assert ty.task == "rtdetr" and isinstance(ty.model, RTDETRDetectionModel)
     assert ty.imgsz == IMGSZ and ty.names == {0: "circle", 1: "rect"}
     assert RTDETR(RTDETR_CKPT, device="cpu").task == "rtdetr"
     with pytest.raises(ValueError, match="rtdetr"):
         RTDETR(ROOT / "runs" / "floor_detect" / "best.ckpt", device="cpu")
-    with pytest.raises(NotImplementedError, match="rtdetr-l"):
-        RTDETR(device="cpu")
+    default = RTDETR(device="cpu")  # rtdetr-l, JAX's default, a fresh config
+    assert default.task == "rtdetr" and default.overrides["model"] == "rtdetr-l.yaml"
 
 
 def test_eval_batch_matches_jax(models):

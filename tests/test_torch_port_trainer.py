@@ -347,19 +347,29 @@ def test_strip_optimizer_matches_jax(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    """The host cv2 train pipeline, resume and another task's model raise
-    ``NotImplementedError`` naming what is missing; the RT-DETR facade
-    builds, and its ``train`` raises naming the host pipeline it needs."""
-    for over, match in ((dict(device_augment=False), "host cv2 train pipeline"),
-                        (dict(mosaic9=0.5), "mosaic9"), (dict(copy_paste=0.1), "copy_paste"),
-                        (dict(resume=True), "resume"), (dict(task="detect"), "task")):
+    """The host train chain is ported: ``device_augment=false``, ``mosaic9``
+    and ``copy_paste`` take it (JAX's ``use_device_augment`` rule), and the
+    RT-DETR facade trains on it (one epoch of two images here); resume and
+    another task's model still raise ``NotImplementedError`` naming what is
+    missing."""
+    for over in (dict(device_augment=False), dict(mosaic9=0.5), dict(copy_paste=0.1), {}):
+        t = ttrainer.SegmentationTrainer(overrides={**over, "project": str(tmp_path)},
+                                         device="cpu")
+        assert t.device_augment == (not over)
+    for over, match in ((dict(resume=True), "resume"), (dict(task="detect"), "task")):
         with pytest.raises(NotImplementedError, match=match):
             ttrainer.SegmentationTrainer(overrides={**over, "project": str(tmp_path)},
                                          device="cpu")
     rtdetr = YOLO("yolov8n-rtdetr.yaml", device="cpu")
     assert rtdetr.task == "rtdetr" and rtdetr.model is None
-    with pytest.raises(NotImplementedError, match="host cv2 train pipeline"):
-        rtdetr.train(data={}, project=str(tmp_path))
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (48, 64, 3), dtype=np.uint8) for _ in range(2)]
+    labels = [(np.array([0]), np.array([[0.5, 0.5, 0.4, 0.5]], np.float32),
+               np.zeros((1, 360, 2), np.float32))] * 2
+    rtdetr.train(data={"train": (images, labels), "val": (images, labels), "names": {0: "a"}},
+                 epochs=1, imgsz=64, batch=2, nbs=2, val=False, project=str(tmp_path))
+    assert not rtdetr.trainer.device_augment and rtdetr.model is not None
+    assert isinstance(rtdetr.trainer, ttrainer.RTDETRTrainer)
 
 
 def test_a_fresh_facade_has_no_weights_until_trained():

@@ -437,8 +437,9 @@ def test_collate_buckets_match_jax():
 def test_val_dataset_matches_jax_dataset(floor_dir, imgsz):
     """``ValDataset`` over the cv2-decoded floor images and their label
     files gives JAX ``YOLODataset``'s val samples, also where the image is
-    first enlarged to ``imgsz`` (cv2's INTER_LINEAR, reproduced); shrinking
-    (cv2's INTER_AREA) raises."""
+    first enlarged to ``imgsz`` (cv2's INTER_LINEAR, reproduced) or shrunk
+    (cv2's INTER_AREA, reproduced: 160 to 80 takes its 2x2 fast path, to
+    128 its fractional one)."""
     root, _ = floor_dir
     files, labels = _val_files(root)
     jds = jdataset.YOLODataset(str(root / "images" / "val"), imgsz=imgsz, augment=False,
@@ -450,8 +451,16 @@ def test_val_dataset_matches_jax_dataset(floor_dir, imgsz):
         np.testing.assert_array_equal(td["img"].astype(np.float32) / 255.0, jd["img"])
         for k in ("cls", "bboxes", "segments", "mask_gt", "ori_shape", "ratio_pad"):
             np.testing.assert_array_equal(td[k], jd[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="INTER_AREA"):
-        tdataset.ValDataset([cv2.imread(str(files[0]))], labels[:1], imgsz=128)[0]
+    for small in (80, 128):
+        jds = jdataset.YOLODataset(str(root / "images" / "val"), imgsz=small, augment=False,
+                                   cache=False)
+        tds = tdataset.ValDataset([cv2.imread(str(f)) for f in files[:3]], labels[:3],
+                                  imgsz=small)
+        for i in range(3):
+            jd, td = jds[i], tds[i]
+            np.testing.assert_array_equal(td["img"].astype(np.float32) / 255.0, jd["img"])
+            for k in ("bboxes", "segments", "ori_shape", "ratio_pad"):
+                np.testing.assert_array_equal(td[k], jd[k], err_msg=k)
 
 
 def test_floor_set_file_is_the_floor_set(floor_dir):

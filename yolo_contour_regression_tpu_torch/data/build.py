@@ -2,11 +2,12 @@
 ``TrainLoader``, infinite and shuffled, collated by worker threads ahead of
 the step; ``ValLoader``, one pass in dataset order, collated on the calling
 thread. ``use_device_augment`` says whether a config takes the train path
-with the augmentation on the device; classify takes the host path, its
-transforms in ``ClassificationDataset`` read by ``TrainLoader(...,
-in_order=True)``."""
+with the augmentation on the device; the others take the host path, the
+host chain in ``TrainDataset`` (classify's transforms in
+``ClassificationDataset``) read by ``TrainLoader(..., in_order=True)``."""
 from __future__ import annotations
 
+import multiprocessing
 import queue
 import random
 import threading
@@ -26,12 +27,24 @@ def use_device_augment(cfg) -> bool:
     """True where the JAX package would augment on the device (its
     ``data/build.py:use_device_augment``): ``device_augment`` on, a task of
     ``DEVICE_AUGMENT_TASKS`` (``detect`` when the config names none), no
-    ``mosaic9`` and no ``copy_paste``. Otherwise JAX takes its host train
-    pipeline, which the port does not have."""
+    ``mosaic9`` and no ``copy_paste``. Otherwise the host train chain
+    (``data/augment.py:train_transform``)."""
     return (bool(getattr(cfg, "device_augment", False))
             and getattr(cfg, "task", "detect") in DEVICE_AUGMENT_TASKS
             and float(getattr(cfg, "mosaic9", 0.0) or 0.0) == 0.0
             and float(getattr(cfg, "copy_paste", 0.0) or 0.0) == 0.0)
+
+
+_RENDER_DATASET = None  # the dataset of a render process
+
+
+def _hold_dataset(dataset):
+    global _RENDER_DATASET
+    _RENDER_DATASET = dataset
+
+
+def _render(job):
+    return _RENDER_DATASET.render(job)
 
 
 class TrainLoader:
@@ -43,9 +56,15 @@ class TrainLoader:
     any number of workers (the JAX loader's order is that only with one). A
     worker's error is raised in the consumer, and an abandoned iterator
     stops its workers. ``in_order``: a dataset that draws its own
-    randomness as it is read (``ClassificationDataset``) is read by one
-    thread at a time, batch after batch, so its draws follow the batch order
-    as in the JAX loader with one worker; the collate stays parallel."""
+    randomness as it is read (``ClassificationDataset``, the host chain's
+    ``TrainDataset``) is read by one thread at a time, batch after batch, so
+    its draws follow the batch order as in the JAX loader with one worker;
+    the collate stays parallel. A dataset with ``plan`` and ``render`` (see
+    ``TrainDataset.plan``) has only its plans made in order: its pixels
+    are rendered by ``workers`` forked processes, so the host chain's numpy
+    work neither waits for one thread nor holds the interpreter lock the
+    train step's launches need (the processes fork from this one, hold
+    the dataset as it is then, and touch no CUDA)."""
 
     def __init__(self, dataset, batch_size: int, workers: int = 4, seed: int = 0,
                  in_order: bool = False):
@@ -85,19 +104,31 @@ class TrainLoader:
                     continue
             return False
 
+        plan = getattr(self.dataset, "plan", None) if self.in_order else None
+        pool = None
+        if plan is not None:  # forked here, before the loader's threads start
+            pool = multiprocessing.get_context("fork").Pool(
+                self.workers, initializer=_hold_dataset, initargs=(self.dataset,))
+
         def worker():
             while not stop.is_set():
-                samples = None
+                samples = jobs = None
                 with lock:
                     seq, chunk = next(chunks)
                     if self.in_order:
                         try:
-                            samples = [self.dataset[j] for j in chunk]
+                            if plan is not None:
+                                jobs = [plan(j) for j in chunk]
+                            else:
+                                samples = [self.dataset[j] for j in chunk]
                         except Exception as e:  # handed to the consumer, raised there
                             qput((seq, e))
                             return
                 try:
-                    if samples is None:
+                    if jobs is not None:
+                        samples = [r.get() for r in [pool.apply_async(_render, (j,))
+                                                     for j in jobs]]
+                    elif samples is None:
                         samples = [self.dataset[j] for j in chunk]
                     item = collate(samples)
                 except Exception as e:  # handed to the consumer, raised there
@@ -129,6 +160,9 @@ class TrainLoader:
                 pass
             for t in threads:
                 t.join(timeout=2.0)
+            if pool is not None:
+                pool.terminate()
+                pool.join()
 
 
 class ValLoader:

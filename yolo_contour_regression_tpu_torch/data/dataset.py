@@ -1,7 +1,8 @@
 """YOLO-format labels and the datasets (counterparts of ``img2label_path``,
 ``parse_label_file``, ``YOLODataset`` (its val mode, and its train mode
-with the augmentation on the device) and ``ClassificationDataset`` in the
-JAX package's ``data/dataset.py``), in pure Python and numpy.
+with the augmentation on the device or on the host) and
+``ClassificationDataset`` in the JAX package's ``data/dataset.py``), in pure
+Python and numpy.
 
 The port decodes no image files: ``ValDataset`` and ``TrainDataset`` take
 decoded HWC uint8 BGR arrays, each with a YOLO label file or its parsed
@@ -9,6 +10,8 @@ arrays; ``ClassificationDataset`` takes decoded arrays and class indices.
 """
 from __future__ import annotations
 
+import copy
+import functools
 import os
 import random
 from pathlib import Path
@@ -18,7 +21,9 @@ import numpy as np
 
 from ..ops.polar import NUM_CONTOUR_POINTS
 from .augment import (Sample, _resize_linear_u8, classify_transform_eval,
-                      classify_transform_train, format_sample, format_sample_raw, letterbox_sample)
+                      classify_transform_train, format_sample, format_sample_raw, letterbox_sample,
+                      train_transform)
+from .imgproc import resize_area
 from .instance import Instances, resample_segment, segments2boxes
 
 Labels = Tuple[np.ndarray, np.ndarray, np.ndarray]  # cls, xywh boxes, segments
@@ -142,26 +147,31 @@ class ValDataset:
 
     def resized(self, i: int) -> np.ndarray:
         """The image with its long side at ``imgsz``, as the JAX dataset
-        caches it: by cv2's INTER_LINEAR, exactly
-        (``data/augment.py:_resize_linear_u8``), when enlarging and in train
-        mode. Shrinking for validation takes cv2's INTER_AREA in the JAX
-        package, which the port does not have yet."""
+        caches it, exactly: by cv2's INTER_LINEAR
+        (``data/augment.py:_resize_linear_u8``) when enlarging and in train
+        mode, by cv2's INTER_AREA (``data/imgproc.py:resize_area``) when
+        shrinking for validation."""
         img = self.images[i]
-        h, w = img.shape[:2]
+        nh, nw = self.resized_hw(i)
+        if (nh, nw) == img.shape[:2]:
+            return img
+        if nh < img.shape[0] and not self.augment:
+            return resize_area(img, nh, nw)
+        return _resize_linear_u8(img, nh, nw)
+
+    def resized_hw(self, i: int) -> Tuple[int, int]:
+        """The size of ``resized(i)``."""
+        h, w = self.images[i].shape[:2]
         r = self.imgsz / max(h, w)
         if r == 1.0:
-            return img
-        if r < 1.0 and not self.augment:
-            raise NotImplementedError(
-                f"image {i} is {h}x{w}, larger than imgsz {self.imgsz}: shrinking it takes "
-                "cv2.INTER_AREA, which the port does not have; pass images whose long side is "
-                "at most imgsz")
-        return _resize_linear_u8(img, min(int(round(h * r)), self.imgsz),
-                                 min(int(round(w * r)), self.imgsz))
+            return h, w
+        return min(int(round(h * r)), self.imgsz), min(int(round(w * r)), self.imgsz)
 
-    def load_raw(self, i: int) -> Sample:
-        img = self.resized(i)
-        h, w = img.shape[:2]
+    def load_raw(self, i: int, pixels: bool = True) -> Sample:
+        """Sample i at its ``resized`` size, its labels in pixels; without
+        ``pixels``, its size alone (``Sample.hw``)."""
+        img = self.resized(i) if pixels else None
+        h, w = self.resized_hw(i)
         lab = self.labels[i]
         xywh = lab["bboxes"] * np.array([w, h, w, h], np.float32)
         xyxy = np.concatenate([xywh[:, :2] - xywh[:, 2:] / 2, xywh[:, :2] + xywh[:, 2:] / 2], -1)
@@ -171,7 +181,7 @@ class ValDataset:
             kpts = lab["keypoints"].copy()
             kpts[..., 0] *= w
             kpts[..., 1] *= h
-        return Sample(img, Instances(lab["cls"].astype(np.float32), xyxy, segs, kpts))
+        return Sample(img, Instances(lab["cls"].astype(np.float32), xyxy, segs, kpts), hw=(h, w))
 
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         s = letterbox_sample(self.load_raw(i), self.imgsz, scaleup=False)
@@ -179,20 +189,99 @@ class ValDataset:
 
 
 class TrainDataset(ValDataset):
-    """Train samples over decoded images, for the augmentation on the
-    device (the JAX ``YOLODataset`` with ``augment`` and ``device_augment``):
-    each image resized so its long side is ``imgsz`` (cv2's INTER_LINEAR
-    both ways, as the JAX train mode takes it), letterboxed to ``imgsz``
-    with upscaling, and formatted by ``format_sample_raw`` (uint8 BGR, the
-    labels padded to ``max_instances``, the letterbox geometry). Mosaic,
-    the affine warp, MixUp, HSV and the flips run on the device in the
-    train step."""
+    """Train samples over decoded images (the JAX ``YOLODataset`` with
+    ``augment``), each image first resized so its long side is ``imgsz``
+    (cv2's INTER_LINEAR both ways, as the JAX train mode takes it).
+
+    With ``device_augment`` (the default) for the augmentation on the
+    device: letterboxed to ``imgsz`` with upscaling and formatted by
+    ``format_sample_raw`` (uint8 BGR, the labels padded to
+    ``max_instances``, the letterbox geometry); mosaic, the affine warp,
+    MixUp, HSV and the flips run on the device in the train step.
+
+    Without it, the host chain (``data/augment.py:train_transform``) with
+    the settings of ``hyp``, its draws from ``self.rng``,
+    ``random.Random(seed)``, in the order samples are read (read them in
+    batch order, ``TrainLoader(..., in_order=True)``, to repeat a run), its
+    MixUp beta from ``noise`` (default ``numpy.random.default_rng(seed)``;
+    JAX draws it from numpy's global state, ``np.random``, which may be
+    passed to reproduce its draws), keypoints flipped by ``flip_idx``;
+    then ``format_sample`` (uint8 RGB). ``close_mosaic()`` turns mosaic and
+    MixUp off for the samples read after it. ``plan(i)`` makes the draws of
+    ``self[i]`` and ``render`` its pixels: ``self[i]`` is
+    ``render(plan(i))``, and plans made in read order may be rendered in
+    any order, at once, in other processes."""
 
     augment = True
 
+    def __init__(self, images: Sequence[np.ndarray], labels: Sequence[Union[str, Path, Labels]],
+                 imgsz: int = 640, max_instances: int = 48, kpt_shape=None, hyp=None,
+                 device_augment: bool = True, seed: int = 0, flip_idx=None, noise=None):
+        super().__init__(images, labels, imgsz=imgsz, max_instances=max_instances,
+                         kpt_shape=kpt_shape)
+        self.device_augment = bool(device_augment)
+        if not self.device_augment and hyp is None:
+            raise ValueError("the host train chain (device_augment=False) needs hyp")
+        self.hyp = hyp
+        self.rng = random.Random(seed)
+        self.noise = np.random.default_rng(seed) if noise is None else noise
+        self.flip_idx = tuple(int(v) for v in flip_idx) if flip_idx else None
+        self.mosaic_enabled = True
+
+    def close_mosaic(self):
+        """Mosaic and MixUp off from here on (the host chain's last
+        ``close_mosaic`` epochs)."""
+        self.mosaic_enabled = False
+
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
-        s = letterbox_sample(self.load_raw(i), self.imgsz, scaleup=True)
-        return format_sample_raw(s, self.max_instances)
+        return self.render(self.plan(i))
+
+    def plan(self, i: int) -> Tuple:
+        """The host chain run on sample i without pixels (``data/augment.py``):
+        every draw it makes, its MixUp betas recorded. Returns the job that
+        ``render`` takes (plain data: it may cross to another process):
+        the index, the settings, the generator's state before the draws and
+        the betas."""
+        if self.device_augment:
+            return (i, None, None, ())
+        hyp = self.hyp
+        if not self.mosaic_enabled:
+            hyp = copy.copy(hyp)
+            hyp.mosaic, hyp.mixup = 0.0, 0.0
+        state = self.rng.getstate()
+        betas = _Betas(self.noise)
+        train_transform(functools.partial(self.load_raw, pixels=False), i, len(self), self.imgsz,
+                        hyp, self.rng, betas, flip_idx=self.flip_idx)
+        return (i, hyp, state, tuple(betas.drawn))
+
+    def render(self, job: Tuple) -> Dict[str, np.ndarray]:
+        """A ``plan``'s sample: the chain rerun with pixels from a copy of
+        the generator's state, the betas replayed (on the device path, the
+        letterboxed raw sample)."""
+        i, hyp, state, betas = job
+        if hyp is None:
+            s = letterbox_sample(self.load_raw(i), self.imgsz, scaleup=True)
+            return format_sample_raw(s, self.max_instances)
+        rng = random.Random()
+        rng.setstate(state)
+        s = train_transform(self.load_raw, i, len(self), self.imgsz, hyp, rng,
+                            _Betas(values=betas), flip_idx=self.flip_idx)
+        return format_sample(s, self.max_instances)
+
+
+class _Betas:
+    """MixUp's beta draws: from ``noise``, kept in ``drawn``, or handed out
+    again from ``values`` in order."""
+
+    def __init__(self, noise=None, values=()):
+        self.noise, self.drawn, self.values = noise, [], list(values)
+
+    def beta(self, a: float, b: float) -> float:
+        if self.noise is None:
+            return self.values.pop(0)
+        v = float(self.noise.beta(a, b))
+        self.drawn.append(v)
+        return v
 
 
 class ClassificationDataset:

@@ -1,10 +1,10 @@
-"""Label geometry (a numpy copy of the parts of the JAX package's
-``data/instance.py`` that the host pipelines use): boxes, 360-point contours
-and keypoints scaled and translated together, so the letterbox cannot
-desync them."""
+"""Label geometry (a numpy copy of the JAX package's ``data/instance.py``):
+boxes, 360-point contours and keypoints scaled, translated, flipped, clipped,
+selected and concatenated together, so the host transforms cannot desync
+them."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -72,3 +72,62 @@ class Instances:
         if self.keypoints is not None:
             self.keypoints[..., 0] += dx
             self.keypoints[..., 1] += dy
+
+    def fliplr(self, w: int, flip_idx=None):
+        """Mirror about x = w/2; with ``flip_idx`` the keypoints also swap
+        identity (left <-> right) by that permutation."""
+        x1 = self.bboxes[:, 0].copy()
+        self.bboxes[:, 0] = w - self.bboxes[:, 2]
+        self.bboxes[:, 2] = w - x1
+        self.segments[..., 0] = w - self.segments[..., 0]
+        if self.keypoints is not None:
+            self.keypoints[..., 0] = w - self.keypoints[..., 0]
+            if flip_idx is not None:
+                self.keypoints = self.keypoints[:, list(flip_idx), :]
+
+    def flipud(self, h: int):
+        y1 = self.bboxes[:, 1].copy()
+        self.bboxes[:, 1] = h - self.bboxes[:, 3]
+        self.bboxes[:, 3] = h - y1
+        self.segments[..., 1] = h - self.segments[..., 1]
+        if self.keypoints is not None:
+            self.keypoints[..., 1] = h - self.keypoints[..., 1]
+
+    def clip(self, w: int, h: int):
+        """Boxes and contours clipped to [0, w] x [0, h] (keypoints kept)."""
+        self.bboxes[:, [0, 2]] = self.bboxes[:, [0, 2]].clip(0, w)
+        self.bboxes[:, [1, 3]] = self.bboxes[:, [1, 3]].clip(0, h)
+        self.segments[..., 0] = self.segments[..., 0].clip(0, w)
+        self.segments[..., 1] = self.segments[..., 1].clip(0, h)
+
+    def sync_boxes_from_segments(self):
+        """Each instance with a contour (any nonzero point) takes its box
+        from the contour's extent."""
+        has_seg = self.segments.reshape(len(self), -1).any(1)
+        if has_seg.any():
+            xywh = segments2boxes(self.segments[has_seg])
+            self.bboxes[has_seg] = np.concatenate(
+                [xywh[:, :2] - xywh[:, 2:] / 2, xywh[:, :2] + xywh[:, 2:] / 2], -1)
+
+    def remove_degenerate(self, min_wh: float = 2.0) -> "Instances":
+        """The instances whose box is wider and taller than ``min_wh``."""
+        w = self.bboxes[:, 2] - self.bboxes[:, 0]
+        h = self.bboxes[:, 3] - self.bboxes[:, 1]
+        return self.select((w > min_wh) & (h > min_wh))
+
+    def select(self, keep) -> "Instances":
+        return Instances(self.cls[keep], self.bboxes[keep], self.segments[keep],
+                         None if self.keypoints is None else self.keypoints[keep])
+
+    @staticmethod
+    def concatenate(items: List["Instances"]) -> "Instances":
+        """One set of all the instances, in order; keypoints only if every
+        part has them."""
+        if not items:
+            return Instances(np.zeros(0), np.zeros((0, 4)), np.zeros((0, NUM_CONTOUR_POINTS, 2)))
+        kpts = None
+        if all(i.keypoints is not None for i in items):
+            kpts = np.concatenate([i.keypoints for i in items])
+        return Instances(np.concatenate([i.cls for i in items]),
+                         np.concatenate([i.bboxes for i in items]),
+                         np.concatenate([i.segments for i in items]), kpts)

@@ -13,15 +13,16 @@ and rtdetr tasks (counterpart of the JAX package's ``engine/model.py``)::
     model = YOLO("runs/floor_classify/best.ckpt")        # classify: results[0].probs
     metrics = model.val([img_bgr_u8, ...], [0, 1, ...], imgsz=64)  # labels: class indices
     model = YOLO("runs/floor_rtdetr/best.ckpt")          # RT-DETR: no NMS; predict, val, fuse
+    YOLO("yolov8n-rtdetr.yaml").train(data=..., imgsz=192)  # RT-DETR on the host train chain
 
 A name ending in ``.yaml`` names a fresh model (``nn/tasks.py``:
 ``yaml_model_load``; ``yolov8n-seg.yaml`` is the polar segment task,
 ``yolov8n.yaml`` detect, ``yolov8n-pose.yaml`` pose, ``yolov8n-segori.yaml``
 segment_ori, ``yolov8n-cls.yaml`` classify, ``yolov8n-rtdetr.yaml`` rtdetr)
 that has no weights until ``train`` builds and initializes it from ``seed``
-and adopts its ``best.ckpt`` (RT-DETR trains through JAX's host cv2
-pipeline, which is not ported: its ``train`` raises); anything else is a checkpoint of one of those tasks of the
-JAX package, in its
+and adopts its ``best.ckpt`` (RT-DETR trains on the host train chain, as
+JAX's); anything else is a checkpoint of one of those tasks of the JAX
+package, in its
 training form or fused (``deploy == "fused"``, as the JAX ``YOLO.save``
 writes it after ``fuse()``), or one the port's trainer wrote. The task
 comes from the checkpoint's ``train_args`` or, failing that, the config's
@@ -41,20 +42,12 @@ from ..nn.tasks import TASK_MODELS, TaskModel, build_model, guess_model_task, ya
 from ..utils.checkpoint import checkpoint_variables, load_checkpoint, load_jax_variables
 from .predictor import (ClassificationPredictor, DetectionPredictor, PosePredictor,
                         SegmentationOriPredictor, SegmentationPredictor)
-from .trainer import (ClassificationTrainer, DetectionTrainer, PoseTrainer, SegmentationOriTrainer,
-                      SegmentationTrainer)
+from .trainer import (ClassificationTrainer, DetectionTrainer, PoseTrainer, RTDETRTrainer,
+                      SegmentationOriTrainer, SegmentationTrainer)
 from .validator import (ClassificationValidator, DetectionValidator, PoseValidator,
                         SegmentationOriValidator, SegmentationValidator)
 
 
-class RTDETRTrainer:
-    """JAX trains RT-DETR through its host cv2 train pipeline
-    (``data/build.py`` admits only detect, segment, segment_ori and pose to
-    the device augmentation), which is not ported: raises."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the RT-DETR trainer needs the host cv2 train pipeline "
-                                  "(device_augment=false), which is not ported")
 
 # each task's predictor, validator and trainer (the JAX ``TASK_MAP``, for the ported tasks)
 TASK_MAP = {

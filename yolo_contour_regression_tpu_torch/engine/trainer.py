@@ -1,37 +1,47 @@
-"""The trainers of the segment, detect, pose, segment_ori and classify tasks
-(counterparts of ``SegmentationTrainer``, ``DetectionTrainer``,
-``PoseTrainer``, ``SegmentationOriTrainer`` and ``ClassificationTrainer``
-in the JAX package's ``engine/trainer.py``: its single-device path, one
-optimizer step per dispatch).
+"""The trainers of the segment, detect, pose, segment_ori, classify and
+rtdetr tasks (counterparts of ``SegmentationTrainer``, ``DetectionTrainer``,
+``PoseTrainer``, ``SegmentationOriTrainer``, ``ClassificationTrainer`` and
+``RTDETRTrainer`` in the JAX package's ``engine/trainer.py`` and
+``engine/model.py``: its single-device path, one optimizer step per
+dispatch).
 
 ``SegmentationTrainer(overrides=..., device="cuda").train(data)`` trains a
 fresh polar segmentation model, ``DetectionTrainer`` a fresh detect model,
 ``PoseTrainer`` a fresh keypoint model, ``SegmentationOriTrainer`` a fresh
 proto-mask segmentation model, ``ClassificationTrainer`` a fresh classify
-model (the task is the ``task`` override's, else the model config's
-head's, and must be the trainer's):
-the model built from ``args.model`` at
-``nc = len(data["names"])`` and initialized from ``args.seed``
-(``nn/tasks.py:init_weights``); the train set letterboxed on the host
-(``data/dataset.py:TrainDataset``) and batched by worker threads
-(``data/build.py:TrainLoader``); mosaic, the affine warp, MixUp, HSV and the
-flips on the device inside the step (``data/device_augment.py``), with
-``mosaic`` and ``mixup`` turned off for the last ``close_mosaic`` epochs;
-gradient accumulation toward ``nbs``; AdamW or SGD with the JAX schedules
-and the EMA (``utils/optim.py``). Each epoch ends with a validation (the task's
-validator) of the EMA weights with the live BatchNorm statistics, on a copy of the model in
-eval mode (the training model is left as it is), a ``results.csv`` row in
-the JAX columns, ``last.ckpt`` and ``best.ckpt`` on the JAX cadence (written
-at once, not in a thread), and early stopping. At the end ``best.ckpt`` and
-``last.ckpt`` are stripped (EMA -> params) and the stripped ``best.ckpt``
-is validated again; its metrics are returned.
+model, ``RTDETRTrainer`` a fresh RT-DETR (the task is the ``task``
+override's, else the model config's head's, and must be the trainer's):
+the model built from ``args.model`` at ``nc = len(data["names"])`` and
+initialized from ``args.seed`` (``nn/tasks.py:init_weights``); gradient
+accumulation toward ``nbs``; AdamW or SGD with the JAX schedules and the EMA
+(``utils/optim.py``). Each epoch ends with a validation (the task's
+validator) of the EMA weights with the live BatchNorm statistics, on a copy
+of the model in eval mode (the training model is left as it is), a
+``results.csv`` row in the JAX columns, ``last.ckpt`` and ``best.ckpt`` on
+the JAX cadence (written at once, not in a thread), and early stopping. At
+the end ``best.ckpt`` and ``last.ckpt`` are stripped (EMA -> params) and the
+stripped ``best.ckpt`` is validated again; its metrics are returned.
 
-Classify takes the host path instead, as in JAX (its ``use_device_augment``
-leaves classify out): the fork's grayscale transforms in
-``ClassificationDataset`` (brightness from ``random.Random(seed)``, noise
-from ``numpy.random.default_rng(seed)``), read in batch order by
-``TrainLoader(..., in_order=True)``; float images, one copy to the device a
-batch; no augmentation in the step.
+The train data takes one of two paths, by JAX's rule
+(``data/build.py:use_device_augment``):
+
+- the device path (``device_augment`` on, a detect-family task, no
+  ``mosaic9`` and no ``copy_paste``): the train set letterboxed on the host
+  (``data/dataset.py:TrainDataset``) and batched by worker threads
+  (``data/build.py:TrainLoader``); mosaic, the affine warp, MixUp, HSV and
+  the flips on the device inside the step (``data/device_augment.py``),
+  with ``mosaic`` and ``mixup`` turned off for the last ``close_mosaic``
+  epochs;
+- the host path (everything else, RT-DETR always): JAX's host chain
+  (``data/augment.py:train_transform``) in ``TrainDataset`` with
+  ``device_augment=False``, its draws from ``random.Random(seed)``, read in
+  batch order by ``TrainLoader(..., in_order=True)``; uint8 images, one
+  copy to the device a batch, ``/ 255`` there; ``train_set.close_mosaic()``
+  for the last ``close_mosaic`` epochs (the loader's batches already made
+  keep their mosaics, as in JAX). Classify's is its own: the fork's
+  grayscale transforms in ``ClassificationDataset`` (brightness from
+  ``random.Random(seed)``, noise from ``numpy.random.default_rng(seed)``),
+  float images.
 
 ``data`` holds decoded images: ``{"train": (images, labels), "val":
 (images, labels), "names": {0: "...", ...}}``, images HWC uint8 BGR, labels
@@ -46,17 +56,15 @@ Detect batches carry the label files' segments as the JAX dataset does (its
 ``use_segments`` is stored and never read): a polygon label's instance is
 warped by its contour, a box label's (zero segments) by its box corners.
 
-Not ported (raising ``NotImplementedError`` where asked for): the host cv2
-train pipeline of the detect-family tasks (``device_augment=false``,
-``mosaic9``, ``copy_paste``), ``resume``, the other families. Without
-effect: ``plots`` (the JAX
-plots need cv2), the multi-step dispatch and ``cache`` options, the
-integration callbacks.
+Not ported (raising ``NotImplementedError`` where asked for): ``resume``, the
+other families. Without effect: ``plots`` (the JAX plots need cv2), the
+multi-step dispatch and ``cache`` options, the integration callbacks.
 
-Timing: ``mark`` goes to the step (its stages, "augment" first) and is
-called with "copy" as a batch is copied to the device; ``epoch_times`` holds
-each epoch's host-clock seconds: the train steps, the wait for the loader
-within them, the validation and the save.
+Timing: ``mark`` goes to the step (its stages, "augment" first on the device
+path) and is called with "copy" as a batch is copied to the device;
+``epoch_times`` holds each epoch's host-clock seconds: the train steps, the
+wait for the loader within them, the validation and the save. ``dn_fn``
+goes to the RT-DETR step (``engine/step.py``).
 """
 from __future__ import annotations
 
@@ -76,6 +84,7 @@ from ..data.augment import INSTANCE_KEYS
 from ..data.build import TrainLoader, use_device_augment
 from ..data.dataset import ClassificationDataset, TrainDataset
 from ..data.device_augment import make_augment_fn
+from ..models.rtdetr.val import RTDETRValidator
 from ..nn.tasks import TaskModel, build_model, guess_model_task, init_weights, yaml_model_load
 from ..utils.checkpoint import (checkpoint_variables, load_checkpoint, load_jax_variables, plain,
                                 save_checkpoint, strip_optimizer, to_jax_variables)
@@ -135,16 +144,15 @@ def _no_mark(stage: str):
 
 class BaseTrainer:
     """The trainer: see the module docstring. A task's trainer gives
-    ``task``, its default model config and its validator's class
-    (``device_augment`` False: the host path, see ``get_dataset``)."""
+    ``task``, its default model config and its validator's class."""
 
     task = ""
     default_model = ""
     validator_cls = DetectionValidator
-    device_augment = True
 
     def __init__(self, overrides: Optional[Dict] = None, device="cuda",
-                 mark: Optional[Callable[[str], None]] = None):
+                 mark: Optional[Callable[[str], None]] = None,
+                 dn_fn: Optional[Callable] = None):
         overrides = dict(overrides or {})
         model = overrides.get("model") or self.default_model
         cfg = yaml_model_load(model) if isinstance(model, (str, Path)) else model
@@ -156,13 +164,11 @@ class BaseTrainer:
         if self.args.resume:
             raise NotImplementedError("resume is not ported: the port's optimizer state has no "
                                       "form in the checkpoint")
-        if self.device_augment and not use_device_augment(self.args):
-            raise NotImplementedError(
-                "the host cv2 train pipeline (train_transform, mosaic9, copy_paste, "
-                "device_augment=false) is not ported: train with device_augment=true, "
-                "mosaic9=0 and copy_paste=0")
+        # the device augmentation, else the host chain
+        self.device_augment = use_device_augment(self.args)
         self.device = torch.device(device)
         self.mark = mark or _no_mark
+        self.dn_fn = dn_fn
         name = self.args.name or f"{self.task}_train"
         project = Path(self.args.project or "runs")
         self.save_dir = project / name
@@ -207,7 +213,7 @@ class BaseTrainer:
             aug = make_augment_fn(hyp, args.imgsz, max_inst) if self.device_augment else None
             return make_train_step(model, optimizer, args, cand=args.cand_per_gt,
                                    accumulate=accumulate, mark=self.mark, augment_fn=aug,
-                                   aug_seed=args.seed, amp=bool(args.amp))
+                                   aug_seed=args.seed, amp=bool(args.amp), dn_fn=self.dn_fn)
 
         step_fn = build_step(args)
         self.validator = validator = self.get_validator() if args.val else None
@@ -224,9 +230,13 @@ class BaseTrainer:
         try:
             for epoch in range(args.epochs):
                 if epoch == close_mosaic_at:
-                    hyp = copy.copy(args)
-                    hyp.mosaic, hyp.mixup = 0.0, 0.0
-                    step_fn = build_step(hyp)
+                    LOGGER.info("closing mosaic augmentation")
+                    if hasattr(train_set, "close_mosaic"):
+                        train_set.close_mosaic()
+                    if self.device_augment:
+                        hyp = copy.copy(args)
+                        hyp.mosaic, hyp.mixup = 0.0, 0.0
+                        step_fn = build_step(hyp)
                 epoch_metrics: Dict[str, float] = {}
                 t0 = time.perf_counter()
                 wait = 0.0
@@ -240,6 +250,8 @@ class BaseTrainer:
                     wait += time.perf_counter() - t
                     self.mark("copy")
                     images = torch.from_numpy(images).to(self.device)
+                    if not self.device_augment and images.dtype == torch.uint8:
+                        images = images.float() / 255.0  # the host chain's RGB
                     batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
                     metrics = step_fn(state, images, batch)
                     if i == steps_per_epoch - 1 or i % 50 == 0:
@@ -275,11 +287,15 @@ class BaseTrainer:
         return self.metrics
 
     def get_dataset(self, data: Dict):
-        """The train set: ``TrainDataset`` (letterboxed raw samples for the
-        device augmentation)."""
-        return TrainDataset(*data["train"], imgsz=self.args.imgsz,
-                            max_instances=int(self.args.max_instances),
-                            kpt_shape=getattr(self.model, "kpt_shape", None))
+        """The train set: ``TrainDataset``, letterboxed raw samples for the
+        device augmentation, or the host chain's samples, its draws seeded
+        by ``args.seed``."""
+        args = self.args
+        return TrainDataset(*data["train"], imgsz=args.imgsz,
+                            max_instances=int(args.max_instances),
+                            kpt_shape=getattr(self.model, "kpt_shape", None), hyp=args,
+                            device_augment=self.device_augment, seed=int(args.seed),
+                            flip_idx=getattr(args, "flip_idx", None))
 
     def get_validator(self):
         args = self.args
@@ -370,10 +386,18 @@ class SegmentationOriTrainer(BaseTrainer):
     validator_cls = SegmentationOriValidator
 
 
+class RTDETRTrainer(BaseTrainer):
+    """RT-DETR: always the host path (its task is not a device-augment one),
+    the RT-DETR step and validator."""
+
+    task = "rtdetr"
+    default_model = "yolov8n-rtdetr.yaml"
+    validator_cls = RTDETRValidator
+
+
 class ClassificationTrainer(BaseTrainer):
     task = "classify"
     default_model = "yolov8n-cls.yaml"
-    device_augment = False
 
     def get_dataset(self, data: Dict):
         """The train set: ``ClassificationDataset`` with the train

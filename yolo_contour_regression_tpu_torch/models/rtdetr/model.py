@@ -6,9 +6,10 @@ from ...engine.model import YOLO
 
 
 class RTDETR(YOLO):
-    """``YOLO`` bound to the rtdetr task. Of the RT-DETR configs only
-    ``yolov8n-rtdetr.yaml`` (any scale letter) is ported; the default
-    ``rtdetr-l.yaml``, as JAX's, raises ``NotImplementedError``."""
+    """``YOLO`` bound to the rtdetr task: ``rtdetr-l.yaml`` (the default, as
+    JAX's: PPHGNetV2 backbone, AIFI, RepC3 neck), ``yolov8n-rtdetr.yaml``
+    (any scale letter), or a checkpoint of either. Each predicts,
+    validates, trains (on the host train chain) and fuses."""
 
     def __init__(self, model: str = "rtdetr-l.yaml", device="cuda"):
         super().__init__(model, device=device, task="rtdetr")

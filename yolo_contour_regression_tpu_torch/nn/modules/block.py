@@ -1,14 +1,15 @@
 """Composite blocks in NCHW (counterpart of the JAX package's
 ``nn/modules/block.py``): the fork's RepBlock and SPPF, the stock
-YOLOv8 blocks of the detect graph, DFL, Bottleneck and C2f, and the mask
-prototypes of the proto-mask head, Proto."""
+YOLOv8 blocks of the detect graph, DFL, Bottleneck and C2f, the mask
+prototypes of the proto-mask head, Proto, and rtdetr-l's PPHGNetV2 blocks
+HGStem and HGBlock and its neck's RepC3."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .conv import Conv, RepConv
+from .conv import Conv, LightConv, RepConv
 
 
 def _maxpool_same(x, k: int, s: int = 1):
@@ -117,3 +118,69 @@ class Proto(nn.Module):
     def forward(self, x):
         x = F.interpolate(self.cv1(x), scale_factor=2, mode="nearest")
         return self.cv3(self.cv2(x))
+
+
+class RepC3(nn.Module):
+    """C3 with ``n`` RepConv bottlenecks (``m``): ``cv1`` -> the RepConvs,
+    plus ``cv2``, then ``cv3`` (no activation, as JAX's) where the hidden
+    width ``c2 * e`` is not c2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.m = nn.ModuleList(RepConv(c_, c_) for _ in range(n))
+        self.cv3 = Conv(c_, c2, 1, 1, act=False) if c_ != c2 else None
+
+    def forward(self, x):
+        y = self.cv1(x)
+        for m in self.m:
+            y = m(y)
+        y = y + self.cv2(x)
+        return y if self.cv3 is None else self.cv3(y)
+
+
+class HGStem(nn.Module):
+    """PPHGNetV2's stem, ReLU throughout: ``stem1`` (3x3 s2), then two
+    branches, 2x2 convs ``stem2a`` and ``stem2b`` (each on its input padded
+    by one row and column below and right) and a 2x2 stride-1 max pool
+    (padded the same way with -inf), concatenated (pool first), ``stem3``
+    (3x3 s2) and ``stem4`` (1x1). Stride 4."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = Conv(c1, cm, 3, 2, act="relu")
+        self.stem2a = Conv(cm, cm // 2, 2, 1, p=0, act="relu")
+        self.stem2b = Conv(cm // 2, cm, 2, 1, p=0, act="relu")
+        self.stem3 = Conv(cm * 2, c2, 3, 2, act="relu")
+        self.stem4 = Conv(c2, c2, 1, 1, act="relu")
+
+    def forward(self, x):
+        x = self.stem1(x)
+        x2 = self.stem2b(F.pad(self.stem2a(F.pad(x, (0, 1, 0, 1))), (0, 1, 0, 1)))
+        x1 = F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), 2, 1)
+        return self.stem4(self.stem3(torch.cat([x1, x2], 1)))
+
+
+class HGBlock(nn.Module):
+    """PPHGNetV2's HG block: ``n`` chained kxk blocks ``m`` (``LightConv``
+    with ``lightconv``, else ``Conv``) of width cm, the input and every
+    output concatenated, squeezed to c2 / 2 (``sc``, 1x1) and excited to c2
+    (``ec``, 1x1); the input added back with ``shortcut`` where c1 == c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6,
+                 lightconv: bool = False, shortcut: bool = False, act="relu"):
+        super().__init__()
+        block = LightConv if lightconv else Conv
+        self.m = nn.ModuleList(block(c1 if i == 0 else cm, cm, k=k, act=act) for i in range(n))
+        self.sc = Conv(c1 + n * cm, c2 // 2, 1, 1, act=act)
+        self.ec = Conv(c2 // 2, c2, 1, 1, act=act)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        ys = [x]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.ec(self.sc(torch.cat(ys, 1)))
+        return y + x if self.add else y

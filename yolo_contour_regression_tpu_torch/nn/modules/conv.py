@@ -10,6 +10,7 @@ and updates its running statistics as flax does (``BatchNorm2d`` below).
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -119,6 +120,32 @@ class RepConv(nn.Module):
         if self.bn is not None:
             y = y + self.bn(x)
         return self.act(y)
+
+
+class DWConv(nn.Module):
+    """Depthwise conv: a ``Conv`` ``dw`` with ``groups = gcd(c1, c2)`` (the
+    JAX module's child; the reference's signature (c2, k, s, d, act) has no
+    padding or groups)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1, act=True):
+        super().__init__()
+        self.dw = Conv(c1, c2, k, s, None, math.gcd(c1, c2), d, act)
+
+    def forward(self, x):
+        return self.dw(x)
+
+
+class LightConv(nn.Module):
+    """A 1x1 ``Conv`` without activation (``conv1``), then a depthwise kxk
+    ``Conv`` (``conv2``)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, act=True):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act=False)
+        self.conv2 = Conv(c2, c2, k, g=c2, act=act)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
 
 
 class Concat(nn.Module):

@@ -10,6 +10,7 @@ level as ``make_anchors`` orders them. ``Classify`` returns probabilities.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -208,19 +209,34 @@ def decode_pose(kpt_raw: torch.Tensor, strides: Sequence[int], feat_hw, kpt_shap
     return xy
 
 
-def _grid_anchors(shapes, device) -> torch.Tensor:
+def _grid_anchors(shapes) -> torch.Tensor:
     """The decoder's grid anchors (1, V, 4), normalized cxcywh in float32:
     centers ``((x + 0.5) / w, (y + 0.5) / h)`` row-major per level (JAX
     normalizes x by w and y by h, fixing the reference's swap), sizes
     ``0.05 * 2^level``."""
     out = []
     for i, (h, w) in enumerate(shapes):
-        gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
-                                torch.arange(w, dtype=torch.float32, device=device),
-                                indexing="ij")
+        gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                                torch.arange(w, dtype=torch.float32), indexing="ij")
         xy = torch.stack([(gx + 0.5) / w, (gy + 0.5) / h], -1).reshape(-1, 2)
         out.append(torch.cat([xy, torch.full_like(xy, 0.05 * (2.0 ** i))], -1))
     return torch.cat(out, 0)[None]
+
+
+@functools.lru_cache(maxsize=32)
+def anchor_logits(shapes, device, dtype):
+    """The decoder's anchor logits (1, V, 4) (``inverse_sigmoid`` of
+    ``_grid_anchors``, in float32 as JAX computes them, inf outside
+    (0.01, 0.99)) and their validity (1, V, 1), computed on the CPU and
+    kept on ``device`` per map shape: a card and the CPU then take the same
+    float32 values (the card's ``log`` may round the other way), which
+    keeps a fresh model's sampling points on the same side of a pixel's
+    edge on both."""
+    with torch.inference_mode(False):  # cached: a normal tensor, whatever the caller's mode
+        anchors = _grid_anchors(shapes)
+        valid = ((anchors > 1e-2) & (anchors < 1 - 1e-2)).all(-1, keepdim=True)
+        logit = torch.where(valid, inverse_sigmoid(anchors), torch.full_like(anchors, math.inf))
+        return logit.to(device, dtype), valid.to(device)
 
 
 def dn_attn_mask(G: int, per_group: int, nq: int, device) -> torch.Tensor:
@@ -287,10 +303,7 @@ class RTDETRDecoder(nn.Module):
                   for i, f in enumerate(feats)]
         feats_flat = torch.cat(tokens, 1)  # (B, V, hd)
         dtype = feats_flat.dtype
-        anchors = _grid_anchors(shapes, feats_flat.device)
-        valid = ((anchors > 1e-2) & (anchors < 1 - 1e-2)).all(-1, keepdim=True)
-        anchors_logit = torch.where(valid, inverse_sigmoid(anchors),
-                                    torch.full_like(anchors, math.inf)).to(dtype)
+        anchors_logit, valid = anchor_logits(tuple(map(tuple, shapes)), feats_flat.device, dtype)
 
         enc_feats = self.enc_output_ln(self.enc_output(feats_flat * valid))
         enc_scores_all = self.enc_score_head(enc_feats)

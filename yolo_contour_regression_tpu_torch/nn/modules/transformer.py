@@ -1,8 +1,9 @@
-"""The RT-DETR decoder's transformer pieces (counterpart of the JAX
-package's ``nn/modules/transformer.py``): ``inverse_sigmoid``, ``MLP``,
+"""The RT-DETR transformer pieces (counterpart of the JAX package's
+``nn/modules/transformer.py``): ``inverse_sigmoid``, ``MLP``,
 ``bilinear_grid_sample``, flax's multi-head attention written out as
 matmuls and a softmax, ``MSDeformAttn`` and
-``DeformableTransformerDecoderLayer``.
+``DeformableTransformerDecoderLayer`` of the decoder, and rtdetr-l's
+encoder: ``TransformerEncoderLayer``, ``sincos_2d_position`` and ``AIFI``.
 
 Parameter names and layouts are flax's, so a JAX weight tree carries over
 by ``utils/checkpoint.py`` with no rule of its own: ``nn.Linear`` for a
@@ -18,6 +19,7 @@ padding, ``align_corners=False``), one call a level over batch x heads.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -109,6 +111,66 @@ class MultiHeadAttention(nn.Module):
         w = torch.softmax(logits, dim=-1)
         out = (w @ v.transpose(1, 2)).transpose(1, 2)  # (B, Q, nh, hd)
         return self.out(out)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-norm self-attention and feed-forward (JAX's): ``ma`` on ``src +
+    pos`` as query and key and ``src`` as value, ``norm1`` of the sum with
+    ``src``; ``fc1`` (to cm), tanh-approximate GELU (flax's ``nn.gelu``),
+    ``fc2``; ``norm2`` of the sum. LayerNorms at flax's eps."""
+
+    def __init__(self, c1: int, cm: int = 2048, num_heads: int = 8):
+        super().__init__()
+        self.ma = MultiHeadAttention(c1, num_heads)
+        self.norm1 = nn.LayerNorm(c1, eps=LN_EPS)
+        self.fc1 = nn.Linear(c1, cm)
+        self.fc2 = nn.Linear(cm, c1)
+        self.norm2 = nn.LayerNorm(c1, eps=LN_EPS)
+
+    def forward(self, src: torch.Tensor, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """src (B, L, C), pos broadcastable to it -> (B, L, C)."""
+        q = src if pos is None else src + pos
+        src = self.norm1(src + self.ma(q, q, src))
+        h = self.fc2(F.gelu(self.fc1(src), approximate="tanh"))
+        return self.norm2(src + h)
+
+
+def sincos_2d_position(w: int, h: int, dim: int, temperature: float = 10000.0) -> torch.Tensor:
+    """The 2D sin-cos position table (1, w * h, dim), w-major (JAX's and the
+    reference's), float32 on the CPU: ``omega = 1 / temperature^(i / (dim
+    / 4))``, then [sin, cos] of x * omega and of y * omega."""
+    if dim % 4:
+        raise ValueError(f"dim {dim} is not a multiple of 4")
+    pos_dim = dim // 4
+    omega = 1.0 / (temperature ** (torch.arange(pos_dim, dtype=torch.float32) / pos_dim))
+    gw, gh = torch.meshgrid(torch.arange(w, dtype=torch.float32),
+                            torch.arange(h, dtype=torch.float32), indexing="ij")
+    out_w = gw.reshape(-1)[:, None] * omega[None]
+    out_h = gh.reshape(-1)[:, None] * omega[None]
+    return torch.cat([out_w.sin(), out_w.cos(), out_h.sin(), out_h.cos()], 1)[None]
+
+
+@functools.lru_cache(maxsize=32)
+def aifi_position(h: int, w: int, c: int, device, dtype) -> torch.Tensor:
+    """``sincos_2d_position`` transposed to row-major tokens (1, h * w, c),
+    computed on the CPU and kept on ``device`` per map shape, so a card and
+    the CPU take the same float32 table."""
+    with torch.inference_mode(False):  # cached: a normal tensor, whatever the caller's mode
+        pos = sincos_2d_position(w, h, c).reshape(1, w, h, c).transpose(1, 2)
+        return pos.reshape(1, h * w, c).to(device, dtype)
+
+
+class AIFI(TransformerEncoderLayer):
+    """Intra-scale feature interaction on the last map: (B, C, H, W) as H *
+    W row-major tokens through the encoder layer, with the w-major position
+    table transposed to row-major (``aifi_position``), and back."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        pos = aifi_position(h, w, c, x.device, x.dtype)
+        tokens = x.flatten(2).transpose(1, 2)
+        out = super().forward(tokens, pos=pos)
+        return out.transpose(1, 2).reshape(b, c, h, w)
 
 
 def bilinear_grid_sample(value: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

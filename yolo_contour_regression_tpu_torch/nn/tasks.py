@@ -157,15 +157,65 @@ YOLOV8_RTDETR: Dict[str, Any] = {
     ],
 }
 
-# config name -> (module class, positional field names after c1, kind)
+# cfg/models/rtdetr-l.yaml of the JAX package as a dict (its strings as YAML
+# reads them): PPHGNetV2 backbone, AIFI encoder, RepC3 neck, the RT-DETR
+# decoder at 256 channels
+RTDETR_L: Dict[str, Any] = {
+    "nc": 80,
+    "scales": {"l": [1.0, 1.0, 1024]},
+    "backbone": [
+        [-1, 1, "HGStem", [32, 48]],  # 0 P2/4
+        [-1, 6, "HGBlock", [48, 128, 3]],
+        [-1, 1, "DWConv", [128, 3, 2, 1, False]],  # 2 P3/8
+        [-1, 6, "HGBlock", [96, 512, 3]],
+        [-1, 1, "DWConv", [512, 3, 2, 1, False]],  # 4 P4/16
+        [-1, 6, "HGBlock", [192, 1024, 5, True, False]],
+        [-1, 6, "HGBlock", [192, 1024, 5, True, True]],
+        [-1, 6, "HGBlock", [192, 1024, 5, True, True]],
+        [-1, 1, "DWConv", [1024, 3, 2, 1, False]],  # 8 P5/32
+        [-1, 6, "HGBlock", [384, 2048, 5, True, False]],
+    ],
+    "head": [
+        [-1, 1, "Conv", [256, 1, 1, "None", 1, 1, False]],  # 10
+        [-1, 1, "AIFI", [1024, 8]],
+        [-1, 1, "Conv", [256, 1, 1]],  # 12 Y5
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [7, 1, "Conv", [256, 1, 1, "None", 1, 1, False]],
+        [[-2, -1], 1, "Concat", [1]],
+        [-1, 3, "RepC3", [256]],
+        [-1, 1, "Conv", [256, 1, 1]],  # 17 Y4
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [3, 1, "Conv", [256, 1, 1, "None", 1, 1, False]],
+        [[-2, -1], 1, "Concat", [1]],
+        [-1, 3, "RepC3", [256]],  # 21 X3
+        [-1, 1, "Conv", [256, 3, 2]],
+        [[-1, 17], 1, "Concat", [1]],
+        [-1, 3, "RepC3", [256]],  # 24 F4
+        [-1, 1, "Conv", [256, 3, 2]],
+        [[-1, 12], 1, "Concat", [1]],
+        [-1, 3, "RepC3", [256]],  # 27 F5
+        [[21, 24, 27], 1, "RTDETRDecoder", ["nc"]],  # 28
+    ],
+}
+
+# config name -> (module class, positional field names after c1, kind):
+# "conv" width-scaled c2, repeated n times; "csp" width-scaled c2 taking n;
+# "hg" the PPHGNetV2 blocks, c2 unscaled, HGBlock taking n; "aifi" the
+# encoder layer at its input's width
 REGISTRY = {
     "Conv": (conv_mod.Conv, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
     "Conv2": (conv_mod.Conv2, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
     "RepConv": (conv_mod.RepConv, ("c2", "k", "s", "g", "d", "act"), "conv"),
+    "DWConv": (conv_mod.DWConv, ("c2", "k", "s", "d", "act"), "conv"),
+    "LightConv": (conv_mod.LightConv, ("c2", "k", "act"), "conv"),
     "Bottleneck": (block_mod.Bottleneck, ("c2", "shortcut", "g", "k", "e"), "conv"),
     "SPPF": (block_mod.SPPF, ("c2", "k"), "conv"),
     "RepBlock": (block_mod.RepBlock, ("c2", "n", "shortcut"), "csp"),
     "C2f": (block_mod.C2f, ("c2", "n", "shortcut", "g", "e"), "csp"),
+    "RepC3": (block_mod.RepC3, ("c2", "n", "e"), "csp"),
+    "HGStem": (block_mod.HGStem, ("cm", "c2"), "hg"),
+    "HGBlock": (block_mod.HGBlock, ("cm", "c2", "k", "n", "lightconv", "shortcut", "act"), "hg"),
+    "AIFI": (tr_mod.AIFI, ("cm", "num_heads"), "aifi"),
     "Concat": (conv_mod.Concat, ("dim",), "concat"),
     "nn.Upsample": (nn.Upsample, (), "upsample"),
     "Segment": (head_mod.PolarSegment, ("nc", "nm", "npr"), "head"),
@@ -250,6 +300,14 @@ def parse_model(cfg: dict, ch: int = 3):
                 repeats = n
             kwargs = dict(zip(fields, vals))
             stride = s_in * kwargs.get("s", 1)
+        elif kind == "hg":
+            c2 = args[1]
+            vals = args[:3] + [n] + args[3:] if name == "HGBlock" else args
+            kwargs = dict(zip(fields, vals))
+            stride = s_in * (4 if name == "HGStem" else 1)
+        elif kind == "aifi":
+            c2 = c1
+            kwargs = dict(zip(fields, args))
         elif kind == "concat":
             c2 = sum(c1)
             kwargs["dim"] = 1
@@ -481,7 +539,7 @@ def build_model(cfg: dict, nc: Optional[int] = None) -> TaskModel:
 MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG, "yolov8": YOLOV8,
                                          "yolov8-pose": YOLOV8_POSE,
                                          "yolov8-segori": YOLOV8_SEGORI, "yolov8-cls": YOLOV8_CLS,
-                                         "yolov8-rtdetr": YOLOV8_RTDETR}
+                                         "yolov8-rtdetr": YOLOV8_RTDETR, "rtdetr-l": RTDETR_L}
 
 
 def yaml_model_load(name) -> Dict[str, Any]:

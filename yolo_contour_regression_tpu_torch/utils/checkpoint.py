@@ -24,6 +24,8 @@ inverts the name map of the JAX package's
     (Classify's Dense, transposed; its ``conv`` is a Conv like any other)
   RepConv conv1.conv/conv1.bn/         RepConv conv1/bn1/
           conv2.conv/conv2.bn/bn               conv2/bn2/bn_id
+    (a RepConv is told by its 3x3 conv1 and 1x1 conv2: LightConv's
+    conv1/conv2 are Convs of their own, 1x1 then depthwise kxk)
   model.{i}.{...}.norm1.weight         params.layer{i}.{...}.norm1.scale
     (LayerNorm: its 1-D weight is the scale, as BatchNorm's)
   model.{i}.{...}.embedding            params.layer{i}.{...}.embedding
@@ -170,10 +172,18 @@ def load_jax_variables(model: torch.nn.Module, params: dict, batch_stats: dict):
     return model
 
 
+def _is_repconv(prefix: str, keys: Mapping[str, Tuple[int, ...]]) -> bool:
+    """Whether the module at ``prefix`` is a RepConv: a 3x3 ``conv1`` and a
+    1x1 ``conv2`` (a LightConv's are the other way round)."""
+    return (tuple(keys.get(f"{prefix}.conv1.conv.weight", ()))[-2:] == (3, 3)
+            and tuple(keys.get(f"{prefix}.conv2.conv.weight", ()))[-2:] == (1, 1))
+
+
 def _jax_module_path(tokens, keys) -> Tuple[str, ...]:
     """Reference dotted module tokens (model.{i}[.{r}]...) -> JAX module
-    path, the inverse of ``_module_path``. ``keys`` (all keys of the state
-    dict) tells a RepConv's identity BN (``bn_id``) from a Conv's ``bn``."""
+    path, the inverse of ``_module_path``. ``keys`` (every key of the state
+    dict with its shape) tells a RepConv's branches and identity BN
+    (``bn_id``) from a LightConv's or a Conv's."""
     if len(tokens) < 2 or tokens[0] != "model" or not tokens[1].isdigit():
         raise KeyError(f"not a graph layer: {'.'.join(tokens)}")
     rest = list(tokens[2:])
@@ -188,12 +198,10 @@ def _jax_module_path(tokens, keys) -> Tuple[str, ...]:
         elif tok == "m" and rest and rest[0].isdigit():
             tok = f"m{rest.pop(0)}"
         out.append(tok)
-    if tuple(out[-2:]) in _REPCONV_INV:
+    if tuple(out[-2:]) in _REPCONV_INV and _is_repconv(".".join(tokens[:-2]), keys):
         out = out[:-2] + [_REPCONV_INV[tuple(out[-2:])]]
-    elif out and out[-1] == "bn":
-        parent = ".".join(tokens[:-1])
-        if f"{parent}.conv1.conv.weight" in keys:
-            out[-1] = "bn_id"
+    elif out and out[-1] == "bn" and _is_repconv(".".join(tokens[:-1]), keys):
+        out[-1] = "bn_id"
     return (layer, *out)
 
 
@@ -206,7 +214,7 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict
     RT-DETR head (one with ``enc_score_head``) gets JAX's empty ``detect``
     subtree; BatchNorm's ``num_batches_tracked`` has no JAX counterpart and
     is dropped."""
-    keys = set(state_dict)
+    keys = {k: tuple(v.shape) for k, v in state_dict.items()}
     trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
         tokens = key.split(".")
