@@ -109,7 +109,7 @@ Phases, one timestamped line each (elapsed seconds):
   18. segment_ori validate: that model at 640 batch 16 on 32 480x640
      frames, split as in 10 (b) with the mask IoU (the GT masks filled by
      the even-odd kernel, one launch a batch).
-  19. segment_ori train step: as 6 (a) at 640 batch 16 N_pad 8, the
+  19. segment_ori train step: as 6 (a) at 640 batch 4 N_pad 8, the
      networks in float64 (a fresh init's float32 gradients are
      ill-conditioned; card against CPU: loss 1e-4 relative, the same
      assignment, gradients 1e-3)
@@ -173,12 +173,45 @@ Phases, one timestamped line each (elapsed seconds):
      matched by encoder token), one train step at 320 batch 2 in float64
      against the CPU, fused against unfused; its parameters, ms an image,
      peak memory and launches (0).
-  29. compare: the fork's headline, printed and not gated: ms an image on
+  29. sam: sam_b at 1024 on seeded weights (``sam_model``: relative
+     positions drawn) on a 480x640 frame: ``set_image`` and ``predict``
+     with a point, a box, and a point with the previous low-res logits as
+     the mask prompt, card against CPU (embeddings 1e-4 of their largest,
+     low-res logits and IoU 1e-3, masks equal but at pixels within 1e-4 of
+     the threshold, counted); JAX's parameter count; the encoder's ms at
+     batch 1 and the decoder's for 1 and 64 prompts by CUDA events, the
+     CPU's set_image seconds, the peak (``sam_phase``).
+  30. mobile_sam: the same for the TinyViT encoder.
+  31. sam_generate: everything mode with sam_b at 1024 on a frame of
+     planted shapes, 1,024 prompts in batches of 64 (``SAM_GEN``: its
+     thresholds keep masks of seeded weights, NMS off), crop_n_layers 0
+     and 1 timed on the card, each held against the CPU on fewer prompts
+     (crop layer 0 at points_stride 16; 1 on 16 prompts a crop at JAX's
+     default NMS, 0.7): every kept mask paired
+     at IoU >= 0.99, boxes within 1 px, scores 1e-4.
+  32. fastsam: ``FastSAM(seg160 checkpoint)`` agnostic on the floor images,
+     card against CPU, its box, point and everything prompts selecting the
+     same masks, at ``boxes=True`` (the cv2-rule fill) and ``boxes=False``
+     (the even-odd fill); both fills' launches > 0; a fresh yolov8s-seg
+     (FastSAM's width) timed at 640, batch 1 and 8.
+  33. nas: a fresh yolo_nas_s (nc 2, BatchNorm statistics calibrated):
+     JAX's parameter count; card against CPU in float64 (heads, the same
+     detections, boxes, scores; the fused copy), the facade's float32
+     predict at 640 batch 1 and 8 (the same detections, boxes within 0.05
+     px, ms an image), the fused float32 model's detections, classes and
+     boxes, a float64 train step against the CPU at 640
+     batch 4, the train step at 640 batch 16 timed.
+  34. nas_trainer: ``NAS("yolo_nas_s").train`` from scratch on the detect
+     floor set at the detect floor recipe, cut to 20 epochs: losses fall,
+     the metrics recorded (no NAS floor is committed). SAM and NAS launch
+     no kernel: their counts are printed, all 0.
+  35. compare: the fork's headline, printed and not gated: ms an image on
      the card at 640, batch 1 and 8, of yolov8n-seg polar (contours, no
      masks) and yolov8n detect, fused and unfused, and seg / detect.
-  30. report: a JSON line of the kernels (launches summed over the predict,
-     validate, train-step, trainer and fused validate runs of every task),
-     the card's line, and last ``{"ok": true, "device": {...}}``.
+  36. report: a JSON line of the kernels (launches summed over the predict,
+     validate, train-step, trainer and fused validate runs of every task,
+     and FastSAM's), the card's line, and last ``{"ok": true, "device":
+     {...}}``.
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -203,17 +236,19 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from yolo_contour_regression_tpu_torch import YOLO
+from yolo_contour_regression_tpu_torch import NAS, SAM, YOLO, FastSAM, FastSAMPrompt
 from yolo_contour_regression_tpu_torch.cfg import get_cfg
 from yolo_contour_regression_tpu_torch.data import augment, imgproc
 from yolo_contour_regression_tpu_torch.data.dataset import TrainDataset, parse_label_lines
 from yolo_contour_regression_tpu_torch.nn.fuse import fuse_model
+from yolo_contour_regression_tpu_torch.nn.modules import head as head_mod
 from yolo_contour_regression_tpu_torch.engine.predictor import (
     ClassificationPredictor, DetectionPredictor, PosePredictor, SegmentationOriPredictor,
-    SegmentationPredictor)
+    SegmentationPredictor, detect_xyxy)
 from yolo_contour_regression_tpu_torch.engine.results import Masks, contours_to_masks
 from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
 from yolo_contour_regression_tpu_torch.models.rtdetr.predict import RTDETRPredictor
+from yolo_contour_regression_tpu_torch.models.sam import Predictor as SamPredictor
 from yolo_contour_regression_tpu_torch.models.rtdetr.val import RTDETRValidator
 from yolo_contour_regression_tpu_torch.models.utils import loss as loss_mod
 from yolo_contour_regression_tpu_torch.models.utils.loss import (hungarian_assign, rtdetr_assign,
@@ -226,6 +261,7 @@ from yolo_contour_regression_tpu_torch.nn.tasks import (build_model, guess_model
                                                         yaml_model_load)
 from yolo_contour_regression_tpu_torch.ops import gt_rays, polar, raster
 from yolo_contour_regression_tpu_torch.ops.boxes import box_iou, scale_coords
+from yolo_contour_regression_tpu_torch.ops.nms import non_max_suppression
 from yolo_contour_regression_tpu_torch.utils import cuda_build, optim
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     checkpoint_variables, load_checkpoint, load_jax_variables, save_checkpoint, to_jax_variables)
@@ -354,6 +390,50 @@ FLOOR_RTDETR_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_rtdetr_train64.
 RTDETR_TRAIN_KEYS = FLOOR_TRAIN_KEYS + ("optimizer", "lr0", "warmup_epochs", "mosaic",
                                         "save_last_every")
 HOST_WORKERS = 8
+# SAM, MobileSAM and everything mode at the published 1024 on seeded weights;
+# the parameter counts are JAX's (tests/test_torch_port_sam.py holds them)
+SAM_IMG, SAM_SEED, SAM_REL_STD = 1024, 0, 0.02
+SAM_PARAMS = {"sam_b": 93_735_728, "mobile_sam": 9_818_564}
+SAM_EMB_RTOL = 1e-4  # embeddings, of their largest entry
+SAM_LOGIT_ATOL = 1e-3  # low-res logits and IoU
+SAM_THRESH_BAND = 1e-4  # a mask pixel whose logit is this close to 0 may flip
+SAM_DECODE_BATCH = 64
+# everything mode: 1,024 prompts in batches of 64; seeded weights give IoU
+# predictions within -0.74-0.25 and logits within +-2, so the default
+# thresholds (0.88, stability 0.95 at offset 0.95) keep nothing: these keep
+# 205 of the 3,072 candidates on the frame before the edge filter and NMS
+# (measured on the CPU); the NMS thresholds at 1 keep every one (seeded
+# masks are frame-wide blobs whose boxes overlap: at 0.7 one survives), so
+# the timed runs and the crop_n_layers 0 comparison have NMS off
+SAM_GEN = dict(points_stride=32, points_batch_size=64, conf_thres=0.1,
+               stability_score_thresh=0.5, stability_score_offset=0.1, iou_thres=1.0,
+               crop_nms_thresh=1.0)
+# the card against the CPU on fewer prompts: crop_n_layers 0 at
+# points_stride 16 (256 prompts: the CPU's 1,024 took 46 s of the smoke's
+# 1,200), 1 on 16 prompts a crop in one batch (the CPU's encoder takes ~6 s
+# a crop) at JAX's default NMS thresholds, so that the in-crop NMS and the
+# cross-crop dedupe are held, on the few masks they keep
+SAM_GEN_CPU = {0: dict(points_stride=16),
+               1: dict(points_stride=4, points_batch_size=16, iou_thres=0.7,
+                       crop_nms_thresh=0.7)}
+SAM_GEN_IOU = 0.99  # a pair of kept masks, card and CPU
+SAM_BOX_PX = 1.0  # a threshold pixel on a mask's edge moves its box by one
+# yolo_nas_s at nc 2 (JAX's count, tests/test_torch_port_fastsam_nas.py)
+NAS_PARAMS = 22_309_542
+NAS_F64_B = 4  # the float64 card-against-CPU step (the CPU takes ~4 s an image)
+NAS_F64_FRAMES = 4  # the float64 card-against-CPU predict
+# predict's default: the calibrated fresh net scores 11,449 anchors of 4
+# frames above 0.001 (pre_nms cuts near-ties) and 253 above 0.3
+NAS_CONF = 0.25
+NAS_TRAIN_EPOCHS = 20
+# segment_ori's fresh float64 step, card against CPU (the CPU's float64 step
+# at batch 16 took 29 s of the smoke's 1,200)
+SEGORI_F64_B = 4
+# last.ckpt every 25 epochs in the smoke's floor-recipe trainer runs, as
+# the RT-DETR floor recipe saves (best.ckpt still on every improvement and
+# the last epoch always): the cadence changes no weight, and saving every
+# epoch took 10-33% of a run's wall
+SAVE_LAST_EVERY = 25
 # the host pipeline phase: the seg160 floor config, 5 epochs, the host chain
 HOST_TRAIN = dict(epochs=5, device_augment=False, mosaic9=0.5, copy_paste=0.5)
 # rtdetr-l: the published config (nc 80; JAX's build of it has this many
@@ -1298,7 +1378,7 @@ class StageTimer:
         return out
 
 
-def train_full_width(ckpt, card: str, phase: str = "train", model=None):
+def train_full_width(ckpt, card: str, phase: str = "train", model=None, label: str = None):
     """The checkpoint's model (yolov8n-seg or yolov8n), or ``model`` (the
     fresh yolov8n-pose or yolov8n-segori) with the checkpoint's train_args,
     at full width,
@@ -1307,7 +1387,8 @@ def train_full_width(ckpt, card: str, phase: str = "train", model=None):
     ``make_train_step`` on one repeated batch (counts zeroed just before,
     read just after), each timed on the host clock and split into its
     stages by the step's own marks (``StageTimer``), and its peak device
-    memory (from the warm-up steps on). Pose batches are ``pose_batch``'s."""
+    memory (from the warm-up steps on). Pose batches are ``pose_batch``'s.
+    ``label`` names the model in the log (by default its task's yolov8n)."""
     hyp = train_hyp(ckpt, optimizer="AdamW", warmup_epochs=0.0, batch=TRAIN_B)
     model = ckpt_model(ckpt, "cuda") if model is None else model.to("cuda").train()
     opt = optim.build_optimizer(model, hyp, steps_per_epoch=1000, iterations=1000)
@@ -1340,9 +1421,9 @@ def train_full_width(ckpt, card: str, phase: str = "train", model=None):
         raise AssertionError("the train path never launched the GT-ray kernel")
     if model.task == "segment_ori" and counts["fill_polygons"] != TRAIN_STEPS:
         raise AssertionError(f"the segment_ori step fills its GT masks once a step: {counts}")
-    name = (f"yolov8n-pose (K {model.kpt_shape[0]})" if model.task == "pose"
-            else {"segment": "yolov8n-seg", "detect": "yolov8n",
-                  "segment_ori": "yolov8n-segori", "rtdetr": "yolov8n-rtdetr"}[model.task])
+    name = label or (f"yolov8n-pose (K {model.kpt_shape[0]})" if model.task == "pose"
+                     else {"segment": "yolov8n-seg", "detect": "yolov8n",
+                           "segment_ori": "yolov8n-segori", "rtdetr": "yolov8n-rtdetr"}[model.task])
     if model.task == "rtdetr":
         log(phase, f"the auction over the {TRAIN_STEPS} timed steps (7 layers x {TRAIN_B} "
             f"images solved as one batch a step, the host asked every "
@@ -1439,7 +1520,8 @@ def epoch_split(trainer) -> dict:
 def train_floor(card: str, task: str = "segment", keep: Path = None):
     """``YOLO(yaml, device="cuda").train`` from scratch on the task's floor
     set (64 train and 16 val images, decoded) at its ``floor.json`` config
-    with the floor checkpoint's train_args (launch counts zeroed just
+    with the floor checkpoint's train_args, last.ckpt saved every
+    ``SAVE_LAST_EVERY`` epochs (launch counts zeroed just
     before, read just after): the final validation of the stripped
     ``best.ckpt`` must meet the floor. Segment: yolov8n-seg on the seg160
     set, 120 epochs at 160; detect: yolov8n on the detect set, 100 epochs at
@@ -1460,7 +1542,7 @@ def train_floor(card: str, task: str = "segment", keep: Path = None):
     record = json.loads(floor_json.read_text())
     ckpt = load_checkpoint(ckpt_path)
     keys = FLOOR_TRAIN_KEYS + (POSE_TRAIN_KEYS if task == "pose" else ())
-    over = {k: ckpt["train_args"][k] for k in keys}
+    over = {**{k: ckpt["train_args"][k] for k in keys}, "save_last_every": SAVE_LAST_EVERY}
     train, val = train_set(), val_set()
     data = {"train": train, "val": val, "names": ckpt["names"],
             **(floor_pose_data() if task == "pose" else {})}
@@ -2133,6 +2215,14 @@ def fresh_model(name: str, names: dict, seed: int, device="cuda") -> YOLO:
     return handle
 
 
+def fresh_nas(device="cuda", seed: int = 0) -> NAS:
+    """``NAS("yolo_nas_s")`` holding the published s scale at full width (nc
+    2, the shape classes), a fresh init from ``seed`` (``fresh_model``)."""
+    handle = NAS("yolo_nas_s", device=device)
+    handle.model = fresh_model("yolo_nas_s.yaml", SHAPE_NAMES, seed, device).model
+    return handle
+
+
 def fresh_pose_model(device="cuda") -> YOLO:
     """The published yolov8n-pose (nc 1, 17 keypoints) at full width, a
     fresh init from ``POSE_SEED`` (``fresh_model``)."""
@@ -2308,7 +2398,8 @@ def classify_phases(card: str) -> dict:
         raise AssertionError(f"classify fuse: probabilities {gap:.2e} apart, metrics {fres}")
 
     ckpt = load_checkpoint(CLS_CKPT)
-    over = {k: ckpt["train_args"][k] for k in CLS_TRAIN_KEYS}
+    over = {**{k: ckpt["train_args"][k] for k in CLS_TRAIN_KEYS},
+            "save_last_every": SAVE_LAST_EVERY}
     data = {"train": floor_cls_set(FLOOR_CLS_TRAIN), "val": (images, labels),
             "names": ckpt["names"]}
     timer = TrainTotals(skip=len(data["train"][0]) // over["batch"])
@@ -2939,6 +3030,456 @@ def rtdetr_l(card: str) -> dict:
     return counts
 
 
+# --- SAM, MobileSAM, everything mode, FastSAM and YOLO-NAS --------------------
+
+
+def sam_model(variant: str, img_size: int = SAM_IMG):
+    """``variant`` on the CPU with its seeded weights (``SAM_SEED``, as
+    ``SAM(variant)`` draws them) and the relative-position tables and
+    TinyViT attention biases drawn at std ``SAM_REL_STD`` from a second seed
+    (JAX initializes them to 0, which would leave that path unexercised), in
+    eval mode; ``copy.deepcopy(...).cuda()`` puts the same weights on the
+    card."""
+    model = SAM(variant, img_size=img_size, device="cpu", seed=SAM_SEED).model
+    gen = torch.Generator().manual_seed(SAM_SEED + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            for name in ("rel_pos_h", "rel_pos_w", "attention_biases"):
+                if hasattr(m, name):
+                    p = getattr(m, name)
+                    p.copy_(torch.randn(p.shape, generator=gen) * SAM_REL_STD)
+    return model.eval()
+
+
+def frame_logits(pred: "SamPredictor", low: torch.Tensor) -> np.ndarray:
+    """The predictor's full-frame logits of its low-res ones (the path of
+    its ``predict``: the square, the crop, the frame)."""
+    h, w = pred._orig_hw
+    s = pred.model.img_size
+    full = augment.resize_linear_f32(low.float(), s, s)
+    crop = full[:, : round(h * pred._scale), : round(w * pred._scale)].contiguous()
+    return augment.resize_linear_f32(crop, h, w).cpu().numpy()
+
+
+def sam_phase(card: str, variant: str = "sam_b") -> dict:
+    """``variant`` at img_size 1024 (``sam_model``) on a 480x640 frame:
+    ``set_image`` and ``predict`` with a point, a box, and a point with the
+    CPU's previous low-res logits as ``mask_input``, card against the port
+    on the CPU (embeddings within ``SAM_EMB_RTOL`` of their largest entry,
+    low-res logits and IoU within ``SAM_LOGIT_ATOL``, masks equal except
+    pixels whose logit lies within ``SAM_THRESH_BAND`` of 0, counted); the
+    parameter count (JAX's, ``SAM_PARAMS``); the encoder's ms at batch 1
+    and the decoder's for 1 and ``SAM_DECODE_BATCH`` prompts by CUDA
+    events, the CPU encoder's seconds, the peak memory. Launches no kernel
+    (counts printed, all 0)."""
+    phase = variant
+    frame = shape_images(1, *RASTER_HW, seed=21)[0]
+    cpu_model = sam_model(variant)
+    n_params = cpu_model.num_params
+    if n_params != SAM_PARAMS[variant]:
+        raise AssertionError(f"{variant}: {n_params} parameters, JAX's {SAM_PARAMS[variant]}")
+    gp = SamPredictor(copy.deepcopy(cpu_model), device="cuda")
+    cp = SamPredictor(cpu_model, device="cpu")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    gp.set_image(frame)
+    t = time.perf_counter()
+    cp.set_image(frame)
+    cpu_s = time.perf_counter() - t
+    emb_err = float((gp._emb.cpu() - cp._emb).abs().max())
+    emb_max = float(cp._emb.abs().max())
+    worst = {"emb": emb_err / emb_max, "logits": 0.0, "iou": 0.0}
+    flips, bad = {}, {}
+    prev = None
+    cases = {"point": dict(point_coords=[[320, 240]], point_labels=[1]),
+             "box": dict(box=[200, 120, 460, 380]),
+             "point+mask_input": dict(point_coords=[[320, 240]], point_labels=[1])}
+    for name, kw in cases.items():
+        if name == "point+mask_input":
+            kw = dict(kw, mask_input=prev)
+        gm, gi, gl = gp.predict(**kw, return_logits=True)
+        cm, ci, cl = cp.predict(**kw, return_logits=True)
+        worst["logits"] = max(worst["logits"], float(np.abs(gl - cl).max()))
+        worst["iou"] = max(worst["iou"], float(np.abs(gi - ci).max()))
+        near = np.abs(frame_logits(cp, torch.from_numpy(cl))) <= SAM_THRESH_BAND
+        diff = gm != cm
+        flips[name], bad[name] = int(diff.sum()), int((diff & ~near).sum())
+        prev = cl[int(np.argmax(ci))]
+    dec_ms = {}
+    with torch.inference_mode():
+        x = torch.zeros(1, 3, SAM_IMG, SAM_IMG, device="cuda")
+        enc_ms = time_ms(lambda: gp.model.encode_image(x), reps=10)
+        thr, off = torch.zeros((), device="cuda"), torch.tensor(0.95, device="cuda")
+        for n in (1, SAM_DECODE_BATCH):
+            pts = torch.rand(n, 2, generator=torch.Generator().manual_seed(n)).cuda() * SAM_IMG
+            dec_ms[n] = time_ms(lambda: gp._amg_batch(gp._emb, pts, thr, off), reps=10)
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    log(phase, f"{variant} at {SAM_IMG} on seeded weights (seed {SAM_SEED}, relative "
+        f"positions std {SAM_REL_STD}): {n_params} parameters (JAX's {SAM_PARAMS[variant]}); "
+        f"card vs CPU on a {RASTER_HW[0]}x{RASTER_HW[1]} frame: embeddings {worst['emb']:.2e} of "
+        f"their largest {emb_max:.3f} (limit {SAM_EMB_RTOL}), low-res logits max abs "
+        f"{worst['logits']:.2e} and IoU {worst['iou']:.2e} (limit {SAM_LOGIT_ATOL}); mask "
+        f"pixels that differ {flips}, of them off the +-{SAM_THRESH_BAND} threshold band "
+        f"{bad} | {card}")
+    log(phase, f"ms by CUDA events (median of 10): encoder at batch 1 {enc_ms:.3f}; decoder "
+        + ", ".join(f"{n} prompt{'s' if n > 1 else ''} {v:.3f}" for n, v in dec_ms.items())
+        + f" ({dec_ms[SAM_DECODE_BATCH] / SAM_DECODE_BATCH:.4f} a prompt); the CPU's "
+        f"set_image {cpu_s:.2f}s; peak memory {peak / 2**30:.3f} GiB; launches {counts} | "
+        f"{card}")
+    if (worst["emb"] > SAM_EMB_RTOL or worst["logits"] > SAM_LOGIT_ATOL
+            or worst["iou"] > SAM_LOGIT_ATOL or any(bad.values()) or any(counts.values())):
+        raise AssertionError(f"{phase}: card vs CPU {worst}, off-band mask pixels {bad}, "
+                             f"launches {counts}")
+    return {"encoder_ms": enc_ms, "decode_ms": dec_ms, "cpu_set_image_s": cpu_s,
+            "peak_gib": peak / 2**30, "models": (gp.model, cp.model)}
+
+
+def match_generated(got, want, conf_thres: float) -> dict:
+    """Pairs of the card's and the CPU's ``generate`` outputs: each CPU mask
+    with the unpaired card mask of the largest mask IoU among those whose
+    score is within ``SCORE_ATOL`` and box within ``SAM_BOX_PX``; the
+    pairs' smallest IoU and largest box and score differences. A mask kept
+    on one side only is allowed where its score lies within
+    ``SAM_LOGIT_ATOL`` of ``conf_thres`` (a near-tie of the filter), and
+    counted."""
+    (gm, gs, gb), (cm, cs, cb) = got, want
+    gm_t = torch.from_numpy(gm).reshape(len(gm), -1)
+    cm_t = torch.from_numpy(cm).reshape(len(cm), -1)
+    used = set()
+    out = {"pairs": 0, "min_iou": 1.0, "box": 0.0, "score": 0.0, "unmatched": 0, "bad": 0}
+    for i in range(len(cm)):
+        cands = [j for j in range(len(gm)) if j not in used
+                 and abs(float(gs[j]) - float(cs[i])) <= SCORE_ATOL
+                 and np.abs(gb[j] - cb[i]).max() <= SAM_BOX_PX]
+        if not cands:
+            out["unmatched"] += 1
+            out["bad"] += int(abs(float(cs[i]) - conf_thres) > SAM_LOGIT_ATOL)
+            continue
+        c = gm_t[cands]
+        inter = (c & cm_t[i]).sum(1).double()
+        union = (c | cm_t[i]).sum(1).double().clamp(min=1)
+        k = int(torch.argmax(inter / union))
+        j = cands[k]
+        used.add(j)
+        out["pairs"] += 1
+        out["min_iou"] = min(out["min_iou"], float(inter[k] / union[k]))
+        out["box"] = max(out["box"], float(np.abs(gb[j] - cb[i]).max()))
+        out["score"] = max(out["score"], abs(float(gs[j]) - float(cs[i])))
+    for j in set(range(len(gm))) - used:
+        out["unmatched"] += 1
+        out["bad"] += int(abs(float(gs[j]) - conf_thres) > SAM_LOGIT_ATOL)
+    return out
+
+
+def sam_generate(card: str, card_model, cpu_model) -> dict:
+    """Everything mode with sam_b at 1024 (``sam_phase``'s models, card and
+    CPU) on a 480x640 frame of planted shapes: ``SAM_GEN`` (points_stride
+    32, 1,024 prompts in batches of 64, the thresholds set so seeded
+    weights keep masks, NMS off) at crop_n_layers 0 and 1 on the card,
+    timed (ms an image, the masks kept, the peak); each held against the
+    port on the CPU (``match_generated``: every kept mask paired with IoU
+    >= ``SAM_GEN_IOU``, boxes within ``SAM_BOX_PX``, scores within
+    ``SCORE_ATOL``) at ``SAM_GEN_CPU``'s fewer prompts on both sides
+    (crop_n_layers 0 at points_stride 16; 1 at 16 prompts a crop and JAX's
+    default NMS: five crops at stride 32 would take the CPU minutes)."""
+    frame = shape_images(1, *RASTER_HW, seed=22)[0]
+    gp = SamPredictor(card_model, device="cuda")
+    cp = SamPredictor(cpu_model, device="cpu")
+    zero_launch_counts()
+    res = {}
+    for layers in (0, 1):
+        kw = dict(SAM_GEN, crop_n_layers=layers)
+        gp.generate(frame, **kw)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = {}
+        ms = host_ms(lambda: timed.__setitem__("out", gp.generate(frame, **kw)))
+        peak = torch.cuda.max_memory_allocated()
+        kept = len(timed["out"][0])
+        kw = dict(kw, **SAM_GEN_CPU[layers])
+        got = gp.generate(frame, **kw)
+        t = time.perf_counter()
+        want = cp.generate(frame, **kw)
+        cpu_s = time.perf_counter() - t
+        m = match_generated(got, want, SAM_GEN["conf_thres"])
+        res[layers] = {"ms": ms, "peak_gib": peak / 2**30, "kept": kept,
+                       "compared": len(got[0]), **m}
+        log("sam_generate", f"crop_n_layers {layers}, {SAM_GEN}: {ms:.1f} ms an image on the "
+            f"card (host clock, NMS off, {kept} masks kept at points_stride "
+            f"{SAM_GEN['points_stride']}), peak memory {peak / 2**30:.3f} GiB; card vs CPU at "
+            f"points_stride {kw['points_stride']}, NMS {kw['iou_thres']} in a crop and "
+            f"{kw['crop_nms_thresh']} across ({len(got[0])} card and {len(want[0])} CPU masks, "
+            f"the CPU {cpu_s:.1f}s): {m['pairs']} pairs, mask IoU min {m['min_iou']:.4f} (limit "
+            f"{SAM_GEN_IOU}), boxes max {m['box']:.1f} px (limit {SAM_BOX_PX}), scores "
+            f"{m['score']:.2e} (limit {SCORE_ATOL}), {m['unmatched']} unmatched ({m['bad']} "
+            f"not at the confidence threshold) | {card}")
+        if (m["bad"] or m["min_iou"] < SAM_GEN_IOU or m["pairs"] == 0
+                or m["box"] > SAM_BOX_PX or m["score"] > SCORE_ATOL):
+            raise AssertionError(f"sam_generate crop_n_layers {layers}: {m}")
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"sam_generate launched kernels: {counts}")
+    return res
+
+
+def fastsam_phase(card: str) -> dict:
+    """``FastSAM(runs/floor_seg160/best.ckpt)`` predicting agnostically on
+    the seg160 floor images, card and CPU: the same detections (boxes within
+    ``BOX_ATOL``), and ``box_prompt``, ``point_prompt`` and
+    ``everything_prompt`` selecting the same masks (mask IoU >=
+    ``SAM_GEN_IOU`` a pair, differing pixels counted), at the default
+    ``boxes=True`` (the masks of the cv2-rule fill kernel) and with
+    ``boxes=False`` (``_masks`` fills the contours with the even-odd
+    kernel); launch counts zeroed just before and read just after, both
+    fills > 0. Then a fresh yolov8s-seg (FastSAM's published width, nc 2,
+    seed 0) timed at 640, batch 1 and 8, conf ``VAL_CONF``, every result's
+    masks read."""
+    images = floor_val_set()[0][:8]
+    card_fs, cpu_fs = FastSAM(CKPT, device="cuda"), FastSAM(CKPT, device="cpu")
+    zero_launch_counts()
+    worst = {"box": 0.0, "iou": 1.0, "pixels": 0, "prompts": 0, "detections": 0}
+    for boxes in (True, False):
+        for img in images:
+            gres, cres = card_fs.predict(img, boxes=boxes), cpu_fs.predict(img, boxes=boxes)
+            if len(gres[0]) != len(cres[0]):
+                raise AssertionError(f"fastsam: card {len(gres[0])} and CPU {len(cres[0])} "
+                                     f"detections")
+            if not len(cres[0]):
+                continue
+            worst["detections"] += len(cres[0])
+            worst["box"] = max(worst["box"], float(np.abs(gres[0].boxes.xyxy
+                                                          - cres[0].boxes.xyxy).max()))
+            gp, cp = FastSAMPrompt(img, gres), FastSAMPrompt(img, cres)
+            b = cres[0].boxes.xyxy[0]
+            centre = [(b[0] + b[2]) / 2, (b[1] + b[3]) / 2]
+            for fn in (lambda p: p.everything_prompt(), lambda p: p.box_prompt(b + [-4, -4, 4, 4]),
+                       lambda p: p.point_prompt([centre], [1])):
+                g, c = fn(gp), fn(cp)
+                if g.shape != c.shape:
+                    raise AssertionError(f"fastsam: prompt shapes {g.shape} vs {c.shape}")
+                for gm, cm in zip(g, c):
+                    iou = np.logical_and(gm, cm).sum() / max(np.logical_or(gm, cm).sum(), 1)
+                    worst["iou"] = min(worst["iou"], float(iou))
+                    worst["pixels"] += int((gm != cm).sum())
+                worst["prompts"] += 1
+    counts = launch_counts()
+    log("fastsam", f"FastSAM({CKPT.relative_to(ROOT)}) agnostic at conf 0.4 on "
+        f"{len(images)} floor images, boxes True and False: {worst['detections']} detections, "
+        f"card vs CPU boxes max abs {worst['box']:.2e} px (limit {BOX_ATOL}); {worst['prompts']} "
+        f"prompts select the same masks: IoU min {worst['iou']:.4f} (limit {SAM_GEN_IOU}), "
+        f"{worst['pixels']} differing pixels; launches {counts} (the cv2 fill at boxes=True, "
+        f"the even-odd fill at boxes=False) | {card}")
+    if (worst["box"] > BOX_ATOL or worst["iou"] < SAM_GEN_IOU or worst["detections"] == 0
+            or counts["fill_polygons_cv2"] == 0 or counts["fill_polygons"] == 0):
+        raise AssertionError(f"fastsam: {worst}, launches {counts}")
+    fresh = FastSAM(device="cuda")
+    fresh.model = fresh_model("yolov8s-seg.yaml", SHAPE_NAMES, 0).model
+    frames = shape_images(8, *RASTER_HW, seed=2)
+    lat = {}
+    for batch, imgs in ((1, frames[:1]), (8, frames)):
+        predict_ms(fresh, imgs, 640, batch, masks=True, conf=VAL_CONF)  # warm-up
+        runs = [predict_ms(fresh, imgs, 640, batch, masks=True, conf=VAL_CONF) for _ in range(5)]
+        lat[batch] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    for batch, parts in lat.items():
+        log("fastsam", f"yolov8s-seg fresh ({fresh.model.num_params} parameters), agnostic, conf "
+            f"{VAL_CONF}, imgsz 640 batch {batch}, ms per image (host clock, median of 5 calls): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" | {card}")
+    return counts
+
+
+def calibrate_batchnorm(model, images, imgsz: int):
+    """``model``'s BatchNorm running statistics set to the batch statistics
+    of one train-mode forward of ``images`` letterboxed to ``imgsz``
+    (momentum 1 for that pass), on the model's device; then eval mode. A
+    fresh deep RepConv graph in eval mode with unit running statistics
+    grows its activations layer by layer (three branches summed a RepConv):
+    yolo_nas_s's head maps reach 5e4 at a fresh init, ~16 once calibrated
+    (measured on the CPU), where float32's rounding is no longer amplified."""
+    pred = DetectionPredictor(imgsz=imgsz)
+    x = np.stack([pred.preprocess_u8(img, imgsz)[0] for img in images])
+    dev = next(model.parameters()).device
+    xf = torch.from_numpy(x).to(dev).float().div(255.0).permute(0, 3, 1, 2).contiguous()
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model.train()(xf)
+    for m, mom in zip(bns, saved):
+        m.momentum = mom
+    return model.eval()
+
+
+def nas_f64(model, images, imgsz: int, device):
+    """A float64 copy of ``model`` on ``device``: its head maps and its NMS
+    outputs (the decoded predictions cast to float32 for NMS at
+    ``NAS_CONF``, as the predictor's) on ``images`` letterboxed to
+    ``imgsz``, on the CPU; and the fused copy's head maps."""
+    pred = DetectionPredictor(imgsz=imgsz, conf=NAS_CONF)
+    x = np.stack([pred.preprocess_u8(img, imgsz)[0] for img in images])
+    m = copy.deepcopy(model).double().to(device).eval()
+    xf = torch.from_numpy(x).to(device).double().div(255.0).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        hs = m(xf)
+        y = head_mod.decode_detect(hs, m.strides, m.nc, m.reg_max)  # = m.predict(xf)
+        out = non_max_suppression(detect_xyxy(y).float(), nc=m.nc, **pred.nms_kw)
+        fused = [h.cpu() for h in fuse_model(m)(xf)]
+    return [h.cpu() for h in hs], {k: v.cpu() for k, v in out.items()}, fused
+
+
+def nas_phase(card: str) -> dict:
+    """A fresh yolo_nas_s (nc 2, ``fresh_nas``, its BatchNorm statistics
+    calibrated on the CPU by ``calibrate_batchnorm`` on four frames and
+    copied to the card): its parameter count (JAX's, ``NAS_PARAMS``); on
+    ``NAS_F64_FRAMES`` 480x640 frames at 640, card against the port on the
+    CPU with both networks in float64 (heads within ``HEAD_ATOL``, the
+    same detections at ``NAS_CONF``, boxes within ``BOX_ATOL``, scores
+    within ``SCORE_ATOL``; the fused float64 copies' heads within
+    ``FUSE_HEAD_ATOL`` of the unfused); the facade's float32 predict on
+    eight frames at batch 1 and 8 on both, the same detections and boxes
+    within ``BOX_ATOL`` (float32's rounding moves this net's frame-wide
+    boxes by ~0.04 px on the CPU alone), the scores' differences printed
+    beside the CPU's own float32-from-float64 heads, with ms an image; the
+    float32 fused model on the card keeping the unfused one's detections,
+    boxes within ``BOX_ATOL``; one
+    train step card against CPU in float64 at 640 batch ``NAS_F64_B``
+    (``train_card_vs_cpu``); the train step at 640 batch 16 timed
+    (``train_full_width``, floor_detect's train_args). Launches no
+    kernel."""
+    frames = shape_images(8, *RASTER_HW, seed=2)
+    cpu = fresh_nas("cpu")
+    calibrate_batchnorm(cpu.model, frames[4:], 640)
+    nas = NAS("yolo_nas_s", device="cuda")
+    nas.model = copy.deepcopy(cpu.model).to("cuda").eval()
+    n_params = nas.model.num_params
+    if n_params != NAS_PARAMS:
+        raise AssertionError(f"yolo_nas_s has {n_params} parameters, JAX's {NAS_PARAMS}")
+    zero_launch_counts()
+    (gh, gout, gfused), (ch, cout, cfused) = (nas_f64(cpu.model, frames[:NAS_F64_FRAMES], 640,
+                                                      d) for d in ("cuda", "cpu"))
+    worst64 = {"head": max(float((g - c).abs().max()) for g, c in zip(gh, ch)),
+               "fused": max(float((f - h).abs().max()) for f, h in zip(gfused, gh)),
+               "box": float((gout["boxes"] - cout["boxes"]).abs().max()),
+               "score": float((gout["scores"] - cout["scores"]).abs().max())}
+    same64 = (torch.equal(gout["valid"], cout["valid"])
+              and torch.equal(gout["classes"], cout["classes"]))
+    n64 = int(cout["valid"].sum())
+    f32, ref = {}, {}
+    for batch in (1, 8):
+        gres = nas.predict(frames, imgsz=640, batch=batch, conf=NAS_CONF)
+        cres = cpu.predict(frames, imgsz=640, batch=batch, conf=NAS_CONF)
+        if [len(r) for r in gres] != [len(r) for r in cres] or not all(
+                np.array_equal(g.boxes.cls, c.boxes.cls) for g, c in zip(gres, cres)):
+            raise AssertionError(f"nas: card and CPU keep different detections at batch {batch}")
+        f32[batch] = (max(float(np.abs(g.boxes.xyxy - c.boxes.xyxy).max()) for g, c in
+                          zip(gres, cres) if len(c)),
+                      max(float(np.abs(g.boxes.conf - c.boxes.conf).max()) for g, c in
+                          zip(gres, cres) if len(c)))
+    pred = DetectionPredictor(imgsz=640, conf=NAS_CONF)
+    x = np.stack([pred.preprocess_u8(img, 640)[0] for img in frames])
+    with torch.inference_mode():
+        xf = torch.from_numpy(x).float().div(255.0).permute(0, 3, 1, 2).contiguous()
+        c32 = cpu.model(xf)
+    ref["head"] = max(float((a[:NAS_F64_FRAMES].double() - b).abs().max())
+                      for a, b in zip(c32, ch))
+    lat = {}
+    for batch, imgs in ((1, frames[:1]), (8, frames)):
+        predict_ms(nas, imgs, 640, batch, masks=False, conf=NAS_CONF)
+        runs = [predict_ms(nas, imgs, 640, batch, masks=False, conf=NAS_CONF) for _ in range(10)]
+        lat[batch] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    fused = NAS("yolo_nas_s", device="cuda")
+    fused.model = fuse_model(copy.deepcopy(nas.model))
+    fres = fused.predict(frames, imgsz=640, batch=8, conf=NAS_CONF)
+    ures = nas.predict(frames, imgsz=640, batch=8, conf=NAS_CONF)
+    same_fused = [len(r) for r in fres] == [len(r) for r in ures] and all(
+        np.array_equal(f.boxes.cls, u.boxes.cls) for f, u in zip(fres, ures))
+    fused_box = max((float(np.abs(f.boxes.xyxy - u.boxes.xyxy).max()) for f, u in
+                     zip(fres, ures) if same_fused and len(u)), default=math.inf)
+    log("nas", f"yolo_nas_s fresh (nc 2, seed 0, BatchNorm statistics calibrated on 4 frames): "
+        f"{n_params} parameters (JAX's {NAS_PARAMS}); card vs CPU in float64 on "
+        f"{NAS_F64_FRAMES} frames at 640, conf {NAS_CONF}: heads max abs {worst64['head']:.2e} "
+        f"(limit {HEAD_ATOL}), the same {n64} detections {same64}, boxes {worst64['box']:.2e} "
+        f"px (limit {BOX_ATOL}), scores {worst64['score']:.2e} (limit {SCORE_ATOL}); fused vs "
+        f"unfused in float64 {worst64['fused']:.2e} (limit {FUSE_HEAD_ATOL}) | {card}")
+    log("nas", f"the facade's float32 predict on {len(frames)} frames, card vs CPU: the same "
+        "detections at batch 1 and 8; boxes max abs (limit " + f"{BOX_ATOL}) / scores max abs "
+        + ", ".join(f"batch {b} {v[0]:.2e} px / {v[1]:.2e}" for b, v in f32.items())
+        + f" (the CPU's float32 heads against its float64 ones: {ref['head']:.2e}); fused "
+        f"float32 on the card keeps the unfused detections and classes {same_fused}, boxes max "
+        f"abs {fused_box:.2e} px (limit {BOX_ATOL}); {n_params} -> {fused.model.num_params} "
+        f"parameters | {card}")
+    for batch, parts in lat.items():
+        log("nas", f"imgsz 640 batch {batch}, ms per image (host clock, median of 10 calls): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" | {card}")
+    if (not same64 or n64 == 0 or worst64["head"] > HEAD_ATOL or worst64["box"] > BOX_ATOL
+            or worst64["score"] > SCORE_ATOL or worst64["fused"] > FUSE_HEAD_ATOL
+            or not same_fused or fused_box > BOX_ATOL
+            or max(v[0] for v in f32.values()) > BOX_ATOL):
+        raise AssertionError(f"nas: float64 card vs CPU {worst64}, same {same64}; float32 card "
+                             f"vs CPU boxes and scores {f32}; fused same {same_fused}, boxes "
+                             f"{fused_box}")
+    detect_ckpt = load_checkpoint(DETECT_CKPT)
+    train_card_vs_cpu(detect_ckpt, card, imgsz=TRAIN_IMGSZ, phase="nas_train", b=NAS_F64_B,
+                      model=cpu.model, dtype=torch.float64)
+    del cpu
+    _, step_counts, split, step_ms = train_full_width(detect_ckpt, card, phase="nas_train",
+                                                      model=nas.model, label="yolo_nas_s")
+    counts = launch_counts()
+    if any(counts.values()) or any(step_counts.values()):
+        raise AssertionError(f"nas launched kernels: {counts}, {step_counts}")
+    return {"step_ms": step_ms, "split": split}
+
+
+def nas_trainer(card: str) -> dict:
+    """``NAS("yolo_nas_s").train`` from scratch on the detect floor set (64
+    train and 16 val images at 96) at the detect floor recipe
+    (``FLOOR_TRAIN_KEYS`` of floor_detect's train_args) for
+    ``NAS_TRAIN_EPOCHS`` epochs (cut from its 100 to keep the smoke inside
+    its limit): the train loss must fall from the first epoch to the last
+    and stay finite; the final metrics, the wall time and the epoch split
+    are recorded (no NAS floor is committed, so none is held). Launches no
+    kernel."""
+    ckpt = load_checkpoint(DETECT_CKPT)
+    over = {k: ckpt["train_args"][k] for k in FLOOR_TRAIN_KEYS}
+    over["epochs"] = NAS_TRAIN_EPOCHS
+    over["save_last_every"] = SAVE_LAST_EVERY
+    over["close_mosaic"] = min(over["close_mosaic"], NAS_TRAIN_EPOCHS // 4)
+    train, val = floor_detect_train_set(), floor_detect_val_set()
+    with tempfile.TemporaryDirectory() as d:
+        model = NAS("yolo_nas_s", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t = time.perf_counter()
+        res = model.train(data={"train": train, "val": val, "names": ckpt["names"]},
+                          project=d, name="nas", **over)
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        trainer = model.trainer
+        with open(trainer.csv) as fh:
+            rows = list(csv.DictReader(fh))
+        n_det = sum(len(r) for r in model.predict(val[0], imgsz=over["imgsz"]))
+    losses = [float(r["train/loss"]) for r in rows]
+    split = epoch_split(trainer)
+    metrics = ", ".join(f"{k.split('/')[1]} {x:.4f}" for k, x in res.items() if k != "fitness")
+    log("nas_trainer", f"yolo_nas_s from scratch on the detect floor set ({len(train[0])} train, "
+        f"{len(val[0])} val images), {over}: {len(rows)} epochs in {wall:.2f}s wall; train loss "
+        f"{losses[0]:.3f} at epoch 1, {losses[-1]:.3f} at epoch {len(losses)}; final eval of the "
+        f"stripped best.ckpt: {metrics}; {n_det} detections predicted on the val images at conf "
+        f"0.25; no NAS floor committed (recorded, not held); launches {counts}; peak memory "
+        f"{peak / 2**30:.3f} GiB | {card}")
+    log("nas_trainer", "host clock, s an epoch (median of the epochs): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split["median"].items()) + "; summed: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split["sum"].items()) + f" | {card}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0] or any(
+            counts.values()):
+        raise AssertionError(f"nas_trainer: losses {losses}, launches {counts}")
+    return {"wall_s": wall, "metrics": res}
+
+
 def paper_comparison(card: str) -> dict:
     """The fork's headline, printed and not gated: ms an image on the card
     at imgsz 640, batch 1 and batch 8, of yolov8n-seg polar (boxes, scores
@@ -3133,7 +3674,7 @@ def main() -> int:
     phase_start["segori_validate"] = time.perf_counter()
     _, segori_val_counts, _, _ = validate_full_width(segori, card, phase="segori_validate")
     phase_start["segori_train"] = time.perf_counter()
-    train_card_vs_cpu(ckpt, card, imgsz=TRAIN_IMGSZ, phase="segori_train", b=TRAIN_B,
+    train_card_vs_cpu(ckpt, card, imgsz=TRAIN_IMGSZ, phase="segori_train", b=SEGORI_F64_B,
                       model=segori.model, dtype=torch.float64)
     _, segori_step_counts, _, _ = train_full_width(ckpt, card, phase="segori_train",
                                                    model=segori.model)
@@ -3162,11 +3703,26 @@ def main() -> int:
     phase_start["rtdetr_l"] = time.perf_counter()
     rtdetr_counts["rtdetr-l"] = rtdetr_l(card)
 
-    # 29. the fork's headline comparison, seg against detect, at 640
+    # 29-34. SAM (ViT-B), MobileSAM, everything mode, FastSAM (its masks and
+    # prompts on both fill kernels), YOLO-NAS and its trainer
+    phase_start["sam"] = time.perf_counter()
+    sam_b = sam_phase(card, "sam_b")
+    phase_start["mobile_sam"] = time.perf_counter()
+    sam_phase(card, "mobile_sam")
+    phase_start["sam_generate"] = time.perf_counter()
+    sam_generate(card, *sam_b.pop("models"))
+    phase_start["fastsam"] = time.perf_counter()
+    fastsam_counts = fastsam_phase(card)
+    phase_start["nas"] = time.perf_counter()
+    nas_phase(card)
+    phase_start["nas_trainer"] = time.perf_counter()
+    nas_trainer(card)
+
+    # 35. the fork's headline comparison, seg against detect, at 640
     phase_start["compare"] = time.perf_counter()
     paper_comparison(card)
 
-    # 30. report: launches summed over the main paths' runs
+    # 36. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,
@@ -3174,7 +3730,7 @@ def main() -> int:
     launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k] + trainer_counts[k]
                 + fuse_counts[k] + sum(c[k] for c in segori_counts.values())
                 + classify_counts[k] + sum(c[k] for c in rtdetr_counts.values())
-                + host_counts[k] for k in KERNEL_WRAPPERS}
+                + host_counts[k] + fastsam_counts[k] for k in KERNEL_WRAPPERS}
     at_480 = fill_rows["fill_polygons_480x640"]
     at_segori = {f"{key}_N{n}_V360_160x160": segori_fill[n][key] for n in SEGORI_FILL_N
                  for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -3186,12 +3742,13 @@ def main() -> int:
          "ms_480x640": at_480["ms"], "plain_ms_480x640": at_480["plain_ms"],
          "bound_ms_480x640": at_480["bound_ms"], **at_segori,
          "launches_segment_ori": {k: c["fill_polygons"] for k, c in segori_counts.items()},
-         "launches_host_pipeline": host_counts["fill_polygons"]},
+         "launches_host_pipeline": host_counts["fill_polygons"],
+         "launches_fastsam": fastsam_counts["fill_polygons"]},
         {"name": "fill_polygons_cv2", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
                      "no TPU kernel)",
          "launches": launches["fill_polygons_cv2"], **fill_rows["fill_polygons_cv2"],
-         "library_ms": None},
+         "library_ms": None, "launches_fastsam": fastsam_counts["fill_polygons_cv2"]},
         {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
          "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_NPAD]),
@@ -3210,7 +3767,9 @@ def main() -> int:
         f"validated batch), classify {classify_counts} (no kernel of its own), rtdetr "
         f"{rtdetr_counts} (no kernel of its own; its trainer and rtdetr-l included), host "
         f"pipeline {host_counts} (the seg trainer on the host chain: its assigner's GT rays, its "
-        f"validator's fill); "
+        f"validator's fill), FastSAM {fastsam_counts} (its masks by the cv2 fill, its "
+        f"contours-only results by the even-odd fill; SAM and NAS have no kernel of their "
+        f"own); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
         "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "

@@ -14,7 +14,10 @@ the committed set, and ``YOLO("yolov8n-cls.yaml").train`` runs one epoch
 on the host path), the segment_ori task (the narrow checkpoint of the
 CPU tests predicts masks) and RT-DETR (the floor_rtdetr checkpoint predicts
 and validates, and one CPU train step with contrastive denoising runs on
-it); and scipy was never imported."""
+it); then SAM at img_size 64 (prompted predict and everything mode),
+FastSAM on the seg160 checkpoint with a box prompt (from its masks, and
+from contours alone), and one predict of a fresh yolo_nas_s behind
+``NAS``; and scipy and cv2 were never imported."""
 import subprocess
 import sys
 from pathlib import Path
@@ -120,12 +123,29 @@ rt_images, rt_batch = chip_smoke.shape_batch(2, 64, 3, seed=0)
 rt_metrics = make_train_step(rt.model, rt_opt, hyp)(
     rt_state, torch.from_numpy(rt_images), {k: torch.from_numpy(v) for k, v in rt_batch.items()})
 assert "dn_cls_loss" in rt_metrics and torch.isfinite(rt_metrics["loss"]), rt_metrics
+sam = pkg.SAM("sam_b", img_size=64, device="cpu")
+sam_img = np.full((48, 56, 3), 128, np.uint8)
+sam_masks, sam_iou = sam.predict(sam_img, points=[[28, 24]], labels=[1])
+assert sam_masks.shape == (3, 48, 56) and sam_iou.shape == (3,)
+gen = sam.generate(sam_img, points_stride=4, conf_thres=-1e9, stability_score_thresh=-1.0,
+                   min_mask_region_area=4)
+assert len(gen[0]) > 0 and gen[0].shape[1:] == (48, 56), gen[0].shape
+fs_img = chip_smoke.shape_images(1, 120, 200, seed=0)[0]
+fs = pkg.FastSAM("runs/floor_seg160/best.ckpt", device="cpu")
+for boxes in (True, False):
+    fs_res = fs.predict(fs_img, boxes=boxes)
+    assert len(fs_res[0]) and (fs_res[0].masks is None) == (not boxes)
+    sel = pkg.FastSAMPrompt(fs_img, fs_res).box_prompt(fs_res[0].boxes.xyxy[0])
+    assert sel.shape == (1, 120, 200) and sel.any()
+nas = chip_smoke.fresh_nas(device="cpu")
+assert len(nas.predict(chip_smoke.shape_images(1, 48, 64, seed=1), imgsz=64, conf=0.001)) == 1
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 assert not [n for n in sys.modules if n.split(".")[0] == "scipy"]
 print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;",
       "val mask mAP50-95", val["metrics/mAP50-95(M)"], ";", "train step loss",
-      float(metrics["loss"]), ";", "YOLO.train steps", trained, "; detect", n_det, "detections")
+      float(metrics["loss"]), ";", "YOLO.train steps", trained, "; detect", n_det, "detections",
+      "; SAM everything mode", len(gen[0]), "masks")
 """
 
 
@@ -137,6 +157,6 @@ def test_port_imports_and_predicts_without_jax_cv2_yaml_triton():
     assert res.returncode == 0, res.stdout + res.stderr
     assert "detections" in res.stdout and "train step loss" in res.stdout
     assert "val mask mAP50-95" in res.stdout and "YOLO.train steps 2" in res.stdout
-    assert "; detect" in res.stdout
+    assert "; detect" in res.stdout and "; SAM everything mode" in res.stdout
     n_mods = int(res.stdout.split("imported ")[1].split()[0])
     assert n_mods >= 20  # ops, nn, utils, engine, data modules of the port

@@ -685,3 +685,126 @@ def test_host_chain_seg_step_card_equals_cpu(cuda, full_f32):
             state, x, {k: torch.from_numpy(v) for k, v in batch.items()})["loss"].item()
         assert (gt_rays.gt_rays_rows_fast.launches > rays) == (dev == "cuda")
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"]), losses
+
+
+# the planted objects of tests/test_sam_generate.py (x0, y0, x1, y1) on an
+# S x S image, for a decoder stub without JAX
+STUB_S = 64
+STUB_OBJECTS = [(8, 8, 24, 28), (40, 12, 60, 32), (12, 40, 32, 60)]
+
+
+class StubSam:
+    """A torch copy of ``tests/test_sam_generate.py:StubSam`` on ``device``:
+    a prompt point inside planted object k returns that object's low-res
+    mask at IoU 0.99, a background point -10 everywhere at 0.05."""
+
+    img_size = STUB_S
+    mask_threshold = 0.0
+    pixel_mean = np.zeros(3, np.float32)
+    pixel_std = np.ones(3, np.float32)
+
+    def __init__(self, device="cpu"):
+        hq = STUB_S // 4
+        gt = np.zeros((len(STUB_OBJECTS), hq, hq), np.float32)
+        for k, (x0, y0, x1, y1) in enumerate(STUB_OBJECTS):
+            gt[k, y0 // 4: y1 // 4, x0 // 4: x1 // 4] = 1.0
+        self.device = torch.device(device)
+        self.gt = torch.from_numpy(gt).to(self.device)
+
+    def encode_image(self, image):
+        hq = STUB_S // 4
+        return torch.zeros((image.shape[0], 8, hq, hq), device=image.device)
+
+    def decode_prompts(self, emb, points, labels, masks=None, multimask=True):
+        hq = STUB_S // 4
+        pt = points[:, 0]
+        ix = torch.div(pt[:, 0], 4, rounding_mode="floor").long().clamp(0, hq - 1)
+        iy = torch.div(pt[:, 1], 4, rounding_mode="floor").long().clamp(0, hq - 1)
+        inside = self.gt[:, iy, ix]  # (K, P)
+        logits = torch.einsum("kp,khw->phw", inside, self.gt * 20.0 - 10.0)
+        hit = inside.sum(0) > 0
+        logits = torch.where(hit[:, None, None], logits, torch.full_like(logits, -10.0))
+        logits = logits[:, None].repeat(1, 3, 1, 1)
+        iou = torch.where(hit, 0.99, 0.05)[:, None] * torch.ones((1, 3), device=self.device)
+        return logits, iou
+
+
+def test_generate_on_the_stub_card_equals_cpu(cuda):
+    """Everything mode on the stub decoder, crop layers 0 and 1 with the
+    small-region cleanup: the card's masks, scores and boxes equal the
+    CPU's exactly."""
+    from yolo_contour_regression_tpu_torch.models.sam import Predictor
+
+    img = np.full((STUB_S, STUB_S, 3), 127, np.uint8)
+    for layers in (0, 1):
+        kw = dict(crop_n_layers=layers, points_stride=16, points_batch_size=24,
+                  conf_thres=0.5, min_mask_region_area=20)
+        gp = Predictor(StubSam("cuda"))
+        assert gp.device.type == "cuda"
+        got = gp.generate(img, **kw)
+        want = Predictor(StubSam("cpu")).generate(img, **kw)
+        assert len(want[0]) >= len(STUB_OBJECTS)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_sam_b_predict_card_equals_cpu(cuda, full_f32):
+    """sam_b at img_size 256 (``chip_smoke.sam_model``: seeded, relative
+    positions drawn) on a 480x640 frame, on ``Predictor``'s default device
+    (the card) against the CPU: embeddings within 1e-4 of their largest,
+    low-res logits and IoU within 1e-3, masks equal but at pixels whose
+    logit lies within 1e-4 of 0."""
+    from chip_smoke import (RASTER_HW, SAM_EMB_RTOL, SAM_LOGIT_ATOL, SAM_THRESH_BAND,
+                            frame_logits, sam_model, shape_images)
+    from yolo_contour_regression_tpu_torch.models.sam import Predictor
+
+    frame = shape_images(1, *RASTER_HW, seed=21)[0]
+    cpu_model = sam_model("sam_b", img_size=256)
+    gp = Predictor(copy.deepcopy(cpu_model))
+    cp = Predictor(cpu_model, device="cpu")
+    assert gp.device.type == "cuda" and next(gp.model.parameters()).is_cuda
+    gp.set_image(frame)
+    cp.set_image(frame)
+    err = float((gp._emb.cpu() - cp._emb).abs().max())
+    assert err <= SAM_EMB_RTOL * float(cp._emb.abs().max())
+    for kw in (dict(point_coords=[[320, 240]], point_labels=[1]), dict(box=[200, 120, 460, 380])):
+        gm, gi, gl = gp.predict(**kw, return_logits=True)
+        cm, ci, cl = cp.predict(**kw, return_logits=True)
+        assert np.abs(gl - cl).max() <= SAM_LOGIT_ATOL and np.abs(gi - ci).max() <= SAM_LOGIT_ATOL
+        near = np.abs(frame_logits(cp, torch.from_numpy(cl))) <= SAM_THRESH_BAND
+        assert not ((gm != cm) & ~near).any()
+
+
+def test_fastsam_launches_both_fills(cuda):
+    """``FastSAM(runs/floor_seg160/best.ckpt)`` on the card: prompts on
+    results at the default ``boxes=True`` read masks filled by the cv2-rule
+    kernel, and on results predicted with ``boxes=False`` fill the contours
+    with the even-odd kernel; the selected masks equal the CPU's within
+    IoU 0.99."""
+    from chip_smoke import CKPT, floor_val_set
+    from yolo_contour_regression_tpu_torch import FastSAM, FastSAMPrompt
+
+    img = floor_val_set()[0][0]
+    card, cpu = FastSAM(CKPT), FastSAM(CKPT, device="cpu")
+    for boxes, kernel in ((True, raster.fill_polygons_cv2), (False, raster.fill_polygons)):
+        before = kernel.launches
+        gres, cres = card.predict(img, boxes=boxes), cpu.predict(img, boxes=boxes)
+        assert len(gres[0]) == len(cres[0]) > 0
+        b = cres[0].boxes.xyxy[0]
+        g = FastSAMPrompt(img, gres).box_prompt(b)[0]
+        c = FastSAMPrompt(img, cres).box_prompt(b)[0]
+        assert kernel.launches > before
+        assert np.logical_and(g, c).sum() >= 0.99 * np.logical_or(g, c).sum()
+
+
+def test_nas_step_card_equals_cpu_f64(cuda, full_f32):
+    """A fresh yolo_nas_s (nc 2) in float64 at imgsz 160 batch 2: the detect
+    loss, the assignment and every gradient on the card against the CPU
+    (``chip_smoke.train_card_vs_cpu``), and ``NAS`` defaults to the card."""
+    from chip_smoke import DETECT_CKPT, fresh_nas, train_card_vs_cpu
+    from yolo_contour_regression_tpu_torch import NAS
+    from yolo_contour_regression_tpu_torch.utils.checkpoint import load_checkpoint
+
+    assert NAS("yolo_nas_s").device.type == "cuda"
+    train_card_vs_cpu(load_checkpoint(DETECT_CKPT), "card", imgsz=160, phase="test", b=2,
+                      model=fresh_nas("cpu").model, dtype=torch.float64)

@@ -14,6 +14,10 @@ and rtdetr tasks (counterpart of the JAX package's ``engine/model.py``)::
     metrics = model.val([img_bgr_u8, ...], [0, 1, ...], imgsz=64)  # labels: class indices
     model = YOLO("runs/floor_rtdetr/best.ckpt")          # RT-DETR: no NMS; predict, val, fuse
     YOLO("yolov8n-rtdetr.yaml").train(data=..., imgsz=192)  # RT-DETR on the host train chain
+    model.predict(images, boxes=False)                    # polar: contours, masks None
+
+SAM, FastSAM and NAS (``models/``) are facades of their own; FastSAM and
+NAS are this facade bound to the segment and detect tasks.
 
 A name ending in ``.yaml`` names a fresh model (``nn/tasks.py``:
 ``yaml_model_load``; ``yolov8n-seg.yaml`` is the polar segment task,
@@ -145,13 +149,16 @@ class YOLO:
 
     def predict(self, source, imgsz=None, conf: float = 0.25, iou: float = 0.7,
                 max_det: int = 300, pre_nms: int = 1024, batch: int = 1,
-                agnostic_nms: bool = False):
+                agnostic_nms: bool = False, boxes: bool = True, retina_masks: bool = False):
         """Images (HWC uint8 BGR numpy, or a list) -> list of ``Results``,
         ``batch`` images per forward; ``agnostic_nms`` suppresses across
-        classes."""
+        classes. The polar segment task's results fill their masks lazily
+        unless ``boxes`` and ``retina_masks`` are both false (then
+        ``masks`` is None, as JAX's)."""
         predictor = TASK_MAP[self.task]["predictor"](
             imgsz=imgsz or self.imgsz, conf=conf, iou=iou, max_det=max_det,
-            pre_nms=pre_nms, batch=batch, agnostic_nms=agnostic_nms,
+            pre_nms=pre_nms, batch=batch, agnostic_nms=agnostic_nms, boxes=boxes,
+            retina_masks=retina_masks,
         )
         return predictor(self._weights(), source, names=self.names)
 

@@ -5,7 +5,8 @@ Per batch: host letterbox (uint8, BGR -> RGB) -> device uint8 -> [0, 1]
 float -> the task's device evaluation -> host postprocess (unpad/ungain and
 clip). Segment: ``predict_parts(sigmoid=False)`` ->
 ``non_max_suppression_parts(scores_are_logits=True)`` ->
-``finalize_polar_extras``; boxes, contours and masks. Detect, as the JAX
+``finalize_polar_extras``; boxes, contours and masks (lazy, unless
+``boxes=False`` and ``retina_masks=False``, where JAX's results hold none). Detect, as the JAX
 detect branch: ``decode_detect`` (sigmoid scores) -> ``xywh2xyxy`` -> NMS
 in float32 with scores as probabilities; boxes only. Pose, as detect with
 the decoded keypoints riding through NMS as its extras; boxes and keypoints
@@ -66,8 +67,11 @@ class BasePredictor:
 
     def __init__(self, imgsz: int = 640, conf: float = 0.25, iou: float = 0.7,
                  max_det: int = 300, pre_nms: int = 1024, batch: int = 1,
-                 agnostic_nms: bool = False):
+                 agnostic_nms: bool = False, boxes: bool = True, retina_masks: bool = False):
         self.imgsz, self.batch = int(imgsz), max(int(batch), 1)
+        # the polar results' masks fill lazily where JAX's do (its
+        # ``lazy_masks=bool(args.retina_masks or args.boxes)``)
+        self.lazy_masks = bool(retina_masks or boxes)
         self.nms_kw = dict(conf_thres=conf, iou_thres=iou, pre_nms=pre_nms, max_det=max_det,
                            agnostic=bool(agnostic_nms))
 
@@ -143,7 +147,7 @@ class SegmentationPredictor(BasePredictor):
         pts[..., 1] = pts[..., 1].clip(0, h)
         valid_rays = ex[:, 72:108] > 0.5
         return Results(orig, path, names, boxes=_image_boxes(out, bi, orig, gain, pad),
-                       contours=(pts, valid_rays), device=device)
+                       contours=(pts, valid_rays), device=device, lazy_masks=self.lazy_masks)
 
 
 class DetectionPredictor(BasePredictor):

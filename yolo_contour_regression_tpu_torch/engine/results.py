@@ -7,13 +7,16 @@ keypoints (None).
 A segment_ori result carries its masks as computed (``masks``), a classify
 result its probabilities (``probs``, a ``Probs``) and nothing else.
 
-For the polar segment task ``Results.masks`` is lazy: the first read
-rasterizes the polar contours at
+For the polar segment task ``Results.masks`` is lazy where the predictor
+says so (``lazy_masks``, JAX's ``retina_masks or boxes``, true at the
+defaults): the first read rasterizes the polar contours at
 the original image size through ``ops.raster.fill_polygons_cv2`` on the
 predictor's device (the CUDA kernel on a card, the plain version on the
 CPU). Its rule is the JAX facade's, ``cv2.fillPoly`` of the valid vertices
 at 3-bit subpixel precision (JAX ``contours_to_masks_host``), reproduced
-without cv2: the masks are the JAX facade's, pixel for pixel.
+without cv2: the masks are the JAX facade's, pixel for pixel. Without the flag (``predict(boxes=
+False)``) a result holds contours and no masks (``masks`` is None), as
+JAX's; ``FastSAMPrompt`` then fills the contours by the even-odd rule.
 """
 from __future__ import annotations
 
@@ -103,7 +106,8 @@ def contours_to_masks(points: np.ndarray, valid: np.ndarray, height: int, width:
 
 class Results:
     """One image's results: boxes, contours and lazy masks (or masks as
-    given), keypoints, or probabilities."""
+    given), keypoints, or probabilities. ``lazy_masks`` lets ``masks`` fill
+    the contours on first read; without it ``masks`` is what was given."""
 
     def __init__(
         self,
@@ -117,6 +121,7 @@ class Results:
         device="cuda",
         masks: Optional[np.ndarray] = None,
         probs: Optional[np.ndarray] = None,
+        lazy_masks: bool = False,
     ):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
@@ -131,10 +136,11 @@ class Results:
         self.speed = speed or {}
         self._masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.probs = Probs(probs) if probs is not None else None
+        self._lazy_masks = bool(lazy_masks)
 
     @property
     def masks(self) -> Optional[Masks]:
-        if self._masks is None and self.contours is not None:
+        if self._masks is None and self._lazy_masks and self.contours is not None:
             self._masks = Masks(
                 contours_to_masks(
                     self.contours.points, self.contours.valid, *self.orig_shape,

@@ -1,8 +1,9 @@
 """Composite blocks in NCHW (counterpart of the JAX package's
 ``nn/modules/block.py``): the fork's RepBlock and SPPF, the stock
 YOLOv8 blocks of the detect graph, DFL, Bottleneck and C2f, the mask
-prototypes of the proto-mask head, Proto, and rtdetr-l's PPHGNetV2 blocks
-HGStem and HGBlock and its neck's RepC3."""
+prototypes of the proto-mask head, Proto, rtdetr-l's PPHGNetV2 blocks
+HGStem and HGBlock and its neck's RepC3, and YOLO-NAS's SPP,
+NASBottleneck and NASCSP."""
 from __future__ import annotations
 
 import torch
@@ -46,6 +47,22 @@ class SPPF(nn.Module):
         y2 = _maxpool_same(y1, self.k)
         y3 = _maxpool_same(y2, self.k)
         return self.cv2(torch.cat([x, y1, y2, y3], dim=1))
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: cv1 to c1 // 2, max pools of each size in
+    ``k`` (stride 1, -inf padded) beside it, concatenated into cv2."""
+
+    def __init__(self, c1: int, c2: int, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        return self.cv2(torch.cat([x] + [_maxpool_same(x, k) for k in self.k], 1))
 
 
 class DFL(nn.Module):
@@ -184,3 +201,38 @@ class HGBlock(nn.Module):
             ys.append(m(ys[-1]))
         y = self.ec(self.sc(torch.cat(ys, 1)))
         return y + x if self.add else y
+
+
+class NASBottleneck(nn.Module):
+    """YOLO-NAS's QARepVGG bottleneck: two RepConvs (``cv1``, ``cv2``), plus
+    the input when ``shortcut`` and the widths agree."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True):
+        super().__init__()
+        self.cv1 = RepConv(c1, c2)
+        self.cv2 = RepConv(c2, c2)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class NASCSP(nn.Module):
+    """YOLO-NAS's CSP stage: cv1 (1x1 to c2 * e) through ``n`` chained
+    NASBottlenecks (``m``), beside cv2 (1x1 to c2 * e), concatenated into
+    cv3 (1x1 to c2)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.m = nn.ModuleList(NASBottleneck(c_, c_, shortcut) for _ in range(n))
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        for m in self.m:
+            y = m(y)
+        return self.cv3(torch.cat([y, self.cv2(x)], 1))

@@ -18,8 +18,9 @@ mask coefficients and prototypes), ``ClassificationModel`` (the
 ``Classify`` head) and ``RTDETRDetectionModel`` (the ``RTDETRDecoder``
 head); ``build_model`` picks one by the config's head
 (``guess_model_task``).
-``yaml_model_load`` maps a model name to its config dict, and
-``init_weights`` gives a fresh model the JAX package's initialization.
+``yaml_model_load`` maps a model name to its config dict (``yolo_nas_s``
+is ``YOLO_NAS``, YOLO-NAS's graph on the ``Detect`` head, at scale ``s``),
+and ``init_weights`` gives a fresh model the JAX package's initialization.
 """
 from __future__ import annotations
 
@@ -198,6 +199,44 @@ RTDETR_L: Dict[str, Any] = {
     ],
 }
 
+# cfg/models/yolo_nas.yaml of the JAX package as a dict: the YOLO-NAS graph
+# rebuilt from its published topology, a RepConv stem and four [RepConv-down
+# + NASCSP] stages (depths 2/3/5/2), SPP(5, 9, 13), a PAN neck of NASCSPs and
+# the DFL Detect head; scales s, m and l
+YOLO_NAS: Dict[str, Any] = {
+    "nc": 80,
+    "scales": {"s": [1.00, 1.00, 768], "m": [1.33, 1.25, 960], "l": [1.67, 1.50, 1152]},
+    "backbone": [
+        [-1, 1, "RepConv", [48, 3, 2]],  # 0 stem P1/2
+        [-1, 1, "RepConv", [96, 3, 2]],  # 1 P2/4
+        [-1, 2, "NASCSP", [96, True]],  # 2
+        [-1, 1, "RepConv", [192, 3, 2]],  # 3 P3/8
+        [-1, 3, "NASCSP", [192, True]],  # 4
+        [-1, 1, "RepConv", [384, 3, 2]],  # 5 P4/16
+        [-1, 5, "NASCSP", [384, True]],  # 6
+        [-1, 1, "RepConv", [768, 3, 2]],  # 7 P5/32
+        [-1, 2, "NASCSP", [768, True]],  # 8
+        [-1, 1, "SPP", [768, [5, 9, 13]]],  # 9
+    ],
+    "head": [
+        [-1, 1, "Conv", [192, 1, 1]],  # 10 reduce
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 6], 1, "Concat", [1]],
+        [-1, 2, "NASCSP", [192]],  # 13
+        [-1, 1, "Conv", [96, 1, 1]],  # 14 reduce
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 4], 1, "Concat", [1]],
+        [-1, 2, "NASCSP", [96]],  # 17 P3/8-small
+        [-1, 1, "RepConv", [96, 3, 2]],
+        [[-1, 13], 1, "Concat", [1]],
+        [-1, 2, "NASCSP", [192]],  # 20 P4/16-medium
+        [-1, 1, "RepConv", [192, 3, 2]],
+        [[-1, 9], 1, "Concat", [1]],
+        [-1, 2, "NASCSP", [384]],  # 23 P5/32-large
+        [[17, 20, 23], 1, "Detect", ["nc"]],  # 24
+    ],
+}
+
 # config name -> (module class, positional field names after c1, kind):
 # "conv" width-scaled c2, repeated n times; "csp" width-scaled c2 taking n;
 # "hg" the PPHGNetV2 blocks, c2 unscaled, HGBlock taking n; "aifi" the
@@ -209,10 +248,12 @@ REGISTRY = {
     "DWConv": (conv_mod.DWConv, ("c2", "k", "s", "d", "act"), "conv"),
     "LightConv": (conv_mod.LightConv, ("c2", "k", "act"), "conv"),
     "Bottleneck": (block_mod.Bottleneck, ("c2", "shortcut", "g", "k", "e"), "conv"),
+    "SPP": (block_mod.SPP, ("c2", "k"), "conv"),
     "SPPF": (block_mod.SPPF, ("c2", "k"), "conv"),
     "RepBlock": (block_mod.RepBlock, ("c2", "n", "shortcut"), "csp"),
     "C2f": (block_mod.C2f, ("c2", "n", "shortcut", "g", "e"), "csp"),
     "RepC3": (block_mod.RepC3, ("c2", "n", "e"), "csp"),
+    "NASCSP": (block_mod.NASCSP, ("c2", "n", "shortcut", "e"), "csp"),
     "HGStem": (block_mod.HGStem, ("cm", "c2"), "hg"),
     "HGBlock": (block_mod.HGBlock, ("cm", "c2", "k", "n", "lightconv", "shortcut", "act"), "hg"),
     "AIFI": (tr_mod.AIFI, ("cm", "num_heads"), "aifi"),
@@ -539,20 +580,24 @@ def build_model(cfg: dict, nc: Optional[int] = None) -> TaskModel:
 MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG, "yolov8": YOLOV8,
                                          "yolov8-pose": YOLOV8_POSE,
                                          "yolov8-segori": YOLOV8_SEGORI, "yolov8-cls": YOLOV8_CLS,
-                                         "yolov8-rtdetr": YOLOV8_RTDETR, "rtdetr-l": RTDETR_L}
+                                         "yolov8-rtdetr": YOLOV8_RTDETR, "rtdetr-l": RTDETR_L,
+                                         "yolo_nas": YOLO_NAS}
 
 
 def yaml_model_load(name) -> Dict[str, Any]:
     """A model name such as ``"yolov8n-seg.yaml"`` or ``"yolov8n.yaml"`` ->
     its config dict, the scale letter taken from the name as the JAX
     ``yaml_model_load`` takes it (``yolov8n-seg`` -> ``yolov8-seg`` at
-    scale ``n``). Only the configs
+    scale ``n``; ``yolo_nas_s`` -> ``yolo_nas`` at scale ``s``). Only the configs
     of ``MODEL_CFGS`` are ported: any other name raises
     ``NotImplementedError``."""
     stem = Path(str(name)).stem
     m = (re.match(r"(.*yolov\d+)([nslmx])([-_].+)?$", stem)
          or re.match(r"(.*yolov\d+)([nslmx])$", stem))
     base, scale = (m.group(1) + (m.group(3) or ""), m.group(2)) if m else (stem, "")
+    nas = re.match(r"(yolo_nas)_([sml])$", stem)
+    if not m and nas:
+        base, scale = nas.groups()
     if base not in MODEL_CFGS:
         raise NotImplementedError(f"model {name!r} is not ported (ported: "
                                   f"{sorted(k + '.yaml' for k in MODEL_CFGS)}, any scale letter)")
