@@ -57,7 +57,7 @@ Phases, one timestamped line each (elapsed seconds):
      batch 16 with the augmentation on the card; the stripped
      ``best.ckpt`` must meet the floor, and predict from it must find
      detections; (b) ``train_640``: the default config at imgsz 640 batch
-     16 for 2 epochs on 64 480x640 frames. Each prints its metrics, wall
+     16 for 5 epochs on 256 480x640 frames. Each prints its metrics, wall
      time, the epoch split on the host clock (train steps, loader wait,
      validation, save) and the step split by CUDA events at the step's
      marks (copy, augment, forward, assigner, GT rays, loss, backward,
@@ -109,7 +109,7 @@ Phases, one timestamped line each (elapsed seconds):
   18. segment_ori validate: that model at 640 batch 16 on 32 480x640
      frames, split as in 10 (b) with the mask IoU (the GT masks filled by
      the even-odd kernel, one launch a batch).
-  19. segment_ori train step: as 6 (a) at 640 batch 4 N_pad 8, the
+  19. segment_ori train step: as 6 (a) at 640 batch 2 N_pad 8, the
      networks in float64 (a fresh init's float32 gradients are
      ill-conditioned; card against CPU: loss 1e-4 relative, the same
      assignment, gradients 1e-3)
@@ -200,15 +200,24 @@ Phases, one timestamped line each (elapsed seconds):
      predict at 640 batch 1 and 8 (the same detections, boxes within 0.05
      px, ms an image), the fused float32 model's detections, classes and
      boxes, a float64 train step against the CPU at 640
-     batch 4, the train step at 640 batch 16 timed.
+     batch 2, the train step at 640 batch 16 timed.
   34. nas_trainer: ``NAS("yolo_nas_s").train`` from scratch on the detect
-     floor set at the detect floor recipe, cut to 20 epochs: losses fall,
+     floor set at the detect floor recipe, cut to 10 epochs: losses fall,
      the metrics recorded (no NAS floor is committed). SAM and NAS launch
      no kernel: their counts are printed, all 0.
-  35. compare: the fork's headline, printed and not gated: ms an image on
+  35. configs: yolov3, yolov5n, yolov6n, yolov8n-det-rep, yolov8n-p2,
+     yolov8n-p6 and yolov8n-pose-p6, each fresh from seed 0 at full width
+     with JAX's parameter count: card against CPU at 640 (batch 1 for
+     yolov3, else 2; heads 1e-3, the same detections at a confidence in a
+     gap of the CPU's scores, boxes and keypoints 0.05 px, scores 1e-4), the
+     fused model against the unfused one, ms an image at 640 batch 1 and 8
+     and the peak memory; one train step of p2, p6 and pose-p6 (four
+     levels) at 320 batch 2, card against CPU in float64. No kernel: the
+     phase's counts must be 0.
+  36. compare: the fork's headline, printed and not gated: ms an image on
      the card at 640, batch 1 and 8, of yolov8n-seg polar (contours, no
      masks) and yolov8n detect, fused and unfused, and seg / detect.
-  36. report: a JSON line of the kernels (launches summed over the predict,
+  37. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs of every task,
      and FastSAM's), the card's line, and last ``{"ok": true, "device":
      {...}}``.
@@ -354,7 +363,7 @@ POSE_TRAIN_KEYS = ("pose", "kobj", "fliplr")
 # init drawn from this seed
 POSE_IMGSZ, POSE_SEED = 96, 0
 # train_640: the default config at the size users train
-TRAIN640_N, TRAIN640_VAL, TRAIN640_EPOCHS = 256, 16, 9  # 4 optimizer steps an epoch
+TRAIN640_N, TRAIN640_VAL, TRAIN640_EPOCHS = 256, 16, 5  # 4 optimizer steps an epoch
 # the segment_ori slice: yolov8n-segori at full width (the published config
 # at nc 2) from a fresh init drawn from this seed; its loss and validator
 # fill the GT masks at proto size (imgsz / 4) from 360-point contours: at
@@ -420,15 +429,35 @@ SAM_GEN_IOU = 0.99  # a pair of kept masks, card and CPU
 SAM_BOX_PX = 1.0  # a threshold pixel on a mask's edge moves its box by one
 # yolo_nas_s at nc 2 (JAX's count, tests/test_torch_port_fastsam_nas.py)
 NAS_PARAMS = 22_309_542
-NAS_F64_B = 4  # the float64 card-against-CPU step (the CPU takes ~4 s an image)
-NAS_F64_FRAMES = 4  # the float64 card-against-CPU predict
+# the float64 card-against-CPU step (the CPU takes ~4 s an image) and
+# predict, each cut from 4 to make room for the configs phase
+NAS_F64_B = 2
+NAS_F64_FRAMES = 2
 # predict's default: the calibrated fresh net scores 11,449 anchors of 4
 # frames above 0.001 (pre_nms cuts near-ties) and 253 above 0.3
 NAS_CONF = 0.25
-NAS_TRAIN_EPOCHS = 20
+NAS_TRAIN_EPOCHS = 10
+# the configs phase: each config the port builds beside the ones above, at
+# full width (nc as its yaml has it), with JAX's parameter count
+# (``jax.eval_shape`` of the JAX package's build of the same yaml;
+# tests/test_torch_port_configs.py holds the port's counts to JAX's)
+CONFIG_PARAMS = {"yolov3.yaml": 103_754_128, "yolov5n.yaml": 2_654_800,
+                 "yolov6n.yaml": 4_500_064, "yolov8n-det-rep.yaml": 658_363,
+                 "yolov8n-p2.yaml": 3_354_128, "yolov8n-p6.yaml": 4_984_336,
+                 "yolov8n-pose-p6.yaml": 5_182_136}
+# the four-level configs' train step, card against CPU in float64 (a fresh
+# init's float32 gradients are ill-conditioned)
+CONFIG_STEPS, CONFIG_STEP_IMGSZ, CONFIG_STEP_B = (
+    ("yolov8n-p2.yaml", "yolov8n-p6.yaml", "yolov8n-pose-p6.yaml"), 320, 2)
+# the confidence of the card-against-CPU predict sits in the widest gap
+# between neighbours among the CONFIG_GAP ranks of the CPU's scores, so
+# that card and CPU keep the same anchors: a fresh net's scores crowd at
+# its class prior, where a fixed 0.001 or 0.25 keeps nothing or cuts
+# through a run of near-equal scores
+CONFIG_GAP = (10, 300)
 # segment_ori's fresh float64 step, card against CPU (the CPU's float64 step
-# at batch 16 took 29 s of the smoke's 1,200)
-SEGORI_F64_B = 4
+# at batch 16 took 29 s of the smoke's 1,200, 10.6 at 4)
+SEGORI_F64_B = 2
 # last.ckpt every 25 epochs in the smoke's floor-recipe trainer runs, as
 # the RT-DETR floor recipe saves (best.ckpt still on every improvement and
 # the last epoch always): the cadence changes no weight, and saving every
@@ -1629,7 +1658,7 @@ def train_640(card: str):
     and MixUp on) at imgsz 640 batch 16 for ``TRAIN640_EPOCHS`` epochs on
     ``TRAIN640_N`` 480x640 frames with exact labels, validating on
     ``TRAIN640_VAL`` (launch counts zeroed just before, read just after):
-    images per second, over all epochs and over those after the first (32
+    images per second, over all epochs and over those after the first (16
     optimizer steps), and the same splits as ``train_floor``."""
     train = shape_val_set(TRAIN640_N, *VAL640_HW, seed=7)
     val = shape_val_set(TRAIN640_VAL, *VAL640_HW, seed=8)
@@ -3432,6 +3461,144 @@ def nas_phase(card: str) -> dict:
     return {"step_ms": step_ms, "split": split}
 
 
+def gap_conf(scores: torch.Tensor, lo: int, hi: int):
+    """A confidence halfway across the widest gap between two neighbours
+    among the ``lo``-th to ``hi``-th highest of ``scores``, and that gap."""
+    s = scores.flatten().double().sort(descending=True).values
+    r = torch.arange(lo, min(hi, len(s) - 1) + 1)
+    gaps = s[r - 1] - s[r]
+    i = int(r[int(gaps.argmax())])
+    return float((s[i - 1] + s[i]) / 2), float(gaps.max())
+
+
+def config_nms(model, x: torch.Tensor, conf: float) -> dict:
+    """The predictor's ``eval_batch`` on a float input of the model's dtype:
+    the decode, made xyxy and cast to float32, through NMS at ``conf``."""
+    with torch.inference_mode():
+        y = detect_xyxy(model.predict(x)).float()
+    return {k: v.cpu() for k, v in non_max_suppression(
+        y, nc=model.nc, conf_thres=conf, iou_thres=0.7, pre_nms=1024, max_det=300).items()}
+
+
+def config_pair(name: str, card: str) -> dict:
+    """One config fresh from seed 0 at full width on the CPU and, the same
+    weights, on the card: its parameters (JAX's ``CONFIG_PARAMS``); at 640
+    on 480x640 frames, batch 1 (yolov3) or 2, the float32 head maps card
+    against CPU (``HEAD_ATOL`` of the largest head); then float64 copies:
+    heads card against CPU (``HEAD_ATOL``), the same detections at a
+    ``gap_conf`` confidence, boxes and keypoints within ``BOX_ATOL``,
+    scores and visibilities within ``SCORE_ATOL``, and the fused card copy
+    against the unfused one (heads ``FUSE_HEAD_ATOL``, the same detections,
+    boxes ``BOX_ATOL``). A fresh net's scores sit at its class prior (about
+    1.6e-4 at nc 80), where neighbouring float32 scores lie as close as
+    float32's own differences (1.6e-10 at yolov6n, on the CPU): hence
+    float64 for the detections, as the fresh segment_ori, RT-DETR and NAS
+    steps are held. Last the facade's float32 predict timed at 640, batch
+    1 and 8, conf 0.001 (median of 5 calls), with the peak memory."""
+    cfg = yaml_model_load(name)
+    cpu = fresh_model(name, {i: f"class{i}" for i in range(cfg["nc"])}, 0, device="cpu")
+    n_params = cpu.model.num_params
+    if n_params != CONFIG_PARAMS[name]:
+        raise AssertionError(f"{name}: {n_params} parameters, JAX's {CONFIG_PARAMS[name]}")
+    gpu = YOLO(name, device="cuda")
+    gpu.model = copy.deepcopy(cpu.model).to("cuda").eval()
+    frames = shape_images(8, *RASTER_HW, seed=2)
+    b = 1 if name == "yolov3.yaml" else 2
+    pre = predictor_of(cpu.model)(imgsz=640)
+    xt = torch.from_numpy(np.stack([pre.preprocess_u8(img, 640)[0] for img in frames[:b]]))
+    xf = xt.float().div(255.0).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        c32 = cpu.model(xf)
+        g32 = [h.cpu() for h in gpu.model(xf.cuda())]
+    scale = max(1.0, max(float(c.abs().max()) for c in c32))  # limits of the largest head
+    head32 = max(float((g - c).abs().max()) for g, c in zip(g32, c32))
+    m64 = {d: copy.deepcopy(cpu.model).double().to(d).eval() for d in ("cpu", "cuda")}
+    fused = fuse_model(copy.deepcopy(m64["cuda"]))
+    x64 = xf.double()
+    with torch.inference_mode():
+        c64 = m64["cpu"](x64)
+        g64 = [h.cpu() for h in m64["cuda"](x64.cuda())]
+        f64 = [h.cpu() for h in fused(x64.cuda())]
+        scores = m64["cpu"].predict(x64)[:, 4:4 + cpu.model.nc].amax(1).float()
+    conf, gap = gap_conf(scores, *CONFIG_GAP)
+    oc = config_nms(m64["cpu"], x64, conf)
+    og = config_nms(m64["cuda"], x64.cuda(), conf)
+    of = config_nms(fused, x64.cuda(), conf)
+    keep = oc["valid"]
+
+    def gap_of(a, b_):
+        d = (a - b_)[keep].abs()
+        return float(d.max()) if d.numel() else 0.0
+
+    worst = {"head f32": head32, "head": max(float((g - c).abs().max()) for g, c in zip(g64, c64)),
+             "box": gap_of(og["boxes"], oc["boxes"]), "score": gap_of(og["scores"], oc["scores"]),
+             "fused head": max(float((f - g).abs().max()) for f, g in zip(f64, g64)),
+             "fused box": gap_of(of["boxes"], og["boxes"])}
+    if cpu.model.task == "pose":
+        kg, kc = (o["extras"].reshape(*o["extras"].shape[:2], -1, 3) for o in (og, oc))
+        worst["keypoint"] = gap_of(kg[..., :2], kc[..., :2])
+        worst["visibility"] = gap_of(kg[..., 2], kc[..., 2])
+    same = all(torch.equal(o["valid"], oc["valid"]) and torch.equal(o["classes"], oc["classes"])
+               for o in (og, of))
+    limits = {"head f32": HEAD_ATOL * scale, "head": HEAD_ATOL * scale, "box": BOX_ATOL,
+              "score": SCORE_ATOL, "fused head": FUSE_HEAD_ATOL * scale, "fused box": BOX_ATOL,
+              "keypoint": BOX_ATOL, "visibility": SCORE_ATOL}
+    n_det = int(keep.sum())
+    log("configs", f"{name} fresh (seed 0, nc {cpu.model.nc}): {n_params} parameters (JAX's "
+        f"{CONFIG_PARAMS[name]}), fused {fused.num_params}, strides {cpu.model.strides}; card vs "
+        f"CPU at 640 batch {b}, max abs: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (limits: heads {HEAD_ATOL} of the largest, {scale:.2f}; boxes and keypoints "
+        f"{BOX_ATOL} px; scores {SCORE_ATOL}; the rest in float64); the same {n_det} "
+        f"detections (card, fused card) {same} at conf {conf:.9f}, in a gap of {gap:.2e} "
+        f"between neighbouring float32 scores | {card}")
+    if (not same or n_det == 0 or not gap > 0
+            or any(v > limits[k] for k, v in worst.items())):
+        raise AssertionError(f"configs {name}: same {same}, {n_det} detections, gap {gap}, "
+                             f"{worst}")
+    del m64, fused
+    torch.cuda.reset_peak_memory_stats()
+    lat = {}
+    for batch, imgs in ((1, frames[:1]), (8, frames)):
+        predict_ms(gpu, imgs, 640, batch, masks=False, conf=0.001)
+        runs = [predict_ms(gpu, imgs, 640, batch, masks=False, conf=0.001) for _ in range(5)]
+        lat[batch] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("configs", f"{name} float32 predict at imgsz 640, conf 0.001, ms per image (host clock, "
+        f"median of 5 calls): "
+        + "; ".join(f"batch {bb}: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+                    for bb, parts in lat.items())
+        + f"; peak memory {peak:.2f} GiB | {card}")
+    return {"model": cpu.model, "ms": {bb: parts["total"] for bb, parts in lat.items()},
+            "peak_gib": peak}
+
+
+def configs_phase(card: str) -> dict:
+    """The seven configs the port builds beside the others (``CONFIG_PARAMS``),
+    each by ``config_pair``; then one train step of each four-level config
+    (``CONFIG_STEPS``: p2 at strides 4-32, p6 and pose-p6 at 8-64) at
+    ``CONFIG_STEP_IMGSZ`` batch ``CONFIG_STEP_B``, card against CPU in
+    float64 (``train_card_vs_cpu``, the floor_detect and floor_pose
+    checkpoints' train_args). Detect and pose launch no kernel: the counts
+    over the phase must be 0."""
+    zero_launch_counts()
+    hyps = {task: load_checkpoint(path)["train_args"]
+            for task, path in (("detect", DETECT_CKPT), ("pose", POSE_CKPT))}
+    out = {}
+    for name in CONFIG_PARAMS:
+        out[name] = config_pair(name, card)
+        model = out[name].pop("model")
+        if name in CONFIG_STEPS:
+            ckpt = {"model_yaml": model.yaml, "train_args": hyps[model.task]}
+            train_card_vs_cpu(ckpt, card, imgsz=CONFIG_STEP_IMGSZ, phase="configs",
+                              b=CONFIG_STEP_B, model=model, dtype=torch.float64)
+        del model
+    counts = launch_counts()
+    log("configs", f"launches over the phase {counts} | {card}")
+    if any(counts.values()):
+        raise AssertionError(f"the detect and pose configs launched kernels: {counts}")
+    return out
+
+
 def nas_trainer(card: str) -> dict:
     """``NAS("yolo_nas_s").train`` from scratch on the detect floor set (64
     train and 16 val images at 96) at the detect floor recipe
@@ -3718,11 +3885,16 @@ def main() -> int:
     phase_start["nas_trainer"] = time.perf_counter()
     nas_trainer(card)
 
-    # 35. the fork's headline comparison, seg against detect, at 640
+    # 35. the other configs: yolov3, v5, v6, det-rep and the four-level p2,
+    # p6 and pose-p6 (no kernel: the counts over the phase must be 0)
+    phase_start["configs"] = time.perf_counter()
+    configs_phase(card)
+
+    # 36. the fork's headline comparison, seg against detect, at 640
     phase_start["compare"] = time.perf_counter()
     paper_comparison(card)
 
-    # 36. report: launches summed over the main paths' runs
+    # 37. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,

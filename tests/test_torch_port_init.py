@@ -83,14 +83,16 @@ def test_get_cfg_checks_probabilities():
                                   "yolov8l-seg.yaml", "yolov8x-seg.yaml", "yolov8-seg.yaml"])
 def test_yaml_model_load_matches_jax(name):
     """The config and scale letter JAX's ``yaml_model_load`` reads for the
-    name, and for its pose, proto-mask, classify and RT-DETR counterparts
-    (its ``yaml_file`` path aside); a name not ported raises."""
-    for n in (name, *(name.replace("-seg", t) for t in ("-pose", "-segori", "-cls", "-rtdetr"))):
+    name, and for its pose, proto-mask, classify, RT-DETR and P6
+    counterparts (its ``yaml_file`` path aside); a name that is no config
+    of the JAX package raises."""
+    for n in (name, *(name.replace("-seg", t)
+                      for t in ("-pose", "-segori", "-cls", "-rtdetr", "-p6"))):
         want = jax_yaml_model_load(n)
         want.pop("yaml_file")
         assert yaml_model_load(n) == want, n
-    with pytest.raises(NotImplementedError, match="not ported"):
-        yaml_model_load(name.replace("-seg", "-p6"))
+    with pytest.raises(NotImplementedError, match="not a config of the JAX package"):
+        yaml_model_load(name.replace("-seg", "-ghost"))
 
 
 @pytest.fixture(scope="module")

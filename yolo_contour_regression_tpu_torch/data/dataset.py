@@ -110,15 +110,18 @@ class ValDataset:
     resized so its long side is ``imgsz``, as the JAX dataset caches it, and
     ``ori_shape`` is that resized image's shape: the metrics are in its
     frame. Then it is letterboxed without upscaling and formatted with its
-    labels padded to ``max_instances``.
+    labels padded to ``max_instances``. With ``single_cls`` every label's
+    class is 0, as JAX's dataset reads it.
     """
 
     augment = False  # the JAX dataset's train mode (``TrainDataset``)
 
     def __init__(self, images: Sequence[np.ndarray], labels: Sequence[Union[str, Path, Labels]],
-                 imgsz: int = 640, max_instances: int = 48, kpt_shape=None):
+                 imgsz: int = 640, max_instances: int = 48, kpt_shape=None,
+                 single_cls: bool = False):
         if len(images) != len(labels):
             raise ValueError(f"{len(images)} images but {len(labels)} labels")
+        self.single_cls = bool(single_cls)
         for i, img in enumerate(images):
             if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3):
                 raise TypeError(f"image {i}: expected an HWC uint8 numpy array")
@@ -132,7 +135,8 @@ class ValDataset:
         if isinstance(lab, (str, Path)):
             lab = parse_label_file(str(lab), kpt_shape=self.kpt_shape)
         c, b, s = lab[:3]
-        out = {"cls": np.asarray(c, np.int32).reshape(-1),
+        c = np.asarray(c, np.int32).reshape(-1)
+        out = {"cls": np.zeros_like(c) if self.single_cls else c,
                "bboxes": np.asarray(b, np.float32).reshape(-1, 4),
                "segments": np.asarray(s, np.float32).reshape(-1, NUM_CONTOUR_POINTS, 2)}
         if self.kpt_shape:
@@ -210,15 +214,22 @@ class TrainDataset(ValDataset):
     MixUp off for the samples read after it. ``plan(i)`` makes the draws of
     ``self[i]`` and ``render`` its pixels: ``self[i]`` is
     ``render(plan(i))``, and plans made in read order may be rendered in
-    any order, at once, in other processes."""
+    any order, at once, in other processes.
+
+    ``fraction`` below 1 keeps the first ``max(1, round(n * fraction))``
+    samples, as JAX's train set keeps its first image files."""
 
     augment = True
 
     def __init__(self, images: Sequence[np.ndarray], labels: Sequence[Union[str, Path, Labels]],
                  imgsz: int = 640, max_instances: int = 48, kpt_shape=None, hyp=None,
-                 device_augment: bool = True, seed: int = 0, flip_idx=None, noise=None):
+                 device_augment: bool = True, seed: int = 0, flip_idx=None, noise=None,
+                 single_cls: bool = False, fraction: float = 1.0):
         super().__init__(images, labels, imgsz=imgsz, max_instances=max_instances,
-                         kpt_shape=kpt_shape)
+                         kpt_shape=kpt_shape, single_cls=single_cls)
+        if fraction < 1.0:
+            keep = max(1, round(len(self.images) * fraction))
+            self.images, self.labels = self.images[:keep], self.labels[:keep]
         self.device_augment = bool(device_augment)
         if not self.device_augment and hyp is None:
             raise ValueError("the host train chain (device_augment=False) needs hyp")

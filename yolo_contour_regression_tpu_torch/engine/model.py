@@ -111,9 +111,11 @@ class YOLO:
             fuse_model(self.model)
         load_jax_variables(self.model, *checkpoint_variables(ckpt))
         self.model.to(self.device).eval()
-        # the JAX facade takes the training imgsz as the predict default
+        # the JAX facade takes the training imgsz as the predict default, and
+        # keeps the training single_cls (for val) and data
         self.imgsz = int(train_args.get("imgsz", 640))
-        self.overrides = {k: v for k, v in train_args.items() if k in ("imgsz", "task")}
+        self.overrides = {k: v for k, v in train_args.items()
+                          if k in ("imgsz", "task", "single_cls", "data")}
         self.ckpt_path = Path(path)
 
     @property
@@ -163,18 +165,22 @@ class YOLO:
         return predictor(self._weights(), source, names=self.names)
 
     def val(self, images, labels, imgsz=None, batch: int = 16, conf: float = 0.001,
-            iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024, mask_ratio: int = 1):
+            iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024, mask_ratio: int = 1,
+            single_cls: Optional[bool] = None):
         """Box (and for the segment tasks mask, for pose keypoint) mAP on
         decoded images (HWC uint8 BGR numpy) with their labels (YOLO
         label-file paths, or the arrays ``data/dataset.py:parse_label_file``
         gives: ``(cls, bboxes, segments)``, for pose with the model's
         ``kpt_shape`` also ``keypoints``; for classify the class indices,
         and top-1 and top-5 accuracy), on the model's device -> the JAX
-        ``results_dict`` keys. The
-        validator, with its ``speed``, stays at ``self.validator``."""
+        ``results_dict`` keys. ``single_cls`` (default: the checkpoint's
+        train setting, as JAX's facade keeps it) reads every label as class
+        0. The validator, with its ``speed``, stays at ``self.validator``."""
         kw = dict(imgsz=imgsz or self.imgsz, batch=batch)
         if self.task != "classify":
-            kw.update(conf=conf, iou=iou, max_det=max_det, pre_nms=pre_nms)
+            if single_cls is None:
+                single_cls = bool(self.overrides.get("single_cls", False))
+            kw.update(conf=conf, iou=iou, max_det=max_det, pre_nms=pre_nms, single_cls=single_cls)
         if self.task == "segment":
             kw["mask_ratio"] = mask_ratio
         self.validator = TASK_MAP[self.task]["validator"](**kw)

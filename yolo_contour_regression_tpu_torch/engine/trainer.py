@@ -289,20 +289,22 @@ class BaseTrainer:
     def get_dataset(self, data: Dict):
         """The train set: ``TrainDataset``, letterboxed raw samples for the
         device augmentation, or the host chain's samples, its draws seeded
-        by ``args.seed``."""
+        by ``args.seed``; ``args.single_cls`` and ``args.fraction`` taken as
+        JAX's ``build_yolo_dataset`` takes them."""
         args = self.args
         return TrainDataset(*data["train"], imgsz=args.imgsz,
                             max_instances=int(args.max_instances),
                             kpt_shape=getattr(self.model, "kpt_shape", None), hyp=args,
                             device_augment=self.device_augment, seed=int(args.seed),
-                            flip_idx=getattr(args, "flip_idx", None))
+                            flip_idx=getattr(args, "flip_idx", None),
+                            single_cls=bool(args.single_cls), fraction=float(args.fraction))
 
     def get_validator(self):
         args = self.args
         kw = dict(imgsz=args.imgsz, batch=args.batch,
                   conf=0.001 if args.conf is None else args.conf, iou=args.iou,
                   max_det=args.max_det, pre_nms=args.pre_nms,
-                  max_instances=int(args.max_instances))
+                  max_instances=int(args.max_instances), single_cls=bool(args.single_cls))
         if self.task == "segment":
             kw["mask_ratio"] = args.val_mask_ratio
         return self.validator_cls(**kw)

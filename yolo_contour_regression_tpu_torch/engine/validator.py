@@ -64,7 +64,8 @@ def grid_scale(ori_shape: torch.Tensor, grid: int) -> torch.Tensor:
 class DetectionValidator:
     """Box mAP of a detect model over decoded images.
 
-    ``conf``, ``iou``, ``max_det`` and ``pre_nms`` set the multi-label NMS.
+    ``conf``, ``iou``, ``max_det`` and ``pre_nms`` set the multi-label NMS;
+    ``single_cls`` reads every label as class 0 (``ValDataset``).
     ``mark``, if given, is called with each device stage's name as it
     starts ("forward_nms", "scale_box_iou", and the segment task's
     "mask_iou") and "end" last, so that a caller can time the stages (a
@@ -79,8 +80,10 @@ class DetectionValidator:
 
     def __init__(self, imgsz: int = 640, batch: int = 16, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024,
-                 max_instances: int = 48, mark: Optional[Callable[[str], None]] = None):
+                 max_instances: int = 48, mark: Optional[Callable[[str], None]] = None,
+                 single_cls: bool = False):
         self.imgsz, self.batch = int(imgsz), max(int(batch), 1)
+        self.single_cls = bool(single_cls)
         self.nms_kw = dict(conf_thres=conf, iou_thres=iou, pre_nms=pre_nms, max_det=max_det)
         self.max_instances = int(max_instances)
         self.mark = mark or _no_mark
@@ -125,7 +128,8 @@ class DetectionValidator:
         metrics.box.update(tp, conf, pred_cls, tcls)
 
     def loader(self, images: Sequence[np.ndarray], labels) -> ValLoader:
-        return ValLoader(ValDataset(images, labels, self.imgsz, self.max_instances), self.batch)
+        return ValLoader(ValDataset(images, labels, self.imgsz, self.max_instances,
+                                    single_cls=self.single_cls), self.batch)
 
     def __call__(self, model, images: Sequence[np.ndarray], labels, names=None
                  ) -> Dict[str, float]:
@@ -183,8 +187,9 @@ class SegmentationValidator(DetectionValidator):
     def __init__(self, imgsz: int = 640, batch: int = 16, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024,
                  mask_ratio: int = 1, max_instances: int = 48,
-                 mark: Optional[Callable[[str], None]] = None):
-        super().__init__(imgsz, batch, conf, iou, max_det, pre_nms, max_instances, mark)
+                 mark: Optional[Callable[[str], None]] = None, single_cls: bool = False):
+        super().__init__(imgsz, batch, conf, iou, max_det, pre_nms, max_instances, mark,
+                         single_cls)
         self.grid = max(self.imgsz // max(int(mask_ratio or 1), 1), 8)
 
     @torch.inference_mode()
@@ -279,7 +284,8 @@ class PoseValidator(DetectionValidator):
 
     def loader(self, images: Sequence[np.ndarray], labels) -> ValLoader:
         return ValLoader(ValDataset(images, labels, self.imgsz, self.max_instances,
-                                    kpt_shape=self.kpt_shape), self.batch)
+                                    kpt_shape=self.kpt_shape, single_cls=self.single_cls),
+                         self.batch)
 
     def __call__(self, model, images: Sequence[np.ndarray], labels, names=None
                  ) -> Dict[str, float]:

@@ -11,6 +11,13 @@ forms becomes one ``FusedConv``, a conv with bias and the activation:
                                               the block has one) as an identity
                                               kernel at the centre
 
+The Convs inside other modules (Focus, GhostConv, GhostBottleneck, the
+C-blocks, TransformerBlock) fuse the same way. A ``ConvTranspose`` with a
+BatchNorm folds it into its transposed kernel (the reference's
+``fuse_deconv_and_bn``; JAX's ``fuse_tree`` fuses only conv + BN pairs and
+leaves such a module without its statistics, so the port departs from it
+here); a raw one (no BN) passes as it is.
+
 BatchNorm folds with its own eps (1e-3). Kernels are OIHW here (HWIO in
 JAX), so a fused model's state dict carries over to and from a fused JAX
 tree by ``utils/checkpoint.py``. A fused model keeps the graph's forward and
@@ -22,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .modules.conv import Conv, Conv2, RepConv
+from .modules.conv import Conv, Conv2, ConvTranspose, RepConv
 
 
 class FusedConv(nn.Module):
@@ -99,18 +106,40 @@ def fuse_conv(m: nn.Module) -> FusedConv:
     raise TypeError(f"{type(m).__name__} has no deploy form")
 
 
+@torch.no_grad()
+def fuse_conv_transpose(m: ConvTranspose) -> ConvTranspose:
+    """A BatchNorm'd ConvTranspose with the BN folded into a biased
+    transposed kernel (in, out, kh, kw: the scale along ``out``), in
+    place; a raw one as it is."""
+    if m.bn is None:
+        return m
+    ct = m.conv_transpose
+    t, shift = _bn_terms(m.bn)
+    out = nn.ConvTranspose2d(ct.in_channels, ct.out_channels, ct.kernel_size, ct.stride,
+                             ct.padding, ct.output_padding, ct.groups, bias=True,
+                             dilation=ct.dilation, device=ct.weight.device,
+                             dtype=ct.weight.dtype)
+    out.weight.copy_(ct.weight * t[None, :, None, None])
+    out.bias.copy_(shift)
+    m.conv_transpose, m.bn = out, None
+    return m
+
+
 def _fuse_children(module: nn.Module):
     for name, child in module.named_children():
         if isinstance(child, (Conv, Conv2, RepConv)):
             setattr(module, name, fuse_conv(child))
+        elif isinstance(child, ConvTranspose):
+            fuse_conv_transpose(child)
         else:
             _fuse_children(child)
 
 
 def fuse_model(model: nn.Module) -> nn.Module:
-    """Fuse every Conv, Conv2 and RepConv of ``model`` in place (the JAX
-    ``fuse_variables``); sets ``model.fused`` and puts it in eval mode. A
-    model already fused is returned as it is."""
+    """Fuse every Conv, Conv2, RepConv and BatchNorm'd ConvTranspose of
+    ``model`` in place (the JAX ``fuse_variables``); sets ``model.fused``
+    and puts it in eval mode. A model already fused is returned as it
+    is."""
     if getattr(model, "fused", False):
         return model
     _fuse_children(model)

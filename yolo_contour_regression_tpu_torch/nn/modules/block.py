@@ -2,15 +2,16 @@
 ``nn/modules/block.py``): the fork's RepBlock and SPPF, the stock
 YOLOv8 blocks of the detect graph, DFL, Bottleneck and C2f, the mask
 prototypes of the proto-mask head, Proto, rtdetr-l's PPHGNetV2 blocks
-HGStem and HGBlock and its neck's RepC3, and YOLO-NAS's SPP,
-NASBottleneck and NASCSP."""
+HGStem and HGBlock and its neck's RepC3, YOLO-NAS's SPP, NASBottleneck
+and NASCSP, and the CSP blocks of the other configs: C1, C2, C3, C3x,
+GhostBottleneck and C3Ghost."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .conv import Conv, LightConv, RepConv
+from .conv import Conv, GhostConv, LightConv, RepConv
 
 
 def _maxpool_same(x, k: int, s: int = 1):
@@ -236,3 +237,106 @@ class NASCSP(nn.Module):
         for m in self.m:
             y = m(y)
         return self.cv3(torch.cat([y, self.cv2(x)], 1))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs: ``cv1`` (1x1 to c2 * e) through ``n``
+    chained Bottlenecks ``m`` (kernels ``k``, e 1.0), beside ``cv2`` (1x1 to
+    c2 * e), concatenated into ``cv3`` (1x1 to c2)."""
+
+    k = (1, 3)
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.m = nn.ModuleList(self._block(c_, shortcut, g) for _ in range(n))
+
+    def _block(self, c_: int, shortcut: bool, g: int) -> nn.Module:
+        return Bottleneck(c_, c_, shortcut, g, k=self.k, e=1.0)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        for m in self.m:
+            y = m(y)
+        return self.cv3(torch.cat([y, self.cv2(x)], 1))
+
+
+class C3x(C3):
+    """``C3`` with 3x3 kernels in both convs of its Bottlenecks (JAX's
+    C3x, not the reference's cross convs)."""
+
+    k = (3, 3)
+
+
+class C1(nn.Module):
+    """``cv1`` (1x1 to c2) through ``n`` chained 3x3 Convs ``m``, plus the
+    ``cv1`` output."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.m = nn.ModuleList(Conv(c2, c2, 3) for _ in range(n))
+
+    def forward(self, x):
+        y = z = self.cv1(x)
+        for m in self.m:
+            z = m(z)
+        return z + y
+
+
+class C2(nn.Module):
+    """CSP bottleneck with 2 convs: ``cv1`` to 2c channels split in two
+    halves, ``n`` chained Bottlenecks ``m`` (3x3, e 1.0) on the first,
+    both concatenated into ``cv2``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0)
+                               for _ in range(n))
+
+    def forward(self, x):
+        a, b = self.cv1(x).split(self.c, 1)
+        for m in self.m:
+            a = m(a)
+        return self.cv2(torch.cat([a, b], 1))
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck: GhostConv ``cv1`` (to c2 // 2), at ``s`` 2 a kxk
+    depthwise Conv ``dw`` without activation, GhostConv ``cv2`` (to c2, no
+    activation); plus the shortcut: at ``s`` 2 ``sc_dw`` (kxk depthwise)
+    then ``sc_pw`` (1x1), else the input, or ``sc_pw`` where the widths
+    differ; no activation on either."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = GhostConv(c1, c_, 1, 1)
+        self.dw = Conv(c_, c_, k, s, g=c_, act=False) if s == 2 else None
+        self.cv2 = GhostConv(c_, c2, 1, 1, act=False)
+        self.sc_dw = Conv(c1, c1, k, s, g=c1, act=False) if s == 2 else None
+        self.sc_pw = Conv(c1, c2, 1, 1, act=False) if s == 2 or c1 != c2 else None
+
+    def forward(self, x):
+        y = self.cv1(x)
+        if self.dw is not None:
+            y = self.dw(y)
+        y = self.cv2(y)
+        sc = x if self.sc_dw is None else self.sc_dw(x)
+        return y + (sc if self.sc_pw is None else self.sc_pw(sc))
+
+
+class C3Ghost(C3):
+    """``C3`` with GhostBottlenecks (k 3, s 1) in ``m``; ``shortcut`` and
+    ``g`` are accepted for config parity and unused, as in JAX."""
+
+    def _block(self, c_: int, shortcut: bool, g: int) -> nn.Module:
+        return GhostBottleneck(c_, c_)

@@ -1,7 +1,8 @@
 """Convolution primitives in NCHW (counterpart of the JAX package's
 ``nn/modules/conv.py``): Conv (conv + BN + act, default act ReLU), Conv2
 (parallel 1x1 branch added before the activation), RepConv (3x3 + 1x1 +
-identity BN, unfused) and Concat.
+identity BN, unfused), DWConv, LightConv, ConvTranspose, Focus, GhostConv,
+the attention of CBAM and Concat.
 
 Attribute names follow the reference's state-dict keys (``conv``, ``bn``,
 ``cv2``, ``conv1.conv``, ``conv1.bn``, ...). BatchNorm matches flax's
@@ -146,6 +147,107 @@ class LightConv(nn.Module):
 
     def forward(self, x):
         return self.conv2(self.conv1(x))
+
+
+class ConvTranspose(nn.Module):
+    """Transposed conv (``conv_transpose``) + optional BN + act, as flax's
+    ``nn.ConvTranspose`` computes it: with ``p`` 0 its "VALID" padding (out
+    = in * s + max(k - s, 0)), else ``p`` on each side of the dilated
+    input. Torch's kernel is flax's flipped (``utils/checkpoint.py``). The
+    conv has a bias where there is no BN (the raw ``nn.ConvTranspose2d`` of
+    a config is ``bn=False, act=False``)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0, bn: bool = True,
+                 act=True):
+        super().__init__()
+        # flax pads the dilated input by (lo, hi); torch's padding P stands
+        # for k - 1 - P on both sides, its output_padding adds to hi
+        lo, hi = (k - 1, s - 1 + max(k - s, 0)) if p == 0 else (p, p)
+        self.extra = max(lo - (k - 1), 0)  # padding past what torch expresses
+        self.conv_transpose = nn.ConvTranspose2d(c1, c2, k, s, k - 1 - lo + self.extra,
+                                                 hi - lo, bias=not bn)
+        self.bn = batch_norm(c2) if bn else None
+        self.act = get_act(act)
+
+    def forward(self, x):
+        ct = self.conv_transpose
+        if self.extra:  # zeros around the full output, then the bias
+            y = F.pad(F.conv_transpose2d(x, ct.weight, None, ct.stride, ct.padding,
+                                         ct.output_padding), [self.extra] * 4)
+            y = y if ct.bias is None else y + ct.bias[:, None, None]
+        else:
+            y = ct(x)
+        return self.act(y if self.bn is None else self.bn(y))
+
+
+def conv_transpose_raw(c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0) -> ConvTranspose:
+    """A config's raw ``nn.ConvTranspose2d``: no BN, no activation, a bias."""
+    return ConvTranspose(c1, c2, k, s, p, bn=False, act=False)
+
+
+class Focus(nn.Module):
+    """Space-to-depth 2x (even rows and columns, odd rows, odd columns, both
+    odd, concatenated in that order), then the Conv ``conv``."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p=None, act=True):
+        super().__init__()
+        self.conv = Conv(c1 * 4, c2, k, s, p, act=act)
+
+    def forward(self, x):
+        return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2], x[..., ::2, 1::2],
+                                    x[..., 1::2, 1::2]], 1))
+
+
+class GhostConv(nn.Module):
+    """A Conv ``cv1`` to c2 // 2, and beside it a 5x5 depthwise Conv
+    ``cv2`` of its output, concatenated."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, None, g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, None, c_, act=act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class ChannelAttention(nn.Module):
+    """The input scaled by ``sigmoid(fc(mean over H, W))``, ``fc`` a biased
+    1x1 conv."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.fc = nn.Conv2d(c1, c1, 1, bias=True)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.fc(x.mean((2, 3), keepdim=True)))
+
+
+class SpatialAttention(nn.Module):
+    """The input scaled by ``sigmoid(cv1([mean, max] over channels))``,
+    ``cv1`` a kxk conv without bias."""
+
+    def __init__(self, k: int = 7):
+        super().__init__()
+        self.cv1 = nn.Conv2d(2, 1, k, padding=k // 2, bias=False)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.cv1(torch.cat([x.mean(1, keepdim=True),
+                                                     x.amax(1, keepdim=True)], 1)))
+
+
+class CBAM(nn.Module):
+    """``channel_attention``, then ``spatial_attention``; the width is kept."""
+
+    def __init__(self, c1: int, k: int = 7):
+        super().__init__()
+        self.channel_attention = ChannelAttention(c1)
+        self.spatial_attention = SpatialAttention(k)
+
+    def forward(self, x):
+        return self.spatial_attention(self.channel_attention(x))
 
 
 class Concat(nn.Module):

@@ -2,8 +2,9 @@
 ``nn/modules/transformer.py``): ``inverse_sigmoid``, ``MLP``,
 ``bilinear_grid_sample``, flax's multi-head attention written out as
 matmuls and a softmax, ``MSDeformAttn`` and
-``DeformableTransformerDecoderLayer`` of the decoder, and rtdetr-l's
-encoder: ``TransformerEncoderLayer``, ``sincos_2d_position`` and ``AIFI``.
+``DeformableTransformerDecoderLayer`` of the decoder, rtdetr-l's
+encoder: ``TransformerEncoderLayer``, ``sincos_2d_position`` and ``AIFI``,
+and the config module ``TransformerBlock`` with its ``TransformerLayer``.
 
 Parameter names and layouts are flax's, so a JAX weight tree carries over
 by ``utils/checkpoint.py`` with no rule of its own: ``nn.Linear`` for a
@@ -26,6 +27,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .conv import Conv
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -171,6 +174,51 @@ class AIFI(TransformerEncoderLayer):
         tokens = x.flatten(2).transpose(1, 2)
         out = super().forward(tokens, pos=pos)
         return out.transpose(1, 2).reshape(b, c, h, w)
+
+
+class TransformerLayer(nn.Module):
+    """Norm-free self-attention block: ``q``, ``k``, ``v`` (Dense, no bias)
+    into the attention ``ma`` (flax's, with its own biased projections),
+    plus the input; then ``fc2(fc1(.))`` (no bias, no activation), plus its
+    input."""
+
+    def __init__(self, c: int, num_heads: int = 8):
+        super().__init__()
+        self.q = nn.Linear(c, c, bias=False)
+        self.k = nn.Linear(c, c, bias=False)
+        self.v = nn.Linear(c, c, bias=False)
+        self.ma = MultiHeadAttention(c, num_heads)
+        self.fc1 = nn.Linear(c, c, bias=False)
+        self.fc2 = nn.Linear(c, c, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, L, C) -> (B, L, C)."""
+        x = self.ma(self.q(x), self.k(x), self.v(x)) + x
+        return self.fc2(self.fc1(x)) + x
+
+
+class TransformerBlock(nn.Module):
+    """A Conv ``conv`` (1x1) where the width changes, the map as H * W
+    row-major tokens plus the learned position term ``linear(tokens)``,
+    ``num_layers`` TransformerLayers ``tr{i}``, and back to a map."""
+
+    def __init__(self, c1: int, c2: int, num_heads: int = 8, num_layers: int = 1):
+        super().__init__()
+        self.conv = Conv(c1, c2) if c1 != c2 else None
+        self.linear = nn.Linear(c2, c2)
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"tr{i}", TransformerLayer(c2, num_heads))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv is not None:
+            x = self.conv(x)
+        b, c, h, w = x.shape
+        tokens = x.flatten(2).transpose(1, 2)
+        tokens = tokens + self.linear(tokens)
+        for i in range(self.num_layers):
+            tokens = getattr(self, f"tr{i}")(tokens)
+        return tokens.transpose(1, 2).reshape(b, c, h, w)
 
 
 def bilinear_grid_sample(value: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ letter from the config's ``scales`` block. It works on a config **dict** (a
 checkpoint's ``model_yaml``, or ``YOLOV8_SEG`` and ``YOLOV8`` below), so no
 yaml parser is needed. Layers are registered as ``model.{i}`` so the
 state-dict keys are the reference's. Strides are tracked through the graph
-instead of calibrated by a dummy forward.
+(a transposed conv divides by its stride, Focus's space-to-depth doubles
+it) instead of calibrated by a dummy forward.
 
 Six task models: ``SegmentationModel`` (the polar ``Segment`` head),
 ``DetectionModel`` (the stock ``Detect`` head with DFL), ``PoseModel``
@@ -18,13 +19,15 @@ mask coefficients and prototypes), ``ClassificationModel`` (the
 ``Classify`` head) and ``RTDETRDetectionModel`` (the ``RTDETRDecoder``
 head); ``build_model`` picks one by the config's head
 (``guess_model_task``).
-``yaml_model_load`` maps a model name to its config dict (``yolo_nas_s``
-is ``YOLO_NAS``, YOLO-NAS's graph on the ``Detect`` head, at scale ``s``),
+``yaml_model_load`` maps a model name to its config dict (``MODEL_CFGS``:
+every yaml of the JAX package; ``yolo_nas_s`` is ``YOLO_NAS``, YOLO-NAS's
+graph on the ``Detect`` head, at scale ``s``),
 and ``init_weights`` gives a fresh model the JAX package's initialization.
 """
 from __future__ import annotations
 
 import copy
+import inspect
 import math
 import re
 from pathlib import Path
@@ -237,26 +240,266 @@ YOLO_NAS: Dict[str, Any] = {
     ],
 }
 
+# cfg/models/yolov3.yaml of the JAX package as a dict: Darknet-53's
+# Bottleneck backbone and the YOLOv3 neck on the Detect head; one scale,
+# through depth_multiple and width_multiple
+YOLOV3: Dict[str, Any] = {
+    "nc": 80,
+    "depth_multiple": 1.0,
+    "width_multiple": 1.0,
+    "backbone": [
+        [-1, 1, "Conv", [32, 3, 1]],  # 0
+        [-1, 1, "Conv", [64, 3, 2]],  # 1 P1/2
+        [-1, 1, "Bottleneck", [64]],
+        [-1, 1, "Conv", [128, 3, 2]],  # 3 P2/4
+        [-1, 2, "Bottleneck", [128]],
+        [-1, 1, "Conv", [256, 3, 2]],  # 5 P3/8
+        [-1, 8, "Bottleneck", [256]],
+        [-1, 1, "Conv", [512, 3, 2]],  # 7 P4/16
+        [-1, 8, "Bottleneck", [512]],
+        [-1, 1, "Conv", [1024, 3, 2]],  # 9 P5/32
+        [-1, 4, "Bottleneck", [1024]],  # 10
+    ],
+    "head": [
+        [-1, 1, "Bottleneck", [1024, False]],  # 11
+        [-1, 1, "Conv", [512, 1, 1]],
+        [-1, 1, "Conv", [1024, 3, 1]],
+        [-1, 1, "Conv", [512, 1, 1]],
+        [-1, 1, "Conv", [1024, 3, 1]],  # 15 P5/32-large
+        [-2, 1, "Conv", [256, 1, 1]],
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 8], 1, "Concat", [1]],
+        [-1, 1, "Bottleneck", [512, False]],
+        [-1, 1, "Bottleneck", [512, False]],
+        [-1, 1, "Conv", [256, 1, 1]],
+        [-1, 1, "Conv", [512, 3, 1]],  # 22 P4/16-medium
+        [-2, 1, "Conv", [128, 1, 1]],
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 6], 1, "Concat", [1]],
+        [-1, 1, "Bottleneck", [256, False]],
+        [-1, 2, "Bottleneck", [256, False]],  # 27 P3/8-small
+        [[27, 22, 15], 1, "Detect", ["nc"]],  # 28
+    ],
+}
+
+# cfg/models/yolov5.yaml of the JAX package as a dict: a 6x6 stem, C3
+# stages, SPPF, a C3 PAN neck and the Detect head
+YOLOV5: Dict[str, Any] = {
+    "nc": 80,
+    "scales": {
+        "n": [0.33, 0.25, 1024],
+        "s": [0.33, 0.50, 1024],
+        "m": [0.67, 0.75, 1024],
+        "l": [1.00, 1.00, 1024],
+        "x": [1.33, 1.25, 1024],
+    },
+    "backbone": [
+        [-1, 1, "Conv", [64, 6, 2, 2]],  # 0 P1/2
+        [-1, 1, "Conv", [128, 3, 2]],  # 1 P2/4
+        [-1, 3, "C3", [128]],
+        [-1, 1, "Conv", [256, 3, 2]],  # 3 P3/8
+        [-1, 6, "C3", [256]],
+        [-1, 1, "Conv", [512, 3, 2]],  # 5 P4/16
+        [-1, 9, "C3", [512]],
+        [-1, 1, "Conv", [1024, 3, 2]],  # 7 P5/32
+        [-1, 3, "C3", [1024]],
+        [-1, 1, "SPPF", [1024, 5]],  # 9
+    ],
+    "head": [
+        [-1, 1, "Conv", [512, 1, 1]],  # 10
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 6], 1, "Concat", [1]],
+        [-1, 3, "C3", [512, False]],  # 13
+        [-1, 1, "Conv", [256, 1, 1]],  # 14
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 4], 1, "Concat", [1]],
+        [-1, 3, "C3", [256, False]],  # 17 P3/8
+        [-1, 1, "Conv", [256, 3, 2]],
+        [[-1, 14], 1, "Concat", [1]],
+        [-1, 3, "C3", [512, False]],  # 20 P4/16
+        [-1, 1, "Conv", [512, 3, 2]],
+        [[-1, 10], 1, "Concat", [1]],
+        [-1, 3, "C3", [1024, False]],  # 23 P5/32
+        [[17, 20, 23], 1, "Detect", ["nc"]],  # 24
+    ],
+}
+
+# cfg/models/yolov6.yaml of the JAX package as a dict: repeated 3x3 Conv
+# stages, SPPF, a neck upsampling by raw transposed convs (no BN, a bias)
+# and the Detect head
+YOLOV6: Dict[str, Any] = {
+    "nc": 80,
+    "scales": copy.deepcopy(YOLOV8_SEG["scales"]),
+    "backbone": [
+        [-1, 1, "Conv", [64, 3, 2]],  # 0 P1/2
+        [-1, 1, "Conv", [128, 3, 2]],  # 1 P2/4
+        [-1, 6, "Conv", [128, 3, 1]],
+        [-1, 1, "Conv", [256, 3, 2]],  # 3 P3/8
+        [-1, 12, "Conv", [256, 3, 1]],
+        [-1, 1, "Conv", [512, 3, 2]],  # 5 P4/16
+        [-1, 18, "Conv", [512, 3, 1]],
+        [-1, 1, "Conv", [1024, 3, 2]],  # 7 P5/32
+        [-1, 6, "Conv", [1024, 3, 1]],
+        [-1, 1, "SPPF", [1024, 5]],  # 9
+    ],
+    "head": [
+        [-1, 1, "Conv", [256, 1, 1]],  # 10
+        [-1, 1, "nn.ConvTranspose2d", [256, 2, 2, 0]],
+        [[-1, 6], 1, "Concat", [1]],
+        [-1, 1, "Conv", [256, 3, 1]],
+        [-1, 9, "Conv", [256, 3, 1]],  # 14
+        [-1, 1, "Conv", [128, 1, 1]],  # 15
+        [-1, 1, "nn.ConvTranspose2d", [128, 2, 2, 0]],
+        [[-1, 4], 1, "Concat", [1]],
+        [-1, 1, "Conv", [128, 3, 1]],
+        [-1, 9, "Conv", [128, 3, 1]],  # 19
+        [-1, 1, "Conv", [128, 3, 2]],
+        [[-1, 15], 1, "Concat", [1]],
+        [-1, 1, "Conv", [256, 3, 1]],
+        [-1, 9, "Conv", [256, 3, 1]],  # 23
+        [-1, 1, "Conv", [256, 3, 2]],
+        [[-1, 10], 1, "Concat", [1]],
+        [-1, 1, "Conv", [512, 3, 1]],
+        [-1, 9, "Conv", [512, 3, 1]],  # 27
+        [[19, 23, 27], 1, "Detect", ["nc"]],  # 28
+    ],
+}
+
+# cfg/models/yolov8-det-rep.yaml of the JAX package as a dict: the yolov8-seg
+# RepConv/RepBlock graph (one RepBlock a stage, one Conv2 a neck stage) on
+# the Detect head, nc 1; its scale n is its own (0.05, 0.1, 512)
+YOLOV8_DET_REP: Dict[str, Any] = {
+    "nc": 1,
+    "scales": {
+        "n": [0.05, 0.1, 512],
+        "s": [0.33, 0.50, 1024],
+        "m": [0.67, 0.75, 768],
+        "l": [1.00, 1.00, 512],
+        "x": [1.00, 1.25, 512],
+    },
+    "backbone": [[f, 1, m, copy.deepcopy(a)] for f, _, m, a in YOLOV8_SEG["backbone"]],
+    "head": [
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 6], 1, "Concat", [1]],
+        [-1, 1, "Conv2", [512]],  # 12
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 4], 1, "Concat", [1]],
+        [-1, 1, "Conv2", [256]],  # 15 P3/8-small
+        [-1, 1, "Conv", [256, 3, 2]],
+        [[-1, 12], 1, "Concat", [1]],
+        [-1, 1, "Conv2", [512]],  # 18 P4/16-medium
+        [-1, 1, "Conv", [512, 3, 2]],
+        [[-1, 9], 1, "Concat", [1]],
+        [-1, 1, "Conv2", [1024]],  # 21 P5/32-large
+        [[15, 18, 21], 1, "Detect", ["nc"]],  # 22
+    ],
+}
+
+# cfg/models/yolov8-p2.yaml of the JAX package as a dict: the yolov8 graph
+# with a P2/4 output level, four levels (strides 4-32)
+YOLOV8_P2: Dict[str, Any] = {
+    "nc": 80,
+    "scales": copy.deepcopy(YOLOV8_SEG["scales"]),
+    "backbone": copy.deepcopy(YOLOV8["backbone"]),
+    "head": copy.deepcopy(YOLOV8["head"][:6]) + [
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 2], 1, "Concat", [1]],
+        [-1, 3, "C2f", [128]],  # 18 P2/4-xsmall
+        [-1, 1, "Conv", [128, 3, 2]],
+        [[-1, 15], 1, "Concat", [1]],
+        [-1, 3, "C2f", [256]],  # 21 P3/8-small
+        [-1, 1, "Conv", [256, 3, 2]],
+        [[-1, 12], 1, "Concat", [1]],
+        [-1, 3, "C2f", [512]],  # 24 P4/16-medium
+        [-1, 1, "Conv", [512, 3, 2]],
+        [[-1, 9], 1, "Concat", [1]],
+        [-1, 3, "C2f", [1024]],  # 27 P5/32-large
+        [[18, 21, 24, 27], 1, "Detect", ["nc"]],  # 28
+    ],
+}
+
+# cfg/models/yolov8-p6.yaml of the JAX package as a dict: the yolov8
+# backbone with a P6/64 stage and a C2 neck, four levels (strides 8-64)
+YOLOV8_P6: Dict[str, Any] = {
+    "nc": 80,
+    "scales": copy.deepcopy(YOLOV8_SEG["scales"]),
+    "backbone": copy.deepcopy(YOLOV8["backbone"][:7]) + [
+        [-1, 1, "Conv", [768, 3, 2]],  # 7 P5/32
+        [-1, 3, "C2f", [768, True]],
+        [-1, 1, "Conv", [1024, 3, 2]],  # 9 P6/64
+        [-1, 3, "C2f", [1024, True]],
+        [-1, 1, "SPPF", [1024, 5]],  # 11
+    ],
+    "head": [
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 8], 1, "Concat", [1]],
+        [-1, 3, "C2", [768, False]],  # 14
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 6], 1, "Concat", [1]],
+        [-1, 3, "C2", [512, False]],  # 17
+        [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],
+        [[-1, 4], 1, "Concat", [1]],
+        [-1, 3, "C2", [256, False]],  # 20 P3/8-small
+        [-1, 1, "Conv", [256, 3, 2]],
+        [[-1, 17], 1, "Concat", [1]],
+        [-1, 3, "C2", [512, False]],  # 23 P4/16-medium
+        [-1, 1, "Conv", [512, 3, 2]],
+        [[-1, 14], 1, "Concat", [1]],
+        [-1, 3, "C2", [768, False]],  # 26 P5/32-large
+        [-1, 1, "Conv", [768, 3, 2]],
+        [[-1, 11], 1, "Concat", [1]],
+        [-1, 3, "C2", [1024, False]],  # 29 P6/64-xlarge
+        [[20, 23, 26, 29], 1, "Detect", ["nc"]],  # 30
+    ],
+}
+
+# cfg/models/yolov8-pose-p6.yaml of the JAX package as a dict: the p6 graph
+# on the Pose head, nc 1 and 17 keypoints
+YOLOV8_POSE_P6: Dict[str, Any] = {
+    "nc": 1,
+    "kpt_shape": [17, 3],
+    "scales": copy.deepcopy(YOLOV8_SEG["scales"]),
+    "backbone": copy.deepcopy(YOLOV8_P6["backbone"]),
+    "head": copy.deepcopy(YOLOV8_P6["head"][:-1]) + [
+        [[20, 23, 26, 29], 1, "Pose", ["nc", "kpt_shape"]],  # 30
+    ],
+}
+
 # config name -> (module class, positional field names after c1, kind):
 # "conv" width-scaled c2, repeated n times; "csp" width-scaled c2 taking n;
 # "hg" the PPHGNetV2 blocks, c2 unscaled, HGBlock taking n; "aifi" the
-# encoder layer at its input's width
+# encoder layer at its input's width; "same_ch" a module keeping its
+# input's width; "transformer_block" width-scaled c2 taking n as its layers
+_CSP_FIELDS = ("c2", "n", "shortcut", "g", "e")
 REGISTRY = {
     "Conv": (conv_mod.Conv, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
     "Conv2": (conv_mod.Conv2, ("c2", "k", "s", "p", "g", "d", "act"), "conv"),
     "RepConv": (conv_mod.RepConv, ("c2", "k", "s", "g", "d", "act"), "conv"),
     "DWConv": (conv_mod.DWConv, ("c2", "k", "s", "d", "act"), "conv"),
     "LightConv": (conv_mod.LightConv, ("c2", "k", "act"), "conv"),
+    "ConvTranspose": (conv_mod.ConvTranspose, ("c2", "k", "s", "p", "bn", "act"), "conv"),
+    "nn.ConvTranspose2d": (conv_mod.conv_transpose_raw, ("c2", "k", "s", "p"), "conv"),
+    "Focus": (conv_mod.Focus, ("c2", "k", "s", "p", "act"), "conv"),
+    "GhostConv": (conv_mod.GhostConv, ("c2", "k", "s", "g", "act"), "conv"),
+    "CBAM": (conv_mod.CBAM, ("k",), "same_ch"),
     "Bottleneck": (block_mod.Bottleneck, ("c2", "shortcut", "g", "k", "e"), "conv"),
+    "GhostBottleneck": (block_mod.GhostBottleneck, ("c2", "k", "s"), "conv"),
     "SPP": (block_mod.SPP, ("c2", "k"), "conv"),
     "SPPF": (block_mod.SPPF, ("c2", "k"), "conv"),
     "RepBlock": (block_mod.RepBlock, ("c2", "n", "shortcut"), "csp"),
-    "C2f": (block_mod.C2f, ("c2", "n", "shortcut", "g", "e"), "csp"),
+    "C1": (block_mod.C1, ("c2", "n"), "csp"),
+    "C2": (block_mod.C2, _CSP_FIELDS, "csp"),
+    "C2f": (block_mod.C2f, _CSP_FIELDS, "csp"),
+    "C3": (block_mod.C3, _CSP_FIELDS, "csp"),
+    "C3x": (block_mod.C3x, _CSP_FIELDS, "csp"),
+    "C3Ghost": (block_mod.C3Ghost, _CSP_FIELDS, "csp"),
     "RepC3": (block_mod.RepC3, ("c2", "n", "e"), "csp"),
     "NASCSP": (block_mod.NASCSP, ("c2", "n", "shortcut", "e"), "csp"),
     "HGStem": (block_mod.HGStem, ("cm", "c2"), "hg"),
     "HGBlock": (block_mod.HGBlock, ("cm", "c2", "k", "n", "lightconv", "shortcut", "act"), "hg"),
     "AIFI": (tr_mod.AIFI, ("cm", "num_heads"), "aifi"),
+    "TransformerBlock": (tr_mod.TransformerBlock, ("c2", "num_heads", "num_layers"),
+                         "transformer_block"),
     "Concat": (conv_mod.Concat, ("dim",), "concat"),
     "nn.Upsample": (nn.Upsample, (), "upsample"),
     "Segment": (head_mod.PolarSegment, ("nc", "nm", "npr"), "head"),
@@ -273,6 +516,18 @@ HEAD_TASKS = {"Segment": "segment", "Segmentori": "segment_ori", "Detect": "dete
 
 def make_divisible(x: float, divisor: int = 8) -> int:
     return int(math.ceil(x / divisor) * divisor)
+
+
+def _scale_factor(name: str, kwargs: Dict[str, Any]) -> float:
+    """How a "conv" kind layer scales the stride, per repeat: its ``s``
+    (the class's default where the config gives none), divided by for a
+    transposed conv, and doubled by Focus's space-to-depth."""
+    cls = REGISTRY[name][0]
+    default = inspect.signature(cls).parameters.get("s")
+    s = kwargs.get("s", default.default if default is not None else 1)
+    if name in ("ConvTranspose", "nn.ConvTranspose2d"):
+        return 1.0 / s
+    return s * 2 if name == "Focus" else s
 
 
 class LayerSpec:
@@ -340,15 +595,18 @@ def parse_model(cfg: dict, ch: int = 3):
             else:
                 repeats = n
             kwargs = dict(zip(fields, vals))
-            stride = s_in * kwargs.get("s", 1)
+            stride = s_in * _scale_factor(name, kwargs) ** repeats
         elif kind == "hg":
             c2 = args[1]
             vals = args[:3] + [n] + args[3:] if name == "HGBlock" else args
             kwargs = dict(zip(fields, vals))
             stride = s_in * (4 if name == "HGStem" else 1)
-        elif kind == "aifi":
+        elif kind in ("aifi", "same_ch"):
             c2 = c1
             kwargs = dict(zip(fields, args))
+        elif kind == "transformer_block":  # JAX's zip: no num_heads given, n takes its place
+            c2 = make_divisible(min(args[0], max_channels) * width, 8)
+            kwargs = dict(zip(fields, [c2] + args[1:2] + [n]))
         elif kind == "concat":
             c2 = sum(c1)
             kwargs["dim"] = 1
@@ -576,20 +834,23 @@ def build_model(cfg: dict, nc: Optional[int] = None) -> TaskModel:
     return TASK_MODELS[task](cfg, nc=nc)
 
 
-# the ported model configs, by the base name of their yaml in the JAX package
-MODEL_CFGS: Dict[str, Dict[str, Any]] = {"yolov8-seg": YOLOV8_SEG, "yolov8": YOLOV8,
-                                         "yolov8-pose": YOLOV8_POSE,
-                                         "yolov8-segori": YOLOV8_SEGORI, "yolov8-cls": YOLOV8_CLS,
-                                         "yolov8-rtdetr": YOLOV8_RTDETR, "rtdetr-l": RTDETR_L,
-                                         "yolo_nas": YOLO_NAS}
+# the model configs, by the base name of their yaml in the JAX package: all
+# of its 15
+MODEL_CFGS: Dict[str, Dict[str, Any]] = {
+    "yolov8-seg": YOLOV8_SEG, "yolov8": YOLOV8, "yolov8-pose": YOLOV8_POSE,
+    "yolov8-segori": YOLOV8_SEGORI, "yolov8-cls": YOLOV8_CLS, "yolov8-rtdetr": YOLOV8_RTDETR,
+    "rtdetr-l": RTDETR_L, "yolo_nas": YOLO_NAS, "yolov3": YOLOV3, "yolov5": YOLOV5,
+    "yolov6": YOLOV6, "yolov8-det-rep": YOLOV8_DET_REP, "yolov8-p2": YOLOV8_P2,
+    "yolov8-p6": YOLOV8_P6, "yolov8-pose-p6": YOLOV8_POSE_P6,
+}
 
 
 def yaml_model_load(name) -> Dict[str, Any]:
     """A model name such as ``"yolov8n-seg.yaml"`` or ``"yolov8n.yaml"`` ->
     its config dict, the scale letter taken from the name as the JAX
     ``yaml_model_load`` takes it (``yolov8n-seg`` -> ``yolov8-seg`` at
-    scale ``n``; ``yolo_nas_s`` -> ``yolo_nas`` at scale ``s``). Only the configs
-    of ``MODEL_CFGS`` are ported: any other name raises
+    scale ``n``; ``yolo_nas_s`` -> ``yolo_nas`` at scale ``s``; ``yolov3``, which
+    has no scales, as it is). A name that is not in ``MODEL_CFGS`` raises
     ``NotImplementedError``."""
     stem = Path(str(name)).stem
     m = (re.match(r"(.*yolov\d+)([nslmx])([-_].+)?$", stem)
@@ -599,8 +860,8 @@ def yaml_model_load(name) -> Dict[str, Any]:
     if not m and nas:
         base, scale = nas.groups()
     if base not in MODEL_CFGS:
-        raise NotImplementedError(f"model {name!r} is not ported (ported: "
-                                  f"{sorted(k + '.yaml' for k in MODEL_CFGS)}, any scale letter)")
+        raise NotImplementedError(f"model {name!r} is not a config of the JAX package "
+                                  f"({sorted(k + '.yaml' for k in MODEL_CFGS)}, any scale letter)")
     cfg = copy.deepcopy(MODEL_CFGS[base])
     cfg["scale"] = scale  # none: the first of ``scales``, as parse_model takes it
     return cfg
@@ -623,7 +884,8 @@ def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
 def init_weights(model: TaskModel, generator: torch.Generator):
     """The JAX package's initialization of a fresh model, in place: conv
     kernels flax's ``lecun_normal`` (std ``sqrt(1 / fan_in) / 0.8796...``,
-    truncated at 2 std, ``fan_in = k * k * c_in / groups``), conv biases 0,
+    truncated at 2 std, ``fan_in = k * k * c_in / groups``; a transposed
+    conv's ``k * k * c_in``, its kernel drawn in flax's layout), conv biases 0,
     BatchNorm scale 1, bias 0, running mean 0 and variance 1; then the head
     priors of JAX ``BaseModel.init``: each class bias ``log(5 / nc / (640 /
     stride)^2)``, and on the polar head each ray bias 1 (the detect head's
@@ -643,6 +905,13 @@ def init_weights(model: TaskModel, generator: torch.Generator):
             w = torch.empty(m.weight.shape)
             _trunc_normal_(w, math.sqrt(1.0 / m.weight[0].numel()) / TRUNC_NORMAL_STD, generator)
             m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.ConvTranspose2d):  # (in, out, kh, kw), flax's (kh, kw, in, out)
+            ci, co, kh, kw = m.weight.shape
+            w = torch.empty(kh, kw, ci, co)
+            _trunc_normal_(w, math.sqrt(1.0 / (kh * kw * ci)) / TRUNC_NORMAL_STD, generator)
+            m.weight.copy_(w.permute(2, 3, 0, 1).flip(2, 3))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):

@@ -33,6 +33,9 @@ inverts the name map of the JAX package's
   model.{i}.{...}.query.kernel         params.layer{i}.{...}.query.kernel
     (the attention's DenseGeneral kernels, (C, nh, hd) and (nh, hd, C),
     and their biases, in JAX's shapes)
+  model.{i}.conv_transpose.weight      params.layer{i}.conv_transpose.kernel
+    (in, out, kh, kw), flipped          (kh, kw, in, out)
+    (flax applies a transposed kernel as it is, torch flips it)
   (none)                               params.layer{i}.detect = {}
     (RT-DETR: JAX's anchor-head bias pass leaves an empty ``detect``
     subtree in the decoder head; ``to_jax_variables`` puts it back)
@@ -129,9 +132,10 @@ def _leaves(tree, prefix=()):
 
 def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``params``/``batch_stats`` numpy trees -> a state dict with the
-    reference's ``model.{i}....`` keys. Conv kernels go HWIO -> OIHW; every
-    leaf maps to exactly one key (a collision raises); Dense kernels go
-    (in, out) -> (out, in)."""
+    reference's ``model.{i}....`` keys. Conv kernels go HWIO -> OIHW,
+    transposed-conv kernels (kh, kw, in, out) -> (in, out, kh, kw) flipped;
+    every leaf maps to exactly one key (a collision raises); Dense kernels
+    go (in, out) -> (out, in)."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for coll, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, arr in _leaves(tree):
@@ -145,7 +149,12 @@ def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, tor
                 if arr.ndim not in (2, 4):
                     raise ValueError(f"{'/'.join(path)}: expected an HWIO, a Dense or a "
                                      f"DenseGeneral kernel, got {arr.shape}")
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                if arr.ndim == 2:
+                    arr = arr.T
+                elif path[-2] == "conv_transpose":
+                    arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1].copy()
+                else:
+                    arr = arr.transpose(3, 2, 0, 1)
             key = ".".join(_module_path(path[:-1]) + (leaf,))
             if key in sd:
                 raise KeyError(f"two JAX leaves map to {key}")
@@ -208,9 +217,10 @@ def _jax_module_path(tokens, keys) -> Tuple[str, ...]:
 def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict]:
     """A state dict with the reference's keys (or a dict of parameters
     only, such as the EMA) -> JAX ``(params, batch_stats)`` numpy trees; the
-    exact inverse of ``from_jax_variables``. Conv kernels go OIHW -> HWIO,
-    Linear weights (out, in) -> Dense kernels (in, out), LayerNorm weights
-    -> scales, DenseGeneral kernels and Embed tables as they are, and an
+    exact inverse of ``from_jax_variables``. Conv kernels go OIHW -> HWIO
+    (a transposed conv's unflipped to (kh, kw, in, out)), Linear weights
+    (out, in) -> Dense kernels (in, out), LayerNorm weights -> scales,
+    DenseGeneral kernels and Embed tables as they are, and an
     RT-DETR head (one with ``enc_score_head``) gets JAX's empty ``detect``
     subtree; BatchNorm's ``num_batches_tracked`` has no JAX counterpart and
     is dropped."""
@@ -228,6 +238,9 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> Tuple[dict, dict
             coll, jleaf = "batch_stats", "var"
         elif leaf in ("bias", "kernel", "embedding"):
             coll, jleaf = "params", leaf
+        elif leaf == "weight" and arr.ndim == 4 and tokens[-2] == "conv_transpose":
+            coll, jleaf = "params", "kernel"
+            arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
         elif leaf == "weight" and arr.ndim == 4:
             coll, jleaf = "params", "kernel"
             arr = arr.transpose(2, 3, 1, 0)
