@@ -185,10 +185,9 @@ Phases, one timestamped line each (elapsed seconds):
   31. sam_generate: everything mode with sam_b at 1024 on a frame of
      planted shapes, 1,024 prompts in batches of 64 (``SAM_GEN``: its
      thresholds keep masks of seeded weights, NMS off), crop_n_layers 0
-     and 1 timed on the card, each held against the CPU on fewer prompts
-     (crop layer 0 at points_stride 16; 1 on 16 prompts a crop at JAX's
-     default NMS, 0.7): every kept mask paired
-     at IoU >= 0.99, boxes within 1 px, scores 1e-4.
+     and 1 timed on the card, crop layer 0 held against the CPU on fewer
+     prompts (points_stride 16): every kept mask paired at IoU >= 0.99,
+     boxes within 1 px, scores 1e-4.
   32. fastsam: ``FastSAM(seg160 checkpoint)`` agnostic on the floor images,
      card against CPU, its box, point and everything prompts selecting the
      same masks, at ``boxes=True`` (the cv2-rule fill) and ``boxes=False``
@@ -217,10 +216,33 @@ Phases, one timestamped line each (elapsed seconds):
   36. compare: the fork's headline, printed and not gated: ms an image on
      the card at 640, batch 1 and 8, of yolov8n-seg polar (contours, no
      masks) and yolov8n detect, fused and unfused, and seg / detect.
-  37. report: a JSON line of the kernels (launches summed over the predict,
+  37. serve: ``InferenceServer`` (``serve/``) on the card. The fused
+     seg160 checkpoint at 160 on the 16 floor val frames (bucket 8, every
+     bucket warmed) against the direct predictor at batch 8: the same
+     counts and classes, boxes and contours within 1e-4 px, scores 1e-4,
+     the masks read on both sides equal pixel for pixel (the cv2 fill's
+     launches of the served path alone, zeroed before ``infer`` and read
+     once its masks are read); the floor detect,
+     pose, classify and rtdetr checkpoints and the committed narrow
+     segment_ori one at bucket 2 against predict at batch 2, held the same
+     way; a closed-loop load on yolov8n-seg at 640 on 480x640 frames
+     (``max_batch`` 32, ``max_delay_ms`` 5) at concurrency 1, 8 and 32 for
+     3 s each: p50/p95/p99 ms, rps, mean batch, padded rows, the warm-up ms
+     of each bucket, the completion thread's overlap with the dispatcher
+     (recorded, not limited); ``serve_http`` on port 0: the committed JPEG
+     and PNG files (``tests/data/torch_port_serve_*``) posted, their
+     decodes byte-equal to the committed cv2 decodes, each reply's rows
+     held to ``tojson`` of a direct predict, ``/stats``, ``/healthz``, a
+     404 and the 400s; two synthetic captures through ``LoadStreams`` (one
+     batch-2 forward a step) held to a predict of each frame (its launches
+     counted alone); the host decode ms of a 480x640 JPEG (quality 95) and
+     PNG and of the posted files; a closed loop of 8 clients posting the
+     480x640 JPEG to ``serve_http`` at 640 for 6 s: rps, client p50/p95/p99
+     and the cap that the Python decode puts on one process (recorded).
+  38. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs of every task,
-     and FastSAM's), the card's line, and last ``{"ok": true, "device":
-     {...}}``.
+     FastSAM's and the serve phase's), the card's line, and last
+     ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -237,7 +259,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
@@ -249,6 +274,8 @@ from yolo_contour_regression_tpu_torch import NAS, SAM, YOLO, FastSAM, FastSAMPr
 from yolo_contour_regression_tpu_torch.cfg import get_cfg
 from yolo_contour_regression_tpu_torch.data import augment, imgproc
 from yolo_contour_regression_tpu_torch.data.dataset import TrainDataset, parse_label_lines
+from yolo_contour_regression_tpu_torch.data.imcodec import imdecode
+from yolo_contour_regression_tpu_torch.data.streams import LoadStreams
 from yolo_contour_regression_tpu_torch.nn.fuse import fuse_model
 from yolo_contour_regression_tpu_torch.nn.modules import head as head_mod
 from yolo_contour_regression_tpu_torch.engine.predictor import (
@@ -271,6 +298,8 @@ from yolo_contour_regression_tpu_torch.nn.tasks import (build_model, guess_model
 from yolo_contour_regression_tpu_torch.ops import gt_rays, polar, raster
 from yolo_contour_regression_tpu_torch.ops.boxes import box_iou, scale_coords
 from yolo_contour_regression_tpu_torch.ops.nms import non_max_suppression
+from yolo_contour_regression_tpu_torch.serve import InferenceServer
+from yolo_contour_regression_tpu_torch.serve.http_api import serve_http
 from yolo_contour_regression_tpu_torch.utils import cuda_build, optim
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     checkpoint_variables, load_checkpoint, load_jax_variables, save_checkpoint, to_jax_variables)
@@ -419,14 +448,21 @@ SAM_GEN = dict(points_stride=32, points_batch_size=64, conf_thres=0.1,
                crop_nms_thresh=1.0)
 # the card against the CPU on fewer prompts: crop_n_layers 0 at
 # points_stride 16 (256 prompts: the CPU's 1,024 took 46 s of the smoke's
-# 1,200), 1 on 16 prompts a crop in one batch (the CPU's encoder takes ~6 s
-# a crop) at JAX's default NMS thresholds, so that the in-crop NMS and the
-# cross-crop dedupe are held, on the few masks they keep
-SAM_GEN_CPU = {0: dict(points_stride=16),
-               1: dict(points_stride=4, points_batch_size=16, iou_thres=0.7,
-                       crop_nms_thresh=0.7)}
+# 1,200); crop_n_layers 1 is timed on the card only (its CPU reference, five
+# crops of ~6 s of CPU encoder each, was cut to make room for the serve
+# phase; its in-crop NMS and cross-crop dedupe run in host numpy, held
+# against JAX by tests/test_torch_port_sam_predict.py)
+SAM_GEN_CPU = {0: dict(points_stride=16)}
 SAM_GEN_IOU = 0.99  # a pair of kept masks, card and CPU
 SAM_BOX_PX = 1.0  # a threshold pixel on a mask's edge moves its box by one
+# the serve phase's HTTP posts: files written by cv2 (tests/test_torch_port_imcodec.py
+# regenerates them) and their cv2 decodes, keyed by file name
+SERVE_FIXTURES = ("torch_port_serve_q95_420.jpg", "torch_port_serve_q75_444_rst.jpg",
+                  "torch_port_serve_q90_422_exif6.jpg", "torch_port_serve_bgr8.png",
+                  "torch_port_serve_bgra16.png")
+SERVE_DECODES = "torch_port_serve_decodes.npz"
+# the host decode timed at 480x640 (textured; cv2 decodes them in the CPU tests)
+SERVE_TIMED = ("torch_port_serve_time_q95_480x640.jpg", "torch_port_serve_time_480x640.png")
 # yolo_nas_s at nc 2 (JAX's count, tests/test_torch_port_fastsam_nas.py)
 NAS_PARAMS = 22_309_542
 # the float64 card-against-CPU step (the CPU takes ~4 s an image) and
@@ -3207,12 +3243,11 @@ def sam_generate(card: str, card_model, cpu_model) -> dict:
     CPU) on a 480x640 frame of planted shapes: ``SAM_GEN`` (points_stride
     32, 1,024 prompts in batches of 64, the thresholds set so seeded
     weights keep masks, NMS off) at crop_n_layers 0 and 1 on the card,
-    timed (ms an image, the masks kept, the peak); each held against the
-    port on the CPU (``match_generated``: every kept mask paired with IoU
-    >= ``SAM_GEN_IOU``, boxes within ``SAM_BOX_PX``, scores within
+    timed (ms an image, the masks kept, the peak); crop_n_layers 0 held
+    against the port on the CPU (``match_generated``: every kept mask paired
+    with IoU >= ``SAM_GEN_IOU``, boxes within ``SAM_BOX_PX``, scores within
     ``SCORE_ATOL``) at ``SAM_GEN_CPU``'s fewer prompts on both sides
-    (crop_n_layers 0 at points_stride 16; 1 at 16 prompts a crop and JAX's
-    default NMS: five crops at stride 32 would take the CPU minutes)."""
+    (points_stride 16)."""
     frame = shape_images(1, *RASTER_HW, seed=22)[0]
     gp = SamPredictor(card_model, device="cuda")
     cp = SamPredictor(cpu_model, device="cpu")
@@ -3227,17 +3262,21 @@ def sam_generate(card: str, card_model, cpu_model) -> dict:
         ms = host_ms(lambda: timed.__setitem__("out", gp.generate(frame, **kw)))
         peak = torch.cuda.max_memory_allocated()
         kept = len(timed["out"][0])
+        res[layers] = {"ms": ms, "peak_gib": peak / 2**30, "kept": kept}
+        line = (f"crop_n_layers {layers}, {SAM_GEN}: {ms:.1f} ms an image on the card (host "
+                f"clock, NMS off, {kept} masks kept at points_stride {SAM_GEN['points_stride']}), "
+                f"peak memory {peak / 2**30:.3f} GiB")
+        if layers not in SAM_GEN_CPU:
+            log("sam_generate", f"{line}; no CPU reference at this layer | {card}")
+            continue
         kw = dict(kw, **SAM_GEN_CPU[layers])
         got = gp.generate(frame, **kw)
         t = time.perf_counter()
         want = cp.generate(frame, **kw)
         cpu_s = time.perf_counter() - t
         m = match_generated(got, want, SAM_GEN["conf_thres"])
-        res[layers] = {"ms": ms, "peak_gib": peak / 2**30, "kept": kept,
-                       "compared": len(got[0]), **m}
-        log("sam_generate", f"crop_n_layers {layers}, {SAM_GEN}: {ms:.1f} ms an image on the "
-            f"card (host clock, NMS off, {kept} masks kept at points_stride "
-            f"{SAM_GEN['points_stride']}), peak memory {peak / 2**30:.3f} GiB; card vs CPU at "
+        res[layers].update(compared=len(got[0]), **m)
+        log("sam_generate", f"{line}; card vs CPU at "
             f"points_stride {kw['points_stride']}, NMS {kw['iou_thres']} in a crop and "
             f"{kw['crop_nms_thresh']} across ({len(got[0])} card and {len(want[0])} CPU masks, "
             f"the CPU {cpu_s:.1f}s): {m['pairs']} pairs, mask IoU min {m['min_iou']:.4f} (limit "
@@ -3678,6 +3717,359 @@ def paper_comparison(card: str) -> dict:
     return out
 
 
+SERVE_LOAD = dict(imgsz=640, max_batch=32, max_delay_ms=5.0)  # the closed-loop load
+SERVE_CONCURRENCY = (1, 8, 32)
+SERVE_LOAD_S = 3.0  # seconds of load at each concurrency
+SERVE_HTTP_CLIENTS = 8  # the closed loop through the HTTP front end
+SERVE_HTTP_S = 6.0  # its seconds: a reply takes seconds while 8 decodes share the GIL
+SERVE_ATOL = 1e-4  # served against direct: boxes, contours, keypoints (px) and scores
+SEGORI_NARROW_CKPT = ROOT / "tests" / "data" / "torch_port_segori_narrow64.ckpt"
+
+
+def served_vs_direct(got, want, what: str) -> dict:
+    """Served results against the direct predictor's: the same counts and
+    classes, boxes, contours and keypoints within ``SERVE_ATOL`` px, scores
+    and probabilities within ``SERVE_ATOL``, masks equal (read on both
+    sides, which fills lazy ones). Raises on a difference."""
+    err = {"dets": 0, "px": 0.0, "score": 0.0, "mask_px": 0}
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} served results, {len(want)} direct")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w):
+            raise AssertionError(f"{what} image {i}: {len(g)} served detections, {len(w)} direct")
+        err["dets"] += len(g)
+        if w.probs is not None:
+            err["score"] = max(err["score"], float(np.abs(g.probs.data - w.probs.data).max()))
+            if g.probs.top1 != w.probs.top1:
+                raise AssertionError(f"{what} image {i}: top-1 {g.probs.top1} != {w.probs.top1}")
+            continue
+        if not len(g):
+            continue
+        if not np.array_equal(g.boxes.cls, w.boxes.cls):
+            raise AssertionError(f"{what} image {i}: classes differ")
+        pairs = [(g.boxes.xyxy, w.boxes.xyxy)]
+        if w.contours is not None:
+            pairs.append((g.contours.points, w.contours.points))
+            if not np.array_equal(g.contours.valid, w.contours.valid):
+                raise AssertionError(f"{what} image {i}: contour validity differs")
+        if w.keypoints is not None:
+            pairs.append((g.keypoints[..., :2], w.keypoints[..., :2]))
+            err["score"] = max(err["score"], float(np.abs(g.keypoints[..., 2]
+                                                          - w.keypoints[..., 2]).max()))
+        err["px"] = max([err["px"]] + [float(np.abs(a - b).max()) for a, b in pairs])
+        err["score"] = max(err["score"], float(np.abs(g.boxes.conf - w.boxes.conf).max()))
+        if w.masks is not None:
+            err["mask_px"] += int((g.masks.data != w.masks.data).sum())
+    if err["px"] > SERVE_ATOL or err["score"] > SERVE_ATOL or err["mask_px"]:
+        raise AssertionError(f"{what}: served against direct {err} (limits {SERVE_ATOL} px and "
+                             f"score, 0 mask pixels)")
+    return err
+
+
+def serve_direct(handle, images, imgsz: int, batch: int, what: str, card: str,
+                 conf=None) -> dict:
+    """``images`` through an ``InferenceServer`` (buckets [batch], every
+    bucket warmed first) against ``handle.predict`` at ``batch`` on the same
+    fused weights: every formed batch is padded to the predictor's batch
+    shape, so each image meets the same kernels on both paths. Returns the
+    launch counts of the served path alone: zeroed before ``infer``, read
+    once the served results' masks are read."""
+    kw = {} if conf is None else {"conf": conf}
+    with InferenceServer(handle, imgsz=imgsz, max_batch=batch, buckets=[batch],
+                         max_delay_ms=20.0, **kw) as srv:
+        srv.warmup()
+        zero_launch_counts()
+        got = srv.infer(images, timeout=300.0)
+        for r in got:
+            r.masks  # noqa: B018 -- fills lazy masks, as a client reading them does
+        counts = launch_counts()
+        stats = srv.stats()
+    want = handle.predict(images, imgsz=imgsz, batch=batch, **kw)
+    err = served_vs_direct(got, want, what)
+    log("serve", f"{what}: {len(images)} images at {imgsz}, bucket {batch}, {stats['batches']} "
+        f"batches, {err['dets']} detections served = direct (max {err['px']:.2e} px, scores "
+        f"{err['score']:.2e}, {err['mask_px']} differing mask pixels; limits {SERVE_ATOL}), "
+        f"warm-up {srv.warmup_ms[batch]:.1f} ms; launches of the served path {counts} | {card}")
+    return counts
+
+
+def closed_loop(srv, frames, concurrency: int, seconds: float) -> dict:
+    """``concurrency`` clients, each submitting a frame and waiting for its
+    result, again and again for ``seconds``: the server's stats of the run."""
+    srv.reset_stats()
+    stop = time.perf_counter() + seconds
+    errors = []
+
+    def client(i):
+        k = i
+        while time.perf_counter() < stop:
+            try:
+                srv.submit(frames[k % len(frames)]).result(timeout=120.0)
+            except Exception as e:  # noqa: BLE001 -- raised below, after the join
+                errors.append(e)
+                return
+            k += concurrency
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(concurrency)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return srv.stats()
+
+
+def serve_load(card: str) -> dict:
+    """The closed-loop load on yolov8n-seg (the fused seg160 checkpoint) at
+    640 on 480x640 frames, ``SERVE_LOAD``: each bucket warmed, then each
+    concurrency for ``SERVE_LOAD_S`` seconds; latency quantiles, rps, mean
+    batch, padded rows, and the completion thread's time overlapped with the
+    dispatcher's. Recorded, not limited."""
+    handle = YOLO(CKPT, device="cuda")
+    frames = shape_images(16, *RASTER_HW, seed=31)
+    out = {}
+    with InferenceServer(handle, **SERVE_LOAD) as srv:
+        srv.warmup()
+        warm = ", ".join(f"{b} {ms:.1f}" for b, ms in srv.warmup_ms.items())
+        log("serve_load", f"warm-up ms by bucket (imgsz 640): {warm} | {card}")
+        for c in SERVE_CONCURRENCY:
+            s = closed_loop(srv, frames, c, SERVE_LOAD_S)
+            share = s["overlap_ms"] / s["complete_ms"] if s["complete_ms"] else 0.0
+            out[c] = s
+            log("serve_load", f"concurrency {c}: p50 {s['latency_ms_p50']} p95 "
+                f"{s['latency_ms_p95']} p99 {s['latency_ms_p99']} ms, {s['throughput_rps']} rps, "
+                f"mean batch {s['mean_batch']}, {s['requests']} requests in {s['batches']} "
+                f"batches, padded rows {s['padded_rows']}, batch_hist {s['batch_hist']}; "
+                f"dispatch {s['dispatch_ms'] / max(s['batches'], 1):.2f} ms a batch, completion "
+                f"{s['complete_ms'] / max(s['batches'], 1):.2f} ms a batch, {share:.1%} of the "
+                f"completion overlapped with the dispatcher; last_error {s['last_error']} | "
+                f"{card}")
+            if s["requests"] == 0 or s["last_error"]:
+                raise AssertionError(f"serve_load concurrency {c}: {s}")
+    return out
+
+
+def http_json(port: int, path: str, data: bytes = None):
+    """(status, JSON reply) of a GET, or with ``data`` a POST, to localhost."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="POST" if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_http_check(card: str) -> dict:
+    """``serve_http`` on port 0 with the seg160 checkpoint at 160: the
+    committed JPEG and PNG files posted; their decodes (``imcodec``, what
+    the handler runs) byte-equal to the committed cv2 decodes; each reply's
+    rows held to ``tojson`` of a direct predict of the committed decode
+    (names and classes equal, numbers within ``SERVE_ATOL``); then
+    ``/stats``, ``/healthz``, a 404 and the 400s."""
+    data = ROOT / "tests" / "data"
+    with np.load(data / SERVE_DECODES) as z:
+        decodes = {k: z[k] for k in z.files}
+    handle = YOLO(CKPT, device="cuda")
+    httpd = serve_http(handle, port=0, imgsz=160, max_batch=1)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    rows = 0
+    try:
+        for name in SERVE_FIXTURES:
+            raw = (data / name).read_bytes()
+            if not np.array_equal(imdecode(raw), decodes[name]):
+                raise AssertionError(f"serve_http: {name} decodes differently from cv2")
+            code, payload = http_json(port, "/predict", raw)
+            want = json.loads(handle.predict(decodes[name], imgsz=160)[0].tojson())
+            got = payload.get("results")
+            if code != 200 or got is None or len(got) != len(want):
+                raise AssertionError(f"serve_http {name}: {code} {payload} against {len(want)} "
+                                     f"direct rows")
+            for g, w in zip(got, want):
+                if (g["name"], g["class"]) != (w["name"], w["class"]):
+                    raise AssertionError(f"serve_http {name}: {g} against {w}")
+                nums = [abs(g["confidence"] - w["confidence"])] + [
+                    abs(g["box"][k] - w["box"][k]) for k in w["box"]] + [
+                    abs(a - b) for ax in "xy" for a, b in zip(g["segments"][ax],
+                                                              w["segments"][ax])]
+                if max(nums) > SERVE_ATOL:
+                    raise AssertionError(f"serve_http {name}: row off by {max(nums)}")
+            rows += len(got)
+        code, stats = http_json(port, "/stats")
+        health = http_json(port, "/healthz")
+        bad = [http_json(port, "/nope")[0], http_json(port, "/predict", b"")[0],
+               http_json(port, "/predict", b"GIF89a")[0]]
+        if code != 200 or stats["requests"] != len(SERVE_FIXTURES) or health != (200, {"ok": True}) \
+                or bad != [404, 400, 400]:
+            raise AssertionError(f"serve_http: stats {code} {stats}, healthz {health}, {bad}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.engine.close()
+    log("serve_http", f"{len(SERVE_FIXTURES)} posted files ({', '.join(SERVE_FIXTURES)}) decoded "
+        f"byte-equal to their cv2 decodes; {rows} reply rows = tojson of direct predict (limit "
+        f"{SERVE_ATOL}); /stats {stats['requests']} requests p50 {stats.get('latency_ms_p50')} "
+        f"ms, /healthz ok, 404 and 400s | {card}")
+    return stats
+
+
+class SyntheticCapture:
+    """A capture (cv2's VideoCapture API) over a list of frames."""
+
+    def __init__(self, frames):
+        self.frames, self.i, self.grabbed = list(frames), 0, None
+
+    def isOpened(self):
+        return self.i <= len(self.frames)
+
+    def grab(self):
+        if self.i >= len(self.frames):
+            return False
+        self.grabbed, self.i = self.frames[self.i], self.i + 1
+        return True
+
+    def retrieve(self):
+        return self.grabbed is not None, self.grabbed
+
+    def read(self):
+        return self.retrieve() if self.grab() else (False, None)
+
+    def release(self):
+        self.i = len(self.frames) + 1
+
+
+def serve_streams(card: str) -> dict:
+    """``_stream_batched``: two synthetic captures of 4 frames each through
+    ``YOLO.predict(LoadStreams(...))`` (one batch-2 forward a step), each
+    result held to a predict of its frame alone (``SERVE_ATOL``). Returns
+    the launch counts of the streamed predict and its masks' reading."""
+    handle = YOLO(CKPT, device="cuda")
+    frames = {s: shape_images(4, 120, 200, seed=40 + i) for i, s in enumerate(("cam0", "cam1"))}
+    loader = LoadStreams(list(frames), buffer=True,
+                         open_fn=lambda s: SyntheticCapture(frames[s]))
+    zero_launch_counts()
+    got = handle.predict(loader, imgsz=160)
+    for r in got:
+        r.masks  # noqa: B018 -- fills lazy masks, as a client reading them does
+    counts = launch_counts()
+    order = [f"{s}#frame{j}" for j in range(4) for s in frames]
+    if [r.path for r in got] != order:
+        raise AssertionError(f"serve_streams: paths {[r.path for r in got]}")
+    want = [handle.predict(frames[r.path.split("#")[0]][int(r.path.split("frame")[1])],
+                           imgsz=160)[0] for r in got]
+    err = served_vs_direct(got, want, "serve_streams")
+    log("serve_streams", f"2 synthetic captures x 4 frames, one batch-2 forward a step: "
+        f"{err['dets']} detections = per-frame predict (max {err['px']:.2e} px, scores "
+        f"{err['score']:.2e}, {err['mask_px']} differing mask pixels); launches of the streamed "
+        f"predict {counts} | {card}")
+    return counts
+
+
+def decode_ms(card: str) -> dict:
+    """The host decode (``imcodec.imdecode``) of the committed 480x640 JPEG
+    (quality 95, 4:2:0) and PNG, and of the posted files: median of 5."""
+    out = {}
+    for name in SERVE_TIMED + SERVE_FIXTURES:
+        raw = (ROOT / "tests" / "data" / name).read_bytes()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            img = imdecode(raw)
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(times)
+        log("serve_decode", f"{name} ({len(raw)} bytes -> {img.shape}): "
+            f"{out[name]:.2f} ms on the host (median of 5) | {card}")
+    return out
+
+
+def serve_http_load(card: str, decode: dict) -> dict:
+    """A closed loop through the HTTP front end: ``SERVE_HTTP_CLIENTS``
+    clients, each posting the committed 480x640 JPEG (quality 95) to
+    ``serve_http`` (yolov8n-seg at 640, ``SERVE_LOAD``) and waiting for its
+    reply, for ``SERVE_HTTP_S`` seconds. Each request is decoded in Python in
+    its handler thread, so one process is capped near 1000 / (decode ms)
+    rps. Recorded, not limited."""
+    raw = (ROOT / "tests" / "data" / SERVE_TIMED[0]).read_bytes()
+    httpd = serve_http(YOLO(CKPT, device="cuda"), port=0, **SERVE_LOAD)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    lats, errors = [], []
+    try:
+        httpd.engine.reset_stats()
+        start = time.perf_counter()
+        stop = start + SERVE_HTTP_S
+
+        def client():
+            while time.perf_counter() < stop:
+                t = time.perf_counter()
+                code, payload = http_json(port, "/predict", raw)
+                if code != 200 or "results" not in payload:
+                    errors.append((code, payload))
+                    return
+                lats.append(time.perf_counter() - t)
+
+        threads = [threading.Thread(target=client) for _ in range(SERVE_HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - start
+        stats = httpd.engine.stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.engine.close()
+    if errors or not lats:
+        raise AssertionError(f"serve_http_load: {len(lats)} replies, errors {errors[:2]}")
+    ms = np.percentile(np.array(lats) * 1e3, [50, 95, 99])
+    cap = 1e3 / decode[SERVE_TIMED[0]]
+    log("serve_http_load", f"concurrency {SERVE_HTTP_CLIENTS}, {SERVE_TIMED[0]} ({len(raw)} "
+        f"bytes) posted to serve_http at {SERVE_LOAD['imgsz']}: {len(lats)} replies in {wall:.2f} s, "
+        f"{len(lats) / wall:.2f} rps; client latency p50 {ms[0]:.2f} p95 {ms[1]:.2f} p99 "
+        f"{ms[2]:.2f} ms; the server's own p50 {stats['latency_ms_p50']} ms, mean batch "
+        f"{stats['mean_batch']}; the decode alone caps one process at {cap:.2f} rps | {card}")
+    return {"rps": len(lats) / wall, "p50": float(ms[0]), "server": stats}
+
+
+def serve_phase(card: str) -> tuple:
+    """Serving on the card: the fused seg160 checkpoint at 160 on the 16
+    floor val frames through ``InferenceServer`` against the direct
+    predictor (masks read on both sides); one floor checkpoint each of
+    detect, pose, classify and rtdetr, and the committed narrow segment_ori
+    checkpoint, at batch 2; the closed-loop load at 640; the HTTP front end
+    on the committed files; two synthetic streams batched; the host decode
+    times; the closed loop through the HTTP front end. Returns the launch
+    counts of the served and streamed paths summed, and by path: each zeroed
+    just before its path and read just after its results' masks are read."""
+    images, _ = floor_val_set()
+    seg = YOLO(CKPT, device="cuda").fuse()
+    parts = {"segment": serve_direct(seg, images, 160, 8, "segment (seg160, fused)", card)}
+    if parts["segment"]["fill_polygons_cv2"] == 0:
+        raise AssertionError(f"serve: the served masks launched no cv2 fill: {parts}")
+    cases = (("detect", DETECT_CKPT, floor_detect_val_set()[0][:4], DETECT_IMGSZ, None),
+             ("pose", POSE_CKPT, floor_pose_val_set()[0][:4], POSE_IMGSZ, None),
+             ("segment_ori", SEGORI_NARROW_CKPT, shape_images(4, 48, 64, 41), 64, 0.001),
+             ("classify", CLS_CKPT, floor_cls_set(FLOOR_CLS_VAL)[0][:4], 64, None),
+             ("rtdetr", RTDETR_CKPT, floor_rtdetr_val_set()[0][:4], RTDETR_IMGSZ, None))
+    for task, ckpt, imgs, imgsz, conf in cases:
+        handle = YOLO(ckpt, device="cuda")
+        if handle.task != task:
+            raise AssertionError(f"serve: {ckpt} is {handle.task}, not {task}")
+        parts[task] = serve_direct(handle, imgs, imgsz, 2,
+                                   f"{task} ({ckpt.parent.name}/{ckpt.name})", card, conf=conf)
+    serve_load(card)
+    serve_http_check(card)
+    parts["streams"] = serve_streams(card)
+    decode = decode_ms(card)
+    serve_http_load(card, decode)
+    counts = {k: sum(c[k] for c in parts.values()) for k in KERNEL_WRAPPERS}
+    return counts, parts
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3894,7 +4286,12 @@ def main() -> int:
     phase_start["compare"] = time.perf_counter()
     paper_comparison(card)
 
-    # 37. report: launches summed over the main paths' runs
+    # 37. serving: the InferenceServer against direct predict for every task,
+    # the closed-loop load at 640, the HTTP front end, batched streams, decoding
+    phase_start["serve"] = time.perf_counter()
+    serve_counts, serve_parts = serve_phase(card)
+
+    # 38. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,
@@ -3902,7 +4299,9 @@ def main() -> int:
     launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k] + trainer_counts[k]
                 + fuse_counts[k] + sum(c[k] for c in segori_counts.values())
                 + classify_counts[k] + sum(c[k] for c in rtdetr_counts.values())
-                + host_counts[k] + fastsam_counts[k] for k in KERNEL_WRAPPERS}
+                + host_counts[k] + fastsam_counts[k] + serve_counts[k] for k in KERNEL_WRAPPERS}
+    serve_other = sum(c["fill_polygons_cv2"] for k, c in serve_parts.items()
+                      if k not in ("segment", "streams"))
     at_480 = fill_rows["fill_polygons_480x640"]
     at_segori = {f"{key}_N{n}_V360_160x160": segori_fill[n][key] for n in SEGORI_FILL_N
                  for key in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -3920,7 +4319,8 @@ def main() -> int:
          "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
                      "no TPU kernel)",
          "launches": launches["fill_polygons_cv2"], **fill_rows["fill_polygons_cv2"],
-         "library_ms": None, "launches_fastsam": fastsam_counts["fill_polygons_cv2"]},
+         "library_ms": None, "launches_fastsam": fastsam_counts["fill_polygons_cv2"],
+         "launches_serve": serve_counts["fill_polygons_cv2"]},
         {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
          "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_NPAD]),
@@ -3941,7 +4341,10 @@ def main() -> int:
         f"pipeline {host_counts} (the seg trainer on the host chain: its assigner's GT rays, its "
         f"validator's fill), FastSAM {fastsam_counts} (its masks by the cv2 fill, its "
         f"contours-only results by the even-odd fill; SAM and NAS have no kernel of their "
-        f"own); "
+        f"own), serve {serve_counts} (the cv2 fill of served and streamed results' masks, each "
+        f"path counted alone: served seg160 {serve_parts['segment']['fill_polygons_cv2']}, "
+        f"batched streams {serve_parts['streams']['fill_polygons_cv2']}, the other tasks' "
+        f"served paths {serve_other}); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
         "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "

@@ -17,7 +17,10 @@ and validates, and one CPU train step with contrastive denoising runs on
 it); then SAM at img_size 64 (prompted predict and everything mode),
 FastSAM on the seg160 checkpoint with a box prompt (from its masks, and
 from contours alone), and one predict of a fresh yolo_nas_s behind
-``NAS``; and scipy and cv2 were never imported."""
+``NAS``; then the serving path: a committed JPEG and PNG decoded by
+``data/imcodec.py`` (byte-equal to their committed cv2 decodes), served by
+``InferenceServer`` on the seg160 checkpoint, and two synthetic captures
+through ``LoadStreams``; and scipy and cv2 were never imported."""
 import subprocess
 import sys
 from pathlib import Path
@@ -139,13 +142,29 @@ for boxes in (True, False):
     assert sel.shape == (1, 120, 200) and sel.any()
 nas = chip_smoke.fresh_nas(device="cpu")
 assert len(nas.predict(chip_smoke.shape_images(1, 48, 64, seed=1), imgsz=64, conf=0.001)) == 1
+from yolo_contour_regression_tpu_torch.data.imcodec import imread
+from yolo_contour_regression_tpu_torch.data.streams import LoadStreams
+from yolo_contour_regression_tpu_torch.serve import InferenceServer
+with np.load("tests/data/" + chip_smoke.SERVE_DECODES) as z:
+    posted = [imread("tests/data/" + name) for name in chip_smoke.SERVE_FIXTURES[::3]]
+    assert all((a == z[n]).all() for a, n in zip(posted, chip_smoke.SERVE_FIXTURES[::3]))
+with InferenceServer("runs/floor_seg160/best.ckpt", imgsz=160, max_batch=2,
+                     device="cpu") as srv:
+    served = srv.infer(posted, timeout=120)
+assert sum(len(r) for r in served) > 0 and srv.stats()["requests"] == 2
+
+frames = chip_smoke.shape_images(4, 48, 64, seed=2)
+streamed = pkg.YOLO("runs/floor_seg160/best.ckpt", device="cpu").predict(
+    LoadStreams(["a", "b"], buffer=True, open_fn=lambda s: chip_smoke.SyntheticCapture(
+        frames[:2] if s == "a" else frames[2:])), imgsz=64)
+assert [r.path for r in streamed] == ["a#frame0", "b#frame0", "a#frame1", "b#frame1"]
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 assert not [n for n in sys.modules if n.split(".")[0] == "scipy"]
 print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;",
       "val mask mAP50-95", val["metrics/mAP50-95(M)"], ";", "train step loss",
       float(metrics["loss"]), ";", "YOLO.train steps", trained, "; detect", n_det, "detections",
-      "; SAM everything mode", len(gen[0]), "masks")
+      "; SAM everything mode", len(gen[0]), "masks; served", len(served), "images")
 """
 
 
@@ -158,5 +177,6 @@ def test_port_imports_and_predicts_without_jax_cv2_yaml_triton():
     assert "detections" in res.stdout and "train step loss" in res.stdout
     assert "val mask mAP50-95" in res.stdout and "YOLO.train steps 2" in res.stdout
     assert "; detect" in res.stdout and "; SAM everything mode" in res.stdout
+    assert "; served 2 images" in res.stdout
     n_mods = int(res.stdout.split("imported ")[1].split()[0])
     assert n_mods >= 20  # ops, nn, utils, engine, data modules of the port

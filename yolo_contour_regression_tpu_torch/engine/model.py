@@ -15,6 +15,8 @@ and rtdetr tasks (counterpart of the JAX package's ``engine/model.py``)::
     model = YOLO("runs/floor_rtdetr/best.ckpt")          # RT-DETR: no NMS; predict, val, fuse
     YOLO("yolov8n-rtdetr.yaml").train(data=..., imgsz=192)  # RT-DETR on the host train chain
     model.predict(images, boxes=False)                    # polar: contours, masks None
+    model("images/", stream=True, save_txt=True, project="out")  # files, a generator, labels
+    httpd = model.serve(port=8570, imgsz=640, background=True)  # POST /predict, GET /stats
 
 SAM, FastSAM and NAS (``models/``) are facades of their own; FastSAM and
 NAS are this facade bound to the segment and detect tasks.
@@ -34,6 +36,7 @@ head; ``predict``, ``val`` and ``train`` take the task's classes.
 """
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 from typing import Callable, Dict, Optional, Union
 
@@ -151,18 +154,56 @@ class YOLO:
 
     def predict(self, source, imgsz=None, conf: float = 0.25, iou: float = 0.7,
                 max_det: int = 300, pre_nms: int = 1024, batch: int = 1,
-                agnostic_nms: bool = False, boxes: bool = True, retina_masks: bool = False):
-        """Images (HWC uint8 BGR numpy, or a list) -> list of ``Results``,
-        ``batch`` images per forward; ``agnostic_nms`` suppresses across
-        classes. The polar segment task's results fill their masks lazily
-        unless ``boxes`` and ``retina_masks`` are both false (then
-        ``masks`` is None, as JAX's)."""
+                agnostic_nms: bool = False, boxes: bool = True, retina_masks: bool = False,
+                stream: bool = False, save_txt: bool = False, save_conf: bool = False,
+                project: Optional[str] = None, vid_stride: int = 1):
+        """Results of ``source`` (see ``engine/predictor.py:iter_source``: HWC
+        uint8 BGR arrays, image files, directories, globs, lists of them; a
+        ``LoadStreams`` or two or more live specs batched a step), ``batch``
+        images per forward; a list, or with ``stream`` a generator.
+        ``agnostic_nms`` suppresses across classes. The polar segment task's
+        results fill their masks lazily unless ``boxes`` and
+        ``retina_masks`` are both false (then ``masks`` is None, as JAX's).
+        ``save_txt`` (``save_conf``) writes label files of image sources
+        under ``<project or runs>/predict/labels``. Nothing is drawn or
+        saved as an image (JAX's ``save``, ``save_crop``): drawing is not
+        ported."""
         predictor = TASK_MAP[self.task]["predictor"](
             imgsz=imgsz or self.imgsz, conf=conf, iou=iou, max_det=max_det,
             pre_nms=pre_nms, batch=batch, agnostic_nms=agnostic_nms, boxes=boxes,
-            retina_masks=retina_masks,
+            retina_masks=retina_masks, vid_stride=vid_stride, save_txt=save_txt,
+            save_conf=save_conf, project=project,
         )
-        return predictor(self._weights(), source, names=self.names)
+        return predictor(self._weights(), source, names=self.names, stream=stream)
+
+    def __call__(self, source=None, **kwargs):
+        return self.predict(source, **kwargs)
+
+    def serve(self, host: str = "127.0.0.1", port: int = 8570, imgsz: int = 640,
+              max_batch: int = 32, max_delay_ms: float = 5.0, background: bool = False, **kw):
+        """The dynamic-batching HTTP server over this model
+        (``serve/http_api.py:serve_http``; ``kw`` goes to the
+        ``InferenceServer`` and ``warmup_buckets``). Blocks in
+        ``serve_forever`` unless ``background``; then returns the httpd,
+        whose ``engine`` is the ``InferenceServer`` (stop it with
+        ``httpd.shutdown(); httpd.engine.close()``)."""
+        from ..serve.http_api import serve_http
+
+        httpd = serve_http(self, host=host, port=port, imgsz=imgsz, max_batch=max_batch,
+                           max_delay_ms=max_delay_ms, **kw)
+        if background:
+            threading.Thread(target=httpd.serve_forever, daemon=True,
+                             name="serve-http").start()
+            return httpd
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            httpd.engine.close()
+        return None
 
     def val(self, images, labels, imgsz=None, batch: int = 16, conf: float = 0.001,
             iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024, mask_ratio: int = 1,

@@ -18,37 +18,100 @@ stripped (``int(round(pad * r))`` proto pixels a side), upsampled to the
 image by cv2's float INTER_LINEAR (``resize_linear_f32``, in torch on the
 predictor's device) and thresholded at ``> 0.5``. Classify: the fork's
 grayscale eval transform on the host (no uint8 path), the probabilities.
-Every task's NMS takes ``agnostic`` (``agnostic_nms``). Sources are HWC
-uint8 BGR numpy arrays or lists of them; decoding image files is not
-ported.
+Every task's NMS takes ``agnostic`` (``agnostic_nms``).
+
+Sources (``iter_source``, JAX's): HWC uint8 BGR arrays, image files, a
+directory (recursive, sorted), a glob, or a list mixing paths and arrays;
+files are decoded by ``data/imcodec.py`` (JPEG and PNG, byte-equal to
+``cv2.imread``). Video files, webcam indices, URLs and ``screen`` raise
+``NotImplementedError`` (no video decoder or ``mss`` is ported). A
+``LoadStreams``, a ``*.streams`` file or a list of two or more live specs
+runs ``_stream_batched``: one batch-N forward a step over the N streams'
+freshest frames, the results yielded per stream. ``stream=True`` returns a
+generator; ``save_txt`` writes JAX's label files for image files.
 """
 from __future__ import annotations
 
+import glob
+import itertools
+import os
 import time
-from typing import Dict, Iterator, List, Tuple
+from pathlib import Path
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data.augment import bgr_to_rgb, classify_transform_eval, letterbox, resize_linear_f32
+from ..data.imcodec import imread
+from ..data.streams import LoadStreams
 from ..nn.modules.head import finalize_polar_extras
 from ..ops.boxes import xywh2xyxy
 from ..ops.nms import non_max_suppression, non_max_suppression_parts
 from .results import Results
 
+VID_FORMATS = (".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v", ".wmv")
+IMG_FORMATS = (".bmp", ".jpg", ".jpeg", ".png", ".tif", ".tiff", ".webp")
+LIVE_PREFIXES = ("rtsp://", "rtmp://", "http://", "https://")
+
 
 def iter_source(source) -> Iterator[Tuple[str, np.ndarray]]:
-    """Yield (name, BGR image) from an array or a list of arrays."""
+    """Yield (name, BGR image) from an array, an image file, a directory
+    (recursive, sorted, image and video suffixes), a glob or a list of
+    these; the names are JAX's."""
     if isinstance(source, np.ndarray):
         yield "array", source
         return
     if isinstance(source, (list, tuple)):
         for i, s in enumerate(source):
-            if not isinstance(s, np.ndarray):
-                raise TypeError(f"source {i}: expected a numpy image, got {type(s).__name__}")
-            yield f"array{i}", s
+            if isinstance(s, np.ndarray):
+                yield f"array{i}", s
+            else:
+                yield from iter_source(s)
         return
-    raise TypeError(f"sources are numpy images or lists of them, not {type(source).__name__}")
+    if not isinstance(source, (str, Path)):
+        raise TypeError(f"a source is an image array, a path or a list of them, not "
+                        f"{type(source).__name__}")
+    p = str(source)
+    if p.startswith("screen"):
+        raise NotImplementedError("screenshot sources need the 'mss' package, which the port "
+                                  "does not use")
+    if os.path.isdir(p):
+        files = sorted(f for f in glob.glob(os.path.join(p, "**", "*"), recursive=True)
+                       if Path(f).suffix.lower() in IMG_FORMATS + VID_FORMATS)
+        for f in files:
+            yield from iter_source(f)
+        return
+    if Path(p).suffix.lower() in VID_FORMATS or p.isdigit() or p.startswith(LIVE_PREFIXES):
+        raise NotImplementedError(f"{p}: no video, camera or URL decoder is ported (JAX reads "
+                                  f"these with cv2's VideoCapture)")
+    if any(c in p for c in "*?[") and not os.path.exists(p):
+        files = sorted(glob.glob(p, recursive=True))
+        if not files:
+            raise FileNotFoundError(f"no files match {p}")
+        for f in files:
+            yield from iter_source(f)
+        return
+    yield p, imread(p)
+
+
+def _is_live_spec(s) -> bool:
+    """A webcam index or a stream URL: a candidate for ``LoadStreams``."""
+    p = str(s)
+    return p.isdigit() or p.startswith(LIVE_PREFIXES)
+
+
+def stream_loader(source, vid_stride: int = 1) -> Optional[LoadStreams]:
+    """The ``LoadStreams`` a source asks for (itself, a ``*.streams`` file,
+    or a list of two or more live specs), else None."""
+    if isinstance(source, LoadStreams):
+        return source
+    if isinstance(source, (str, Path)) and str(source).endswith(".streams"):
+        return LoadStreams(source, vid_stride=vid_stride)
+    if (isinstance(source, (list, tuple)) and len(source) > 1
+            and all(not isinstance(s, np.ndarray) and _is_live_spec(s) for s in source)):
+        return LoadStreams(source, vid_stride=vid_stride)
+    return None
 
 
 def _as_float(images: torch.Tensor) -> torch.Tensor:
@@ -67,8 +130,12 @@ class BasePredictor:
 
     def __init__(self, imgsz: int = 640, conf: float = 0.25, iou: float = 0.7,
                  max_det: int = 300, pre_nms: int = 1024, batch: int = 1,
-                 agnostic_nms: bool = False, boxes: bool = True, retina_masks: bool = False):
+                 agnostic_nms: bool = False, boxes: bool = True, retina_masks: bool = False,
+                 vid_stride: int = 1, save_txt: bool = False, save_conf: bool = False,
+                 project: Optional[str] = None):
         self.imgsz, self.batch = int(imgsz), max(int(batch), 1)
+        self.vid_stride = vid_stride
+        self.save_txt, self.save_conf, self.project = save_txt, save_conf, project
         # the polar results' masks fill lazily where JAX's do (its
         # ``lazy_masks=bool(args.retina_masks or args.boxes)``)
         self.lazy_masks = bool(retina_masks or boxes)
@@ -80,30 +147,64 @@ class BasePredictor:
         lb, gain, pad = letterbox(img, (imgsz, imgsz))
         return bgr_to_rgb(lb), gain, pad
 
-    def __call__(self, model, source, names=None) -> List[Results]:
+    def __call__(self, model, source, names=None, stream: bool = False):
+        """Results for every image of ``source``, ``batch`` images a forward
+        (a list, or with ``stream`` a generator)."""
+        gen = self._stream(model, source, names or getattr(model, "names", {}))
+        return gen if stream else list(gen)
+
+    def _stream(self, model, source, names) -> Iterator[Results]:
+        loader = stream_loader(source, self.vid_stride)
+        if loader is not None:
+            yield from self._stream_batched(model, loader, names)
+            return
+        items = iter_source(source)
+        while True:
+            chunk = list(itertools.islice(items, self.batch))
+            if not chunk:
+                return
+            for res in self._run_batch(model, chunk, names):
+                self._save_labels(res)
+                yield res
+
+    def _stream_batched(self, model, loader: LoadStreams, names) -> Iterator[Results]:
+        """N live streams -> one batch-N forward a step; the results of each
+        step yielded per stream, tagged with the stream's frame id."""
+        try:
+            for paths, frames in loader:
+                yield from self._run_batch(model, list(zip(paths, frames)), names)
+        finally:
+            loader.close()
+
+    def _run_batch(self, model, chunk, names) -> List[Results]:
+        """[(path, BGR image)] -> their Results from one forward."""
         device = next(model.parameters()).device
-        names = names or getattr(model, "names", {})
-        items = list(iter_source(source))
-        results: List[Results] = []
-        for b0 in range(0, len(items), self.batch):
-            chunk = items[b0 : b0 + self.batch]
-            t0 = time.perf_counter()
-            pre = [self.preprocess_u8(img, self.imgsz) for _, img in chunk]
-            x = torch.from_numpy(np.stack([p[0] for p in pre])).to(device)
-            t1 = time.perf_counter()
-            out = {k: v.cpu().numpy() for k, v in self.eval_batch(model, x).items()}
-            t2 = time.perf_counter()
-            n = len(chunk)
-            for bi, ((path, orig), (_, gain, pad)) in enumerate(zip(chunk, pre)):
-                t3 = time.perf_counter()
-                res = self.postprocess(out, bi, orig, path, gain, pad, names, device)
-                res.speed = {
-                    "preprocess": (t1 - t0) * 1e3 / n,
-                    "inference": (t2 - t1) * 1e3 / n,
-                    "postprocess": (time.perf_counter() - t3) * 1e3,
-                }
-                results.append(res)
+        t0 = time.perf_counter()
+        pre = [self.preprocess_u8(img, self.imgsz) for _, img in chunk]
+        x = torch.from_numpy(np.stack([p[0] for p in pre])).to(device)
+        t1 = time.perf_counter()
+        out = {k: v.cpu().numpy() for k, v in self.eval_batch(model, x).items()}
+        t2 = time.perf_counter()
+        n = len(chunk)
+        results = []
+        for bi, ((path, orig), (_, gain, pad)) in enumerate(zip(chunk, pre)):
+            t3 = time.perf_counter()
+            res = self.postprocess(out, bi, orig, path, gain, pad, names, device)
+            res.speed = {
+                "preprocess": (t1 - t0) * 1e3 / n,
+                "inference": (t2 - t1) * 1e3 / n,
+                "postprocess": (time.perf_counter() - t3) * 1e3,
+            }
+            results.append(res)
         return results
+
+    def _save_labels(self, res: Results):
+        """JAX's ``save_txt`` files: ``<project>/predict/labels/<stem>.txt``
+        for results of image files."""
+        path = res.path
+        if self.save_txt and isinstance(path, str) and Path(path).suffix.lower() in IMG_FORMATS:
+            labels = Path(self.project or "runs") / "predict" / "labels"
+            res.save_txt(str(labels / (Path(path).stem + ".txt")), save_conf=self.save_conf)
 
 
 def detect_xyxy(pred: torch.Tensor) -> torch.Tensor:
@@ -232,6 +333,9 @@ class ClassificationPredictor(BasePredictor):
     settings are not used."""
 
     task = "classify"
+
+    def _save_labels(self, res: Results):
+        """None: JAX's classify stream writes no label files."""
 
     def preprocess_u8(self, img: np.ndarray, imgsz: int):
         """The classify eval transform (float32, normalized on the host: no

@@ -17,9 +17,19 @@ at 3-bit subpixel precision (JAX ``contours_to_masks_host``), reproduced
 without cv2: the masks are the JAX facade's, pixel for pixel. Without the flag (``predict(boxes=
 False)``) a result holds contours and no masks (``masks`` is None), as
 JAX's; ``FastSAMPrompt`` then fills the contours by the even-odd rule.
+
+The data methods are JAX's: ``Boxes.xywh``, ``.xyxyn``, ``.xywhn``,
+``Contours.xy``, and ``Results.new``, ``keys``, ``__getitem__``,
+``update``, ``verbose``, ``tojson`` and ``save_txt``; ``cpu``, ``numpy``
+and ``to`` return the result itself (its arrays are host numpy already).
+``Masks.xy`` / ``.xyn`` (cv2's ``findContours``) and ``plot``, ``save`` and
+``save_crop`` (drawing and an image encoder) wait for the tracking and
+annotator slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,6 +60,24 @@ class Boxes:
     def cls(self):
         return self.data[:, 5]
 
+    @property
+    def xywh(self):
+        b = self.data[:, :4]
+        return np.concatenate([(b[:, :2] + b[:, 2:]) / 2, b[:, 2:] - b[:, :2]], -1)
+
+    @property
+    def xyxyn(self):
+        h, w = self.orig_shape
+        return self.xyxy / np.array([w, h, w, h], np.float32)
+
+    @property
+    def xywhn(self):
+        h, w = self.orig_shape
+        return self.xywh / np.array([w, h, w, h], np.float32)
+
+
+NOT_YET = "waits for the tracking and annotator slice of the port"
+
 
 class Masks:
     """Binary masks (n, H, W)."""
@@ -60,6 +88,14 @@ class Masks:
 
     def __len__(self):
         return self.data.shape[0]
+
+    @property
+    def xy(self):
+        raise NotImplementedError(f"Masks.xy (cv2.findContours of each mask) {NOT_YET}")
+
+    @property
+    def xyn(self):
+        raise NotImplementedError(f"Masks.xyn (cv2.findContours of each mask) {NOT_YET}")
 
 
 class Contours:
@@ -72,6 +108,11 @@ class Contours:
 
     def __len__(self):
         return self.points.shape[0]
+
+    @property
+    def xy(self):
+        """Each contour's valid points (k, 2) in pixels."""
+        return [p[v] for p, v in zip(self.points, self.valid)]
 
 
 class Probs:
@@ -150,8 +191,148 @@ class Results:
             )
         return self._masks
 
+    @masks.setter
+    def masks(self, value):
+        if value is not None and not isinstance(value, Masks):
+            value = Masks(value, self.orig_shape)
+        self._masks = value
+
     def __len__(self):
-        for v in (self.boxes, self.contours):
+        for v in (self.boxes, self._masks, self.contours):
             if v is not None:
                 return len(v)
         return 0
+
+    # the arrays are host numpy already: device moves are the identity, as JAX's
+    def cpu(self):
+        return self
+
+    def numpy(self):
+        return self
+
+    def to(self, *args, **kwargs):
+        return self
+
+    def new(self) -> "Results":
+        """An empty result carrying the image, path and names."""
+        return Results(self.orig_img, self.path, self.names, device=self.device)
+
+    @property
+    def keys(self):
+        """The fields present; masks count where they can be filled lazily,
+        without filling them."""
+        have_masks = self._masks is not None or (self._lazy_masks and self.contours is not None)
+        return [k for k in ("boxes", "masks", "contours", "probs", "keypoints")
+                if (have_masks if k == "masks" else getattr(self, k) is not None)]
+
+    def __getitem__(self, idx) -> "Results":
+        """The detections at ``idx``. An integer keeps the leading instance
+        axis (``r[0].masks.data`` is (1, H, W)); the lazy-masks flag is
+        kept, so indexing does not fill the masks."""
+        r = self.new()
+        is_int = isinstance(idx, (int, np.integer))
+
+        def keepdim(a):
+            a = np.asarray(a)[idx]
+            return a[None] if is_int else a
+
+        if self.boxes is not None:
+            r.boxes = Boxes(self.boxes.data[idx].reshape(-1, self.boxes.data.shape[-1]),
+                            self.orig_shape)
+        r._lazy_masks = self._lazy_masks
+        if self._masks is not None:
+            r.masks = Masks(keepdim(self._masks.data), self.orig_shape)
+        if self.contours is not None:
+            r.contours = Contours(keepdim(self.contours.points), keepdim(self.contours.valid),
+                                  self.orig_shape)
+        if self.keypoints is not None:
+            r.keypoints = keepdim(self.keypoints)
+        return r
+
+    def update(self, boxes=None, masks=None, probs=None):
+        if boxes is not None:
+            self.boxes = Boxes(boxes, self.orig_shape)
+        if masks is not None:
+            self.masks = Masks(masks, self.orig_shape)
+        if probs is not None:
+            self.probs = Probs(probs)
+
+    def verbose(self) -> str:
+        """A summary such as '4 circles, 1 rect, '."""
+        if self.probs is not None:
+            return f"{self.names.get(self.probs.top1, self.probs.top1)} " \
+                   f"{self.probs.top1conf:.2f}, "
+        if self.boxes is None or len(self.boxes) == 0:
+            return "(no detections), "
+        cls = self.boxes.cls.astype(int)
+        parts = []
+        for c in sorted(set(cls.tolist())):
+            n = int((cls == c).sum())
+            parts.append(f"{n} {self.names.get(c, str(c))}{'s' * (n > 1)}")
+        return ", ".join(parts) + ", "
+
+    def tojson(self, normalize: bool = False) -> str:
+        """JSON rows of name, class, confidence and box, with segments and
+        keypoints where the result has them (JAX's layout and rounding)."""
+        h, w = self.orig_shape
+        sx, sy = (w, h) if normalize else (1, 1)
+        rows = []
+        if self.probs is not None:
+            rows.append({"name": self.names.get(self.probs.top1, str(self.probs.top1)),
+                         "class": int(self.probs.top1),
+                         "confidence": round(self.probs.top1conf, 5)})
+        elif self.boxes is not None:
+            for i, row in enumerate(self.boxes.data):
+                x1, y1, x2, y2 = (float(v) for v in row[:4])
+                item = {
+                    "name": self.names.get(int(row[5]), str(int(row[5]))),
+                    "class": int(row[5]),
+                    "confidence": round(float(row[4]), 5),
+                    "box": {"x1": round(x1 / sx, 5), "y1": round(y1 / sy, 5),
+                            "x2": round(x2 / sx, 5), "y2": round(y2 / sy, 5)},
+                }
+                if self.contours is not None and i < len(self.contours):
+                    pts = self.contours.xy[i]
+                    item["segments"] = {"x": [round(float(x) / sx, 5) for x in pts[:, 0]],
+                                        "y": [round(float(y) / sy, 5) for y in pts[:, 1]]}
+                if self.keypoints is not None:
+                    k = np.asarray(self.keypoints[i], np.float64)
+                    item["keypoints"] = {"x": [round(float(x) / sx, 5) for x in k[:, 0]],
+                                         "y": [round(float(y) / sy, 5) for y in k[:, 1]]}
+                rows.append(item)
+        return json.dumps(rows, indent=2)
+
+    def save_txt(self, txt_file: str, save_conf: bool = False) -> str:
+        """YOLO-format label lines: ``cls`` and the normalized polygon of a
+        contour (skipped below 3 valid points), else ``cls xywhn``; with
+        ``save_conf`` the confidence last; a classify result ``top1conf
+        top1``."""
+        lines = []
+        if self.probs is not None:
+            lines.append(f"{self.probs.top1conf:.2f} {self.probs.top1}")
+        elif self.boxes is not None:
+            for i, row in enumerate(self.boxes.data):
+                cls = int(row[5])
+                if self.contours is not None and i < len(self.contours):
+                    pts = self.contours.xy[i]
+                    if pts.shape[0] < 3:
+                        continue
+                    h, w = self.orig_shape
+                    line = f"{cls} " + " ".join(f"{x / w:.6f} {y / h:.6f}" for x, y in pts)
+                else:
+                    line = f"{cls} " + " ".join(f"{v:.6f}" for v in self.boxes.xywhn[i])
+                if save_conf:
+                    line += f" {row[4]:.6f}"
+                lines.append(line)
+        Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
+        Path(txt_file).write_text("\n".join(lines) + ("\n" if lines else ""))
+        return txt_file
+
+    def plot(self, *args, **kwargs):
+        raise NotImplementedError(f"Results.plot (drawing) {NOT_YET}")
+
+    def save(self, *args, **kwargs):
+        raise NotImplementedError(f"Results.save (drawing and an image encoder) {NOT_YET}")
+
+    def save_crop(self, *args, **kwargs):
+        raise NotImplementedError(f"Results.save_crop (an image encoder) {NOT_YET}")

@@ -81,4 +81,5 @@ class FastSAMPrompt:
 
     def plot(self, output_path: Optional[str] = None, masks: Optional[np.ndarray] = None):
         raise NotImplementedError("FastSAMPrompt.plot needs the annotator and image writing "
-                                  "(the JAX utils/plotting.py), which are not ported")
+                                  "(the JAX utils/plotting.py); it waits for the tracking and "
+                                  "annotator slice of the port")
