@@ -109,7 +109,7 @@ Phases, one timestamped line each (elapsed seconds):
   18. segment_ori validate: that model at 640 batch 16 on 32 480x640
      frames, split as in 10 (b) with the mask IoU (the GT masks filled by
      the even-odd kernel, one launch a batch).
-  19. segment_ori train step: as 6 (a) at 640 batch 2 N_pad 8, the
+  19. segment_ori train step: as 6 (a) at 320 batch 2 N_pad 8, the
      networks in float64 (a fresh init's float32 gradients are
      ill-conditioned; card against CPU: loss 1e-4 relative, the same
      assignment, gradients 1e-3)
@@ -142,8 +142,8 @@ Phases, one timestamped line each (elapsed seconds):
      decoder; no NMS), and its peak memory.
   24. rtdetr train step: (a) floor_rtdetr at 192 batch 4 with one set of dn
      groups drawn on the CPU and used on both sides, card against CPU, the
-     networks in float64 (float32 printed, not held: the card's float32
-     sums leave a neck BatchNorm bias 1.5e-3 apart): loss 1e-4 relative,
+     networks in float64 (in float32 the card's sums leave a neck
+     BatchNorm bias 1.5e-3 apart): loss 1e-4 relative,
      every layer's assignment (as encoder tokens), gradients 1e-3 of each
      tensor's largest; (b) at 640 batch 16 with AdamW, as 6 (b),
      split into forward (the CDN draw in it), matching (the cost and the
@@ -170,7 +170,7 @@ Phases, one timestamped line each (elapsed seconds):
      metrics, wall and the train / val / save split printed.
   28. rtdetr-l: the fresh rtdetr-l (nc 80, a seeded init) on the card:
      predict at 640, batch 1 and 8, against the port on the CPU (queries
-     matched by encoder token), one train step at 320 batch 2 in float64
+     matched by encoder token), one train step at 256 batch 2 in float64
      against the CPU, fused against unfused; its parameters, ms an image,
      peak memory and launches (0).
   29. sam: sam_b at 1024 on seeded weights (``sam_model``: relative
@@ -186,7 +186,7 @@ Phases, one timestamped line each (elapsed seconds):
      planted shapes, 1,024 prompts in batches of 64 (``SAM_GEN``: its
      thresholds keep masks of seeded weights, NMS off), crop_n_layers 0
      and 1 timed on the card, crop layer 0 held against the CPU on fewer
-     prompts (points_stride 16): every kept mask paired at IoU >= 0.99,
+     prompts (points_stride 8): every kept mask paired at IoU >= 0.99,
      boxes within 1 px, scores 1e-4.
   32. fastsam: ``FastSAM(seg160 checkpoint)`` agnostic on the floor images,
      card against CPU, its box, point and everything prompts selecting the
@@ -198,8 +198,8 @@ Phases, one timestamped line each (elapsed seconds):
      detections, boxes, scores; the fused copy), the facade's float32
      predict at 640 batch 1 and 8 (the same detections, boxes within 0.05
      px, ms an image), the fused float32 model's detections, classes and
-     boxes, a float64 train step against the CPU at 640
-     batch 2, the train step at 640 batch 16 timed.
+     boxes, a float64 train step against the CPU at 320 batch 2, the train
+     step at 640 batch 16 timed.
   34. nas_trainer: ``NAS("yolo_nas_s").train`` from scratch on the detect
      floor set at the detect floor recipe, cut to 10 epochs: losses fall,
      the metrics recorded (no NAS floor is committed). SAM and NAS launch
@@ -227,7 +227,7 @@ Phases, one timestamped line each (elapsed seconds):
      segment_ori one at bucket 2 against predict at batch 2, held the same
      way; a closed-loop load on yolov8n-seg at 640 on 480x640 frames
      (``max_batch`` 32, ``max_delay_ms`` 5) at concurrency 1, 8 and 32 for
-     3 s each: p50/p95/p99 ms, rps, mean batch, padded rows, the warm-up ms
+     2 s each: p50/p95/p99 ms, rps, mean batch, padded rows, the warm-up ms
      of each bucket, the completion thread's overlap with the dispatcher
      (recorded, not limited); ``serve_http`` on port 0: the committed JPEG
      and PNG files (``tests/data/torch_port_serve_*``) posted, their
@@ -237,12 +237,30 @@ Phases, one timestamped line each (elapsed seconds):
      batch-2 forward a step) held to a predict of each frame (its launches
      counted alone); the host decode ms of a 480x640 JPEG (quality 95) and
      PNG and of the posted files; a closed loop of 8 clients posting the
-     480x640 JPEG to ``serve_http`` at 640 for 6 s: rps, client p50/p95/p99
+     480x640 JPEG to ``serve_http`` at 640 for 4 s: rps, client p50/p95/p99
      and the cap that the Python decode puts on one process (recorded).
-  38. report: a JSON line of the kernels (launches summed over the predict,
+  38. ddp: (a) ``YOLO("yolov8n-seg.yaml").train`` on the seg160 floor set
+     for 2 epochs at its config, with no process group and inside a
+     one-rank NCCL group (an all-reduce through it first): metrics,
+     results.csv and the stripped best.ckpt equal bit for bit (cuDNN
+     deterministic for both); (b) two gloo ranks sharing ``cuda:0``
+     (``parallel.launch``), each with 4 rows of a batch of 8 at 160, three
+     float64 steps of the seg160 model against one process on all 8: loss
+     1e-10 relative, gradients 1e-9 of each tensor's largest, BatchNorm
+     statistics 1e-12, the ranks' states bit-identical after 3 steps; the
+     GT-ray launches counted in each rank.
+  39. serve_mesh: ``InferenceServer(mesh=create_mesh(["cuda:0", "cuda:0"]))``,
+     two replicas of the fused seg160 weights, the 16 floor val frames in
+     one bucket-16 batch (two shards of 8) against predict at batch 8: 0 px,
+     0 score, masks equal.
+  40. datasets: the seg160 and classify floor val sets written as PNG files
+     (the smoke's own ``zlib`` writer) with label files, a yaml and class
+     folders; ``val(data=yaml)`` and ``val(data=folder)`` give the in-memory
+     metrics exactly.
+  41. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs of every task,
-     FastSAM's and the serve phase's), the card's line, and last
-     ``{"ok": true, "device": {...}}``.
+     FastSAM's, the serve phase's and phases 38-40's), the card's line, and
+     last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
@@ -256,6 +274,7 @@ import random
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -263,6 +282,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
@@ -271,10 +291,11 @@ import numpy as np
 import torch
 
 from yolo_contour_regression_tpu_torch import NAS, SAM, YOLO, FastSAM, FastSAMPrompt
+from yolo_contour_regression_tpu_torch import parallel
 from yolo_contour_regression_tpu_torch.cfg import get_cfg
 from yolo_contour_regression_tpu_torch.data import augment, imgproc
 from yolo_contour_regression_tpu_torch.data.dataset import TrainDataset, parse_label_lines
-from yolo_contour_regression_tpu_torch.data.imcodec import imdecode
+from yolo_contour_regression_tpu_torch.data.imcodec import imdecode, imread
 from yolo_contour_regression_tpu_torch.data.streams import LoadStreams
 from yolo_contour_regression_tpu_torch.nn.fuse import fuse_model
 from yolo_contour_regression_tpu_torch.nn.modules import head as head_mod
@@ -447,12 +468,13 @@ SAM_GEN = dict(points_stride=32, points_batch_size=64, conf_thres=0.1,
                stability_score_thresh=0.5, stability_score_offset=0.1, iou_thres=1.0,
                crop_nms_thresh=1.0)
 # the card against the CPU on fewer prompts: crop_n_layers 0 at
-# points_stride 16 (256 prompts: the CPU's 1,024 took 46 s of the smoke's
-# 1,200); crop_n_layers 1 is timed on the card only (its CPU reference, five
-# crops of ~6 s of CPU encoder each, was cut to make room for the serve
-# phase; its in-crop NMS and cross-crop dedupe run in host numpy, held
-# against JAX by tests/test_torch_port_sam_predict.py)
-SAM_GEN_CPU = {0: dict(points_stride=16)}
+# points_stride 8 (64 prompts: the CPU's 1,024 took 46 s of the smoke's
+# 1,200, its 256 at points_stride 16 17.5 s, cut to make room for the ddp
+# phases); crop_n_layers 1 is timed on the card only (its CPU reference,
+# five crops of ~6 s of CPU encoder each, was cut to make room for the
+# serve phase; its in-crop NMS and cross-crop dedupe run in host numpy,
+# held against JAX by tests/test_torch_port_sam_predict.py)
+SAM_GEN_CPU = {0: dict(points_stride=8)}
 SAM_GEN_IOU = 0.99  # a pair of kept masks, card and CPU
 SAM_BOX_PX = 1.0  # a threshold pixel on a mask's edge moves its box by one
 # the serve phase's HTTP posts: files written by cv2 (tests/test_torch_port_imcodec.py
@@ -468,6 +490,9 @@ NAS_PARAMS = 22_309_542
 # the float64 card-against-CPU step (the CPU takes ~4 s an image) and
 # predict, each cut from 4 to make room for the configs phase
 NAS_F64_B = 2
+# the float64 steps of NAS and segment_ori card against CPU at this imgsz
+# (640 until the ddp phases needed room: ~8 s of CPU each)
+F64_STEP_IMGSZ = 320
 NAS_F64_FRAMES = 2
 # predict's default: the calibrated fresh net scores 11,449 anchors of 4
 # frames above 0.001 (pre_nms cuts near-ties) and 253 above 0.3
@@ -502,10 +527,10 @@ SAVE_LAST_EVERY = 25
 # the host pipeline phase: the seg160 floor config, 5 epochs, the host chain
 HOST_TRAIN = dict(epochs=5, device_augment=False, mosaic9=0.5, copy_paste=0.5)
 # rtdetr-l: the published config (nc 80; JAX's build of it has this many
-# parameters) from a fresh init drawn from this seed; its train step at 320
-# batch 2
+# parameters) from a fresh init drawn from this seed; its float64 train step
+# card against CPU at 256 batch 2 (320 until the ddp phases needed room)
 RTDETR_L_PARAMS, RTDETR_L_SEED = 32_986_636, 0
-RTDETR_L_TRAIN = (320, 2)
+RTDETR_L_TRAIN = (256, 2)
 RTDETR_IMGSZ, RTDETR_SEED = 192, 0
 # a gradient that is 0 in exact arithmetic (the attention's key biases), of
 # the largest gradient of any tensor
@@ -2648,21 +2673,20 @@ def rtdetr_predict(card: str):
     return model, full, counts
 
 
-def rtdetr_train_card_vs_cpu(ckpt, card: str, b: int = 4, dtype=torch.float64,
-                             hold: bool = True, model=None, imgsz: int = RTDETR_IMGSZ,
-                             phase: str = "rtdetr_train"):
+def rtdetr_train_card_vs_cpu(ckpt, card: str, b: int = 4, dtype=torch.float64, model=None,
+                             imgsz: int = RTDETR_IMGSZ, phase: str = "rtdetr_train"):
     """floor_rtdetr in train mode at imgsz 192, batch ``b``, N_pad 8, with
     one set of dn groups drawn on the CPU and used on both sides: the loss
     (relative ``TRAIN_LOSS_RTOL``), every layer's assignment (as encoder
     tokens, the two sides' queries matched by ``query_perm``) and every
     gradient (``TRAIN_GRAD_TOL`` of its tensor's largest) on the card
-    against the CPU, the networks in ``dtype``; printed and, with ``hold``,
-    held. In float32 on an H100 the gradient of a neck BatchNorm bias
-    (``model.18.cv2.bn``) came out 1.5e-3 of its largest from the CPU's,
-    whose float32 is within 8e-5 of its float64: the card's float32 sums,
-    not the port, so the step is held in float64 and its float32 figures
-    printed. With ``model`` (and no ``ckpt``), a copy of that model at
-    ``imgsz``, its class count its own."""
+    against the CPU, the networks in ``dtype``, printed and held. In float32
+    on an H100 the gradient of a neck BatchNorm bias (``model.18.cv2.bn``)
+    came out 1.5e-3 of its largest from the CPU's, whose float32 is within
+    8e-5 of its float64: the card's float32 sums, not the port, so the step
+    is held in float64 (the float32 step, once printed and not held, was
+    cut to make room for the ddp phases). With ``model`` (and no
+    ``ckpt``), a copy of that model at ``imgsz``, its class count its own."""
     images, batch = shape_batch(b, imgsz, 8, seed=3)
     batch = {k: batch[k] for k in ("cls", "bboxes", "mask_gt")}
     nc = model.nc if model is not None else ckpt["model_yaml"]["nc"]
@@ -2702,7 +2726,7 @@ def rtdetr_train_card_vs_cpu(ckpt, card: str, b: int = 4, dtype=torch.float64,
                           for n in gc if n not in zero)
     what = "floor_rtdetr" if model is None else f"a fresh {type(model).__name__} of " \
         f"{model.num_params} parameters"
-    log(phase, f"card vs CPU{'' if hold else ' (printed, not held)'}, {what} "
+    log(phase, f"card vs CPU, {what} "
         f"({str(dtype)[6:]}) at imgsz {imgsz} "
         f"batch {b}, {dn_q} dn queries drawn on the CPU: loss {lg:.6f} vs {lc:.6f} (rel "
         f"{loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); the same assignment in every layer: {same} "
@@ -2710,8 +2734,8 @@ def rtdetr_train_card_vs_cpu(ckpt, card: str, b: int = 4, dtype=torch.float64,
         f"{grad_rel:.2e} of its tensor's max, {worst} (limit {TRAIN_GRAD_TOL}); the {len(zero)} "
         f"gradients that are 0 in exact arithmetic (key biases, shifts a BatchNorm takes out) "
         f"at most {noise:.2e} of the largest gradient (limit {ZERO_GRAD_TOL}) | {card}")
-    if hold and (not same or loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_TOL
-                 or noise > ZERO_GRAD_TOL):
+    if (not same or loss_rel > TRAIN_LOSS_RTOL or grad_rel > TRAIN_GRAD_TOL
+            or noise > ZERO_GRAD_TOL):
         raise AssertionError(f"{phase} card vs CPU: same assignment {same}, loss rel "
                              f"{loss_rel:.2e}, grad {grad_rel:.2e} at {worst}, key-bias noise "
                              f"{noise:.2e}")
@@ -2806,7 +2830,6 @@ def rtdetr_phases(card: str) -> dict:
     floor_counts = launch_counts()
     _, val640_counts, _, _ = validate_full_width(full, card, phase="rtdetr_validate")
     ckpt = load_checkpoint(RTDETR_CKPT)
-    rtdetr_train_card_vs_cpu(ckpt, card, dtype=torch.float32, hold=False)
     rtdetr_train_card_vs_cpu(ckpt, card)
     state, step_counts, _, _ = train_full_width(ckpt, card, phase="rtdetr_train")
     rtdetr_step_kernels(state, ckpt, card)
@@ -2831,7 +2854,7 @@ def _fresh(samples, i):
     return augment.Sample(s.img.copy(), s.inst.copy())
 
 
-def transform_ms(samples, imgsz: int, reps: int = 8) -> dict:
+def transform_ms(samples, imgsz: int, reps: int = 4) -> dict:
     """Host ms a sample (median of ``reps`` calls, each on fresh copies) of
     each transform of the host chain on ``samples`` at ``imgsz``: the two
     mosaics, copy-paste (p 0.5, on a mosaic), the warp after a mosaic (2
@@ -2921,7 +2944,7 @@ def host_pipeline(card: str) -> dict:
     for imgsz, (images, labels), what in ((160, train, "the seg160 set"),
                                           (640, frames, "480x640 frames")):
         ms = transform_ms(host_samples(images, labels, imgsz), imgsz)
-        log("host_pipeline", f"host ms a sample at imgsz {imgsz} on {what} (median of 8): "
+        log("host_pipeline", f"host ms a sample at imgsz {imgsz} on {what} (median of 4): "
             + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" | {card}")
     ckpt = load_checkpoint(CKPT)
     over = {**{k: ckpt["train_args"][k] for k in FLOOR_TRAIN_KEYS}, **HOST_TRAIN,
@@ -3247,7 +3270,7 @@ def sam_generate(card: str, card_model, cpu_model) -> dict:
     against the port on the CPU (``match_generated``: every kept mask paired
     with IoU >= ``SAM_GEN_IOU``, boxes within ``SAM_BOX_PX``, scores within
     ``SCORE_ATOL``) at ``SAM_GEN_CPU``'s fewer prompts on both sides
-    (points_stride 16)."""
+    (points_stride 8)."""
     frame = shape_images(1, *RASTER_HW, seed=22)[0]
     gp = SamPredictor(card_model, device="cuda")
     cp = SamPredictor(cpu_model, device="cpu")
@@ -3412,7 +3435,7 @@ def nas_phase(card: str) -> dict:
     beside the CPU's own float32-from-float64 heads, with ms an image; the
     float32 fused model on the card keeping the unfused one's detections,
     boxes within ``BOX_ATOL``; one
-    train step card against CPU in float64 at 640 batch ``NAS_F64_B``
+    train step card against CPU in float64 at ``F64_STEP_IMGSZ`` batch ``NAS_F64_B``
     (``train_card_vs_cpu``); the train step at 640 batch 16 timed
     (``train_full_width``, floor_detect's train_args). Launches no
     kernel."""
@@ -3448,10 +3471,9 @@ def nas_phase(card: str) -> dict:
     pred = DetectionPredictor(imgsz=640, conf=NAS_CONF)
     x = np.stack([pred.preprocess_u8(img, 640)[0] for img in frames])
     with torch.inference_mode():
-        xf = torch.from_numpy(x).float().div(255.0).permute(0, 3, 1, 2).contiguous()
-        c32 = cpu.model(xf)
-    ref["head"] = max(float((a[:NAS_F64_FRAMES].double() - b).abs().max())
-                      for a, b in zip(c32, ch))
+        xf = torch.from_numpy(x[:NAS_F64_FRAMES]).float().div(255.0).permute(0, 3, 1, 2)
+        c32 = cpu.model(xf.contiguous())
+    ref["head"] = max(float((a.double() - b).abs().max()) for a, b in zip(c32, ch))
     lat = {}
     for batch, imgs in ((1, frames[:1]), (8, frames)):
         predict_ms(nas, imgs, 640, batch, masks=False, conf=NAS_CONF)
@@ -3489,7 +3511,7 @@ def nas_phase(card: str) -> dict:
                              f"vs CPU boxes and scores {f32}; fused same {same_fused}, boxes "
                              f"{fused_box}")
     detect_ckpt = load_checkpoint(DETECT_CKPT)
-    train_card_vs_cpu(detect_ckpt, card, imgsz=TRAIN_IMGSZ, phase="nas_train", b=NAS_F64_B,
+    train_card_vs_cpu(detect_ckpt, card, imgsz=F64_STEP_IMGSZ, phase="nas_train", b=NAS_F64_B,
                       model=cpu.model, dtype=torch.float64)
     del cpu
     _, step_counts, split, step_ms = train_full_width(detect_ckpt, card, phase="nas_train",
@@ -3510,11 +3532,23 @@ def gap_conf(scores: torch.Tensor, lo: int, hi: int):
     return float((s[i - 1] + s[i]) / 2), float(gaps.max())
 
 
-def config_nms(model, x: torch.Tensor, conf: float) -> dict:
+def predict_from(model, outs, x: torch.Tensor):
+    """``model.predict(x)`` on head maps ``outs`` already computed from
+    ``x`` (its forward not run again: the CPU's float64 forward of a full
+    width config costs seconds)."""
+    model.forward = lambda *a, **k: outs
+    try:
+        return model.predict(x)
+    finally:
+        del model.forward
+
+
+def config_nms(model, x: torch.Tensor, conf: float, outs=None) -> dict:
     """The predictor's ``eval_batch`` on a float input of the model's dtype:
-    the decode, made xyxy and cast to float32, through NMS at ``conf``."""
+    the decode, made xyxy and cast to float32, through NMS at ``conf``
+    (``outs``: the head maps of ``x``, already computed)."""
     with torch.inference_mode():
-        y = detect_xyxy(model.predict(x)).float()
+        y = detect_xyxy(model.predict(x) if outs is None else predict_from(model, outs, x)).float()
     return {k: v.cpu() for k, v in non_max_suppression(
         y, nc=model.nc, conf_thres=conf, iou_thres=0.7, pre_nms=1024, max_det=300).items()}
 
@@ -3558,9 +3592,9 @@ def config_pair(name: str, card: str) -> dict:
         c64 = m64["cpu"](x64)
         g64 = [h.cpu() for h in m64["cuda"](x64.cuda())]
         f64 = [h.cpu() for h in fused(x64.cuda())]
-        scores = m64["cpu"].predict(x64)[:, 4:4 + cpu.model.nc].amax(1).float()
+        scores = predict_from(m64["cpu"], c64, x64)[:, 4:4 + cpu.model.nc].amax(1).float()
     conf, gap = gap_conf(scores, *CONFIG_GAP)
-    oc = config_nms(m64["cpu"], x64, conf)
+    oc = config_nms(m64["cpu"], x64, conf, outs=c64)
     og = config_nms(m64["cuda"], x64.cuda(), conf)
     of = config_nms(fused, x64.cuda(), conf)
     keep = oc["valid"]
@@ -3719,9 +3753,12 @@ def paper_comparison(card: str) -> dict:
 
 SERVE_LOAD = dict(imgsz=640, max_batch=32, max_delay_ms=5.0)  # the closed-loop load
 SERVE_CONCURRENCY = (1, 8, 32)
-SERVE_LOAD_S = 3.0  # seconds of load at each concurrency
+# seconds of load at each concurrency (3 until the ddp phases needed room)
+SERVE_LOAD_S = 2.0
 SERVE_HTTP_CLIENTS = 8  # the closed loop through the HTTP front end
-SERVE_HTTP_S = 6.0  # its seconds: a reply takes seconds while 8 decodes share the GIL
+# its seconds (6 until the ddp phases needed room): a reply takes seconds while 8
+# decodes share the GIL
+SERVE_HTTP_S = 4.0
 SERVE_ATOL = 1e-4  # served against direct: boxes, contours, keypoints (px) and scores
 SEGORI_NARROW_CKPT = ROOT / "tests" / "data" / "torch_port_segori_narrow64.ckpt"
 
@@ -4070,6 +4107,317 @@ def serve_phase(card: str) -> tuple:
     return counts, parts
 
 
+# the ddp phase: (a) the seg trainer on one card, with and without a
+# one-rank NCCL process group, DDP_EPOCHS epochs at the seg160 floor
+# config; (b) two gloo ranks sharing cuda:0 against one process: DDP_STEPS
+# float64 steps of the seg160 model at 160 on a batch of DDP_B (each rank
+# its 4 rows), held to the CPU test's limits (tests/test_torch_port_parallel.py)
+DDP_EPOCHS = 2
+DDP_B, DDP_STEPS = 8, 3
+DDP_LOSS_RTOL, DDP_GRAD_TOL, DDP_STATS_ATOL = 1e-10, 1e-9, 1e-12
+DDP_NOISE = 1e-12  # a gradient this far below the model's largest is rounding noise
+
+
+def _tree_diff(a, b, path="") -> list:
+    """The paths at which two nested dicts of arrays differ (bit for bit)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [d for k in a for d in _tree_diff(a[k], b[k], f"{path}/{k}")]
+    if a is None or b is None:
+        return [] if a is b else [path]
+    a, b = np.asarray(a), np.asarray(b)
+    return [] if a.dtype == b.dtype and np.array_equal(a, b) else [path]
+
+
+def ddp_one_card(card: str) -> dict:
+    """(a) ``YOLO("yolov8n-seg.yaml").train`` on the seg160 floor set at its
+    config for ``DDP_EPOCHS`` epochs, once with no process group and once
+    inside a one-rank NCCL group (an all-reduce through it first): at world
+    size 1 the trainer makes no collective, so the two runs' metrics,
+    results.csv rows and stripped best.ckpt (weights and BatchNorm
+    statistics) must be equal bit for bit (cuDNN deterministic for both).
+    Returns the grouped run's launch counts."""
+    ckpt = load_checkpoint(CKPT)
+    over = {**{k: ckpt["train_args"][k] for k in FLOOR_TRAIN_KEYS}, "epochs": DDP_EPOCHS,
+            "save_last_every": SAVE_LAST_EVERY}
+    data = {"train": floor_train_set(), "val": floor_val_set(), "names": ckpt["names"]}
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            def run(name):
+                zero_launch_counts()
+                m = YOLO("yolov8n-seg.yaml", device="cuda")
+                t = time.perf_counter()
+                res = m.train(data=data, project=d, name=name, **over)
+                wall = time.perf_counter() - t
+                best = load_checkpoint(m.trainer.wdir / "best.ckpt")
+                with open(m.trainer.csv) as fh:
+                    rows = list(csv.DictReader(fh))
+                return {"metrics": res, "rows": rows, "counts": launch_counts(), "wall": wall,
+                        "best": {k: best[k] for k in ("params", "batch_stats", "ema_params",
+                                                      "epoch", "step")}}
+
+            runs["none"] = run("nogroup")
+            store = torch.distributed.FileStore(str(Path(d) / "store"), 1)
+            torch.distributed.init_process_group("nccl", store=store, rank=0, world_size=1)
+            try:
+                probe = torch.arange(4.0, device="cuda")
+                torch.distributed.all_reduce(probe)
+                backend = torch.distributed.get_backend()
+                if probe.tolist() != [0.0, 1.0, 2.0, 3.0] or parallel.world_size() != 1:
+                    raise AssertionError(f"ddp: the one-rank NCCL group gave {probe.tolist()}")
+                runs["nccl"] = run("nccl")
+            finally:
+                torch.distributed.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    a, b = runs["none"], runs["nccl"]
+    metric_diff = [k for k in a["metrics"] if a["metrics"][k] != b["metrics"][k]]
+    leaf_diff = _tree_diff(a["best"], b["best"])
+    rows_same = a["rows"] == b["rows"]
+    metrics = ", ".join(f"{k.split('/')[1]} {v:.4f}" for k, v in b["metrics"].items()
+                        if k != "fitness")
+    log("ddp", f"(a) yolov8n-seg on the seg160 floor set, {DDP_EPOCHS} epochs at its config, "
+        f"with no group ({a['wall']:.2f}s) and in a one-rank {backend} group ({b['wall']:.2f}s): "
+        f"{metrics}; metrics differing {metric_diff}, results.csv rows equal {rows_same}, "
+        f"best.ckpt leaves differing {len(leaf_diff)}; launches {b['counts']} | {card}")
+    if metric_diff or leaf_diff or not rows_same:
+        raise AssertionError(f"ddp (a): the trainer in a one-rank group is not the trainer: "
+                             f"metrics {metric_diff}, leaves {leaf_diff[:5]}, rows {rows_same}")
+    if b["counts"]["gt_rays_rows"] == 0 or b["counts"]["fill_polygons"] == 0:
+        raise AssertionError(f"ddp (a): a kernel of the path never launched: {b['counts']}")
+    return b["counts"]
+
+
+def ddp_f64_steps(job: dict, device) -> dict:
+    """``DDP_STEPS`` float64 steps of ``make_train_step`` (the loss math in
+    float64 too) of the seg160 model on this rank's rows of ``job``'s batch
+    (all of it without a group): each step's metrics; after the first the
+    gradients and buffers; after the last the state dict; the GT-ray kernel's
+    launches; the host clock (``time.time``) as it starts and ends."""
+    t_enter = time.time()
+    model = ckpt_model(load_checkpoint(job["ckpt"]), device).double()
+    hyp = SimpleNamespace(**job["hyp"])
+    opt = optim.build_optimizer(model, copy.copy(hyp), 10, 100)
+    state = init_train_state(model, opt, device=device)
+    step = make_train_step(model, opt, hyp, cand=hyp.cand_per_gt)
+    r, world = parallel.rank(), parallel.world_size()
+    images = parallel.rank_rows(torch.from_numpy(job["images"]).double(), r, world)
+    batch = parallel.rank_rows({k: torch.from_numpy(v) for k, v in job["batch"].items()}, r,
+                               world)
+    n0 = gt_rays.gt_rays_rows_fast.launches
+    out = {"metrics": []}
+    t = time.perf_counter()
+    for k in range(DDP_STEPS):
+        m = step(state, images, batch)
+        out["metrics"].append({n: float(v) for n, v in m.items()})
+        if k == 0:
+            out["grads"] = {n: p.grad.detach().cpu().clone()
+                            for n, p in model.named_parameters() if p.grad is not None}
+            out["buffers"] = {n: b.detach().cpu().clone() for n, b in model.named_buffers()}
+    out["s"] = time.perf_counter() - t
+    out["state"] = {n: v.detach().cpu().clone() for n, v in model.state_dict().items()}
+    out["gt_rays_launches"] = gt_rays.gt_rays_rows_fast.launches - n0
+    out["t_enter"], out["t_exit"] = t_enter, time.time()
+    return out
+
+
+def ddp_rank(r: int, device, job: dict) -> dict:
+    """A rank of ``ddp_two_ranks`` (``parallel.launch``'s target)."""
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return ddp_f64_steps(job, device)
+
+
+def ddp_job() -> dict:
+    """The float64 step job of ``ddp_two_ranks``: the seg160 checkpoint, a
+    batch of ``DDP_B`` at 160, its train_args with AdamW past warmup."""
+    ckpt = load_checkpoint(CKPT)
+    images, batch = shape_batch(DDP_B, 160, 8, seed=12)
+    return {"ckpt": str(CKPT), "images": images, "batch": batch,
+            "hyp": vars(train_hyp(ckpt, warmup_epochs=0.0, loss_dtype=torch.float64))}
+
+
+def ddp_launch(job: dict) -> tuple:
+    """Two gloo ranks on ``cuda:0`` (NCCL refuses two ranks on one card)
+    running ``job``: their results, the launch's seconds and its start on
+    the host clock."""
+    t, t_wall = time.perf_counter(), time.time()
+    ranks = parallel.launch(ddp_rank, ["cuda:0", "cuda:0"], args=(job,), timeout_s=600)
+    return ranks, time.perf_counter() - t, t_wall
+
+
+def ddp_two_ranks(card: str, job: dict, launched) -> int:
+    """(b) Two gloo ranks on ``cuda:0``, each with its 4 rows of a batch of
+    ``DDP_B`` at 160 (``launched``: ``ddp_launch``'s result), against one
+    process on all 8, float64 (``ddp_f64_steps``; AdamW without warmup):
+    the first step's loss and items within ``DDP_LOSS_RTOL``, every
+    gradient within ``DDP_GRAD_TOL`` of its tensor's largest, the BatchNorm
+    statistics within ``DDP_STATS_ATOL``; after ``DDP_STEPS`` steps the two
+    ranks' states bit-identical. Returns the GT-ray kernel's launches in
+    the ranks."""
+    ranks, launch_s, t_wall = launched
+    start_s = max(r["t_enter"] for r in ranks) - t_wall  # spawn, imports, CUDA, the group
+    end_s = t_wall + launch_s - max(r["t_exit"] for r in ranks)  # results back, ranks gone
+    one = ddp_f64_steps(job, torch.device("cuda"))
+    r0, r1 = ranks
+    want = one["metrics"][0]
+    loss_rel = max(abs(r0["metrics"][0][k] - v) / max(abs(v), 1e-300) for k, v in want.items())
+    same_report = r0["metrics"] == r1["metrics"]
+    top = max(float(g.abs().max()) for g in one["grads"].values())
+    grad_gap, worst = 0.0, ""
+    for n, g in one["grads"].items():
+        scale = float(g.abs().max())
+        gap = (float((r0["grads"][n] - g).abs().max()) / max(scale, DDP_NOISE * top))
+        if gap > grad_gap:
+            grad_gap, worst = gap, n
+    stats_gap = max(float((r0["buffers"][n].double() - b.double()).abs().max())
+                    for n, b in one["buffers"].items() if n.endswith(("running_mean", "running_var")))
+    ranks_same = all(torch.equal(v, r1["state"][n]) for n, v in r0["state"].items())
+    launches = r0["gt_rays_launches"] + r1["gt_rays_launches"]
+    log("ddp", f"(b) 2 gloo ranks sharing cuda:0 (launch and {DDP_STEPS} steps {launch_s:.2f}s: "
+        f"until both ranks run {start_s:.2f}s, a rank's steps {r0['s']:.2f}s, from the last "
+        f"rank's return to the launcher's {end_s:.2f}s) vs one process ({one['s']:.2f}s for "
+        f"{DDP_STEPS} steps), "
+        f"the seg160 model in float64 at 160 batch {DDP_B}: loss {r0['metrics'][0]['loss']:.12f} "
+        f"vs {want['loss']:.12f}, items and loss max rel {loss_rel:.2e} (limit {DDP_LOSS_RTOL}); "
+        f"gradients max {grad_gap:.2e} of their tensor's largest at {worst} (limit "
+        f"{DDP_GRAD_TOL}); BatchNorm statistics max abs {stats_gap:.2e} (limit "
+        f"{DDP_STATS_ATOL}); ranks report the same losses {same_report}; ranks' states "
+        f"bit-identical after {DDP_STEPS} steps {ranks_same}; gt_rays_rows launches in the "
+        f"ranks {r0['gt_rays_launches']} + {r1['gt_rays_launches']} | {card}")
+    if (loss_rel > DDP_LOSS_RTOL or grad_gap > DDP_GRAD_TOL or stats_gap > DDP_STATS_ATOL
+            or not same_report or not ranks_same or not r0["gt_rays_launches"]
+            or not r1["gt_rays_launches"]):
+        raise AssertionError(f"ddp (b): loss {loss_rel}, grads {grad_gap} ({worst}), stats "
+                             f"{stats_gap}, same report {same_report}, same states {ranks_same}, "
+                             f"launches {r0['gt_rays_launches']}, {r1['gt_rays_launches']}")
+    return launches
+
+
+def ddp_phase(card: str) -> dict:
+    """The data-parallel trainer and step on the card: ``ddp_one_card`` and
+    ``ddp_two_ranks``, (b)'s ranks launched first, so that they start up
+    (spawn, imports, CUDA, the group: 18 s of the card's 40) while (a)
+    runs. Returns the launch counts of (a)'s grouped run with (b)'s GT-ray
+    launches added."""
+    job = ddp_job()
+    with ThreadPoolExecutor(1) as ex:
+        launched = ex.submit(ddp_launch, job)
+        counts = ddp_one_card(card)
+        counts["gt_rays_rows"] += ddp_two_ranks(card, job, launched.result())
+    return counts
+
+
+def serve_mesh_phase(card: str) -> dict:
+    """``InferenceServer(mesh=create_mesh(["cuda:0", "cuda:0"]))``: the fused
+    seg160 weights replicated twice on the card, the 16 floor val frames in
+    one batch of bucket 16 (two shards of 8, one a replica), against
+    ``predict`` at batch 8 on the same weights: 0 px, 0 score difference,
+    masks equal. Returns the launch counts of the served path (zeroed before
+    ``infer``, read once the served masks are read)."""
+    images, _ = floor_val_set()
+    handle = YOLO(CKPT, device="cuda")
+    mesh = parallel.create_mesh(["cuda:0", "cuda:0"])
+    with InferenceServer(handle, imgsz=160, max_batch=16, buckets=[16], max_delay_ms=2000.0,
+                         mesh=mesh) as srv:
+        srv.warmup()
+        zero_launch_counts()
+        got = srv.infer(images, timeout=300.0)
+        for r in got:
+            r.masks  # noqa: B018 -- fills lazy masks, as a client reading them does
+        counts = launch_counts()
+        stats = srv.stats()
+    want = handle.predict(images, imgsz=160, batch=8)
+    err = served_vs_direct(got, want, "serve_mesh")
+    log("serve_mesh", f"2 replicas on cuda:0 (buckets {srv.buckets}), {len(images)} frames at 160 "
+        f"in batches {stats['batch_hist']}: {err['dets']} detections served = direct predict at "
+        f"batch 8 (max {err['px']:.2e} px, scores {err['score']:.2e}, {err['mask_px']} differing "
+        f"mask pixels; required 0), warm-up {srv.warmup_ms[16]:.1f} ms; launches of the served "
+        f"path {counts} | {card}")
+    if err["px"] or err["score"] or err["mask_px"] or stats["batch_hist"] != {16: 1}:
+        raise AssertionError(f"serve_mesh: {err}, batches {stats['batch_hist']}")
+    if counts["fill_polygons_cv2"] == 0:
+        raise AssertionError(f"serve_mesh: the served masks launched no cv2 fill: {counts}")
+    return counts
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An HWC uint8 BGR image as an 8-bit RGB PNG (filter 0 on every row,
+    ``zlib`` level 6): the smoke writes its datasets with this; the port
+    has no image encoder."""
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(img[..., ::-1]).reshape(h, w * 3)], 1)
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        crc = zlib.crc32(tag + body) & 0xFFFFFFFF
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", crc)
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def datasets_phase(card: str) -> dict:
+    """Datasets on disk: the seg160 floor val set written as PNG files with
+    its label files and a yaml, ``YOLO(seg160).val(data=yaml)`` against
+    ``val`` of the same images in memory; the classify floor val set as
+    PNG files in class folders, ``YOLO(floor_classify).val(data=root)``
+    against the in-memory ``val``: the metrics equal exactly. Returns the
+    launch counts of the seg yaml validation."""
+    images, labels = floor_val_set()
+    with np.load(FLOOR_VAL) as z:
+        texts = [str(t) for t in z["labels"]]
+    cls_images, cls_labels = floor_cls_set(FLOOR_CLS_VAL)
+    with tempfile.TemporaryDirectory() as d:
+        root = Path(d) / "seg160"
+        for sub in ("images/val", "labels/val"):
+            (root / sub).mkdir(parents=True)
+        t = time.perf_counter()
+        for i, (img, text) in enumerate(zip(images, texts)):
+            (root / "images" / "val" / f"{i:04d}.png").write_bytes(png_bytes(img))
+            (root / "labels" / "val" / f"{i:04d}.txt").write_text(text)
+        yaml = root / "data.yaml"
+        yaml.write_text(f"path: {root}\ntrain: images/val\nval: images/val\n"
+                        f"names:\n  0: circle\n  1: rect\n")
+        cls_root = Path(d) / "classify"
+        cls_names = load_checkpoint(CLS_CKPT)["names"]
+        if sorted(cls_names.values()) != [cls_names[i] for i in sorted(cls_names)]:
+            raise AssertionError(f"datasets: class folders would not sort as {cls_names}")
+        for i, (img, c) in enumerate(zip(cls_images, cls_labels)):
+            folder = cls_root / cls_names[int(c)]
+            folder.mkdir(parents=True, exist_ok=True)
+            (folder / f"{i:04d}.png").write_bytes(png_bytes(img))
+        write_s = time.perf_counter() - t
+        decoded = all(np.array_equal(imread(p), img) for p, img in zip(
+            sorted((root / "images" / "val").iterdir()), images))
+        seg = YOLO(CKPT, device="cuda")
+        mem = seg.val(images, labels, imgsz=160, batch=4)
+        zero_launch_counts()
+        t = time.perf_counter()
+        disk = seg.val(data=str(yaml), imgsz=160, batch=4)
+        disk_s = time.perf_counter() - t
+        counts = launch_counts()
+        cls = YOLO(CLS_CKPT, device="cuda")
+        cls_mem = cls.val(cls_images, cls_labels, imgsz=64)
+        cls_disk = cls.val(data=str(cls_root), imgsz=64)
+    seg_same, cls_same = disk == mem, cls_disk == cls_mem
+    log("datasets", f"{len(images)} seg160 and {len(cls_images)} classify val frames written as "
+        f"PNG with their label files ({write_s:.2f}s), decoded back byte-equal {decoded}; "
+        f"YOLO(seg160).val(data=yaml) {disk_s:.2f}s: mask mAP50-95 "
+        f"{disk['metrics/mAP50-95(M)']:.4f}, box {disk['metrics/mAP50-95(B)']:.4f}, equal to the "
+        f"in-memory val {seg_same}; classify val(data=folder) top-1 "
+        f"{cls_disk['metrics/accuracy_top1']:.5f}, equal {cls_same}; launches {counts} | {card}")
+    if not (decoded and seg_same and cls_same):
+        raise AssertionError(f"datasets: decoded {decoded}; seg {disk} vs {mem}; classify "
+                             f"{cls_disk} vs {cls_mem}")
+    if counts["fill_polygons"] == 0:
+        raise AssertionError(f"datasets: the yaml validation launched no fill: {counts}")
+    return counts
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -4233,7 +4581,7 @@ def main() -> int:
     phase_start["segori_validate"] = time.perf_counter()
     _, segori_val_counts, _, _ = validate_full_width(segori, card, phase="segori_validate")
     phase_start["segori_train"] = time.perf_counter()
-    train_card_vs_cpu(ckpt, card, imgsz=TRAIN_IMGSZ, phase="segori_train", b=SEGORI_F64_B,
+    train_card_vs_cpu(ckpt, card, imgsz=F64_STEP_IMGSZ, phase="segori_train", b=SEGORI_F64_B,
                       model=segori.model, dtype=torch.float64)
     _, segori_step_counts, _, _ = train_full_width(ckpt, card, phase="segori_train",
                                                    model=segori.model)
@@ -4291,7 +4639,17 @@ def main() -> int:
     phase_start["serve"] = time.perf_counter()
     serve_counts, serve_parts = serve_phase(card)
 
-    # 38. report: launches summed over the main paths' runs
+    # 38-40. data parallelism: the trainer in a one-rank NCCL group and two
+    # gloo ranks sharing the card; serving over a two-replica mesh; datasets
+    # on disk (PNG files, a yaml) validated against the same data in memory
+    phase_start["ddp"] = time.perf_counter()
+    ddp_counts = ddp_phase(card)
+    phase_start["serve_mesh"] = time.perf_counter()
+    serve_mesh_counts = serve_mesh_phase(card)
+    phase_start["datasets"] = time.perf_counter()
+    datasets_counts = datasets_phase(card)
+
+    # 41. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,
@@ -4299,7 +4657,8 @@ def main() -> int:
     launches = {k: predict_counts[k] + validate_counts[k] + train_counts[k] + trainer_counts[k]
                 + fuse_counts[k] + sum(c[k] for c in segori_counts.values())
                 + classify_counts[k] + sum(c[k] for c in rtdetr_counts.values())
-                + host_counts[k] + fastsam_counts[k] + serve_counts[k] for k in KERNEL_WRAPPERS}
+                + host_counts[k] + fastsam_counts[k] + serve_counts[k] + ddp_counts[k]
+                + serve_mesh_counts[k] + datasets_counts[k] for k in KERNEL_WRAPPERS}
     serve_other = sum(c["fill_polygons_cv2"] for k, c in serve_parts.items()
                       if k not in ("segment", "streams"))
     at_480 = fill_rows["fill_polygons_480x640"]
@@ -4314,17 +4673,21 @@ def main() -> int:
          "bound_ms_480x640": at_480["bound_ms"], **at_segori,
          "launches_segment_ori": {k: c["fill_polygons"] for k, c in segori_counts.items()},
          "launches_host_pipeline": host_counts["fill_polygons"],
-         "launches_fastsam": fastsam_counts["fill_polygons"]},
+         "launches_fastsam": fastsam_counts["fill_polygons"],
+         "launches_ddp": ddp_counts["fill_polygons"],
+         "launches_datasets": datasets_counts["fill_polygons"]},
         {"name": "fill_polygons_cv2", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
                      "no TPU kernel)",
          "launches": launches["fill_polygons_cv2"], **fill_rows["fill_polygons_cv2"],
          "library_ms": None, "launches_fastsam": fastsam_counts["fill_polygons_cv2"],
-         "launches_serve": serve_counts["fill_polygons_cv2"]},
+         "launches_serve": serve_counts["fill_polygons_cv2"],
+         "launches_serve_mesh": serve_mesh_counts["fill_polygons_cv2"]},
         {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
          "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_NPAD]),
          "library_ms": None, "launches_host_pipeline": host_counts["gt_rays_rows"],
+         "launches_ddp": ddp_counts["gt_rays_rows"],
          **{f"{k}_R512_K48": v for k, v in report_row(rows_checks[TRAINER_NPAD]).items()
             if k in ("ms", "plain_ms", "bound_ms")}},
         {"name": "gt_rays_pairs", "route": "cuda", "source": src + "gt_rays.cu",
@@ -4344,7 +4707,10 @@ def main() -> int:
         f"own), serve {serve_counts} (the cv2 fill of served and streamed results' masks, each "
         f"path counted alone: served seg160 {serve_parts['segment']['fill_polygons_cv2']}, "
         f"batched streams {serve_parts['streams']['fill_polygons_cv2']}, the other tasks' "
-        f"served paths {serve_other}); "
+        f"served paths {serve_other}), ddp {ddp_counts} (the seg trainer in a one-rank NCCL "
+        f"group; the GT rays of the two gloo ranks' float64 steps), serve_mesh "
+        f"{serve_mesh_counts} (the masks served by two replicas), datasets {datasets_counts} "
+        f"(the seg160 yaml's validation); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
         "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "

@@ -19,7 +19,7 @@ setup(
     include_package_data=True,
     package_data={
         "yolo_contour_regression_tpu": ["cfg/*.yaml", "cfg/**/*.yaml"],
-        "yolo_contour_regression_tpu_torch": ["csrc/*.cu"],
+        "yolo_contour_regression_tpu_torch": ["csrc/*.cu", "cfg/datasets/*.yaml"],
     },
     python_requires=">=3.10",
     install_requires=[

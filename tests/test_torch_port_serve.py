@@ -3,7 +3,8 @@ equal JAX's, its results the port's predictor's on the same weights (every
 task, and NAS and FastSAM handles) and JAX's ``InferenceServer``'s on the
 same checkpoints (segment, detect, pose, classify), and it keeps JAX's
 contract (coalescing, bucket padding, close, drain and restart, a bad
-request or a failed batch kept to itself, stats); ``mesh=`` raises; the
+request or a failed batch kept to itself, stats); ``mesh=`` takes only a
+``parallel.Mesh`` without a model axis; the
 HTTP front end and ``YOLO.serve`` answer as JAX's do. IMGSZ 64."""
 import json
 import threading
@@ -274,8 +275,16 @@ def test_warmup_runs_each_bucket_at_the_input_dtype():
 
 
 def test_mesh_raises(seg):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """``mesh=`` takes a ``parallel.Mesh`` (multi-device serving,
+    ``tests/test_torch_port_serve_mesh.py``): another object raises, and so
+    does a mesh with a model axis (tensor parallelism is not ported)."""
+    from yolo_contour_regression_tpu_torch.parallel import create_mesh
+
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         InferenceServer(seg, imgsz=IMGSZ, mesh=object())
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        InferenceServer(seg, imgsz=IMGSZ, mesh=create_mesh(["cpu", "cpu"],
+                                                           axes={"batch": 1, "model": 2}))
 
 
 def test_device_default_is_cuda():

@@ -9,8 +9,13 @@ to the keys' types as the JAX version does, and returns a
 """
 from __future__ import annotations
 
+from pathlib import Path
 from types import SimpleNamespace
 from typing import Any, Dict, Optional, Union
+
+# the port's copies of the JAX package's dataset yamls (``check_det_dataset``
+# looks a yaml up here by name)
+DATASETS_DIR = Path(__file__).resolve().parent / "datasets"
 
 DEFAULT_CFG: Dict[str, Any] = {
     "task": "detect",

@@ -64,15 +64,27 @@ class TrainLoader:
     are rendered by ``workers`` forked processes, so the host chain's numpy
     work neither waits for one thread nor holds the interpreter lock the
     train step's launches need (the processes fork from this one, hold
-    the dataset as it is then, and touch no CUDA)."""
+    the dataset as it is then, and touch no CUDA).
+
+    ``rank`` and ``world`` (data parallelism, ``parallel/mesh.py``):
+    ``batch_size`` is the global batch; every rank walks the same order from
+    the same seed and yields rows ``[rank * b, (rank + 1) * b)`` of each
+    global batch (``b = batch_size // world``), rendering only those. A
+    dataset that draws as it is read has its draws made for the whole global
+    batch on every rank (``plan`` for all of it, else every sample read), so
+    a sample's draws do not depend on ``world``."""
 
     def __init__(self, dataset, batch_size: int, workers: int = 4, seed: int = 0,
-                 in_order: bool = False):
+                 in_order: bool = False, rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.batch_size = max(int(batch_size), 1)
         self.workers = max(int(workers), 1)
         self.rng = random.Random(seed)
         self.in_order = bool(in_order)
+        if self.batch_size % int(world):
+            raise ValueError(f"batch {self.batch_size} does not split over {world} ranks")
+        b = self.batch_size // int(world)
+        self.rows = slice(int(rank) * b, (int(rank) + 1) * b)
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -118,9 +130,9 @@ class TrainLoader:
                     if self.in_order:
                         try:
                             if plan is not None:
-                                jobs = [plan(j) for j in chunk]
+                                jobs = [plan(j) for j in chunk][self.rows]
                             else:
-                                samples = [self.dataset[j] for j in chunk]
+                                samples = [self.dataset[j] for j in chunk][self.rows]
                         except Exception as e:  # handed to the consumer, raised there
                             qput((seq, e))
                             return
@@ -129,7 +141,7 @@ class TrainLoader:
                         samples = [r.get() for r in [pool.apply_async(_render, (j,))
                                                      for j in jobs]]
                     elif samples is None:
-                        samples = [self.dataset[j] for j in chunk]
+                        samples = [self.dataset[j] for j in chunk[self.rows]]
                     item = collate(samples)
                 except Exception as e:  # handed to the consumer, raised there
                     qput((seq, e))

@@ -4,9 +4,16 @@ with the augmentation on the device or on the host) and
 ``ClassificationDataset`` in the JAX package's ``data/dataset.py``), in pure
 Python and numpy.
 
-The port decodes no image files: ``ValDataset`` and ``TrainDataset`` take
-decoded HWC uint8 BGR arrays, each with a YOLO label file or its parsed
-arrays; ``ClassificationDataset`` takes decoded arrays and class indices.
+``ValDataset`` and ``TrainDataset`` take decoded HWC uint8 BGR arrays, each
+with a YOLO label file or its parsed arrays, or a split on disk as JAX's
+``YOLODataset`` takes it (an image directory, a ``.txt`` list, a file, or a
+list of those: ``data/utils.py:scan_images``) with the label files beside
+them (``img2label_path``). ``ClassificationDataset`` takes decoded arrays
+and class indices, or a root of class folders. Files are decoded by
+``data/imcodec.py`` (JPEG and PNG, byte-equal to ``cv2.imread``; other
+formats raise) when a sample is first read. There is no label cache (JAX
+keeps one in an ``.npz`` beside the images): the label files are parsed
+when the dataset is made.
 """
 from __future__ import annotations
 
@@ -20,11 +27,13 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from ..ops.polar import NUM_CONTOUR_POINTS
+from .imcodec import imread
 from .augment import (Sample, _resize_linear_u8, classify_transform_eval,
                       classify_transform_train, format_sample, format_sample_raw, letterbox_sample,
                       train_transform)
 from .imgproc import resize_area
 from .instance import Instances, resample_segment, segments2boxes
+from .utils import IMG_FORMATS, scan_images
 
 Labels = Tuple[np.ndarray, np.ndarray, np.ndarray]  # cls, xywh boxes, segments
 
@@ -89,6 +98,15 @@ def parse_label_lines(lines: Iterable[str], nc: Optional[int] = None, kpt_shape=
     return out + ((np.stack(kpts),) if kpt_shape else ())
 
 
+def _is_path_source(x) -> bool:
+    """A split on disk (a path, or a non-empty list of paths), not a list
+    of decoded arrays."""
+    if isinstance(x, (str, Path)):
+        return True
+    return (isinstance(x, (list, tuple)) and len(x) > 0
+            and all(isinstance(e, (str, Path)) for e in x))
+
+
 def parse_label_file(path: str, nc: Optional[int] = None, kpt_shape=None):
     """``parse_label_lines`` of a YOLO txt file; a missing file has no
     labels."""
@@ -99,10 +117,13 @@ def parse_label_file(path: str, nc: Optional[int] = None, kpt_shape=None):
 
 
 class ValDataset:
-    """Val samples over decoded images.
+    """Val samples over decoded images or image files.
 
-    ``images``: HWC uint8 BGR arrays. ``labels``: one per image, a path to a
-    YOLO label file or the ``(cls, bboxes, segments)`` arrays
+    ``images``: HWC uint8 BGR arrays, or a split on disk (see the module
+    docstring; then ``labels`` defaults to the label files beside the
+    images, and each image is decoded when first read; with ``cache`` its
+    resized copy is kept, as JAX's ``cache='ram'``). ``labels``: one per
+    image, a path to a YOLO label file or the ``(cls, bboxes, segments)`` arrays
     ``parse_label_file`` gives (normalized to the image); with ``kpt_shape``
     (K, D) a pose set, whose labels add keypoints (``(cls, bboxes, segments,
     keypoints (n, K, 3))``, as ``parse_label_file(..., kpt_shape=...)``
@@ -116,20 +137,37 @@ class ValDataset:
 
     augment = False  # the JAX dataset's train mode (``TrainDataset``)
 
-    def __init__(self, images: Sequence[np.ndarray], labels: Sequence[Union[str, Path, Labels]],
+    def __init__(self, images, labels: Optional[Sequence[Union[str, Path, Labels]]] = None,
                  imgsz: int = 640, max_instances: int = 48, kpt_shape=None,
-                 single_cls: bool = False):
+                 single_cls: bool = False, cache: bool = True):
+        self.files: Optional[list] = None
+        if _is_path_source(images):
+            self.files = scan_images(images)
+            if labels is None:
+                labels = [img2label_path(f) for f in self.files]
+            images = [None] * len(self.files)
+        elif labels is None:
+            raise ValueError("decoded images need their labels")
         if len(images) != len(labels):
             raise ValueError(f"{len(images)} images but {len(labels)} labels")
         self.single_cls = bool(single_cls)
-        for i, img in enumerate(images):
-            if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3):
-                raise TypeError(f"image {i}: expected an HWC uint8 numpy array")
+        if self.files is None:
+            for i, img in enumerate(images):
+                if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3):
+                    raise TypeError(f"image {i}: expected an HWC uint8 numpy array")
         self.images = list(images)
+        self.cache = bool(cache)
+        self._hw = [None] * len(self.images)  # the files' decoded sizes
         self.kpt_shape = tuple(int(v) for v in kpt_shape) if kpt_shape else None
         self.labels = [self._labels(lab) for lab in labels]
         self.imgsz = int(imgsz)
         self.max_instances = int(max_instances)
+
+    def _keep_first(self, n: int):
+        """Keep the first ``n`` samples."""
+        self.images, self.labels, self._hw = self.images[:n], self.labels[:n], self._hw[:n]
+        if self.files is not None:
+            self.files = self.files[:n]
 
     def _labels(self, lab) -> Dict[str, np.ndarray]:
         if isinstance(lab, (str, Path)):
@@ -154,18 +192,33 @@ class ValDataset:
         caches it, exactly: by cv2's INTER_LINEAR
         (``data/augment.py:_resize_linear_u8``) when enlarging and in train
         mode, by cv2's INTER_AREA (``data/imgproc.py:resize_area``) when
-        shrinking for validation."""
+        shrinking for validation. A file is decoded here (its resized copy
+        kept with ``cache``)."""
         img = self.images[i]
+        if img is not None and self.files is not None:
+            return img  # the cached resized copy
+        if img is None:
+            img = imread(self.files[i])
+            self._hw[i] = img.shape[:2]
         nh, nw = self.resized_hw(i)
         if (nh, nw) == img.shape[:2]:
-            return img
-        if nh < img.shape[0] and not self.augment:
-            return resize_area(img, nh, nw)
-        return _resize_linear_u8(img, nh, nw)
+            out = img
+        elif nh < img.shape[0] and not self.augment:
+            out = resize_area(img, nh, nw)
+        else:
+            out = _resize_linear_u8(img, nh, nw)
+        if self.files is not None and self.cache:
+            self.images[i] = out
+        return out
 
     def resized_hw(self, i: int) -> Tuple[int, int]:
         """The size of ``resized(i)``."""
-        h, w = self.images[i].shape[:2]
+        if self.files is None:
+            h, w = self.images[i].shape[:2]
+        else:
+            if self._hw[i] is None:
+                self.resized(i)
+            h, w = self._hw[i]
         r = self.imgsz / max(h, w)
         if r == 1.0:
             return h, w
@@ -217,19 +270,19 @@ class TrainDataset(ValDataset):
     any order, at once, in other processes.
 
     ``fraction`` below 1 keeps the first ``max(1, round(n * fraction))``
-    samples, as JAX's train set keeps its first image files."""
+    samples, as JAX's train set keeps its first image files. ``images`` and
+    ``cache`` as ``ValDataset`` takes them."""
 
     augment = True
 
-    def __init__(self, images: Sequence[np.ndarray], labels: Sequence[Union[str, Path, Labels]],
+    def __init__(self, images, labels: Optional[Sequence[Union[str, Path, Labels]]] = None,
                  imgsz: int = 640, max_instances: int = 48, kpt_shape=None, hyp=None,
                  device_augment: bool = True, seed: int = 0, flip_idx=None, noise=None,
-                 single_cls: bool = False, fraction: float = 1.0):
+                 single_cls: bool = False, fraction: float = 1.0, cache: bool = True):
         super().__init__(images, labels, imgsz=imgsz, max_instances=max_instances,
-                         kpt_shape=kpt_shape, single_cls=single_cls)
+                         kpt_shape=kpt_shape, single_cls=single_cls, cache=cache)
         if fraction < 1.0:
-            keep = max(1, round(len(self.images) * fraction))
-            self.images, self.labels = self.images[:keep], self.labels[:keep]
+            self._keep_first(max(1, round(len(self.images) * fraction)))
         self.device_augment = bool(device_augment)
         if not self.device_augment and hyp is None:
             raise ValueError("the host train chain (device_augment=False) needs hyp")
@@ -296,10 +349,11 @@ class _Betas:
 
 
 class ClassificationDataset:
-    """Classify samples over decoded images (the JAX ``ClassificationDataset``
-    without its image folder): ``images`` HWC uint8 BGR, ``labels`` their
-    class indices (JAX numbers the sorted class folders; a set made from
-    one keeps that order). A sample is ``{"img": (imgsz, imgsz, 3) float32,
+    """Classify samples over decoded images or a folder (the JAX
+    ``ClassificationDataset``): ``images`` HWC uint8 BGR with ``labels``
+    their class indices, or a root of class folders (``labels`` None: the
+    sorted folders numbered, as JAX; every image file below each, sorted,
+    decoded each time it is read, as JAX reads it). A sample is ``{"img": (imgsz, imgsz, 3) float32,
     "cls": int32}`` by the fork's grayscale transforms
     (``data/augment.py``): ``classify_transform_train`` with ``augment``,
     its brightness draws from ``random.Random(seed)`` in the order samples
@@ -307,13 +361,25 @@ class ClassificationDataset:
     seed)`` (JAX draws it from numpy's global state), else
     ``classify_transform_eval``."""
 
-    def __init__(self, images: Sequence[np.ndarray], labels: Sequence[int], imgsz: int = 224,
+    def __init__(self, images, labels: Optional[Sequence[int]] = None, imgsz: int = 224,
                  augment: bool = False, seed: int = 0):
+        self.classes: Optional[list] = None
+        if isinstance(images, (str, Path)):
+            root = Path(images)
+            self.classes = sorted(d.name for d in root.iterdir() if d.is_dir())
+            samples = [(str(f), ci) for ci, c in enumerate(self.classes)
+                       for f in sorted((root / c).rglob("*")) if f.suffix.lower() in IMG_FORMATS]
+            if not samples:
+                raise FileNotFoundError(f"no classification images under {root}")
+            images, labels = [f for f, _ in samples], [c for _, c in samples]
+        elif labels is None:
+            raise ValueError("decoded images need their class indices")
         if len(images) != len(labels):
             raise ValueError(f"{len(images)} images but {len(labels)} labels")
-        for i, img in enumerate(images):
-            if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3):
-                raise TypeError(f"image {i}: expected an HWC uint8 numpy array")
+        if self.classes is None:
+            for i, img in enumerate(images):
+                if not (isinstance(img, np.ndarray) and img.dtype == np.uint8 and img.ndim == 3):
+                    raise TypeError(f"image {i}: expected an HWC uint8 numpy array")
         self.images = list(images)
         self.labels = np.asarray(labels, np.int32).reshape(-1)
         self.imgsz = int(imgsz)
@@ -326,6 +392,8 @@ class ClassificationDataset:
 
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         img = self.images[i]
+        if self.classes is not None:
+            img = imread(img)
         if self.augment:
             x = classify_transform_train(img, self.imgsz, self.rng, self.noise)
         else:

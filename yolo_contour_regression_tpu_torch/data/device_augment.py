@@ -15,6 +15,11 @@ It is split in two:
   ``augment_batch`` split their key into these very draws).
 - ``apply_augment(batch, draws, hyp, imgsz, n_out)`` is deterministic.
 
+In data parallelism each rank augments its own rows (``engine/step.py``
+draws from a generator keyed by the seed, the step and the rank), so the
+mosaic and MixUp partners are rank-local, as JAX draws within each shard
+(``fold_in(key, axis_index("batch"))``).
+
 Mosaic and the warp are one gather, as in JAX's ``_warp_image``: each
 output pixel is mapped back through the inverse affine onto the virtual
 2S x 2S canvas, whose quadrant picks the tile and its offset (the

@@ -7,6 +7,8 @@ and rtdetr tasks (counterpart of the JAX package's ``engine/model.py``)::
     model = YOLO("runs/floor_seg160/best.ckpt", device="cuda")
     results = model.predict([img_bgr_u8, ...], imgsz=160)
     metrics = model.val([img_bgr_u8, ...], ["a.txt", ...], imgsz=160, batch=4)
+    metrics = model.val(data="coco8-seg.yaml")          # a dataset yaml's val split
+    YOLO("yolov8n-seg.yaml").train(data="data.yaml", device=["cuda:0", "cuda:1"])  # 2 ranks
     model = YOLO("runs/floor_detect/best.ckpt").fuse()  # detect, deploy form
     results = YOLO("runs/floor_pose/best.ckpt").predict(images)  # results[0].keypoints
     YOLO("yolov8n-segori.yaml").train(data=...)          # proto masks: results[0].masks
@@ -42,6 +44,7 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from ..data.utils import check_cls_dataset, check_det_dataset
 from ..models.rtdetr.predict import RTDETRPredictor
 from ..models.rtdetr.val import RTDETRValidator
 from ..nn.fuse import fuse_model
@@ -83,7 +86,8 @@ class YOLO:
     if given, must be the model's (``RTDETR`` passes "rtdetr")."""
 
     def __init__(self, model: Union[str, Path], device="cuda", task: Optional[str] = None):
-        self.device = torch.device(device)
+        self._device_arg = device  # the trainer's: "cuda" is every visible card
+        self.device = torch.device(device[0] if isinstance(device, (list, tuple)) else device)
         self.ckpt_path: Optional[Path] = None
         if str(model).endswith((".yaml", ".yml")):
             self._new(str(model))
@@ -131,20 +135,22 @@ class YOLO:
                                f"load a checkpoint")
         return self.model
 
-    def train(self, data: Dict, mark: Optional[Callable[[str], None]] = None, **overrides
-              ) -> Dict[str, float]:
-        """Train a fresh model of this facade's config on ``data`` (see
-        ``engine/trainer.py``) on the facade's device, with the
+    def train(self, data, mark: Optional[Callable[[str], None]] = None, device=None,
+              **overrides) -> Dict[str, float]:
+        """Train a fresh model of this facade's config on ``data`` (a dataset
+        yaml's path, or the splits: see ``engine/trainer.py``) on ``device``
+        (default: the facade's; a list of devices, or ``"cuda"`` for every
+        visible card, trains data-parallel), with the
         ``cfg/__init__.py:DEFAULT_CFG`` settings and ``overrides``; then
-        adopt ``best.ckpt`` (or ``last.ckpt``). Returns the final validation
-        of ``best.ckpt``. The trainer stays at ``self.trainer``; ``mark`` is
-        its stage hook."""
+        adopt ``best.ckpt`` (or ``last.ckpt``) on the facade's device.
+        Returns the final validation of ``best.ckpt``. The trainer stays at
+        ``self.trainer``; ``mark`` is its stage hook."""
         if self.ckpt_path is not None:
             raise NotImplementedError("training starts from a model config (YOLO('yolov8n-seg"
                                       ".yaml')); from a checkpoint's weights it is not ported")
         trainer = TASK_MAP[self.task]["trainer"]
         self.trainer = trainer(overrides={**self.overrides, **overrides, "mode": "train"},
-                               device=self.device, mark=mark)
+                               device=self._device_arg if device is None else device, mark=mark)
         metrics = self.trainer.train(data)
         best, last = self.trainer.wdir / "best.ckpt", self.trainer.wdir / "last.ckpt"
         src = best if best.exists() else last
@@ -205,18 +211,29 @@ class YOLO:
             httpd.engine.close()
         return None
 
-    def val(self, images, labels, imgsz=None, batch: int = 16, conf: float = 0.001,
+    def val(self, images=None, labels=None, imgsz=None, batch: int = 16, conf: float = 0.001,
             iou: float = 0.7, max_det: int = 300, pre_nms: int = 1024, mask_ratio: int = 1,
-            single_cls: Optional[bool] = None):
+            single_cls: Optional[bool] = None, data=None):
         """Box (and for the segment tasks mask, for pose keypoint) mAP on
         decoded images (HWC uint8 BGR numpy) with their labels (YOLO
         label-file paths, or the arrays ``data/dataset.py:parse_label_file``
         gives: ``(cls, bboxes, segments)``, for pose with the model's
         ``kpt_shape`` also ``keypoints``; for classify the class indices,
         and top-1 and top-5 accuracy), on the model's device -> the JAX
-        ``results_dict`` keys. ``single_cls`` (default: the checkpoint's
-        train setting, as JAX's facade keeps it) reads every label as class
-        0. The validator, with its ``speed``, stays at ``self.validator``."""
+        ``results_dict`` keys. Or, without ``images``, on the ``val`` split
+        of ``data`` (a dataset yaml, ``data/utils.py:check_det_dataset``;
+        for classify a root of class folders), default the checkpoint's
+        training ``data``; ``images`` may also be a split on disk (a
+        directory, a ``.txt`` list), its label files beside it.
+        ``single_cls`` (default: the checkpoint's train setting, as JAX's
+        facade keeps it) reads every label as class 0. The validator, with
+        its ``speed``, stays at ``self.validator``."""
+        if images is None:
+            data = data or self.overrides.get("data")
+            if not data:
+                raise ValueError("val needs images and labels, or data (a dataset yaml)")
+            check = check_cls_dataset if self.task == "classify" else check_det_dataset
+            images, labels = check(data)["val"], None
         kw = dict(imgsz=imgsz or self.imgsz, batch=batch)
         if self.task != "classify":
             if single_cls is None:

@@ -40,12 +40,25 @@ Unlike the JAX step, which returns a new state, ``step(state, images,
 batch)`` updates the model, optimizer and EMA in place and returns the
 metrics.
 
+Data parallelism: in a process group of W > 1 ranks (``parallel/mesh.py``)
+each rank steps on its rows of the global batch (of every micro-batch with
+``accumulate > 1``). The BatchNorm statistics and the loss normalizers are
+the global batch's (``nn/modules/conv.py``, ``utils/loss.py``), so each
+rank's loss is its share of the one-device loss; after the last backward
+the gradients are summed over the ranks in one flat buffer, before the
+clip, so every rank applies the same update; the loss items returned are
+the global ones. The augmentation draws of rank r come from
+``default_rng([aug_seed, step, (micro,) r])`` (partners within the rank's
+rows, as JAX's per-shard augmentation); RT-DETR's CDN draws are made for
+the global batch and each rank takes its rows. At W = 1 nothing of this
+runs.
+
 Stages: given ``mark``, the step calls ``mark(stage)`` as each stage starts,
 in order "augment" (with ``augment_fn``), "forward", "assigner" (split
 around the GT-ray kernel's wrapper into "assigner", "gt_rays",
-"assigner"), "loss", "backward", "clip_optimizer_ema", and ``mark("end")``
-last, so that a caller can time each stage of this very step (a CUDA event
-per mark).
+"assigner"), "loss", "backward", "all_reduce" (W > 1 only),
+"clip_optimizer_ema", and ``mark("end")`` last, so that a caller can time
+each stage of this very step (a CUDA event per mark).
 """
 from __future__ import annotations
 
@@ -58,6 +71,7 @@ from torch import nn
 
 from ..models.utils.loss import rtdetr_loss
 from ..models.utils.ops import cdn_generator, get_cdn_group
+from ..parallel.mesh import all_reduce_grads, all_sum, rank, world_size
 from ..utils import optim as optim_mod
 from ..utils.loss import (classification_loss, detect_loss, detect_targets, polar_loss,
                           polar_targets, pose_loss, segmentation_ori_loss)
@@ -95,7 +109,9 @@ def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool =
     """(images (B, H, W, 3), batch, step=0) -> (total, items) for the
     model's task; the model runs as it is (train mode updates its BatchNorm
     statistics), under bfloat16 autocast with ``amp``. ``step`` seeds
-    RT-DETR's CDN draws (``dn_fn``: see the module docstring). A fused
+    RT-DETR's CDN draws (``dn_fn``: see the module docstring). The assigner
+    and loss math run in float32, or in ``hyp.loss_dtype`` where it is set
+    (float64 for a float64 network's checks: ``utils/loss.py``). A fused
     (deploy) model does not train."""
     task = getattr(model, "task", "segment")
     if task not in TASKS:
@@ -103,12 +119,14 @@ def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool =
     if getattr(model, "fused", False):
         raise ValueError("a fused (deploy) model is inference-only")
     mark = mark or _no_mark
+    dt = getattr(hyp, "loss_dtype", None) or torch.float32
 
     def loss_fn(images, batch, step: int = 0):
         mark("forward")
         if task == "rtdetr":
             dn = (dn_fn(batch, step) if dn_fn is not None
-                  else get_cdn_group(batch, model.nc, cdn_generator(step)))
+                  else get_cdn_group(batch, model.nc, cdn_generator(step),
+                                     shard=(rank(), world_size())))
             with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=amp):
                 outs = model(images.permute(0, 3, 1, 2).contiguous(), dn=dn)
             if amp:  # the criterion in float32 on the bfloat16 outputs
@@ -118,21 +136,21 @@ def make_loss_fn(model: nn.Module, hyp, cand=128, mark: Mark = None, amp: bool =
             feats = model(images.permute(0, 3, 1, 2).contiguous())
         mark("assigner")
         if task == "detect":
-            targets = detect_targets(feats, batch, model.strides, model.nc, model.reg_max)
+            targets = detect_targets(feats, batch, model.strides, model.nc, model.reg_max, dt)
             mark("loss")
             res = detect_loss(targets, hyp)
         elif task == "pose":
             res = pose_loss(feats, batch, model.strides, model.nc, hyp, model.kpt_shape,
-                            model.reg_max, mark=mark)
+                            model.reg_max, mark=mark, dtype=dt)
         elif task == "segment_ori":
             res = segmentation_ori_loss(feats, batch, model.strides, model.nc, hyp, nm=model.nm,
-                                        reg_max=model.reg_max, mark=mark)
+                                        reg_max=model.reg_max, mark=mark, dtype=dt)
         elif task == "classify":
             mark("loss")
             res = classification_loss(feats, batch)
         else:
             targets = polar_targets(feats, batch, model.strides, model.nc, hyp, cand=cand,
-                                    mark=mark)
+                                    mark=mark, dtype=dt)
             mark("loss")
             res = polar_loss(targets, hyp)
         return res.total, res.items
@@ -152,7 +170,9 @@ def make_train_step(model: nn.Module, optimizer: optim_mod.Optimizer, hyp, cand=
     def micro_loss(state, images, batch, *micro):
         if augment_fn is not None:
             mark("augment")
-            rng = np.random.default_rng([int(aug_seed), state.step, *micro])
+            # a rank's draws are its own (JAX folds the shard index into its key)
+            ranked = (rank(),) if world_size() > 1 else ()
+            rng = np.random.default_rng([int(aug_seed), state.step, *micro, *ranked])
             images, batch = augment_fn(rng, images, batch)
         total, items = loss_fn(images, batch, state.step)
         mark("backward")
@@ -171,6 +191,10 @@ def make_train_step(model: nn.Module, optimizer: optim_mod.Optimizer, hyp, cand=
             items = {k: torch.stack([it[k] for _, it in outs]).mean() for k in outs[0][1]}
         else:
             total, items = micro_loss(state, images, batch)
+        if world_size() > 1:  # the global batch's gradient and losses
+            mark("all_reduce")
+            all_reduce_grads(state.optimizer.params)
+            total, items = all_sum(total), {k: all_sum(v) for k, v in items.items()}
         mark("clip_optimizer_ema")
         state.optimizer.step(state.step)
         optim_mod.ema_update(state.ema, state.model, state.step + 1)

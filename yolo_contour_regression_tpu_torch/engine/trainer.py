@@ -43,14 +43,37 @@ The train data takes one of two paths, by JAX's rule
   ``random.Random(seed)``, noise from ``numpy.random.default_rng(seed)``),
   float images.
 
-``data`` holds decoded images: ``{"train": (images, labels), "val":
-(images, labels), "names": {0: "...", ...}}``, images HWC uint8 BGR, labels
-as ``data/dataset.py:ValDataset`` takes them (the port decodes no image
-files; for classify the labels are class indices). A pose set adds
-``"kpt_shape": [K, D]``, which overrides the model
-config's (as the JAX trainer takes the data yaml's), and optionally
-``"flip_idx"``, the keypoint permutation of a horizontal flip, which goes to
-the augmentation as ``args.flip_idx``.
+``data`` is a dataset yaml's path (``data/utils.py:check_det_dataset``;
+for classify a root of ``train/`` and ``val/`` class folders,
+``check_cls_dataset``): the splits are read from disk, the images decoded
+by ``data/imcodec.py``, their resized copies kept with ``cache``. Or it
+holds the splits: ``{"train": (images, labels), "val": (images, labels),
+"names": {0: "...", ...}}``, images HWC uint8 BGR, labels as
+``data/dataset.py:ValDataset`` takes them (for classify the labels are
+class indices); a split may also be a path on disk (``"train":
+"images/train"``). A pose set adds ``"kpt_shape": [K, D]``, which overrides
+the model config's (as the JAX trainer takes the data yaml's), and
+optionally ``"flip_idx"``, the keypoint permutation of a horizontal flip,
+which goes to the augmentation as ``args.flip_idx``.
+
+Devices and data parallelism (JAX's trainer trains on every visible chip):
+``device`` is one device, a list of devices, or ``"cuda"`` for every visible
+card; the trainer uses the largest count of them that divides ``batch``
+(``parallel/mesh.py:build_train_mesh``). On one device nothing below
+changes and no process group is made. On W > 1 devices ``train`` spawns W
+ranks (``parallel.launch``: NCCL on distinct cards, gloo on the CPU), each a
+trainer of this class on its device; under ``torchrun`` (a group in the
+environment, ``initialize_distributed``) this process is one rank. Each rank
+renders its rows of every global batch (``TrainLoader(rank, world)``), the
+padded instance axis widened to the global batch's, and steps on them
+(``engine/step.py``: the BatchNorm statistics, loss normalizers, gradient
+and loss items are the global batch's). Rank 0 alone validates the EMA,
+writes ``results.csv`` and the checkpoints; the fitness goes from it to
+every rank, so early stopping stops all at one epoch, and the others wait
+at a barrier while it saves. The caller gets rank 0's metrics and epoch
+times; ``mark`` and ``dn_fn`` stay in the calling process (they do not
+cross to spawned ranks). ``tp > 1`` raises: tensor parallelism is not
+ported.
 
 Detect batches carry the label files' segments as the JAX dataset does (its
 ``use_segments`` is stored and never read): a polygon label's instance is
@@ -84,8 +107,11 @@ from ..data.augment import INSTANCE_KEYS
 from ..data.build import TrainLoader, use_device_augment
 from ..data.dataset import ClassificationDataset, TrainDataset
 from ..data.device_augment import make_augment_fn
+from ..data.utils import check_cls_dataset, check_det_dataset
 from ..models.rtdetr.val import RTDETRValidator
 from ..nn.tasks import TaskModel, build_model, guess_model_task, init_weights, yaml_model_load
+from ..parallel.mesh import (TP_NOT_PORTED, all_max, barrier, broadcast_float, build_train_mesh,
+                             initialize_distributed, launch, rank, resolve_devices, world_size)
 from ..utils.checkpoint import (checkpoint_variables, load_checkpoint, load_jax_variables, plain,
                                 save_checkpoint, strip_optimizer, to_jax_variables)
 from ..utils.optim import build_optimizer
@@ -122,20 +148,45 @@ def schedule(n_images: int, batch: int, nbs: int, epochs: int):
     return accumulate, steps_per_epoch, steps_per_epoch * epochs
 
 
+def pad_instances(batch: Dict[str, np.ndarray], n: int, axis: int = 1) -> Dict[str, np.ndarray]:
+    """The padded instance axis (``axis``) of a batch's instance keys
+    widened to ``n`` with zeros (invalid instances)."""
+    for k in (k for k in INSTANCE_KEYS if k in batch):
+        pad = n - batch[k].shape[axis]
+        if pad > 0:
+            widths = [(0, 0)] * batch[k].ndim
+            widths[axis] = (0, pad)
+            batch[k] = np.pad(batch[k], widths)
+    return batch
+
+
 def stack_raw_batches(data_iter, n: int):
     """``n`` loader batches stacked into (n, B, ...) arrays, for gradient
     accumulation; the instance axis of each padded to the group's largest
     (the collate buckets differ between batches; classify batches have
     none)."""
     micro = [next(data_iter) for _ in range(n)]
-    n_max = max(m["mask_gt"].shape[1] for m in micro) if "mask_gt" in micro[0] else 0
-    for m in micro:
-        pad = n_max - m["mask_gt"].shape[1] if n_max else 0
-        if pad:
-            for k in (k for k in INSTANCE_KEYS if k in m):
-                m[k] = np.pad(m[k], [(0, 0), (0, pad)] + [(0, 0)] * (m[k].ndim - 2))
+    if "mask_gt" in micro[0]:
+        n_max = max(m["mask_gt"].shape[1] for m in micro)
+        micro = [pad_instances(m, n_max) for m in micro]
     images = np.stack([m.pop("img") for m in micro])
     return images, {k: np.stack([m[k] for m in micro]) for k in micro[0]}
+
+
+def _split(data: Dict, name: str) -> tuple:
+    """A split of ``data`` as the datasets take it: ``(images, labels)``,
+    or a path on disk with its label files beside it."""
+    v = data[name]
+    return (v, None) if isinstance(v, (str, Path)) else tuple(v)
+
+
+def _train_rank(r: int, device, cls, overrides: Dict, data) -> Dict:
+    """One rank of a data-parallel run (``parallel.launch``'s target): a
+    trainer of ``cls`` on ``device``, inside the group."""
+    trainer = cls(overrides=overrides, device=device)
+    metrics = trainer.train(data)
+    return {"metrics": metrics, "epoch_times": trainer.epoch_times,
+            "best_fitness": trainer.best_fitness}
 
 
 def _no_mark(stage: str):
@@ -159,14 +210,18 @@ class BaseTrainer:
         task = overrides.pop("task", None) or guess_model_task(cfg)
         if task != self.task:
             raise NotImplementedError(f"task {task!r} is not this trainer's ({self.task!r})")
+        self._overrides = overrides  # a spawned rank's trainer takes them
         self.args = get_cfg(None, overrides)
         self.args.task = self.task
+        if int(self.args.tp or 1) > 1:
+            raise NotImplementedError(f"tp={self.args.tp}: {TP_NOT_PORTED}")
         if self.args.resume:
             raise NotImplementedError("resume is not ported: the port's optimizer state has no "
                                       "form in the checkpoint")
         # the device augmentation, else the host chain
         self.device_augment = use_device_augment(self.args)
-        self.device = torch.device(device)
+        self._device_arg = device
+        self.device = torch.device(device[0] if isinstance(device, (list, tuple)) else device)
         self.mark = mark or _no_mark
         self.dn_fn = dn_fn
         name = self.args.name or f"{self.task}_train"
@@ -192,8 +247,38 @@ class BaseTrainer:
         model.names = dict(names)
         return init_weights(model, torch.Generator().manual_seed(int(self.args.seed)))
 
-    def train(self, data: Dict) -> Dict[str, float]:
+    def get_data(self, data) -> Dict:
+        """``data`` resolved: a yaml path by ``check_det_dataset``, a dict
+        as it is."""
+        return check_det_dataset(data) if isinstance(data, (str, Path)) else data
+
+    def train(self, data) -> Dict[str, float]:
+        """Train on ``data`` (see the module docstring) on this trainer's
+        devices; returns the final validation of ``best.ckpt`` (rank 0's)."""
+        if isinstance(data, (str, Path)):
+            self.args.data = str(data)
+        if initialize_distributed():  # one rank of a group (launched, or torchrun)
+            return self._train(data)
+        devices = resolve_devices(self._device_arg)
+        mesh = build_train_mesh(devices, self.args.batch, self.args.tp)
+        if mesh.size < len(devices):
+            LOGGER.warning(f"batch {self.args.batch} uses {mesh.size} of {len(devices)} devices")
+        if mesh.size == 1:  # self.device: the first of the devices
+            return self._train(data)
+        # the ranks write to this trainer's save_dir
+        overrides = {**self._overrides, "project": str(self.save_dir.parent),
+                     "name": self.save_dir.name, "exist_ok": True}
+        out = launch(_train_rank, mesh.devices, args=(type(self), overrides, data))[0]
+        self.metrics, self.epoch_times = out["metrics"], out["epoch_times"]
+        self.best_fitness = out["best_fitness"]
+        return self.metrics
+
+    def _train(self, data) -> Dict[str, float]:
         args = self.args
+        data = self.get_data(data)
+        r, world = rank(), world_size()
+        if args.batch % world:
+            raise ValueError(f"batch {args.batch} does not split over {world} ranks")
         names = dict(data["names"])
         args.nc = len(names)
         self.model = model = self.build_model(args.nc, names, data)
@@ -202,7 +287,7 @@ class BaseTrainer:
             args.flip_idx = tuple(int(v) for v in data["flip_idx"])
         train_set = self.get_dataset(data)
         loader = TrainLoader(train_set, args.batch, args.workers, seed=args.seed,
-                             in_order=not self.device_augment)
+                             in_order=not self.device_augment, rank=r, world=world)
         accumulate, steps_per_epoch, iterations = schedule(
             len(train_set), args.batch, args.nbs, args.epochs)
         args.accumulate = accumulate
@@ -216,7 +301,8 @@ class BaseTrainer:
                                    aug_seed=args.seed, amp=bool(args.amp), dn_fn=self.dn_fn)
 
         step_fn = build_step(args)
-        self.validator = validator = self.get_validator() if args.val else None
+        # rank 0 validates
+        self.validator = validator = self.get_validator() if args.val and r == 0 else None
         # the EMA is validated on this copy, in eval mode
         self.eval_model = copy.deepcopy(model).eval() if validator is not None else None
         stopper = EarlyStopping(args.patience)
@@ -247,6 +333,10 @@ class BaseTrainer:
                     else:
                         batch = next(data_iter)
                         images = batch.pop("img")
+                    if world > 1 and "mask_gt" in batch:  # the global batch's instance pad
+                        axis = batch["mask_gt"].ndim - 1
+                        pad_instances(batch, all_max(batch["mask_gt"].shape[axis], self.device),
+                                      axis)
                     wait += time.perf_counter() - t
                     self.mark("copy")
                     images = torch.from_numpy(images).to(self.device)
@@ -268,7 +358,7 @@ class BaseTrainer:
                 self.epoch_times.append(times)
                 if stopper(epoch, fitness):
                     LOGGER.info(f"early stopping at epoch {epoch + 1} (patience {args.patience})")
-                    if args.save and self._last_saved_epoch != epoch:
+                    if args.save and self._last_saved_epoch != epoch and r == 0:
                         self._save(state, epoch, fitness)
                     break
         finally:
@@ -276,13 +366,13 @@ class BaseTrainer:
 
         LOGGER.info(f"training done in {time.perf_counter() - t_train:.1f} s")
         best, last = self.wdir / "best.ckpt", self.wdir / "last.ckpt"
-        if args.save and best.exists():
+        if args.save and best.exists() and r == 0:
             strip_optimizer(best)
             strip_optimizer(last)
             if validator is not None:
                 # the returned metrics describe the stripped best.ckpt
                 load_jax_variables(self.eval_model, *checkpoint_variables(load_checkpoint(best)))
-                self.metrics = validator(self.eval_model, *data["val"], names=names)
+                self.metrics = validator(self.eval_model, *_split(data, "val"), names=names)
         self.state = state
         return self.metrics
 
@@ -292,8 +382,8 @@ class BaseTrainer:
         by ``args.seed``; ``args.single_cls`` and ``args.fraction`` taken as
         JAX's ``build_yolo_dataset`` takes them."""
         args = self.args
-        return TrainDataset(*data["train"], imgsz=args.imgsz,
-                            max_instances=int(args.max_instances),
+        return TrainDataset(*_split(data, "train"), imgsz=args.imgsz,
+                            max_instances=int(args.max_instances), cache=bool(args.cache),
                             kpt_shape=getattr(self.model, "kpt_shape", None), hyp=args,
                             device_augment=self.device_augment, seed=int(args.seed),
                             flip_idx=getattr(args, "flip_idx", None),
@@ -311,7 +401,7 @@ class BaseTrainer:
 
     def _epoch_tail(self, state, epoch: int, log: Dict[str, float], data, times) -> float:
         """EMA validation -> fitness -> csv row -> checkpoint; returns this
-        epoch's fitness."""
+        epoch's fitness (rank 0's, on every rank)."""
         args = self.args
         fitness = 0.0
         t = time.perf_counter()
@@ -322,21 +412,25 @@ class BaseTrainer:
                 for (_, b), (_, src) in zip(self.eval_model.named_buffers(),
                                             state.model.named_buffers()):
                     b.copy_(src)
-            vm = self.validator(self.eval_model, *data["val"], names=self.model.names)
+            vm = self.validator(self.eval_model, *_split(data, "val"), names=self.model.names)
             log.update(vm)
             fitness = vm.get("fitness", 0.0)
             self.metrics = vm
         times["val_s"] = time.perf_counter() - t
+        fitness = broadcast_float(fitness, 0, self.device)
         if fitness >= self.best_fitness:
             self.best_fitness = fitness
-        self._write_csv(epoch, log)
+        main = rank() == 0
+        if main:
+            self._write_csv(epoch, log)
         t = time.perf_counter()
-        if args.save:
+        if args.save and main:
             every = max(1, int(args.save_last_every or 1))
             improved = fitness >= self.best_fitness and fitness > 0
             periodic = args.save_period > 0 and (epoch + 1) % args.save_period == 0
             if improved or periodic or (epoch + 1) % every == 0 or epoch + 1 == args.epochs:
                 self._save(state, epoch, fitness)
+        barrier()  # the other ranks wait while rank 0 saves
         times["save_s"] = time.perf_counter() - t
         return fitness
 
@@ -401,10 +495,15 @@ class ClassificationTrainer(BaseTrainer):
     task = "classify"
     default_model = "yolov8n-cls.yaml"
 
+    def get_data(self, data) -> Dict:
+        """``data`` resolved: a root of class folders by
+        ``check_cls_dataset``, a dict as it is."""
+        return check_cls_dataset(data) if isinstance(data, (str, Path)) else data
+
     def get_dataset(self, data: Dict):
         """The train set: ``ClassificationDataset`` with the train
         transforms, its draws seeded by ``args.seed``."""
-        return ClassificationDataset(*data["train"], imgsz=self.args.imgsz, augment=True,
+        return ClassificationDataset(*_split(data, "train"), imgsz=self.args.imgsz, augment=True,
                                      seed=int(self.args.seed))
 
     def get_validator(self):

@@ -30,7 +30,7 @@ probabilities on the device, ``ClassifyMetrics`` on the host.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -127,14 +127,15 @@ class DetectionValidator:
         tp = match_predictions(pred_cls, tcls, out["ious_box"][bi][gt_keep][:, keep])
         metrics.box.update(tp, conf, pred_cls, tcls)
 
-    def loader(self, images: Sequence[np.ndarray], labels) -> ValLoader:
+    def loader(self, images, labels) -> ValLoader:
         return ValLoader(ValDataset(images, labels, self.imgsz, self.max_instances,
                                     single_cls=self.single_cls), self.batch)
 
-    def __call__(self, model, images: Sequence[np.ndarray], labels, names=None
+    def __call__(self, model, images, labels=None, names=None
                  ) -> Dict[str, float]:
-        """Validate ``model`` on ``images`` (HWC uint8 BGR) and ``labels``
-        (see ``data/dataset.py:ValDataset``) -> the JAX ``results_dict``:
+        """Validate ``model`` on ``images`` (HWC uint8 BGR, or a split on
+        disk) and ``labels`` (see ``data/dataset.py:ValDataset``) -> the JAX
+        ``results_dict``:
         precision, recall, mAP50 and mAP50-95 of boxes (B) (and for the
         segment task of masks (M)), and fitness."""
         device = next(model.parameters()).device
@@ -282,12 +283,12 @@ class PoseValidator(DetectionValidator):
         oks = kpt_iou(gk, out["kpts"][bi][keep], area, self.sigma)
         metrics.pose.update(match_predictions(pred_cls, tcls, oks), conf, pred_cls, tcls)
 
-    def loader(self, images: Sequence[np.ndarray], labels) -> ValLoader:
+    def loader(self, images, labels) -> ValLoader:
         return ValLoader(ValDataset(images, labels, self.imgsz, self.max_instances,
                                     kpt_shape=self.kpt_shape, single_cls=self.single_cls),
                          self.batch)
 
-    def __call__(self, model, images: Sequence[np.ndarray], labels, names=None
+    def __call__(self, model, images, labels=None, names=None
                  ) -> Dict[str, float]:
         """As ``DetectionValidator.__call__``, with the pose metrics (P)
         beside the box ones (B)."""
@@ -366,7 +367,7 @@ class ClassificationValidator:
         self.mark("end")
         return preds
 
-    def __call__(self, model, images: Sequence[np.ndarray], labels, names=None
+    def __call__(self, model, images, labels=None, names=None
                  ) -> Dict[str, float]:
         """Validate ``model`` -> the JAX ``results_dict``: top-1, top-5 and
         fitness (their mean)."""

@@ -13,7 +13,9 @@ changes nothing, so the port solves every image of every layer of a step as
 one batch and asks the host whether all are done only every
 ``CHECK_EVERY`` rounds: the answer is JAX's, bit for bit on the same cost.
 ``hungarian_assign.rounds``, ``.syncs`` and ``.solves`` count the rounds
-run, the host syncs and the solves (the caller zeroes them).
+run, the host syncs and the solves (the caller zeroes them). In a process
+group (``parallel/mesh.py``) the GT counts that normalize the losses are
+summed over the ranks.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.boxes import bbox_iou, xywh2xyxy
+from ...parallel.mesh import all_sum
 
 _NEG = -1e9
 MAX_ROUNDS = 600
@@ -142,7 +145,7 @@ def detr_layer_loss(pred_boxes, pred_logits, gt_boxes, gt_labels, mask_gt, assig
     assignment. Padded GTs scatter to the out-of-range query Q and are
     dropped (clipped to 0 they would overwrite query 0's target)."""
     B, Q, _ = pred_logits.shape
-    n_gt = mask_gt.sum().to(pred_logits.dtype).clamp_min(1.0)
+    n_gt = all_sum(mask_gt.sum()).to(pred_logits.dtype).clamp_min(1.0)
     assign_safe = assign.clamp(0, Q - 1)
     drop_idx = torch.where(mask_gt, assign_safe, torch.full_like(assign_safe, Q))
     tgt_cls = torch.full((B, Q + 1), nc, dtype=torch.long, device=pred_logits.device)
@@ -168,7 +171,7 @@ def detr_dn_layer_loss(pb, pl, gt_boxes, gt_labels, mask_gt, nc: int, alpha: flo
     (group g, positive slot, GT n) is GT n's, the negative slot is
     background. pb (B, G, 2, N, 4), pl (B, G, 2, N, nc)."""
     B, G, _, N, _ = pb.shape
-    n_gt = (mask_gt.sum() * G).to(pl.dtype).clamp_min(1.0)
+    n_gt = (all_sum(mask_gt.sum()) * G).to(pl.dtype).clamp_min(1.0)
     gt_b = gt_boxes[:, None].expand(B, G, N, 4)
     gt_c = gt_labels.long()[:, None].expand(B, G, N)
     m = mask_gt[:, None].expand(B, G, N)

@@ -17,7 +17,7 @@ dict from any draws, so a test can hand it JAX's.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,12 +86,18 @@ def cdn_group_from_draws(batch: Dict[str, torch.Tensor], draws: Dict[str, torch.
 
 
 def get_cdn_group(batch: Dict[str, torch.Tensor], nc: int, generator: torch.Generator,
-                  num_dn: int = 100, cls_noise_ratio: float = 0.5, box_noise_scale: float = 1.0
-                  ) -> Optional[Dict[str, torch.Tensor]]:
+                  num_dn: int = 100, cls_noise_ratio: float = 0.5, box_noise_scale: float = 1.0,
+                  shard: Tuple[int, int] = (0, 1)) -> Optional[Dict[str, torch.Tensor]]:
     """The dn dict of a batch with draws from ``generator``; None when
-    ``num_dn <= 0``."""
+    ``num_dn <= 0``. ``shard`` (rank, world): the batch is that rank's rows
+    of a global batch of ``world`` times as many; the draws are made for the
+    global batch and the rank takes its rows, as JAX draws them on the
+    global array."""
     if num_dn <= 0:
         return None
     B, N = batch["cls"].shape
-    draws = cdn_draws(B, num_groups(N, num_dn), N, nc, generator)
+    r, world = shard
+    draws = cdn_draws(B * world, num_groups(N, num_dn), N, nc, generator)
+    if world > 1:
+        draws = {k: v[r * B:(r + 1) * B] for k, v in draws.items()}
     return cdn_group_from_draws(batch, draws, cls_noise_ratio, box_noise_scale)

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import all_sum_grad, world_size
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
 
@@ -56,17 +58,44 @@ class BatchNorm2d(nn.BatchNorm2d):
     normalizes with the biased batch variance, as torch does, and updates
     ``ra = (1 - momentum) * ra + momentum * batch`` with the **biased**
     variance too (torch's own update takes the unbiased one). Eval mode is
-    torch's."""
+    torch's.
+
+    In a process group of more than one rank (``parallel/mesh.py``) the
+    batch is the global one, as flax's BatchNorm sees it under GSPMD: the
+    per-channel sum, sum of squares and count, one tensor in float32 (or
+    the input's wider dtype), are summed over the ranks by a differentiable
+    all-reduce, and the mean and biased variance come from them."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if world_size() > 1:
+            return self._global_forward(x)
         with torch.no_grad():
-            # in float32 under bfloat16 autocast too, as flax reduces
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            # in float32 under bfloat16 autocast too, as flax reduces (a
+            # float64 network's in float64)
+            xs = x if x.dtype == torch.float64 else x.float()
+            var, mean = torch.var_mean(xs, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_forward(self, x):
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = xf.numel() // c
+        stats = all_sum_grad(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                                        xf.new_full((1,), float(n))]))
+        mean = stats[:c] / stats[2 * c]
+        var = stats[c:2 * c] / stats[2 * c] - mean * mean
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean.to(self.running_mean.dtype),
+                                                             alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var.to(self.running_var.dtype),
+                                                            alpha=self.momentum)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def batch_norm(c: int) -> BatchNorm2d:

@@ -24,10 +24,21 @@
   postprocessed fails its own future; a batch whose evaluation fails fails
   its batch (``stats()["last_error"]``) and the server keeps serving.
 
+- **Several devices** (``mesh=``, ``parallel/mesh.py:create_mesh``; JAX's
+  data-parallel serving): the fused weights are replicated, one copy per
+  device of the mesh (two entries may name one card: two replicas on it);
+  the buckets are rounded up to multiples of the mesh size, with
+  ``max_batch`` at least that size, as JAX rounds them; each formed batch is
+  split into equal shards of consecutive rows and shard i is evaluated on
+  device i, each by a thread of its own that enters its device, so all
+  shards are launched before any is read back. Each shard's copy to the host
+  has its own ``torch.cuda.Event``, which the completion thread waits on;
+  results come back in request order. Without a mesh the dispatcher
+  evaluates the one shard itself.
+
 The device side is each task's predictor (``engine/model.py:TASK_MAP``):
 segment, detect, pose, segment_ori, classify and rtdetr, and NAS and FastSAM
-through their handles. Multi-device serving (JAX's ``mesh=``) comes with the
-multi-GPU slice.
+through their handles.
 """
 from __future__ import annotations
 
@@ -37,7 +48,7 @@ import queue
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -155,22 +166,33 @@ class InferenceServer:
                  conf: Optional[float] = None, iou: Optional[float] = None, fuse: bool = True,
                  queue_size: int = 1024, mesh=None, device="cuda"):
         from ..engine.model import TASK_MAP, YOLO
+        from ..parallel.mesh import Mesh, replicate
 
-        if mesh is not None:
-            raise NotImplementedError("mesh=: multi-device serving comes with the multi-GPU "
-                                      "slice of the port")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (create_mesh), not {type(mesh)}")
         self.handle = weights if isinstance(weights, YOLO) else YOLO(weights, device=device)
         self.model = self.handle._weights()
         if fuse:
             self.handle.fuse()  # a no-op on a fused model
-        self.device = next(self.model.parameters()).device
+        if mesh is None:
+            self.replicas = [self.model]
+            self.devices = [next(self.model.parameters()).device]
+        else:  # one copy of the weights a device of the mesh
+            self.replicas = replicate(self.model, mesh.devices)
+            self.devices = list(mesh.devices)
+        self.device = self.devices[0]
+        n_dev = len(self.replicas)
         self.names = self.handle.names
         self.imgsz = int(imgsz)
-        self.max_batch = int(max_batch)
+        self.max_batch = max(int(max_batch), n_dev)
         self.max_delay = float(max_delay_ms) / 1e3
         raw = set(int(b) for b in (buckets or _default_buckets(self.max_batch)))
-        raw.add(self.max_batch)  # the capacity bucket
+        raw.add(self.max_batch)  # the capacity bucket, rounded with the rest
+        if n_dev > 1:  # every device gets the same shard shape
+            raw = {max(n_dev, (b + n_dev - 1) // n_dev * n_dev) for b in raw}
         self.buckets = sorted(raw)
+        self._shard_pool = ThreadPoolExecutor(n_dev, thread_name_prefix="serve-shard") \
+            if n_dev > 1 else None
         kw = {} if conf is None else {"conf": conf}
         if iou is not None:
             kw["iou"] = iou
@@ -193,11 +215,37 @@ class InferenceServer:
         self._thread.start()
         return self
 
-    def _on_device(self):
-        """The model's device as this thread's current CUDA device."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
+    def _on_device(self, device=None):
+        """``device`` (default: the first replica's) as this thread's
+        current CUDA device."""
+        device = self.device if device is None else device
+        if device.type == "cuda":
+            return torch.cuda.device(device)
         return contextlib.nullcontext()
+
+    def _eval_shard(self, i: int, x: np.ndarray):
+        """Replica i on rows ``x``: its outputs' copy to the host started,
+        and the event recorded after it (None on the CPU)."""
+        with self._on_device(self.devices[i]):
+            out = self._predictor.eval_batch(self.replicas[i],
+                                             torch.from_numpy(x).to(self.devices[i]))
+            host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+            event = None
+            if self.devices[i].type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+        return host, event
+
+    def _eval(self, stacked: np.ndarray):
+        """The padded batch in equal shards, shard i on replica i (all
+        launched before any is read) -> [(host outputs, event)] a shard."""
+        n_dev = len(self.replicas)
+        if n_dev == 1:
+            return [self._eval_shard(0, stacked)]
+        rows = stacked.shape[0] // n_dev
+        futs = [self._shard_pool.submit(self._eval_shard, i, stacked[i * rows:(i + 1) * rows])
+                for i in range(n_dev)]
+        return [f.result() for f in futs]
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> "InferenceServer":
         """Run every bucket once at the requests' input dtype (uint8, or
@@ -208,9 +256,9 @@ class InferenceServer:
         with self._on_device():
             for b in buckets or self.buckets:
                 t0 = time.perf_counter()
-                x = torch.from_numpy(np.zeros((b,) + x0.shape, x0.dtype)).to(self.device)
-                out = self._predictor.eval_batch(self.model, x)
-                next(iter(out.values())).cpu()
+                for _, event in self._eval(np.zeros((b,) + x0.shape, x0.dtype)):
+                    if event is not None:
+                        event.synchronize()
                 self.warmup_ms[b] = (time.perf_counter() - t0) * 1e3
                 LOGGER.info(f"serve: warmed bucket {b} in {self.warmup_ms[b]:.1f} ms")
         return self
@@ -340,13 +388,8 @@ class InferenceServer:
             bucket = next(b for b in self.buckets if b >= n)
             stacked = np.zeros((bucket,) + xs[0].shape, xs[0].dtype)
             stacked[:n] = np.stack(xs)
-            out = self._predictor.eval_batch(self.model, torch.from_numpy(stacked).to(self.device))
-            # start the copy to the host; the completion thread waits on the event
-            host = {k: v[:n].to("cpu", non_blocking=True) for k, v in out.items()}
-            event = None
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
+            # the copies to the host started; the completion thread waits on the events
+            shards = self._eval(stacked)
         except Exception as e:  # fail this batch, keep serving
             for req in ok:
                 if not req.future.done():
@@ -355,7 +398,7 @@ class InferenceServer:
             LOGGER.error(f"serve: batch failed: {self._last_error}")
             return None
         self._stats.record_dispatch(t0, time.perf_counter())
-        return host, event, ok, gains, pads, bucket
+        return shards, ok, gains, pads, bucket
 
     def _completion_loop(self, done_q: queue.Queue):
         """Wait for each batch's outputs on the host, then postprocess each
@@ -367,18 +410,22 @@ class InferenceServer:
                     return
                 self._complete(*item)
 
-    def _complete(self, host, event, batch, gains, pads, bucket):
+    def _complete(self, shards, batch, gains, pads, bucket):
         t0 = time.perf_counter()
         try:
-            if event is not None:
-                event.synchronize()
-            out = {k: v.numpy() for k, v in host.items()}
+            outs = []
+            for host, event in shards:
+                if event is not None:
+                    event.synchronize()
+                outs.append({k: v.numpy() for k, v in host.items()})
+            rows = bucket // len(shards)
             lats = []
             for bi, req in enumerate(batch):
+                s = bi // rows  # the shard, and the row in it, of request bi
                 try:
-                    res = self._predictor.postprocess(out, bi, req.image, f"request-{bi}",
-                                                      gains[bi], pads[bi], self.names,
-                                                      self.device)
+                    res = self._predictor.postprocess(outs[s], bi - s * rows, req.image,
+                                                      f"request-{bi}", gains[bi], pads[bi],
+                                                      self.names, self.devices[s])
                     req.future.set_result(res)
                     # a request's latency ends when its own result is set: it
                     # includes its postprocess and its wait behind the batch's earlier ones

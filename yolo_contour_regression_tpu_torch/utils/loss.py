@@ -9,9 +9,20 @@ that assignment, the mask BCE of the top foreground anchors against the GT
 masks filled at proto size; and the classify cross-entropy.
 
 GT batches arrive dense: (B, N_max) padded instances with a validity mask.
+In a process group (``parallel/mesh.py``) each rank's loss is its share of
+the global batch's: the normalizers (the target-score sum, the keypoint
+and mask counts) are summed over the ranks before their clamp, and the
+``* B`` factors take the global batch, so the ranks' losses sum to the
+one-device loss of the concatenated batch.
 Contour GT is scaled per point (x * w, y * h), the JAX package's deliberate
 fix of the reference, which scaled the flattened halves and was right only
 for square images.
+
+The assigner and loss math run in float32 on the head maps cast to it, as
+JAX's (under bfloat16 and in a float64 network too). ``dtype`` (the step's
+``hyp.loss_dtype``) may widen it to float64, so a float64 network's loss
+holds to float64 rounding (the GT rays stay float32, the kernel's
+contract).
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from ..ops import polar as polar_ops
 from ..ops.boxes import bbox2dist, bbox_iou, dist2bbox, xywh2xyxy
 from ..ops.nms import _top
 from ..ops.raster import fill_polygons
+from ..parallel.mesh import all_sum, global_batch
 from .tal import AssignResult, polar_task_aligned_assign, resolve_cand, task_aligned_assign
 
 
@@ -48,12 +60,14 @@ def polar_targets(
     hyp,
     cand=128,
     mark=None,
+    dtype=torch.float32,
 ) -> PolarTargets:
     """The first half of ``segmentation_loss``: the head maps flattened to
-    (B, A, .) in f32, the GT in pixels, and the polar assignment. ``mark``
-    goes to the assigner (``engine/step.py`` says what it is)."""
+    (B, A, .) in f32 (``dtype``: see the module docstring), the GT in
+    pixels, and the polar assignment. ``mark`` goes to the assigner
+    (``engine/step.py`` says what it is)."""
     nm = polar_ops.NUM_RAYS
-    dt = torch.float32
+    dt = dtype
     dev = feats[0].device
 
     x = flatten_levels(feats).to(dt)  # (B, A, nm + nc)
@@ -86,7 +100,7 @@ def polar_loss(targets: PolarTargets, hyp) -> LossOut:
     """The second half of ``segmentation_loss``: BCE class loss and polar
     IoU ray loss against the assigned targets, scaled by the batch size."""
     pred_rays_px, pred_scores, assign = targets
-    target_scores_sum = assign.target_scores.sum().clamp_min(1.0)
+    target_scores_sum = all_sum(assign.target_scores.sum()).clamp_min(1.0)
     loss_cls = F.binary_cross_entropy_with_logits(
         pred_scores, assign.target_scores, reduction="none").sum() / target_scores_sum
 
@@ -94,7 +108,7 @@ def polar_loss(targets: PolarTargets, hyp) -> LossOut:
     loss_ray = polar_ops.mask_iou_loss(pred_rays_px, assign.target_rays, weight,
                                        target_scores_sum)
 
-    total = (loss_ray * hyp.box + loss_cls * hyp.cls) * pred_scores.shape[0]
+    total = (loss_ray * hyp.box + loss_cls * hyp.cls) * global_batch(pred_scores.shape[0])
     return LossOut(total, {"seg_loss": loss_ray * hyp.box, "cls_loss": loss_cls * hyp.cls})
 
 
@@ -120,11 +134,12 @@ def detect_targets(
     strides: Sequence[int],
     nc: int,
     reg_max: int = 16,
+    dtype=torch.float32,
 ) -> DetectTargets:
     """The first half of ``detection_loss``: the head maps flattened to
-    (B, A, .) in f32, the DFL expectation decoded to boxes, the GT in
-    pixels, and the stock assignment (alpha 0.5, beta 6, top 10)."""
-    dt = torch.float32
+    (B, A, .) in f32 (``dtype``), the DFL expectation decoded to boxes, the
+    GT in pixels, and the stock assignment (alpha 0.5, beta 6, top 10)."""
+    dt = dtype
     dev = feats[0].device
     x = flatten_levels(feats).to(dt)
     pred_dist, pred_scores = x[..., :4 * reg_max], x[..., 4 * reg_max:]
@@ -172,7 +187,7 @@ def detect_loss(targets: DetectTargets, hyp) -> LossOut:
     and DFL against the assigned targets, scaled by the batch size."""
     pred_dist, pred_scores, pred_bboxes, anchor_points, stride_t, assign = targets
     reg_max = pred_dist.shape[-1]
-    target_scores_sum = assign.target_scores.sum().clamp_min(1.0)
+    target_scores_sum = all_sum(assign.target_scores.sum()).clamp_min(1.0)
     loss_cls = F.binary_cross_entropy_with_logits(
         pred_scores, assign.target_scores, reduction="none").sum() / target_scores_sum
 
@@ -184,7 +199,8 @@ def detect_loss(targets: DetectTargets, hyp) -> LossOut:
     target_ltrb = bbox2dist(anchor_points[None], target_bboxes, reg_max - 1)
     loss_dfl = (_df_loss(pred_dist, target_ltrb) * weight).sum() / target_scores_sum
 
-    total = (loss_iou * hyp.box + loss_cls * hyp.cls + loss_dfl * hyp.dfl) * pred_scores.shape[0]
+    total = ((loss_iou * hyp.box + loss_cls * hyp.cls + loss_dfl * hyp.dfl)
+             * global_batch(pred_scores.shape[0]))
     return LossOut(total, {"box_loss": loss_iou * hyp.box, "cls_loss": loss_cls * hyp.cls,
                            "dfl_loss": loss_dfl * hyp.dfl})
 
@@ -206,7 +222,8 @@ OKS_SIGMA = torch.tensor([.26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62,
 
 
 def pose_loss(feats, batch, strides, nc: int, hyp, kpt_shape: Tuple[int, int] = (17, 3),
-              reg_max: int = 16, mark: Optional[Callable[[str], None]] = None) -> LossOut:
+              reg_max: int = 16, mark: Optional[Callable[[str], None]] = None,
+              dtype=torch.float32) -> LossOut:
     """The pose loss (JAX ``pose_loss``): the detect loss on the maps'
     detect channels (``detection_loss``'s two halves), and on its shared
     assignment the keypoint terms. ``batch`` adds ``keypoints`` (B, N, K, 3),
@@ -218,12 +235,12 @@ def pose_loss(feats, batch, strides, nc: int, hyp, kpt_shape: Tuple[int, int] = 
     ``(kpt * pose + kobj * kobj) * B``. Math in f32. ``mark("loss")`` is
     called between the assignment and the losses."""
     nk = kpt_shape[0] * kpt_shape[1]
-    targets = detect_targets([f[:, :-nk] for f in feats], batch, strides, nc, reg_max)
+    targets = detect_targets([f[:, :-nk] for f in feats], batch, strides, nc, reg_max, dtype)
     if mark is not None:
         mark("loss")
     det = detect_loss(targets, hyp)
     assign, anchor_points, stride_t = targets.assign, targets.anchor_points, targets.stride_t
-    dt = torch.float32
+    dt = dtype
     dev = feats[0].device
 
     kpt_raw = flatten_levels([f[:, -nk:] for f in feats]).to(dt)  # (B, A, nk)
@@ -245,15 +262,16 @@ def pose_loss(feats, batch, strides, nc: int, hyp, kpt_shape: Tuple[int, int] = 
     sigmas = (OKS_SIGMA.to(dev) if kpt_shape[0] == OKS_SIGMA.shape[0]
               else torch.full((kpt_shape[0],), 1.0 / kpt_shape[0], dtype=dt, device=dev))
     e = d2 / ((2 * sigmas) ** 2) / (area + 1e-9) / 2
-    loss_kpt = ((1 - torch.exp(-e)) * kpt_mask).sum() / kpt_mask.sum().clamp_min(1).to(dt)
+    loss_kpt = (((1 - torch.exp(-e)) * kpt_mask).sum()
+                / all_sum(kpt_mask.sum()).clamp_min(1).to(dt))
     fg = assign.fg_mask.to(dt)
     if kpt_shape[1] == 3:
         bce = F.binary_cross_entropy_with_logits(k[..., 2], kpt_mask.to(dt), reduction="none")
-        loss_kobj = (bce * fg[..., None]).sum() / (fg.sum() * kpt_shape[0]).clamp_min(1.0)
+        loss_kobj = (bce * fg[..., None]).sum() / (all_sum(fg.sum()) * kpt_shape[0]).clamp_min(1.0)
     else:
         loss_kobj = torch.zeros((), dtype=dt, device=dev)
 
-    total = det.total + (loss_kpt * hyp.pose + loss_kobj * hyp.kobj) * b
+    total = det.total + (loss_kpt * hyp.pose + loss_kobj * hyp.kobj) * global_batch(b)
     return LossOut(total, {**det.items, "pose_loss": loss_kpt * hyp.pose,
                            "kobj_loss": loss_kobj * hyp.kobj})
 
@@ -283,8 +301,8 @@ def in_box_grid(boxes: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
 
 
 def segmentation_ori_loss(outs, batch, strides, nc: int, hyp, nm: int = 32, reg_max: int = 16,
-                          max_fg: int = 64, mark: Optional[Callable[[str], None]] = None
-                          ) -> LossOut:
+                          max_fg: int = 64, mark: Optional[Callable[[str], None]] = None,
+                          dtype=torch.float32) -> LossOut:
     """The proto-mask segmentation loss (JAX ``segmentation_ori_loss``).
     ``outs`` = (levels, proto): per level (B, 4 * reg_max + nc + nm, H, W)
     and the prototypes (B, nm, hp, wp); ``batch`` as the polar loss takes it
@@ -301,10 +319,10 @@ def segmentation_ori_loss(outs, batch, strides, nc: int, hyp, nm: int = 32, reg_
     box * B``. Math in f32; ``mark("loss")`` is called between the
     assignment and the losses."""
     levels, proto = outs
-    dt = torch.float32
+    dt = dtype
     dev = levels[0].device
     targets = detect_targets([o[:, :o.shape[1] - nm] for o in levels], batch, strides, nc,
-                             reg_max)
+                             reg_max, dtype)
     if mark is not None:
         mark("loss")
     det = detect_loss(targets, hyp)
@@ -332,9 +350,9 @@ def segmentation_ori_loss(outs, batch, strides, nc: int, hyp, nm: int = 32, reg_
                                   device=dev)
     area = ((bx[..., 2] - bx[..., 0]) * (bx[..., 3] - bx[..., 1])).clamp_min(1.0)
     per_inst = (bce * in_box_grid(bx, hp, wp)).sum((-2, -1)) / area  # (B, K)
-    loss_mask = (per_inst * sel_fg).sum() / sel_fg.sum().to(dt).clamp_min(1.0)
+    loss_mask = (per_inst * sel_fg).sum() / all_sum(sel_fg.sum()).to(dt).clamp_min(1.0)
 
-    total = det.total + loss_mask * hyp.box * b
+    total = det.total + loss_mask * hyp.box * global_batch(b)
     return LossOut(total, {**det.items, "mask_loss": loss_mask * hyp.box})
 
 

@@ -129,12 +129,17 @@ class Optimizer:
     @torch.no_grad()
     def clip_grads(self, max_norm: float = CLIP_NORM):
         """optax ``clip_by_global_norm``: g / ||g|| * max_norm when
-        ||g|| >= max_norm, unchanged otherwise. Returns ||g||."""
+        ||g|| >= max_norm, unchanged otherwise. Returns ||g||. The
+        elementwise work is grouped into ``torch._foreach_*`` calls (the
+        same operation on each element as a call a tensor, so the same bits,
+        in fewer launches); the squared sums are added tensor by tensor, in
+        order."""
         grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        norm = torch.sqrt(sum(s.sum() for s in torch._foreach_mul(grads, grads)))
         keep = norm < max_norm  # stays on the device: no host sync
-        for g in grads:
-            g.copy_(torch.where(keep, g, g / norm * max_norm))
+        scaled = torch._foreach_mul(torch._foreach_div(grads, norm), max_norm)
+        for g, s in zip(grads, scaled):
+            torch.where(keep, g, s, out=g)
         return norm
 
     def step(self, k: int):
@@ -186,9 +191,11 @@ def ema_decay(step: int, decay: float = 0.9999, tau: float = 2000.0) -> float:
 @torch.no_grad()
 def ema_update(ema: Dict[str, torch.Tensor], model: nn.Module, step: int,
                decay: float = 0.9999, tau: float = 2000.0):
-    """ema = ema * d + params * (1 - d), in place, over the parameters."""
+    """ema = ema * d + params * (1 - d), in place, over the parameters (in
+    ``torch._foreach_*`` calls: the same bits as a call a tensor)."""
     d = ema_decay(step, decay, tau)
     rest = float(np.float32(1.0) - np.float32(d))
-    for name, p in model.named_parameters():
-        e = ema[name]
-        e.mul_(d).add_(p.detach().to(e.dtype) * rest)
+    es = [ema[name] for name, _ in model.named_parameters()]
+    ps = [p.detach().to(e.dtype) for e, (_, p) in zip(es, model.named_parameters())]
+    torch._foreach_mul_(es, d)
+    torch._foreach_add_(es, torch._foreach_mul(ps, rest))

@@ -163,11 +163,12 @@ def polar_task_aligned_assign(
     # share its contour, and the valid candidates come first in each row
     if mark is not None:
         mark("gt_rays")
+    f32 = torch.float32  # the kernel's contract, whatever dt is
     gt_rays_cand = gt_rays_rows_fast(
-        gt_contours.reshape(B * N, polar_ops.NUM_CONTOUR_POINTS, 2).contiguous(),
-        anc_cand.reshape(B * N, K, 2).contiguous(),
+        gt_contours.reshape(B * N, polar_ops.NUM_CONTOUR_POINTS, 2).to(f32).contiguous(),
+        anc_cand.reshape(B * N, K, 2).to(f32).contiguous(),
         valid_cand.reshape(B * N, K).contiguous(),
-    ).reshape(B, N, K, polar_ops.NUM_RAYS)
+    ).reshape(B, N, K, polar_ops.NUM_RAYS).to(dt)
     if mark is not None:
         mark("assigner")
 
