@@ -240,10 +240,17 @@ Phases, one timestamped line each (elapsed seconds):
      480x640 JPEG to ``serve_http`` at 640 for 4 s: rps, client p50/p95/p99
      and the cap that the Python decode puts on one process (recorded).
   38. ddp: (a) ``YOLO("yolov8n-seg.yaml").train`` on the seg160 floor set
-     for 2 epochs at its config, with no process group and inside a
-     one-rank NCCL group (an all-reduce through it first): metrics,
-     results.csv and the stripped best.ckpt equal bit for bit (cuDNN
-     deterministic for both); (b) two gloo ranks sharing ``cuda:0``
+     for 2 epochs at its config (``save_period=1``), with no process group
+     and inside a one-rank NCCL group (an all-reduce through it first):
+     metrics, results.csv and the stripped best.ckpt equal bit for bit
+     (cuDNN deterministic for both); then the run without a group resumed
+     from its ``epoch1.ckpt`` into a fresh trainer in its directory
+     (``YOLO(epoch1.ckpt).train(resume=True)``): the restored weights,
+     BatchNorm statistics, EMA, optimizer moments, step, best fitness and
+     start epoch equal what was saved, bit for bit, the resumed first step
+     fed the batch the uninterrupted run took there gives that run's
+     weights, EMA and moments bit for bit, and results.csv carries on after
+     the first run's rows; (b) two gloo ranks sharing ``cuda:0``
      (``parallel.launch``), each with 4 rows of a batch of 8 at 160, three
      float64 steps of the seg160 model against one process on all 8: loss
      1e-10 relative, gradients 1e-9 of each tensor's largest, BatchNorm
@@ -257,18 +264,39 @@ Phases, one timestamped line each (elapsed seconds):
      (the smoke's own ``zlib`` writer) with label files, a yaml and class
      folders; ``val(data=yaml)`` and ``val(data=folder)`` give the in-memory
      metrics exactly.
-  41. report: a JSON line of the kernels (launches summed over the predict,
+  41. lifecycle: (c) Adam, NAdam, RAdam, Adamax and RMSProp, each 5
+     updates of the seg160 model at 160 batch 4 in float64 on the card (the
+     first step's loss and gradients against the CPU's, the train-step
+     limits), every update against the same optimizer on the CPU fed the
+     card's gradients; (d) ``YOLO(seg160).fuse().save(p)`` then ``YOLO(p)``
+     predicts the 16 floor frames bit-identically to the fused model,
+     ``entrypoint(["segment", "val", ...])`` on the datasets phase's yaml
+     gives ``YOLO.val``'s metrics exactly, and one ``python -m
+     yolo_contour_regression_tpu_torch version`` exits 0; (e)
+     ``YOLO("yolov8n-seg.yaml").tune(iterations=2, epochs=1)`` at the
+     seg160 config. Throughout the run, (b): every checkpoint a trainer's
+     asynchronous saver writes (``SaveCheck``) equals, leaf for leaf, the
+     checkpoint a synchronous save builds from the state as it was at the
+     save (kept on the card), each trainer's save seconds printed.
+  42. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs of every task,
-     FastSAM's, the serve phase's and phases 38-40's), the card's line, and
+     FastSAM's, the serve phase's and phases 38-41's), the card's line, and
      last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
+import ast
+import contextlib
 import copy
 import csv
 import ctypes
+import filecmp
+import io
 import json
+import os
+import pickle
+import queue
 import math
 import random
 import re
@@ -292,7 +320,7 @@ import torch
 
 from yolo_contour_regression_tpu_torch import NAS, SAM, YOLO, FastSAM, FastSAMPrompt
 from yolo_contour_regression_tpu_torch import parallel
-from yolo_contour_regression_tpu_torch.cfg import get_cfg
+from yolo_contour_regression_tpu_torch.cfg import entrypoint, get_cfg
 from yolo_contour_regression_tpu_torch.data import augment, imgproc
 from yolo_contour_regression_tpu_torch.data.dataset import TrainDataset, parse_label_lines
 from yolo_contour_regression_tpu_torch.data.imcodec import imdecode, imread
@@ -321,7 +349,9 @@ from yolo_contour_regression_tpu_torch.ops.boxes import box_iou, scale_coords
 from yolo_contour_regression_tpu_torch.ops.nms import non_max_suppression
 from yolo_contour_regression_tpu_torch.serve import InferenceServer
 from yolo_contour_regression_tpu_torch.serve.http_api import serve_http
-from yolo_contour_regression_tpu_torch.utils import cuda_build, optim
+from yolo_contour_regression_tpu_torch.engine import trainer as trainer_mod
+from yolo_contour_regression_tpu_torch.utils import checkpoint as ckpt_mod
+from yolo_contour_regression_tpu_torch.utils import cuda_build, optim, tuner
 from yolo_contour_regression_tpu_torch.utils.checkpoint import (
     checkpoint_variables, load_checkpoint, load_jax_variables, save_checkpoint, to_jax_variables)
 from yolo_contour_regression_tpu_torch.utils.loss import (detect_loss, detect_targets, polar_loss,
@@ -1607,6 +1637,22 @@ def epoch_split(trainer) -> dict:
             "sum": {k: sum(t[k] for t in times) for k in keys}}
 
 
+def save_split(trainer) -> str:
+    """The trainer's saves: how many, the training thread's save_s, the
+    saver worker's seconds, and the host-clock train seconds of the epochs
+    that follow a save against the others (the worker's pickle and writes
+    share the process with the next epoch's steps)."""
+    saved = set(trainer.saved_epochs)
+    after = [t["train_s"] for t in trainer.epoch_times if t["epoch"] - 1 in saved]
+    other = [t["train_s"] for t in trainer.epoch_times[1:] if t["epoch"] - 1 not in saved]
+    write = trainer.saver.write_s if trainer.saver is not None else []
+    med = lambda v: f"{statistics.median(v):.4f}" if v else "-"  # noqa: E731
+    return (f"saves: {len(saved)} ({'async' if trainer.args.async_save else 'sync'}), save_s "
+            f"summed {sum(t['save_s'] for t in trainer.epoch_times):.3f}, the worker's "
+            f"{sum(write):.3f} s ({med(write)} s a save, median); train_s an epoch (median) after "
+            f"a save {med(after)} over {len(after)}, after none {med(other)} over {len(other)}")
+
+
 def train_floor(card: str, task: str = "segment", keep: Path = None):
     """``YOLO(yaml, device="cuda").train`` from scratch on the task's floor
     set (64 train and 16 val images, decoded) at its ``floor.json`` config
@@ -1683,6 +1729,7 @@ def train_floor(card: str, task: str = "segment", keep: Path = None):
         + ", ".join(f"{k} {v:.4f}" for k, v in med.items()) + "; summed over the run: "
         + ", ".join(f"{k} {v:.2f}" for k, v in tot.items())
         + f"; ms per step by the host clock {1e3 * tot['train_s'] / max(steps, 1):.3f} | {card}")
+    log(phase, save_split(trainer) + f" | {card}")
     log(phase, f"device ms per step by CUDA events at the marks (mean of the "
         f"{timer.steps} steps after the first epoch; copy includes waiting for the card to "
         f"take it): "
@@ -4130,26 +4177,112 @@ def _tree_diff(a, b, path="") -> list:
     return [] if a.dtype == b.dtype and np.array_equal(a, b) else [path]
 
 
+def state_snapshot(state) -> dict:
+    """A train state's weights and BatchNorm statistics, EMA, optimizer
+    moments and step, cloned on its device."""
+    return {"model": {k: v.detach().clone() for k, v in state.model.state_dict().items()
+                      if not k.endswith("num_batches_tracked")},
+            "ema": {k: v.detach().clone() for k, v in state.ema.items()},
+            "opt": {k: v.detach().clone()
+                    for k, v in optim.moment_tensors(state.optimizer, state.model).items()},
+            "step": state.step}
+
+
+def snapshot_diff(a: dict, b: dict) -> list:
+    """The entries at which two ``state_snapshot``s differ (bit for bit)."""
+    out = [] if a["step"] == b["step"] else [f"step {a['step']} vs {b['step']}"]
+    for part in ("model", "ema", "opt"):
+        if set(a[part]) != set(b[part]):
+            out.append(f"{part} keys")
+            continue
+        out += [f"{part}/{k}" for k in a[part] if not torch.equal(a[part][k], b[part][k])]
+    return out
+
+
+class StepCapture:
+    """An ``on_train_start`` callback: at optimizer step ``at`` it keeps
+    the state before the step (and the trainer's best fitness and start
+    epoch), the batch and the state after; with ``feed`` (another
+    capture's batch) the step takes that batch in place of the loader's."""
+
+    def __init__(self, at: int, feed=None):
+        self.at, self.feed, self.before = at, feed, None
+
+    def __call__(self, trainer):
+        step_of = trainer.train_step
+
+        def train_step(step_fn, state, images, batch):
+            if state.step != self.at or self.before is not None:
+                return step_of(step_fn, state, images, batch)
+            if self.feed is not None:
+                images, batch = self.feed
+            self.before, self.best = state_snapshot(state), trainer.best_fitness
+            self.start_epoch = trainer.start_epoch
+            self.batch = (images.clone(), {k: v.clone() for k, v in batch.items()})
+            out = step_of(step_fn, state, images, batch)
+            self.after = state_snapshot(state)
+            return out
+
+        trainer.train_step = train_step
+
+
+def ddp_resume(card: str, data: dict, d: str, first: dict, over: dict):
+    """(a)'s resume: the run without a group (``first``) resumed from its
+    ``epoch1.ckpt`` into a fresh trainer in its directory, its first step
+    fed the batch the uninterrupted run took there."""
+    cap = first["capture"]
+    again = StepCapture(cap.at, feed=cap.batch)
+    m = YOLO(Path(d) / "nogroup" / "weights" / "epoch1.ckpt", device="cuda")
+    m.add_callback("on_train_start", again)
+    t = time.perf_counter()
+    m.train(data=data, resume=True, epochs=over["epochs"], project=d, name="nogroup")
+    wall = time.perf_counter() - t
+    with open(m.trainer.csv) as fh:
+        rows = list(csv.DictReader(fh))
+    restored = snapshot_diff(again.before, cap.before)
+    stepped = snapshot_diff(again.after, cap.after)
+    same_batch = (torch.equal(again.batch[0], cap.batch[0])
+                  and all(torch.equal(again.batch[1][k], v) for k, v in cap.batch[1].items()))
+    carried = rows[:len(first["rows"])] == first["rows"] and [r["epoch"] for r in rows[len(
+        first["rows"]):]] == [str(e) for e in range(1, over["epochs"])]
+    n = sum(t.numel() for part in ("model", "ema", "opt") for t in cap.before[part].values())
+    log("ddp", f"(a) resumed from epoch1.ckpt into a fresh trainer ({wall:.2f}s; start epoch "
+        f"{again.start_epoch}, step {again.before['step']}, best fitness {again.best:.6f} vs "
+        f"{cap.best:.6f} saved): restored weights, BatchNorm statistics, EMA and optimizer "
+        f"moments ({n:,} numbers) differing in {len(restored)} tensors; the first resumed step on "
+        f"the uninterrupted run's batch (equal {same_batch}) differs from that run's in "
+        f"{len(stepped)} tensors (required 0, cuDNN deterministic); results.csv carries on "
+        f"{carried} ({len(rows)} rows) | {card}")
+    if (restored or stepped or not same_batch or not carried or again.best != cap.best
+            or again.start_epoch != 1):
+        raise AssertionError(f"ddp (a) resume: restored {restored[:5]}, stepped {stepped[:5]}, "
+                             f"batch {same_batch}, csv {carried}, best {again.best} vs {cap.best}, "
+                             f"start epoch {again.start_epoch}")
+
+
 def ddp_one_card(card: str) -> dict:
     """(a) ``YOLO("yolov8n-seg.yaml").train`` on the seg160 floor set at its
-    config for ``DDP_EPOCHS`` epochs, once with no process group and once
-    inside a one-rank NCCL group (an all-reduce through it first): at world
-    size 1 the trainer makes no collective, so the two runs' metrics,
-    results.csv rows and stripped best.ckpt (weights and BatchNorm
-    statistics) must be equal bit for bit (cuDNN deterministic for both).
-    Returns the grouped run's launch counts."""
+    config for ``DDP_EPOCHS`` epochs (``save_period=1``), once with no
+    process group and once inside a one-rank NCCL group (an all-reduce
+    through it first): at world size 1 the trainer makes no collective, so
+    the two runs' metrics, results.csv rows and stripped best.ckpt (weights
+    and BatchNorm statistics) must be equal bit for bit (cuDNN
+    deterministic for both); then ``ddp_resume`` of the run without a
+    group. Returns the grouped run's launch counts."""
     ckpt = load_checkpoint(CKPT)
     over = {**{k: ckpt["train_args"][k] for k in FLOOR_TRAIN_KEYS}, "epochs": DDP_EPOCHS,
-            "save_last_every": SAVE_LAST_EVERY}
+            "save_last_every": SAVE_LAST_EVERY, "save_period": 1}
     data = {"train": floor_train_set(), "val": floor_val_set(), "names": ckpt["names"]}
     prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     runs = {}
     try:
         with tempfile.TemporaryDirectory() as d:
-            def run(name):
+            def run(name, capture=None):
                 zero_launch_counts()
                 m = YOLO("yolov8n-seg.yaml", device="cuda")
+                if capture is not None:
+                    m.add_callback("on_train_start", capture)
                 t = time.perf_counter()
                 res = m.train(data=data, project=d, name=name, **over)
                 wall = time.perf_counter() - t
@@ -4157,10 +4290,13 @@ def ddp_one_card(card: str) -> dict:
                 with open(m.trainer.csv) as fh:
                     rows = list(csv.DictReader(fh))
                 return {"metrics": res, "rows": rows, "counts": launch_counts(), "wall": wall,
+                        "capture": capture,
                         "best": {k: best[k] for k in ("params", "batch_stats", "ema_params",
                                                       "epoch", "step")}}
 
-            runs["none"] = run("nogroup")
+            # the first step of the second epoch (the steps of one, as the trainer counts)
+            at = trainer_mod.schedule(len(data["train"][0]), over["batch"], over["nbs"], 1)[1]
+            runs["none"] = run("nogroup", StepCapture(at))
             store = torch.distributed.FileStore(str(Path(d) / "store"), 1)
             torch.distributed.init_process_group("nccl", store=store, rank=0, world_size=1)
             try:
@@ -4172,24 +4308,32 @@ def ddp_one_card(card: str) -> dict:
                 runs["nccl"] = run("nccl")
             finally:
                 torch.distributed.destroy_process_group()
+            a, b = runs["none"], runs["nccl"]
+            metric_diff = [k for k in a["metrics"] if a["metrics"][k] != b["metrics"][k]]
+            leaf_diff = _tree_diff(a["best"], b["best"])
+            rows_same = a["rows"] == b["rows"]
+            metrics = ", ".join(f"{k.split('/')[1]} {v:.4f}" for k, v in b["metrics"].items()
+                                if k != "fitness")
+            log("ddp", f"(a) yolov8n-seg on the seg160 floor set, {DDP_EPOCHS} epochs at its "
+                f"config, with no group ({a['wall']:.2f}s) and in a one-rank {backend} group "
+                f"({b['wall']:.2f}s): {metrics}; metrics differing {metric_diff}, results.csv "
+                f"rows equal {rows_same}, best.ckpt leaves differing {len(leaf_diff)}; launches "
+                f"{b['counts']} | {card}")
+            if metric_diff or leaf_diff or not rows_same:
+                raise AssertionError(f"ddp (a): the trainer in a one-rank group is not the "
+                                     f"trainer: metrics {metric_diff}, leaves {leaf_diff[:5]}, "
+                                     f"rows {rows_same}")
+            zero_launch_counts()
+            ddp_resume(card, data, d, a, over)
+            resume_counts = launch_counts()
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
-    a, b = runs["none"], runs["nccl"]
-    metric_diff = [k for k in a["metrics"] if a["metrics"][k] != b["metrics"][k]]
-    leaf_diff = _tree_diff(a["best"], b["best"])
-    rows_same = a["rows"] == b["rows"]
-    metrics = ", ".join(f"{k.split('/')[1]} {v:.4f}" for k, v in b["metrics"].items()
-                        if k != "fitness")
-    log("ddp", f"(a) yolov8n-seg on the seg160 floor set, {DDP_EPOCHS} epochs at its config, "
-        f"with no group ({a['wall']:.2f}s) and in a one-rank {backend} group ({b['wall']:.2f}s): "
-        f"{metrics}; metrics differing {metric_diff}, results.csv rows equal {rows_same}, "
-        f"best.ckpt leaves differing {len(leaf_diff)}; launches {b['counts']} | {card}")
-    if metric_diff or leaf_diff or not rows_same:
-        raise AssertionError(f"ddp (a): the trainer in a one-rank group is not the trainer: "
-                             f"metrics {metric_diff}, leaves {leaf_diff[:5]}, rows {rows_same}")
     if b["counts"]["gt_rays_rows"] == 0 or b["counts"]["fill_polygons"] == 0:
         raise AssertionError(f"ddp (a): a kernel of the path never launched: {b['counts']}")
-    return b["counts"]
+    if resume_counts["gt_rays_rows"] == 0 or resume_counts["fill_polygons"] == 0:
+        raise AssertionError(f"ddp (a) resume: a kernel of the path never launched: "
+                             f"{resume_counts}")
+    return {k: b["counts"][k] + resume_counts[k] for k in KERNEL_WRAPPERS}
 
 
 def ddp_f64_steps(job: dict, device) -> dict:
@@ -4344,6 +4488,440 @@ def serve_mesh_phase(card: str) -> dict:
     return counts
 
 
+class SaveCheck:
+    """(b) of the lifecycle phase: every checkpoint that a trainer's
+    asynchronous saver writes in this run, against the checkpoint that a
+    synchronous save builds from the same state.
+
+    ``install`` wraps ``BaseTrainer._save`` on the training thread: before
+    the saver takes its snapshot, the state's tensors
+    (``trainer_mod.checkpoint_tensors``) are copied on the card into one
+    flat buffer (``torch._foreach_copy_``), with the save's fields and the
+    optimizer's ``optimizer_spec``; a thread of this check copies the buffer
+    to shared memory (``utils/checkpoint.py:to_host``: pinned, on a side
+    stream). It also wraps ``AsyncCheckpointSaver.submit`` and
+    ``wait``: when a save's ``wait`` returns, its files are hard-linked
+    aside, so that the next save cannot replace them unseen. A process of
+    this check (``save_check_main``: the comparison's interpreter time stays
+    off the training process; its jobs go through the copy thread alone, so
+    a full pipe never blocks the training thread) builds the synchronous
+    checkpoint from the copy (``trainer_mod.train_checkpoint``,
+    what a save without ``async_save`` writes), compares it with the first
+    file leaf for leaf (every key but the date) and the other paths of the
+    save byte for byte with the first, and drops the links and the copy.
+    ``finish`` waits for the last and gives, by trainer, the saves, the
+    files verified, the training thread's seconds in ``_save`` and the
+    worker's seconds (``saver.write_s``); it raises on any difference, a
+    save not verified or the process failing."""
+
+    def __init__(self, root: Path):
+        self.root = root
+        self.written, self.saves, self.copy_errors = 0, 0, []
+        self.pinned: dict = {}  # to_host's buffer
+        self.by_trainer: dict = {}
+        self.free: dict = {}  # flat device buffers and their views by layout, reused
+        self.copies: "queue.Queue" = queue.Queue()
+        self.child = None
+        self.copier = threading.Thread(target=self._copy_all, daemon=True, name="save-check-copy")
+
+    def install(self):
+        self.root.mkdir(parents=True, exist_ok=True)
+        # a fresh interpreter reading pickled jobs on its stdin (multiprocessing's
+        # spawn would import this run's main module again)
+        self.child = subprocess.Popen([sys.executable, "-c", "import chip_smoke; "
+                                       "chip_smoke.save_check_main()"], cwd=ROOT,
+                                      stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+        self.copier.start()
+        saver = ckpt_mod.AsyncCheckpointSaver
+        self._save, self._submit, self._wait = (trainer_mod.BaseTrainer._save, saver.submit,
+                                                saver.wait)
+        check = self
+
+        def _save(trainer, state, epoch, fitness):
+            label = f"{trainer.task} {trainer.save_dir.name} ({id(trainer):x})"
+            rec = check.by_trainer.setdefault(label, {"saves": 0, "verified": 0, "submit_s": 0.0,
+                                                      "trainer": trainer})
+            check.copies.put((check.saves, label, check._reference(trainer, state, epoch)))
+            check.saves += 1
+            t = time.perf_counter()
+            check._save(trainer, state, epoch, fitness)
+            rec["submit_s"] += time.perf_counter() - t
+            rec["saves"] += 1
+
+        def submit(saver, paths, *args):
+            check._submit(saver, paths, *args)  # waits for the save before it first
+            saver._check_paths = [Path(p) for p in paths]
+
+        def wait(saver):
+            check._wait(saver)  # raises if the save failed
+            paths = saver.__dict__.pop("_check_paths", None)
+            if paths is not None:
+                n, check.written = check.written, check.written + 1
+                links = []
+                for i, path in enumerate(paths):
+                    links.append(str(check.root / f"{n}_{i}.ckpt"))
+                    os.link(path, links[-1])
+                check.copies.put(("files", n, links))  # the copy thread sends it on
+
+        trainer_mod.BaseTrainer._save = _save
+        saver.submit, saver.wait = submit, wait
+
+    def _reference(self, trainer, state, epoch) -> dict:
+        """The state's tensors copied into a flat buffer on the card (16-byte
+        aligned), with what ``train_checkpoint`` needs besides them."""
+        tensors = trainer_mod.checkpoint_tensors(state)
+        layout, offset = [], 0
+        for g, d in tensors.items():
+            for k, t in d.items():
+                layout.append((g, k, str(t.dtype).split(".")[1], tuple(t.shape), offset,
+                               t.element_size() * t.numel()))
+                offset += -(-layout[-1][5] // 16) * 16
+        key = tuple(layout)
+        pool = self.free.setdefault(key, [])
+        srcs = [t.detach() for d in tensors.values() for t in d.values()]
+        if pool:
+            flat, views = pool.pop()
+        else:
+            flat = torch.empty(max(offset, 16), dtype=torch.uint8, device=state.device)
+            views = [flat[o:o + n].view(t.dtype).view(t.shape) for (_, _, _, _, o, n), t
+                     in zip(layout, srcs)]
+        torch._foreach_copy_(views, srcs)
+        event = torch.cuda.Event()
+        event.record()
+        return {"flat": (key, flat, views), "event": event, "layout": layout,
+                "spec": optim.optimizer_spec(state.optimizer, state.step),
+                "meta": trainer.save_meta(state, epoch)}
+
+    def _copy_all(self):
+        """The copy thread: each reference to a shared-memory segment, then
+        to the process."""
+        from multiprocessing import resource_tracker, shared_memory
+        while True:
+            job = self.copies.get()
+            if job is None:
+                self.send(None)
+                return
+            if job[0] == "files":  # only this thread writes to the process: a full pipe
+                self.send(job)     # blocks it, never the training thread
+                continue
+            n, label, ref = job
+            try:
+                key, flat, views = ref.pop("flat")
+                shm = shared_memory.SharedMemory(create=True, size=flat.numel())
+                resource_tracker.unregister(shm._name, "shared_memory")  # the process unlinks it
+                host = torch.frombuffer(shm.buf, dtype=torch.uint8)
+                host.copy_(ckpt_mod.to_host(flat, ref.pop("event"), self.pinned))
+                del host  # the segment's buffer is no longer exported
+                self.free[key].append((flat, views))
+                self.send(("reference", n, label, shm.name, ref))
+                shm.close()  # the process unlinks it
+            except Exception as e:  # reported by finish
+                self.copy_errors.append(f"{label} save {n}: {type(e).__name__}: {e}")
+
+    def send(self, job):
+        pickle.dump(job, self.child.stdin, protocol=pickle.HIGHEST_PROTOCOL)
+        self.child.stdin.flush()
+
+    def finish(self) -> dict:
+        self.copies.put(None)
+        self.copier.join()
+        trainer_mod.BaseTrainer._save = self._save
+        ckpt_mod.AsyncCheckpointSaver.submit = self._submit
+        ckpt_mod.AsyncCheckpointSaver.wait = self._wait
+        errors = list(self.copy_errors)
+        self.child.stdin.close()
+        while True:  # every result, until the process ends
+            try:
+                n, label, diff = pickle.load(self.child.stdout)
+            except EOFError:
+                break
+            if diff:
+                errors.append(f"{label} save {n}: {diff}")
+            else:
+                self.by_trainer[label]["verified"] += 1
+        if self.child.wait(timeout=60) != 0:
+            errors.append(f"the checking process exited with {self.child.returncode}")
+        out = {}
+        for label, rec in self.by_trainer.items():
+            t = rec.pop("trainer")
+            out[label] = {**rec, "save_s": sum(e.get("save_s", 0.0) for e in t.epoch_times),
+                          "write_s": sum(t.saver.write_s) if t.saver is not None else 0.0}
+        verified = sum(r["verified"] for r in out.values())
+        if errors or verified != self.saves or self.written != self.saves:
+            raise AssertionError(f"lifecycle (b): {self.saves} saves, {self.written} written, "
+                                 f"{verified} verified; {errors[:5]}")
+        return out
+
+
+def _reference_checkpoint(shm, ref: dict) -> dict:
+    """The synchronous save's checkpoint of a reference in shared memory
+    (its leaves are copies: the segment can close after)."""
+    tensors: dict = {}
+    for g, k, dtype, shape, off, nbytes in ref["layout"]:
+        a = np.frombuffer(shm.buf, dtype=np.uint8, count=nbytes, offset=off)
+        tensors.setdefault(g, {})[k] = torch.from_numpy(a.view(np.dtype(dtype)).reshape(shape))
+    return trainer_mod.train_checkpoint(tensors, ref["spec"], ref["meta"])
+
+
+def save_check_main():
+    """``SaveCheck``'s process: pairs each save's reference (a shared-memory
+    copy of its tensors) with its files, builds the synchronous checkpoint
+    from the reference and compares (see ``SaveCheck``); jobs are read
+    pickled from stdin, results written pickled to stdout."""
+    from multiprocessing import shared_memory
+    jobs, results = sys.stdin.buffer, sys.stdout.buffer
+    sys.stdout = sys.stderr
+    torch.set_num_threads(1)
+    refs, files = {}, {}
+    while True:
+        try:
+            job = pickle.load(jobs)
+        except EOFError:
+            break
+        if job is None:
+            break
+        if job[0] == "reference":
+            refs[job[1]] = job[2:]
+        else:
+            files[job[1]] = job[2]
+        for n in sorted(set(refs) & set(files)):
+            (label, shm_name, ref), links = refs.pop(n), files.pop(n)
+            shm = shared_memory.SharedMemory(name=shm_name)
+            try:
+                want = _reference_checkpoint(shm, ref)
+                got = load_checkpoint(links[0])
+                diff = [k for k in sorted(set(want) | set(got)) if k != "date"
+                        and not _same_leaves(want.get(k), got.get(k))]
+                first = Path(links[0]).read_bytes()
+                diff += [Path(x).name for x in links[1:] if Path(x).read_bytes() != first]
+            except Exception as e:
+                diff = [f"{type(e).__name__}: {e}"]
+            finally:
+                shm.close()
+                shm.unlink()
+                for x in links:
+                    os.unlink(x)
+            pickle.dump((n, label, diff), results)
+            results.flush()
+
+
+def _same_leaves(a, b) -> bool:
+    """Two checkpoint values equal leaf for leaf: the same nesting (dicts,
+    tuples and the optax classes by name), arrays equal with their dtype and
+    shape, anything else by ``==``."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and set(a) == set(b)
+                and all(_same_leaves(a[k], b[k]) for k in a))
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        return (isinstance(a, tuple) and isinstance(b, tuple) and len(a) == len(b)
+                and type(a).__name__ == type(b).__name__
+                and all(_same_leaves(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    return a == b
+
+
+def save_lines(saves: dict, card: str):
+    """(b)'s lines: by trainer, the saves verified and their seconds."""
+    for label, r in saves.items():
+        log("lifecycle", f"(b) {label}: {r['saves']} asynchronous saves, {r['verified']} "
+            f"verified leaf for leaf against a synchronous save of the same state; save_s "
+            f"{r['save_s']:.3f} (training thread: snapshot and submit, {r['submit_s']:.3f} in "
+            f"_save), worker {r['write_s']:.3f} s (name map, pickle, writes) | {card}")
+    log("lifecycle", f"(b) {sum(r['saves'] for r in saves.values())} checkpoints over "
+        f"{len(saves)} trainer runs, every one equal to its synchronous save; save_s summed "
+        f"{sum(r['save_s'] for r in saves.values()):.2f} s on the training threads, "
+        f"{sum(r['write_s'] for r in saves.values()):.2f} s on the workers | {card}")
+
+
+# the lifecycle phase's optimizers (the five the port adds), their updates
+LIFECYCLE_OPTIMIZERS = ("Adam", "NAdam", "RAdam", "Adamax", "RMSProp")
+LIFECYCLE_STEPS, LIFECYCLE_B = 5, 4
+# each parameter after an update, card against the CPU fed the same float64
+# gradients: of the tensor's largest entry
+LIFECYCLE_PARAM_RTOL = 1e-12
+
+
+def optimizers_card_vs_cpu(card: str) -> dict:
+    """(c) Each of ``LIFECYCLE_OPTIMIZERS`` (the seg160 checkpoint's
+    train_args, warmup included) takes ``LIFECYCLE_STEPS`` float64 train
+    steps of the seg160 model at 160 batch 4 on the card; the first step's
+    loss and gradients are held against the CPU's at the train-step limits
+    (the same for every optimizer: the same weights), and after every update
+    each parameter against the same optimizer on the CPU fed the card's
+    gradients (``LIFECYCLE_PARAM_RTOL``). Returns the card's launch
+    counts."""
+    ckpt = load_checkpoint(CKPT)
+    images, batch = shape_batch(LIFECYCLE_B, 160, 8, seed=21)
+    hyp = train_hyp(ckpt, loss_dtype=torch.float64)
+    cpu = ckpt_model(ckpt, "cpu").double()
+    x, bt = to_device(images, batch, "cpu")
+    total, _ = loss_and_assign(cpu, cpu(x.double().permute(0, 3, 1, 2).contiguous()), bt, hyp)
+    total.backward()
+    cpu_grads = {n: p.grad.clone() for n, p in cpu.named_parameters()}
+    init = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    zero_launch_counts()
+    out = {}
+    t0 = time.perf_counter()
+    for name in LIFECYCLE_OPTIMIZERS:
+        h = copy.copy(hyp)
+        h.optimizer = name
+        model = ckpt_model(ckpt, "cuda").double()
+        opt = optim.build_optimizer(model, copy.copy(h), 10, 100)
+        state = init_train_state(model, opt, device="cuda")
+        step = make_train_step(model, opt, h, cand=h.cand_per_gt)
+        grads = []
+        step_of = opt.step
+
+        def keep_then_step(k, step_of=step_of, model=model, grads=grads):
+            grads.append({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
+            step_of(k)
+
+        opt.step = keep_then_step
+        xc, bc = to_device(images, batch, "cuda")
+        losses = [float(step(state, xc.double(), bc)["loss"]) for _ in range(LIFECYCLE_STEPS)]
+        ref = copy.deepcopy(cpu)
+        with torch.no_grad():
+            for n, p in ref.named_parameters():
+                p.copy_(init[n])
+        ref_opt = optim.build_optimizer(ref, copy.copy(h), 10, 100)
+        card_params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        worst = 0.0
+        for k, g in enumerate(grads):
+            for n, p in ref.named_parameters():
+                p.grad = g[n].clone()
+            ref_opt.step(k)
+        for n, p in ref.named_parameters():
+            p = p.detach()
+            worst = max(worst, float((card_params[n] - p).abs().max()
+                                     / p.abs().max().clamp_min(1e-300)))
+        grad0 = max(float((grads[0][n] - g).abs().max() / g.abs().max().clamp_min(1e-300))
+                    for n, g in cpu_grads.items())
+        loss0 = abs(losses[0] - float(total)) / abs(float(total))
+        moved = max(float((card_params[n] - init[n]).abs().max()) for n in init)
+        out[name] = {"loss0_rel": loss0, "grad0": grad0, "param": worst, "losses": losses,
+                     "moved": moved}
+        if loss0 > TRAIN_LOSS_RTOL or grad0 > TRAIN_GRAD_TOL or worst > LIFECYCLE_PARAM_RTOL \
+                or not moved or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"lifecycle (c) {name}: {out[name]}")
+    counts = launch_counts()
+    for name, r in out.items():
+        log("lifecycle", f"(c) {name}, {LIFECYCLE_STEPS} float64 updates of the seg160 model at "
+            f"160 batch {LIFECYCLE_B} on the card: first loss {r['losses'][0]:.9f} vs the CPU's "
+            f"(rel {r['loss0_rel']:.2e}, limit {TRAIN_LOSS_RTOL}), first gradients "
+            f"{r['grad0']:.2e} of their tensor's largest (limit {TRAIN_GRAD_TOL}); after the "
+            f"updates every parameter within {r['param']:.2e} of its largest (limit "
+            f"{LIFECYCLE_PARAM_RTOL}) of the CPU optimizer's on the card's gradients; the "
+            f"largest move {r['moved']:.3e}; losses {', '.join(f'{v:.6f}' for v in r['losses'])} "
+            f"| {card}")
+    log("lifecycle", f"(c) {time.perf_counter() - t0:.2f}s for the five on the card; launches "
+        f"{counts} | {card}")
+    return counts
+
+
+def start_version_cli() -> tuple:
+    """``python -m yolo_contour_regression_tpu_torch version`` started in
+    the background (a fresh interpreter importing torch and the port takes
+    seconds; ``main`` starts it beside the kernels' build) and its start
+    time, for ``facade_and_cli`` to wait for."""
+    proc = subprocess.Popen([sys.executable, "-m", "yolo_contour_regression_tpu_torch",
+                             "version"], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def facade_and_cli(card: str, data_yaml: Path, version_cli: tuple = None) -> dict:
+    """(d) ``YOLO(seg160).fuse().save(p)``, then ``YOLO(p)`` predicts the
+    16 floor frames bit-identically to the fused model; ``entrypoint([
+    "segment", "val", ...])`` on the datasets phase's yaml prints
+    ``YOLO(seg160).val``'s metrics exactly; ``python -m
+    yolo_contour_regression_tpu_torch version`` (``start_version_cli``'s,
+    or started here) exits 0 with the version. Returns the launch counts of
+    the CLI's validation."""
+    images, _ = floor_val_set()
+    fused = YOLO(CKPT, device="cuda").fuse()
+    want = fused.predict(images, imgsz=160, batch=8)
+    with tempfile.TemporaryDirectory() as d:
+        path = fused.save(Path(d) / "fused.ckpt")
+        back = YOLO(path, device="cuda")
+        got = back.predict(images, imgsz=160, batch=8)
+        deploy = load_checkpoint(path)["deploy"]
+    err = served_vs_direct(got, want, "lifecycle (d)")
+    facade_val = YOLO(CKPT, device="cuda").val(data=str(data_yaml), imgsz=160, batch=4)
+    out = io.StringIO()
+    zero_launch_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = entrypoint(["segment", "val", f"model={CKPT}", f"data={data_yaml}", "imgsz=160",
+                         "batch=4"])
+    cli_s = time.perf_counter() - t
+    counts = launch_counts()
+    cli_val = ast.literal_eval(out.getvalue().strip().splitlines()[-1])
+    proc, t = version_cli or start_version_cli()
+    try:
+        stdout, stderr = proc.communicate(timeout=120)
+    finally:
+        proc.kill()
+    res = SimpleNamespace(returncode=proc.returncode, stdout=stdout, stderr=stderr)
+    module_s = time.perf_counter() - t
+    from yolo_contour_regression_tpu_torch import __version__
+    log("lifecycle", f"(d) YOLO(seg160).fuse().save(p) (deploy {deploy!r}), YOLO(p).predict on "
+        f"the {len(images)} floor frames: {err['dets']} detections, max {err['px']:.2e} px, "
+        f"scores {err['score']:.2e}, {err['mask_px']} differing mask pixels against the fused "
+        f"model (required 0); yolo segment val on the datasets yaml ({cli_s:.2f}s, exit {rc}): "
+        f"mask {cli_val['metrics/mAP50-95(M)']:.4f}, box {cli_val['metrics/mAP50-95(B)']:.4f}, "
+        f"equal to YOLO.val {cli_val == facade_val}; python -m yolo_contour_regression_tpu_torch "
+        f"version: exit {res.returncode}, {res.stdout.strip()!r} ({module_s:.2f}s from its start, "
+        f"beside the other phases); launches "
+        f"{counts} | {card}")
+    if err["px"] or err["score"] or err["mask_px"] or deploy != "fused":
+        raise AssertionError(f"lifecycle (d): the saved fused model predicts otherwise: {err}")
+    if rc != 0 or cli_val != facade_val:
+        raise AssertionError(f"lifecycle (d): yolo segment val {cli_val} (exit {rc}) vs "
+                             f"{facade_val}")
+    if res.returncode != 0 or res.stdout.strip() != __version__:
+        raise AssertionError(f"lifecycle (d): python -m ... version: {res.returncode} "
+                             f"{res.stdout!r} {res.stderr[-500:]}")
+    if counts["fill_polygons"] == 0:
+        raise AssertionError(f"lifecycle (d): the CLI's validation launched no fill: {counts}")
+    return counts
+
+
+def tune_phase(card: str) -> dict:
+    """(e) ``YOLO("yolov8n-seg.yaml").tune(data, iterations=2, epochs=1)``
+    at the seg160 floor config on its floor set: two trainings (the middle
+    of the search space, then a mutation), each with a finite fitness.
+    Returns their launch counts."""
+    ckpt = load_checkpoint(CKPT)
+    over = {k: ckpt["train_args"][k] for k in FLOOR_TRAIN_KEYS if k != "epochs"}
+    data = {"train": floor_train_set(), "val": floor_val_set(), "names": ckpt["names"]}
+    with tempfile.TemporaryDirectory() as d:
+        m = YOLO("yolov8n-seg.yaml", device="cuda")
+        zero_launch_counts()
+        t = time.perf_counter()
+        hyp, fit = m.tune(data, iterations=2, epochs=1, project=d, **over)
+        wall = time.perf_counter() - t
+        counts = launch_counts()
+        runs = sorted(p.name for p in Path(d).iterdir())
+    log("lifecycle", f"(e) tune(iterations=2, epochs=1) at the seg160 config ({wall:.2f}s): "
+        f"best fitness {fit:.6f}, runs {runs}, best lr0 {hyp['lr0']:.6f}, mosaic "
+        f"{hyp['mosaic']:.4f}, copy_paste {hyp['copy_paste']:.4f}; launches {counts} | {card}")
+    if not math.isfinite(fit) or fit < 0 or len(runs) != 2 or set(hyp) != set(tuner.SPACE):
+        raise AssertionError(f"lifecycle (e): fitness {fit}, runs {runs}")
+    if counts["gt_rays_rows"] == 0 or counts["fill_polygons"] == 0:
+        raise AssertionError(f"lifecycle (e): a kernel of the path never launched: {counts}")
+    return counts
+
+
+def lifecycle_phase(card: str, data_yaml: Path, version_cli: tuple = None) -> dict:
+    """(c), (d) and (e) of the lifecycle phase ((a) runs in ``ddp``, (b)
+    throughout). Returns their launch counts, summed."""
+    parts = [optimizers_card_vs_cpu(card), facade_and_cli(card, data_yaml, version_cli),
+             tune_phase(card)]
+    return {k: sum(c[k] for c in parts) for k in KERNEL_WRAPPERS}
+
+
 def png_bytes(img: np.ndarray) -> bytes:
     """An HWC uint8 BGR image as an 8-bit RGB PNG (filter 0 on every row,
     ``zlib`` level 6): the smoke writes its datasets with this; the port
@@ -4360,49 +4938,49 @@ def png_bytes(img: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
-def datasets_phase(card: str) -> dict:
-    """Datasets on disk: the seg160 floor val set written as PNG files with
-    its label files and a yaml, ``YOLO(seg160).val(data=yaml)`` against
-    ``val`` of the same images in memory; the classify floor val set as
-    PNG files in class folders, ``YOLO(floor_classify).val(data=root)``
-    against the in-memory ``val``: the metrics equal exactly. Returns the
-    launch counts of the seg yaml validation."""
+def datasets_phase(card: str, d: Path) -> tuple:
+    """Datasets on disk, under ``d``: the seg160 floor val set written as
+    PNG files with its label files and a yaml, ``YOLO(seg160).val(data=
+    yaml)`` against ``val`` of the same images in memory; the classify
+    floor val set as PNG files in class folders, ``YOLO(floor_classify)
+    .val(data=root)`` against the in-memory ``val``: the metrics equal
+    exactly. Returns the launch counts of the seg yaml validation and the
+    yaml's path (the lifecycle phase's CLI reads it)."""
     images, labels = floor_val_set()
     with np.load(FLOOR_VAL) as z:
         texts = [str(t) for t in z["labels"]]
     cls_images, cls_labels = floor_cls_set(FLOOR_CLS_VAL)
-    with tempfile.TemporaryDirectory() as d:
-        root = Path(d) / "seg160"
-        for sub in ("images/val", "labels/val"):
-            (root / sub).mkdir(parents=True)
-        t = time.perf_counter()
-        for i, (img, text) in enumerate(zip(images, texts)):
-            (root / "images" / "val" / f"{i:04d}.png").write_bytes(png_bytes(img))
-            (root / "labels" / "val" / f"{i:04d}.txt").write_text(text)
-        yaml = root / "data.yaml"
-        yaml.write_text(f"path: {root}\ntrain: images/val\nval: images/val\n"
-                        f"names:\n  0: circle\n  1: rect\n")
-        cls_root = Path(d) / "classify"
-        cls_names = load_checkpoint(CLS_CKPT)["names"]
-        if sorted(cls_names.values()) != [cls_names[i] for i in sorted(cls_names)]:
-            raise AssertionError(f"datasets: class folders would not sort as {cls_names}")
-        for i, (img, c) in enumerate(zip(cls_images, cls_labels)):
-            folder = cls_root / cls_names[int(c)]
-            folder.mkdir(parents=True, exist_ok=True)
-            (folder / f"{i:04d}.png").write_bytes(png_bytes(img))
-        write_s = time.perf_counter() - t
-        decoded = all(np.array_equal(imread(p), img) for p, img in zip(
-            sorted((root / "images" / "val").iterdir()), images))
-        seg = YOLO(CKPT, device="cuda")
-        mem = seg.val(images, labels, imgsz=160, batch=4)
-        zero_launch_counts()
-        t = time.perf_counter()
-        disk = seg.val(data=str(yaml), imgsz=160, batch=4)
-        disk_s = time.perf_counter() - t
-        counts = launch_counts()
-        cls = YOLO(CLS_CKPT, device="cuda")
-        cls_mem = cls.val(cls_images, cls_labels, imgsz=64)
-        cls_disk = cls.val(data=str(cls_root), imgsz=64)
+    root = Path(d) / "seg160"
+    for sub in ("images/val", "labels/val"):
+        (root / sub).mkdir(parents=True)
+    t = time.perf_counter()
+    for i, (img, text) in enumerate(zip(images, texts)):
+        (root / "images" / "val" / f"{i:04d}.png").write_bytes(png_bytes(img))
+        (root / "labels" / "val" / f"{i:04d}.txt").write_text(text)
+    yaml = root / "data.yaml"
+    yaml.write_text(f"path: {root}\ntrain: images/val\nval: images/val\n"
+                    f"names:\n  0: circle\n  1: rect\n")
+    cls_root = Path(d) / "classify"
+    cls_names = load_checkpoint(CLS_CKPT)["names"]
+    if sorted(cls_names.values()) != [cls_names[i] for i in sorted(cls_names)]:
+        raise AssertionError(f"datasets: class folders would not sort as {cls_names}")
+    for i, (img, c) in enumerate(zip(cls_images, cls_labels)):
+        folder = cls_root / cls_names[int(c)]
+        folder.mkdir(parents=True, exist_ok=True)
+        (folder / f"{i:04d}.png").write_bytes(png_bytes(img))
+    write_s = time.perf_counter() - t
+    decoded = all(np.array_equal(imread(p), img) for p, img in zip(
+        sorted((root / "images" / "val").iterdir()), images))
+    seg = YOLO(CKPT, device="cuda")
+    mem = seg.val(images, labels, imgsz=160, batch=4)
+    zero_launch_counts()
+    t = time.perf_counter()
+    disk = seg.val(data=str(yaml), imgsz=160, batch=4)
+    disk_s = time.perf_counter() - t
+    counts = launch_counts()
+    cls = YOLO(CLS_CKPT, device="cuda")
+    cls_mem = cls.val(cls_images, cls_labels, imgsz=64)
+    cls_disk = cls.val(data=str(cls_root), imgsz=64)
     seg_same, cls_same = disk == mem, cls_disk == cls_mem
     log("datasets", f"{len(images)} seg160 and {len(cls_images)} classify val frames written as "
         f"PNG with their label files ({write_s:.2f}s), decoded back byte-equal {decoded}; "
@@ -4415,7 +4993,7 @@ def datasets_phase(card: str) -> dict:
                              f"{cls_disk} vs {cls_mem}")
     if counts["fill_polygons"] == 0:
         raise AssertionError(f"datasets: the yaml validation launched no fill: {counts}")
-    return counts
+    return counts, yaml
 
 
 def main() -> int:
@@ -4430,8 +5008,10 @@ def main() -> int:
         f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}")
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source, all started together (and the lifecycle
+    # phase's `python -m ... version`, a fresh interpreter, beside them)
     phase_start = {"build": time.perf_counter()}
+    version_cli = start_version_cli()
     t = time.perf_counter()
 
     def build(name):
@@ -4445,6 +5025,12 @@ def main() -> int:
         log("build", f"{name}.cu -> {lib.relative_to(ROOT)} in {secs:.2f}s | {card}")
     log("build", f"all in {time.perf_counter() - t:.2f}s (nvcc {' '.join(cuda_build.NVCC_FLAGS)}) "
         f"| {card}")
+
+    # every checkpoint that the trainers' savers write, held to a synchronous save
+    # (the lifecycle phase's (b)), from here to the report
+    check_dir = tempfile.TemporaryDirectory()
+    save_check = SaveCheck(Path(check_dir.name) / "links")
+    save_check.install()
 
     # 3. kernels against their plain versions
     phase_start["kernels"] = time.perf_counter()
@@ -4647,9 +5233,19 @@ def main() -> int:
     phase_start["serve_mesh"] = time.perf_counter()
     serve_mesh_counts = serve_mesh_phase(card)
     phase_start["datasets"] = time.perf_counter()
-    datasets_counts = datasets_phase(card)
+    data_dir = tempfile.TemporaryDirectory()
+    datasets_counts, data_yaml = datasets_phase(card, Path(data_dir.name))
 
-    # 41. report: launches summed over the main paths' runs
+    # 41. the training lifecycle: (c) the five optimizers the port adds, (d)
+    # the facade's save and the CLI, (e) the tuner; (a) ran in ddp, and (b),
+    # every checkpoint of the run against a synchronous save, ends here
+    phase_start["lifecycle"] = time.perf_counter()
+    lifecycle_counts = lifecycle_phase(card, data_yaml, version_cli)
+    data_dir.cleanup()
+    save_lines(save_check.finish(), card)
+    check_dir.cleanup()
+
+    # 42. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,
@@ -4658,7 +5254,8 @@ def main() -> int:
                 + fuse_counts[k] + sum(c[k] for c in segori_counts.values())
                 + classify_counts[k] + sum(c[k] for c in rtdetr_counts.values())
                 + host_counts[k] + fastsam_counts[k] + serve_counts[k] + ddp_counts[k]
-                + serve_mesh_counts[k] + datasets_counts[k] for k in KERNEL_WRAPPERS}
+                + serve_mesh_counts[k] + datasets_counts[k] + lifecycle_counts[k]
+                for k in KERNEL_WRAPPERS}
     serve_other = sum(c["fill_polygons_cv2"] for k, c in serve_parts.items()
                       if k not in ("segment", "streams"))
     at_480 = fill_rows["fill_polygons_480x640"]
@@ -4675,7 +5272,8 @@ def main() -> int:
          "launches_host_pipeline": host_counts["fill_polygons"],
          "launches_fastsam": fastsam_counts["fill_polygons"],
          "launches_ddp": ddp_counts["fill_polygons"],
-         "launches_datasets": datasets_counts["fill_polygons"]},
+         "launches_datasets": datasets_counts["fill_polygons"],
+         "launches_lifecycle": lifecycle_counts["fill_polygons"]},
         {"name": "fill_polygons_cv2", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
                      "no TPU kernel)",
@@ -4688,6 +5286,7 @@ def main() -> int:
          "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_NPAD]),
          "library_ms": None, "launches_host_pipeline": host_counts["gt_rays_rows"],
          "launches_ddp": ddp_counts["gt_rays_rows"],
+         "launches_lifecycle": lifecycle_counts["gt_rays_rows"],
          **{f"{k}_R512_K48": v for k, v in report_row(rows_checks[TRAINER_NPAD]).items()
             if k in ("ms", "plain_ms", "bound_ms")}},
         {"name": "gt_rays_pairs", "route": "cuda", "source": src + "gt_rays.cu",
@@ -4710,7 +5309,9 @@ def main() -> int:
         f"served paths {serve_other}), ddp {ddp_counts} (the seg trainer in a one-rank NCCL "
         f"group; the GT rays of the two gloo ranks' float64 steps), serve_mesh "
         f"{serve_mesh_counts} (the masks served by two replicas), datasets {datasets_counts} "
-        f"(the seg160 yaml's validation); "
+        f"(the seg160 yaml's validation), lifecycle {lifecycle_counts} (the five optimizers' "
+        f"float64 steps, the CLI's validation, the tuner's two trainings; ddp's counts hold (a)'s "
+        f"resumed run); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
         "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "

@@ -1,7 +1,8 @@
 """The PyTorch port imports nothing that a CUDA machine with only torch,
 numpy and the standard library lacks: in a fresh interpreter that refuses
 jax, flax, optax, cv2, PIL, yaml, torchvision, triton and the JAX package,
-every module of the port and ``chip_smoke`` import, the CPU predict runs
+every module of the port (the CLI's ``__main__``, the callbacks, tuner,
+checks and settings among them) and ``chip_smoke`` import, the CPU predict runs
 on the committed seg160 checkpoint, the CPU validator runs on two images
 of the floor set with it, one CPU train step runs on it, and
 ``YOLO("yolov8n-seg.yaml").train`` runs one epoch on the CPU on four of the
@@ -20,7 +21,9 @@ from contours alone), and one predict of a fresh yolo_nas_s behind
 ``NAS``; then the serving path: a committed JPEG and PNG decoded by
 ``data/imcodec.py`` (byte-equal to their committed cv2 decodes), served by
 ``InferenceServer`` on the seg160 checkpoint, and two synthetic captures
-through ``LoadStreams``; and scipy and cv2 were never imported."""
+through ``LoadStreams``; then the lifecycle: the CLI's ``version`` and
+``cfg``, a callback, a mid-run checkpoint with optax's state (read without
+optax) and a resume from it; and scipy and cv2 were never imported."""
 import subprocess
 import sys
 from pathlib import Path
@@ -65,6 +68,7 @@ from types import SimpleNamespace
 from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
 from yolo_contour_regression_tpu_torch.ops import gt_rays
 from yolo_contour_regression_tpu_torch.utils import loss, optim, tal
+from yolo_contour_regression_tpu_torch.utils import checkpoint as ckpt_module
 hyp = SimpleNamespace(optimizer="AdamW", nc=2, lr0=0.001667, lrf=0.01, momentum=0.9,
                       weight_decay=0.0005, warmup_epochs=0.0, warmup_bias_lr=0.0, epochs=1,
                       batch=2, nbs=16, box=7.5, cls=0.5)
@@ -158,6 +162,30 @@ streamed = pkg.YOLO("runs/floor_seg160/best.ckpt", device="cpu").predict(
     LoadStreams(["a", "b"], buffer=True, open_fn=lambda s: chip_smoke.SyntheticCapture(
         frames[:2] if s == "a" else frames[2:])), imgsz=64)
 assert [r.path for r in streamed] == ["a#frame0", "b#frame0", "a#frame1", "b#frame1"]
+from yolo_contour_regression_tpu_torch.cfg import entrypoint, parse_key_value_args
+from yolo_contour_regression_tpu_torch.utils import callbacks, checks, settings, tuner
+lifecycle = {f"yolo_contour_regression_tpu_torch.{m}" for m in (
+    "utils.callbacks", "utils.tuner", "utils.checks", "utils.settings", "__main__")}
+assert lifecycle <= set(mods), sorted(lifecycle - set(mods))
+assert entrypoint(["version"]) == 0 and entrypoint(["cfg"]) == 0
+assert parse_key_value_args(["imgsz=[640, 480]", "amp=off"]) == {"imgsz": [640, 480], "amp": False}
+assert checks.check_yolo(verbose=False)["torch"] == torch.__version__
+assert set(tuner.Tuner(seed=0)._mutate({"lr0": 0.01})) >= {"lr0"}
+with tempfile.TemporaryDirectory() as d:
+    assert settings.SettingsManager(d + "/settings.json")["runs_dir"] == "runs"
+    events = []
+    cb = pkg.YOLO("yolov8n-seg.yaml", device="cpu")
+    cb.add_callback("on_model_save", lambda t: events.append(t.epoch))
+    split = {"train": (train_images[:4], train_labels[:4]), "val": ([], []),
+             "names": {0: "circle", 1: "rect"}}
+    cb.train(data=split, epochs=2, save_period=1, imgsz=64, batch=2, nbs=2, workers=1,
+             val=False, project=d, name="a")
+    mid = cb.trainer.wdir / "epoch1.ckpt"
+    assert events == [0, 1] and type(ckpt_module.load_checkpoint(mid)["opt_state"][1]).__name__ \
+        == "PartitionState"
+    resumed = pkg.YOLO(mid, device="cpu")
+    resumed.train(data=split, resume=True, epochs=2, project=d, name="b")
+    assert resumed.trainer.start_epoch == 1 and resumed.trainer.state.step == 4
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 assert not [n for n in sys.modules if n.split(".")[0] == "scipy"]

@@ -310,9 +310,11 @@ def test_build_optimizer_picks_and_refuses():
     groups = {g["name"]: g for g in opt.opt.param_groups}
     assert groups["weight"]["weight_decay"] == pytest.approx(0.0005 * 2 / 16)
     assert groups["bias"]["weight_decay"] == groups["norm"]["weight_decay"] == 0.0
-    for name in ("Adam", "RMSProp", "NAdam"):
-        with pytest.raises(NotImplementedError):
-            toptim.build_optimizer(model, _hyp(name), 10, 100)
+    for name in ("Adam", "RMSProp", "NAdam"):  # ported: optax's rules (test_torch_port_optimizers)
+        assert isinstance(toptim.build_optimizer(model, _hyp(name), 10, 100).opt,
+                          toptim.OptaxRule)
+    with pytest.raises(NotImplementedError):
+        toptim.build_optimizer(model, _hyp("LAMB"), 10, 100)
 
 
 def test_clip_matches_optax():

@@ -349,17 +349,20 @@ def test_strip_optimizer_matches_jax(tmp_path):
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     """The host train chain is ported: ``device_augment=false``, ``mosaic9``
     and ``copy_paste`` take it (JAX's ``use_device_augment`` rule), and the
-    RT-DETR facade trains on it (one epoch of two images here); resume and
-    another task's model still raise ``NotImplementedError`` naming what is
-    missing."""
+    RT-DETR facade trains on it (one epoch of two images here); another
+    task's model still raises ``NotImplementedError`` naming what is
+    missing. Resume is ported (``tests/test_torch_port_resume.py``): with
+    no checkpoint to resume from it raises ``FileNotFoundError``."""
     for over in (dict(device_augment=False), dict(mosaic9=0.5), dict(copy_paste=0.1), {}):
         t = ttrainer.SegmentationTrainer(overrides={**over, "project": str(tmp_path)},
                                          device="cpu")
         assert t.device_augment == (not over)
-    for over, match in ((dict(resume=True), "resume"), (dict(task="detect"), "task")):
-        with pytest.raises(NotImplementedError, match=match):
-            ttrainer.SegmentationTrainer(overrides={**over, "project": str(tmp_path)},
-                                         device="cpu")
+    with pytest.raises(NotImplementedError, match="task"):
+        ttrainer.SegmentationTrainer(overrides={"task": "detect", "project": str(tmp_path)},
+                                     device="cpu")
+    with pytest.raises(FileNotFoundError, match="resume"):
+        ttrainer.SegmentationTrainer(overrides={"resume": True, "project": str(tmp_path)},
+                                     device="cpu")
     rtdetr = YOLO("yolov8n-rtdetr.yaml", device="cpu")
     assert rtdetr.task == "rtdetr" and rtdetr.model is None
     rng = np.random.default_rng(0)

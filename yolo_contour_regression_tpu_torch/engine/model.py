@@ -19,6 +19,9 @@ and rtdetr tasks (counterpart of the JAX package's ``engine/model.py``)::
     model.predict(images, boxes=False)                    # polar: contours, masks None
     model("images/", stream=True, save_txt=True, project="out")  # files, a generator, labels
     httpd = model.serve(port=8570, imgsz=640, background=True)  # POST /predict, GET /stats
+    YOLO("runs/segment_train/weights/last.ckpt").train(resume=True)  # go on with a cut run
+    YOLO("runs/floor_seg160/best.ckpt").fuse().save("fused.ckpt")  # deploy form, JAX's format
+    model.info(detailed=True); model.add_callback("on_fit_epoch_end", fn); model.tune(data)
 
 SAM, FastSAM and NAS (``models/``) are facades of their own; FastSAM and
 NAS are this facade bound to the segment and detect tasks.
@@ -35,9 +38,18 @@ training form or fused (``deploy == "fused"``, as the JAX ``YOLO.save``
 writes it after ``fuse()``), or one the port's trainer wrote. The task
 comes from the checkpoint's ``train_args`` or, failing that, the config's
 head; ``predict``, ``val`` and ``train`` take the task's classes.
+
+``save`` writes the facade's weights in the JAX package's format, fused ones
+too (``deploy == "fused"``); ``load`` reads a checkpoint into the facade;
+``info`` gives JAX's dict (layers, parameters and, ``detailed``, a row a
+layer); ``reset_weights`` draws fresh weights from seed 0; ``to`` moves the
+model (JAX's is the identity); ``add_callback``, ``clear_callback`` and
+``reset_callbacks`` keep callbacks for the next trainer; ``tune`` runs the
+evolutionary ``Tuner`` (``utils/tuner.py``; Ray Tune is not ported).
 """
 from __future__ import annotations
 
+import logging
 import threading
 from pathlib import Path
 from typing import Callable, Dict, Optional, Union
@@ -48,8 +60,10 @@ from ..data.utils import check_cls_dataset, check_det_dataset
 from ..models.rtdetr.predict import RTDETRPredictor
 from ..models.rtdetr.val import RTDETRValidator
 from ..nn.fuse import fuse_model
-from ..nn.tasks import TASK_MODELS, TaskModel, build_model, guess_model_task, yaml_model_load
-from ..utils.checkpoint import checkpoint_variables, load_checkpoint, load_jax_variables
+from ..nn.tasks import (TASK_MODELS, TaskModel, build_model, guess_model_task, init_weights,
+                        yaml_model_load)
+from ..utils.checkpoint import (checkpoint_variables, load_checkpoint, load_jax_variables,
+                                save_checkpoint, to_jax_variables)
 from .predictor import (ClassificationPredictor, DetectionPredictor, PosePredictor,
                         SegmentationOriPredictor, SegmentationPredictor)
 from .trainer import (ClassificationTrainer, DetectionTrainer, PoseTrainer, RTDETRTrainer,
@@ -58,6 +72,8 @@ from .validator import (ClassificationValidator, DetectionValidator, PoseValidat
                         SegmentationOriValidator, SegmentationValidator)
 
 
+
+LOGGER = logging.getLogger(__name__)
 
 # each task's predictor, validator and trainer (the JAX ``TASK_MAP``, for the ported tasks)
 TASK_MAP = {
@@ -75,6 +91,18 @@ TASK_MAP = {
 }
 
 
+def _jax_kwargs(spec) -> Dict:
+    """A layer's arguments as the JAX package's spec names them: NHWC
+    Concat on ``axis`` -1, Upsample's ``scale``, lists for tuples."""
+    if spec.kind == "concat":
+        return {"axis": -1}
+    kwargs = {k: list(v) if isinstance(v, tuple) else v for k, v in spec.kwargs.items()
+              if not k.startswith("_")}
+    if spec.kind == "upsample":
+        kwargs = {"scale": kwargs.pop("scale_factor"), **kwargs}
+    return kwargs
+
+
 def _check_task(task: str) -> str:
     if task not in TASK_MAP:
         raise NotImplementedError(f"task={task!r} is not ported; only {sorted(TASK_MAP)}")
@@ -89,6 +117,7 @@ class YOLO:
         self._device_arg = device  # the trainer's: "cuda" is every visible card
         self.device = torch.device(device[0] if isinstance(device, (list, tuple)) else device)
         self.ckpt_path: Optional[Path] = None
+        self._callbacks: Dict[str, list] = {}
         if str(model).endswith((".yaml", ".yml")):
             self._new(str(model))
         else:
@@ -135,7 +164,7 @@ class YOLO:
                                f"load a checkpoint")
         return self.model
 
-    def train(self, data, mark: Optional[Callable[[str], None]] = None, device=None,
+    def train(self, data=None, mark: Optional[Callable[[str], None]] = None, device=None,
               **overrides) -> Dict[str, float]:
         """Train a fresh model of this facade's config on ``data`` (a dataset
         yaml's path, or the splits: see ``engine/trainer.py``) on ``device``
@@ -144,13 +173,29 @@ class YOLO:
         ``cfg/__init__.py:DEFAULT_CFG`` settings and ``overrides``; then
         adopt ``best.ckpt`` (or ``last.ckpt``) on the facade's device.
         Returns the final validation of ``best.ckpt``. The trainer stays at
-        ``self.trainer``; ``mark`` is its stage hook."""
+        ``self.trainer``; ``mark`` is its stage hook, and the callbacks of
+        ``add_callback`` are added to it.
+
+        ``resume=True`` (or a checkpoint's path) goes on with a cut run (see
+        ``engine/trainer.py``); on a facade loaded from a checkpoint,
+        ``resume=True`` resumes from that checkpoint, and ``data`` defaults
+        to the dataset yaml it was trained on. Training a checkpoint's
+        weights without ``resume`` is not ported (nor does the JAX facade
+        do it)."""
+        resume = overrides.get("resume")
         if self.ckpt_path is not None:
-            raise NotImplementedError("training starts from a model config (YOLO('yolov8n-seg"
-                                      ".yaml')); from a checkpoint's weights it is not ported")
+            if not resume:
+                raise NotImplementedError("training starts from a model config (YOLO('yolov8n-"
+                                          "seg.yaml')) or resumes a run (resume=True); from a "
+                                          "checkpoint's weights it is not ported")
+            if resume is True:
+                overrides["resume"] = str(self.ckpt_path)
         trainer = TASK_MAP[self.task]["trainer"]
         self.trainer = trainer(overrides={**self.overrides, **overrides, "mode": "train"},
                                device=self._device_arg if device is None else device, mark=mark)
+        for event, fns in self._callbacks.items():
+            for fn in fns:
+                self.trainer.add_callback(event, fn)
         metrics = self.trainer.train(data)
         best, last = self.trainer.wdir / "best.ckpt", self.trainer.wdir / "last.ckpt"
         src = best if best.exists() else last
@@ -251,3 +296,82 @@ class YOLO:
         trains."""
         fuse_model(self._weights())
         return self
+
+    def save(self, path="model.ckpt") -> Path:
+        """The facade's current weights (fused ones too: ``deploy ==
+        "fused"``) as a checkpoint of the JAX package's format, which
+        ``YOLO(path)`` here or in the JAX package loads (JAX's ``save``:
+        no EMA, no optimizer state, step 0, epoch -1; ``train_args`` the
+        task and the facade's overrides)."""
+        model = self._weights()
+        params, batch_stats = to_jax_variables(model.state_dict())
+        return save_checkpoint(path, params, batch_stats, None, step=0, epoch=-1,
+                               best_fitness=0.0, train_args={"task": self.task, **self.overrides},
+                               model_yaml=model.yaml, names=dict(self.names or {}),
+                               deploy="fused" if model.fused else None)
+
+    def load(self, weights) -> "YOLO":
+        """Load a checkpoint into this facade, on its device (JAX's
+        ``load``)."""
+        self._load(weights)
+        return self
+
+    def reset_weights(self) -> "YOLO":
+        """Fresh weights for the model, drawn as the trainer draws them
+        from seed 0 (``nn/tasks.py:init_weights``)."""
+        model = self._weights()
+        init_weights(model.to("cpu"), torch.Generator().manual_seed(0))
+        model.to(self.device)
+        return self
+
+    def to(self, device) -> "YOLO":
+        """Move the model to ``device`` (which predict, val and the trainer
+        then use)."""
+        self._device_arg = device
+        self.device = torch.device(device[0] if isinstance(device, (list, tuple)) else device)
+        if self.model is not None:
+            self.model.to(self.device)
+        return self
+
+    def info(self, detailed: bool = False, imgsz: int = 640) -> Dict:
+        """JAX's ``info``: the layer count and the parameter count, and with
+        ``detailed`` a row a layer (index, from, module, parameters, output
+        channels, arguments); ``imgsz`` is JAX's, unused here. A fresh
+        config's facade counts a model built for the purpose."""
+        model = self.model
+        if model is None:
+            model = build_model(yaml_model_load(self.overrides["model"]))
+        out = {"layers": len(model.specs), "parameters": model.num_params}
+        LOGGER.info(f"{type(model).__name__}: task={self.task}, {out['layers']} layers, "
+                    f"{out['parameters']:,} params, strides={model.strides}")
+        if detailed:
+            rows = []
+            for spec, layer in zip(model.specs, model.model):
+                kwargs = _jax_kwargs(spec)
+                n_p = sum(p.numel() for p in layer.parameters())
+                rows.append({"i": spec.i, "from": spec.f, "module": spec.name, "params": n_p,
+                             "c2": spec.c2, "kwargs": kwargs})
+                LOGGER.info(f"{spec.i:>4} {str(spec.f):>10} {n_p:>12,}  {spec.name}({kwargs})")
+            out["layers_detail"] = rows
+        return out
+
+    def add_callback(self, event: str, func: Callable):
+        """A callback for the next trainer this facade builds."""
+        self._callbacks.setdefault(event, []).append(func)
+
+    def clear_callback(self, event: str):
+        self._callbacks.pop(event, None)
+
+    def reset_callbacks(self):
+        self._callbacks = {}
+
+    def tune(self, data, iterations: int = 10, epochs: int = 10, **kwargs):
+        """The evolutionary hyperparameter search (``utils/tuner.py:Tuner``)
+        over this facade's model config: ``iterations`` trainings of
+        ``epochs`` epochs each on ``data`` -> (the best hyperparameters,
+        their fitness)."""
+        from ..utils.tuner import Tuner
+
+        model = self.overrides.get("model") or self.ckpt_path or "yolov8n-seg.yaml"
+        return Tuner(model, device=self._device_arg)(data, iterations=iterations, epochs=epochs,
+                                                     **kwargs)

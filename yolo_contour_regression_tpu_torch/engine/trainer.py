@@ -13,14 +13,54 @@ model, ``RTDETRTrainer`` a fresh RT-DETR (the task is the ``task``
 override's, else the model config's head's, and must be the trainer's):
 the model built from ``args.model`` at ``nc = len(data["names"])`` and
 initialized from ``args.seed`` (``nn/tasks.py:init_weights``); gradient
-accumulation toward ``nbs``; AdamW or SGD with the JAX schedules and the EMA
-(``utils/optim.py``). Each epoch ends with a validation (the task's
+accumulation toward ``nbs``; the optimizer JAX builds (AdamW, SGD, Adam,
+NAdam, RAdam, Adamax, RMSProp, or ``auto``) with the JAX schedules and the
+EMA (``utils/optim.py``). Each epoch ends with a validation (the task's
 validator) of the EMA weights with the live BatchNorm statistics, on a copy
 of the model in eval mode (the training model is left as it is), a
-``results.csv`` row in the JAX columns, ``last.ckpt`` and ``best.ckpt`` on
-the JAX cadence (written at once, not in a thread), and early stopping. At
-the end ``best.ckpt`` and ``last.ckpt`` are stripped (EMA -> params) and the
-stripped ``best.ckpt`` is validated again; its metrics are returned.
+``results.csv`` row in the JAX columns, ``last.ckpt`` and ``best.ckpt`` (and
+``epoch{n}.ckpt`` every ``save_period`` epochs) on the JAX cadence, and
+early stopping. At the end ``best.ckpt`` and ``last.ckpt`` are stripped (EMA
+-> params, no optimizer state) and the stripped ``best.ckpt`` is validated
+again; its metrics are returned.
+
+Checkpoints: each holds the weights, BatchNorm statistics, EMA, step and
+the optimizer's moments as optax's ``opt_state`` (``utils/optim.py:
+jax_opt_state``), so the JAX package resumes from it, and this trainer
+from the JAX package's. With ``async_save`` (the default) a save is one
+copy of the state into a buffer on its device, taken on the training
+thread; the copy to the host, the name mapping, the pickle and the writes
+run in a worker thread and a writer process
+(``utils/checkpoint.py:AsyncCheckpointSaver``) while the next epoch trains.
+The save is joined before the next one, before the end of training
+(before ``best.ckpt`` and ``last.ckpt`` are stripped; the writer stops
+there) and, in a group of W > 1 ranks, before rank 0 meets the others at
+the epoch's barrier; a failed write raises there.
+
+Resume (``resume=True``, or a checkpoint's path, as JAX's trainer): the
+run goes on in its ``save_dir`` (project / name, not incremented) from
+``weights/last.ckpt``, or from the given path; the checkpoint's
+``train_args`` replace the arguments but for ``resume`` and ``epochs`` (the
+call's, default 100, as in JAX); the
+model is built from its ``model_yaml``, its weights, BatchNorm statistics,
+EMA, optimizer moments and step restored (so the lr, bias-lr and momentum
+schedules go on from the step), and training starts at the epoch after its
+``epoch`` with its ``best_fitness``; ``results.csv`` gets the new rows
+after the old ones. ``data`` may be left out when the checkpoint's
+``train_args`` name a dataset yaml. JAX's quirks are kept: the loader's
+order starts again (a resumed epoch takes epoch 0's order, as each loader
+draws from ``random.Random(seed)`` anew), ``close_mosaic`` fires only at its
+exact epoch, and a stripped checkpoint (no ``opt_state``) restores its
+EMA as the weights, with a fresh optimizer, a fresh EMA and step 0. A
+missing checkpoint raises ``FileNotFoundError`` (JAX's trainer then starts
+afresh and says nothing); an ``opt_state`` that is not this optimizer's
+raises.
+
+Callbacks (``utils/callbacks``): ``on_train_start``,
+``on_train_epoch_start``, ``on_fit_epoch_end``, ``on_model_save`` and
+``on_train_end`` fire where and in the order the JAX trainer fires them,
+each with the trainer; ``add_callback`` adds one. In a data-parallel run
+they run in the ranks, which have the default (empty) ones.
 
 The train data takes one of two paths, by JAX's rule
 (``data/build.py:use_device_augment``):
@@ -79,15 +119,18 @@ Detect batches carry the label files' segments as the JAX dataset does (its
 ``use_segments`` is stored and never read): a polygon label's instance is
 warped by its contour, a box label's (zero segments) by its box corners.
 
-Not ported (raising ``NotImplementedError`` where asked for): ``resume``, the
-other families. Without effect: ``plots`` (the JAX plots need cv2), the
+Not ported (raising ``NotImplementedError`` where asked for): the other
+families. Without effect: ``plots`` (the JAX plots need cv2), the
 multi-step dispatch and ``cache`` options, the integration callbacks.
 
 Timing: ``mark`` goes to the step (its stages, "augment" first on the device
 path) and is called with "copy" as a batch is copied to the device;
 ``epoch_times`` holds each epoch's host-clock seconds: the train steps, the
-wait for the loader within them, the validation and the save. ``dn_fn``
-goes to the RT-DETR step (``engine/step.py``).
+wait for the loader within them, the validation and the save (with
+``async_save`` the snapshot; ``saver.write_s`` holds the worker's seconds
+of each save, and ``saved_epochs`` the epochs that saved). ``dn_fn`` goes
+to the RT-DETR step (``engine/step.py``); ``train_step`` is the one call a
+batch goes through.
 """
 from __future__ import annotations
 
@@ -112,9 +155,12 @@ from ..models.rtdetr.val import RTDETRValidator
 from ..nn.tasks import TaskModel, build_model, guess_model_task, init_weights, yaml_model_load
 from ..parallel.mesh import (TP_NOT_PORTED, all_max, barrier, broadcast_float, build_train_mesh,
                              initialize_distributed, launch, rank, resolve_devices, world_size)
-from ..utils.checkpoint import (checkpoint_variables, load_checkpoint, load_jax_variables, plain,
-                                save_checkpoint, strip_optimizer, to_jax_variables)
-from ..utils.optim import build_optimizer
+from ..utils.callbacks import add_integration_callbacks, get_default_callbacks, run_callbacks
+from ..utils.checkpoint import (AsyncCheckpointSaver, checkpoint_dict, checkpoint_variables,
+                                from_jax_variables, load_checkpoint, load_jax_variables, plain,
+                                strip_optimizer, to_jax_variables, write_checkpoint)
+from ..utils.optim import (build_optimizer, jax_opt_state, load_jax_opt_state, moment_tensors,
+                           optimizer_spec)
 from .step import init_train_state, make_train_step
 from .validator import (ClassificationValidator, DetectionValidator, PoseValidator,
                         SegmentationOriValidator, SegmentationValidator)
@@ -193,6 +239,25 @@ def _no_mark(stage: str):
     pass
 
 
+def checkpoint_tensors(state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """What a checkpoint of ``state`` is made of: the model's state dict,
+    the EMA and the optimizer's moments (``moment_tensors``)."""
+    return {"model": state.model.state_dict(), "ema": state.ema,
+            "opt": moment_tensors(state.optimizer, state.model)}
+
+
+def train_checkpoint(tensors: Dict[str, Dict[str, torch.Tensor]], spec, meta: Dict) -> Dict:
+    """The checkpoint of ``checkpoint_tensors`` (the live tensors, or a
+    snapshot of them), the optimizer's ``optimizer_spec`` and the save's
+    fields (``BaseTrainer.save_meta``): the JAX trees, ``opt_state`` in
+    optax's form."""
+    params, batch_stats = to_jax_variables(tensors["model"])
+    ema, _ = to_jax_variables(tensors["ema"])
+    named = {n: tensors["model"][n] for n in spec.labels}
+    opt_state = jax_opt_state(spec, named, tensors["opt"], meta["step"])
+    return checkpoint_dict(params, batch_stats, ema, opt_state=opt_state, **meta)
+
+
 class BaseTrainer:
     """The trainer: see the module docstring. A task's trainer gives
     ``task``, its default model config and its validator's class."""
@@ -215,11 +280,6 @@ class BaseTrainer:
         self.args.task = self.task
         if int(self.args.tp or 1) > 1:
             raise NotImplementedError(f"tp={self.args.tp}: {TP_NOT_PORTED}")
-        if self.args.resume:
-            raise NotImplementedError("resume is not ported: the port's optimizer state has no "
-                                      "form in the checkpoint")
-        # the device augmentation, else the host chain
-        self.device_augment = use_device_augment(self.args)
         self._device_arg = device
         self.device = torch.device(device[0] if isinstance(device, (list, tuple)) else device)
         self.mark = mark or _no_mark
@@ -228,7 +288,7 @@ class BaseTrainer:
         project = Path(self.args.project or "runs")
         self.save_dir = project / name
         i = 1
-        while self.save_dir.exists() and not self.args.exist_ok:
+        while self.save_dir.exists() and not self.args.exist_ok and not self.args.resume:
             self.save_dir = project / f"{name}{i}"
             i += 1
         self.wdir = self.save_dir / "weights"
@@ -236,10 +296,49 @@ class BaseTrainer:
         self.metrics: Dict[str, float] = {}
         self.best_fitness = 0.0
         self.epoch_times = []
+        self.saved_epochs = []
+        self.saver: Optional[AsyncCheckpointSaver] = None
         self._last_saved_epoch = -1
+        self.start_epoch = self.epoch = 0
+        self._resume_ckpt = None
+        self.callbacks = get_default_callbacks()
+        if self.args.plots or self.args.verbose:
+            add_integration_callbacks(self)
+        if self.args.resume:
+            self._find_resume()
+        # the device augmentation, else the host chain: chosen from the
+        # arguments a resume restored, as JAX builds its dataset from them
+        self.device_augment = use_device_augment(self.args)
+
+    def run_callbacks(self, event: str):
+        run_callbacks(self, event)
+
+    def add_callback(self, event: str, fn: Callable):
+        self.callbacks.setdefault(event, []).append(fn)
+
+    def _find_resume(self):
+        """The checkpoint to resume from (``save_dir/weights/last.ckpt``, or
+        ``resume`` when it is a path): its ``train_args`` replace the
+        arguments but for ``resume`` and ``epochs``, and the run starts at
+        the epoch after its own with its best fitness (JAX's
+        ``_find_resume``)."""
+        last = self.wdir / "last.ckpt"
+        if isinstance(self.args.resume, (str, Path)):
+            last = Path(self.args.resume)
+        if not last.exists():
+            raise FileNotFoundError(f"resume: no checkpoint at {last}")
+        self._resume_ckpt = ckpt = load_checkpoint(last)
+        for k, v in ckpt["train_args"].items():
+            if k not in ("resume", "epochs"):
+                setattr(self.args, k, v)
+        self.start_epoch = int(ckpt["epoch"]) + 1
+        self.best_fitness = float(ckpt["best_fitness"])
+        LOGGER.info(f"resuming from {last} at epoch {self.start_epoch}")
 
     def build_model(self, nc: int, names, data: Optional[Dict] = None) -> TaskModel:
         cfg = self.args.model or self.default_model
+        if self._resume_ckpt is not None:
+            cfg = self._resume_ckpt["model_yaml"]
         cfg = yaml_model_load(cfg) if isinstance(cfg, (str, Path)) else copy.deepcopy(dict(cfg))
         if self.task == "pose" and (data or {}).get("kpt_shape"):
             cfg["kpt_shape"] = [int(v) for v in data["kpt_shape"]]
@@ -252,9 +351,14 @@ class BaseTrainer:
         as it is."""
         return check_det_dataset(data) if isinstance(data, (str, Path)) else data
 
-    def train(self, data) -> Dict[str, float]:
-        """Train on ``data`` (see the module docstring) on this trainer's
-        devices; returns the final validation of ``best.ckpt`` (rank 0's)."""
+    def train(self, data=None) -> Dict[str, float]:
+        """Train on ``data`` (see the module docstring; default the dataset
+        yaml of ``args.data``) on this trainer's devices; returns the final
+        validation of ``best.ckpt`` (rank 0's)."""
+        if data is None:
+            data = self.args.data
+            if not isinstance(data, (str, Path)) or not data:
+                raise ValueError("train needs data: the splits, or a dataset yaml")
         if isinstance(data, (str, Path)):
             self.args.data = str(data)
         if initialize_distributed():  # one rank of a group (launched, or torchrun)
@@ -293,6 +397,11 @@ class BaseTrainer:
         args.accumulate = accumulate
         optimizer = build_optimizer(model, args, steps_per_epoch, iterations)
         state = init_train_state(model, optimizer, device=self.device)
+        if self._resume_ckpt is not None:
+            self._restore(state)
+        self.state = state
+        if args.save and args.async_save and r == 0:
+            self.saver = AsyncCheckpointSaver()  # its writer starts while training sets up
 
         def build_step(hyp):
             aug = make_augment_fn(hyp, args.imgsz, max_inst) if self.device_augment else None
@@ -313,8 +422,11 @@ class BaseTrainer:
         close_mosaic_at = args.epochs - args.close_mosaic
         data_iter = iter(loader)
         t_train = time.perf_counter()
+        self.run_callbacks("on_train_start")
         try:
-            for epoch in range(args.epochs):
+            for epoch in range(self.start_epoch, args.epochs):
+                self.epoch = epoch
+                self.run_callbacks("on_train_epoch_start")
                 if epoch == close_mosaic_at:
                     LOGGER.info("closing mosaic augmentation")
                     if hasattr(train_set, "close_mosaic"):
@@ -343,7 +455,7 @@ class BaseTrainer:
                     if not self.device_augment and images.dtype == torch.uint8:
                         images = images.float() / 255.0  # the host chain's RGB
                     batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
-                    metrics = step_fn(state, images, batch)
+                    metrics = self.train_step(step_fn, state, images, batch)
                     if i == steps_per_epoch - 1 or i % 50 == 0:
                         epoch_metrics = {k: float(v) for k, v in metrics.items()}
                         if not math.isfinite(epoch_metrics["loss"]):
@@ -359,11 +471,22 @@ class BaseTrainer:
                 if stopper(epoch, fitness):
                     LOGGER.info(f"early stopping at epoch {epoch + 1} (patience {args.patience})")
                     if args.save and self._last_saved_epoch != epoch and r == 0:
-                        self._save(state, epoch, fitness)
+                        self._save(state, epoch, fitness)  # joins the pending save first
+                        self.run_callbacks("on_model_save")
                     break
+        except BaseException:
+            if self.saver is not None:  # a save already taken is finished, or logged
+                try:
+                    self.saver.close()
+                except RuntimeError:
+                    LOGGER.exception("the pending checkpoint save failed")
+            raise
         finally:
             data_iter.close()  # stops the loader's worker threads
 
+        if self.saver is not None:
+            self.saver.close()  # every checkpoint written before they are read
+        self.run_callbacks("on_train_end")
         LOGGER.info(f"training done in {time.perf_counter() - t_train:.1f} s")
         best, last = self.wdir / "best.ckpt", self.wdir / "last.ckpt"
         if args.save and best.exists() and r == 0:
@@ -373,8 +496,35 @@ class BaseTrainer:
                 # the returned metrics describe the stripped best.ckpt
                 load_jax_variables(self.eval_model, *checkpoint_variables(load_checkpoint(best)))
                 self.metrics = validator(self.eval_model, *_split(data, "val"), names=names)
-        self.state = state
         return self.metrics
+
+    def train_step(self, step_fn, state, images: torch.Tensor, batch: Dict[str, torch.Tensor]):
+        """One optimizer step on a batch on the device (``step_fn`` is the
+        epoch's step, ``engine/step.py``) -> its metrics."""
+        return step_fn(state, images, batch)
+
+    def _restore(self, state):
+        """The resumed checkpoint's weights, BatchNorm statistics, EMA,
+        optimizer moments and step into ``state`` (JAX's resume); a
+        checkpoint without ``opt_state`` keeps the fresh optimizer, EMA and
+        step, as JAX's does."""
+        ckpt = self._resume_ckpt
+        load_jax_variables(state.model, *checkpoint_variables(
+            {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]}))
+        with torch.no_grad():
+            for n, p in state.model.named_parameters():
+                state.ema[n].copy_(p)
+        if ckpt.get("opt_state") is None:
+            LOGGER.warning("resume: the checkpoint has no optimizer state (stripped): its weights "
+                           "with a fresh optimizer, EMA and step, as the JAX trainer does")
+            return
+        ema = from_jax_variables(ckpt["ema_params"], {})
+        if set(ema) != set(state.ema):
+            raise KeyError("resume: the checkpoint's EMA does not fit the model")
+        for n, t in ema.items():
+            state.ema[n] = t.to(state.device, torch.float32)
+        state.step = int(ckpt["step"])
+        load_jax_opt_state(state.optimizer, state.model, ckpt["opt_state"], state.step)
 
     def get_dataset(self, data: Dict):
         """The train set: ``TrainDataset``, letterboxed raw samples for the
@@ -423,6 +573,8 @@ class BaseTrainer:
         main = rank() == 0
         if main:
             self._write_csv(epoch, log)
+        self.label_loss_items = {k: v for k, v in log.items() if k.startswith("train/")}
+        self.run_callbacks("on_fit_epoch_end")
         t = time.perf_counter()
         if args.save and main:
             every = max(1, int(args.save_last_every or 1))
@@ -430,24 +582,42 @@ class BaseTrainer:
             periodic = args.save_period > 0 and (epoch + 1) % args.save_period == 0
             if improved or periodic or (epoch + 1) % every == 0 or epoch + 1 == args.epochs:
                 self._save(state, epoch, fitness)
-        barrier()  # the other ranks wait while rank 0 saves
+                self.run_callbacks("on_model_save")
+        if world_size() > 1:
+            if self.saver is not None:
+                self.saver.wait()  # this epoch's checkpoint on disk before the ranks go on
+            barrier()  # the other ranks wait while rank 0 saves
         times["save_s"] = time.perf_counter() - t
         return fitness
 
-    def _save(self, state, epoch: int, fitness: float):
-        params, batch_stats = to_jax_variables(state.model.state_dict())
-        ema, _ = to_jax_variables(state.ema)
+    def save_paths(self, epoch: int, fitness: float) -> list:
+        """The checkpoints an epoch's save writes: last, best when the
+        fitness is the best so far, epoch{n} on ``save_period``."""
         paths = [self.wdir / "last.ckpt"]
         if fitness >= self.best_fitness:
             paths.append(self.wdir / "best.ckpt")
         if self.args.save_period > 0 and (epoch + 1) % self.args.save_period == 0:
             paths.append(self.wdir / f"epoch{epoch + 1}.ckpt")
-        train_args = {k: plain(v) for k, v in vars(self.args).items() if not callable(v)}
-        for p in paths:
-            save_checkpoint(p, params, batch_stats, ema, step=state.step, epoch=epoch,
-                            best_fitness=self.best_fitness, train_args=train_args,
-                            model_yaml=self.model.yaml, names=self.model.names)
+        return paths
+
+    def save_meta(self, state, epoch: int) -> Dict:
+        """The checkpoint's fields besides the tensors (``train_checkpoint``)."""
+        return dict(step=state.step, epoch=epoch, best_fitness=self.best_fitness,
+                    train_args={k: plain(v) for k, v in vars(self.args).items()
+                                if not callable(v)},
+                    model_yaml=self.model.yaml, names=self.model.names)
+
+    def _save(self, state, epoch: int, fitness: float):
+        """The checkpoint of ``state`` to ``save_paths``: through the saver
+        with ``async_save``, else written here."""
+        paths = self.save_paths(epoch, fitness)
+        spec, meta = optimizer_spec(state.optimizer, state.step), self.save_meta(state, epoch)
+        if self.args.async_save:  # the saver is made as the run sets up
+            self.saver.submit(paths, checkpoint_tensors(state), train_checkpoint, spec, meta)
+        else:
+            write_checkpoint(paths, train_checkpoint(checkpoint_tensors(state), spec, meta))
         self._last_saved_epoch = epoch
+        self.saved_epochs.append(epoch)
 
     def _write_csv(self, epoch: int, metrics: Dict[str, float]):
         self.csv.parent.mkdir(parents=True, exist_ok=True)
