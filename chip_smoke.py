@@ -167,7 +167,13 @@ Phases, one timestamped line each (elapsed seconds):
      ``tests/data/``) at JAX's floor recipe (300 epochs, batch 16, AdamW
      lr0 2e-4, warmup 2, no mosaic or MixUp, on the host chain): the
      stripped ``best.ckpt`` must meet ``runs/floor_rtdetr/floor.json``;
-     metrics, wall and the train / val / save split printed.
+     metrics, wall and the train / val / save split printed. It runs in a
+     process of its own (``start_floor_run``, ``rtdetr_trainer_main``: its
+     own launch counts, all 0, and its own ``SaveCheck``), started as soon as
+     the kernels phase has taken its timings and joined before the report;
+     its lines are printed at the join. Lines printed while it runs carry
+     a note that they overlapped it (their times shared the card and the
+     host); its failure or a nonzero exit fails the smoke.
   28. rtdetr-l: the fresh rtdetr-l (nc 80, a seeded init) on the card:
      predict at 640, batch 1 and 8, against the port on the CPU (queries
      matched by encoder token), one train step at 256 batch 2 in float64
@@ -278,9 +284,22 @@ Phases, one timestamped line each (elapsed seconds):
      asynchronous saver writes (``SaveCheck``) equals, leaf for leaf, the
      checkpoint a synchronous save builds from the state as it was at the
      save (kept on the card), each trainer's save seconds printed.
-  42. report: a JSON line of the kernels (launches summed over the predict,
+  42. track: ``YOLO(seg160, device="cuda").track`` with ``botsort`` (its
+     sparseOptFlow camera-motion compensation) and ``bytetrack`` over the
+     seeded 480x640 panning sequence of ``track_frames`` (births, a death,
+     an occlusion), ``Masks.xy`` read on every frame (the cv2-rule fill's
+     launches, zeroed just before and read just after); against the port
+     on the CPU: ids equal per frame, boxes within 0.05 px; against the
+     committed JAX record (``tests/data/torch_port_track_jax.npz``): ids,
+     boxes within 0.05 px, the GMC warps within 1e-4 (2x2) and 0.01 px;
+     host ms a frame of the tracker update, the GMC and the contour finder.
+  43. convert: ``convert_coco`` on a COCO json of the seg160 floor val set
+     (PNG files, polygons in pixels); ``val(data=yaml)`` on its labels gives
+     the in-memory floor set's metrics exactly (the even-odd fill's
+     launches).
+  44. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs of every task,
-     FastSAM's, the serve phase's and phases 38-41's), the card's line, and
+     FastSAM's, the serve phase's and phases 38-43's), the card's line, and
      last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 """
@@ -330,7 +349,11 @@ from yolo_contour_regression_tpu_torch.nn.modules import head as head_mod
 from yolo_contour_regression_tpu_torch.engine.predictor import (
     ClassificationPredictor, DetectionPredictor, PosePredictor, SegmentationOriPredictor,
     SegmentationPredictor, detect_xyxy)
+from yolo_contour_regression_tpu_torch.data.converter import convert_coco
+from yolo_contour_regression_tpu_torch.engine import results as results_mod
 from yolo_contour_regression_tpu_torch.engine.results import Masks, contours_to_masks
+from yolo_contour_regression_tpu_torch.trackers import bot_sort as bot_sort_mod
+from yolo_contour_regression_tpu_torch.trackers import byte_tracker as byte_tracker_mod
 from yolo_contour_regression_tpu_torch.engine.step import init_train_state, make_train_step
 from yolo_contour_regression_tpu_torch.models.rtdetr.predict import RTDETRPredictor
 from yolo_contour_regression_tpu_torch.models.sam import Predictor as SamPredictor
@@ -567,8 +590,61 @@ RTDETR_IMGSZ, RTDETR_SEED = 192, 0
 ZERO_GRAD_TOL = 1e-6
 
 
+# the RT-DETR floor run's process while it runs beside the main sequence
+# (``start_floor_run``): the process, its output file, its start; and the
+# note the floor run's own lines carry in that process
+FLOOR_RUN: dict = {}
+CHILD_NOTE = ""
+
+
 def log(phase: str, msg: str):
-    print(f"[{time.perf_counter() - T0:8.2f}s] {phase}: {msg}", flush=True)
+    proc = FLOOR_RUN.get("proc")
+    note = (" [overlapped: rtdetr_trainer ran in its own process; times shared the card and "
+            "the host]" if proc is not None and proc.poll() is None else CHILD_NOTE)
+    print(f"[{time.perf_counter() - T0:8.2f}s] {phase}: {msg}{note}", flush=True)
+
+
+def start_floor_run():
+    """``rtdetr_trainer_main`` in a fresh interpreter from the checkout,
+    started now; its standard output goes to a file in the temporary
+    directory, printed at ``join_floor_run``."""
+    out = Path(tempfile.gettempdir()) / f"chip_smoke_rtdetr_trainer_{os.getpid()}.log"
+    with open(out, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-c",
+                                 "import chip_smoke; chip_smoke.rtdetr_trainer_main()"],
+                                cwd=ROOT, stdout=fh)
+    FLOOR_RUN.update(proc=proc, out=out, t0=time.perf_counter())
+
+
+def join_floor_run(timeout: float) -> dict:
+    """Wait for the floor run, print its lines and return the JSON object
+    of its last line; raise if it exits nonzero or its last line is not
+    one."""
+    proc, out = FLOOR_RUN["proc"], FLOOR_RUN["out"]
+    t = time.perf_counter()
+    rc = proc.wait(timeout=timeout)
+    waited, wall = time.perf_counter() - t, time.perf_counter() - FLOOR_RUN["t0"]
+    lines = out.read_text().splitlines()
+    out.unlink()
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        result = None
+    for line in lines[:-1] if isinstance(result, dict) else lines:
+        print(line, flush=True)
+    log("rtdetr_trainer", f"its own process: {wall:.2f}s from its start, {waited:.2f}s of it "
+        f"waited for at the join, exit {rc}")
+    if rc != 0 or not isinstance(result, dict):
+        raise AssertionError(f"rtdetr_trainer: its process exited with {rc}, last line "
+                             f"{lines[-1:]}")
+    return result
+
+
+def stop_floor_run():
+    proc = FLOOR_RUN.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
 
 
 def shape_images(n: int, h: int, w: int, seed: int):
@@ -3093,6 +3169,22 @@ def rtdetr_trainer(card: str) -> dict:
     return counts
 
 
+def rtdetr_trainer_main():
+    """``rtdetr_trainer`` in a process of its own (``start_floor_run``):
+    TF32 off, its own ``SaveCheck`` over its saves; its last line is the
+    JSON ``{"counts": ...}`` of its launch counts."""
+    global CHILD_NOTE
+    CHILD_NOTE = " [its own process, beside the smoke's main sequence]"
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    with tempfile.TemporaryDirectory() as d:
+        save_check = SaveCheck(Path(d) / "links")
+        save_check.install()
+        counts = rtdetr_trainer(card)
+        save_lines(save_check.finish(), card)
+    print(json.dumps({"counts": counts}), flush=True)
+
+
 def off_the_pixel_grid(model, std: float = 1e-3, seed: int = 0):
     """A copy of a fresh RT-DETR with its deformable attention's
     ``sampling_offsets`` moved by a seeded draw: N(0, std) for the kernels
@@ -4996,6 +5088,254 @@ def datasets_phase(card: str, d: Path) -> tuple:
     return counts, yaml
 
 
+# the track phase: a seeded 480x640 panning sequence through YOLO.track
+TRACK_RECORD = ROOT / "tests" / "data" / "torch_port_track_jax.npz"
+TRACK_N, TRACK_HW, TRACK_IMGSZ, TRACK_SEED = 12, (480, 640), 160, 0
+TRACKER_NAMES = ("botsort", "bytetrack")
+TRACK_BOX_ATOL = BOX_ATOL  # px, boxes of tracked results
+TRACK_WARP_ATOL = (1e-4, 0.01)  # GMC warps: the 2x2 part, the translation (px)
+
+
+def track_frames(n: int = TRACK_N, h: int = TRACK_HW[0], w: int = TRACK_HW[1],
+                 seed: int = TRACK_SEED):
+    """n HWC uint8 BGR frames of a panning camera (numpy only): a dim
+    background of 8x8 blocks (corners for the camera-motion estimate), seen
+    through a window that moves by a seeded -3..3 px a frame on each axis,
+    and four moving circles and rectangles as ``shape_images`` draws them:
+    one leaves for good 3 frames before the end, one enters at frame 3,
+    one is hidden at frames 5 and 6."""
+    rng = np.random.default_rng(seed)
+    pad = 64
+    cells = rng.integers(28, 53, ((h + 2 * pad) // 8 + 1, (w + 2 * pad) // 8 + 1))
+    bg = np.kron(cells, np.ones((8, 8), np.int64))[:h + 2 * pad, :w + 2 * pad].astype(np.uint8)
+    pan = np.clip(np.cumsum(rng.integers(-3, 4, (n, 2)), 0), 1 - pad, pad - 1)
+    yy, xx = np.mgrid[:h, :w]
+    objs = [dict(kind=k % 2, c=rng.uniform([0.2 * w, 0.25 * h], [0.8 * w, 0.75 * h]),
+                 v=rng.uniform(-6, 6, 2), r=rng.uniform(0.08, 0.14) * h,
+                 color=rng.integers(100, 256, 3).astype(np.uint8)) for k in range(4)]
+    life = [(0, n), (0, n - 3), (3, n), (0, n)]
+    hidden = {0: (5, 7)}
+    frames = []
+    for t in range(n):
+        ox, oy = pan[t]
+        img = np.repeat(bg[pad + oy:pad + oy + h, pad + ox:pad + ox + w, None], 3, 2)
+        for i, o in enumerate(objs):
+            gone = i in hidden and hidden[i][0] <= t < hidden[i][1]
+            if gone or not life[i][0] <= t < life[i][1]:
+                continue
+            cx, cy = o["c"] + o["v"] * t - (ox, oy)
+            r = o["r"]
+            if o["kind"] == 0:
+                img[(xx - cx) ** 2 + (yy - cy) ** 2 <= r * r] = o["color"]
+            else:
+                img[max(int(cy - r), 0):max(int(cy + r), 0),
+                    max(int(cx - r), 0):max(int(cx + r), 0)] = o["color"]
+        frames.append(img)
+    return frames
+
+
+@contextlib.contextmanager
+def timed(owner, attr: str, seconds: list, outputs: list = None):
+    """``owner.attr`` wrapped for the block: each call's host seconds go to
+    ``seconds`` (and its return value to ``outputs``)."""
+    orig = getattr(owner, attr)
+
+    def wrapper(*args, **kwargs):
+        t = time.perf_counter()
+        out = orig(*args, **kwargs)
+        seconds.append(time.perf_counter() - t)
+        if outputs is not None:
+            outputs.append(out)
+        return out
+
+    setattr(owner, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+def track_run(model, tracker: str, frames) -> dict:
+    """``model.track(frames, tracker=...)`` streamed: per frame the ids,
+    boxes, scores and ``Masks.xy`` contours; the GMC warps; the host
+    seconds of each tracker update (association and Kalman), GMC estimate
+    and contour search."""
+    times = {"update": [], "gmc": [], "contours": []}
+    warps = []
+    out = {"ids": [], "boxes": [], "conf": [], "xy": [], "points": 0}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timed(byte_tracker_mod.BYTETracker, "update", times["update"]))
+        stack.enter_context(timed(bot_sort_mod.GMC, "apply", times["gmc"], warps))
+        stack.enter_context(timed(results_mod, "largest_contour", times["contours"]))
+        t = time.perf_counter()
+        for r in model.track(frames, imgsz=TRACK_IMGSZ, tracker=tracker, stream=True):
+            out["ids"].append(np.asarray(r.track_ids, np.int64))
+            out["boxes"].append(r.boxes.xyxy.copy())
+            out["conf"].append(r.boxes.conf.copy())
+            out["xy"].append(r.masks.xy)
+            out["points"] += sum(len(c) for c in out["xy"][-1])
+        out["wall"] = time.perf_counter() - t
+    out["warps"] = np.asarray(warps, np.float32).reshape(-1, 2, 3)
+    out["times"] = times
+    return out
+
+
+def track_record(runs: dict) -> dict:
+    """The arrays of ``TRACK_RECORD``: per tracker the ids and boxes of
+    every frame concatenated with the frames' counts, and the warps."""
+    rec = {}
+    for name, r in runs.items():
+        rec[f"{name}_counts"] = np.asarray([len(i) for i in r["ids"]], np.int64)
+        rec[f"{name}_ids"] = np.concatenate(r["ids"]).astype(np.int64)
+        rec[f"{name}_boxes"] = np.concatenate(r["boxes"]).astype(np.float32).reshape(-1, 4)
+        rec[f"{name}_warps"] = np.asarray(r["warps"], np.float32).reshape(-1, 2, 3)
+    return rec
+
+
+def load_track_record(path: Path = TRACK_RECORD) -> dict:
+    """``TRACK_RECORD`` back as ``track_run``'s ids, boxes and warps."""
+    with np.load(path) as z:
+        rec = {k: z[k] for k in z.files}
+    runs = {}
+    for name in TRACKER_NAMES:
+        cut = np.cumsum(rec[f"{name}_counts"])[:-1]
+        runs[name] = {"ids": np.split(rec[f"{name}_ids"], cut),
+                      "boxes": np.split(rec[f"{name}_boxes"], cut),
+                      "warps": rec[f"{name}_warps"]}
+    return runs
+
+
+def track_gaps(got: dict, want: dict) -> dict:
+    """Frames whose ids differ, the worst box gap (px; inf where the
+    counts differ), the worst warp gaps (2x2, translation) and, where both
+    runs kept ``Masks.xy``, the frames whose contours are not equal point
+    for point."""
+    ids = [t for t, (a, b) in enumerate(zip(got["ids"], want["ids"]))
+           if not np.array_equal(a, b)]
+    if len(got["ids"]) != len(want["ids"]):
+        ids.append(-1)
+    box = max((float(np.abs(a - b).max()) if a.shape == b.shape else math.inf
+               for a, b in zip(got["boxes"], want["boxes"]) if a.size or b.size), default=0.0)
+    out = {"id_frames": ids, "box": box}
+    if "xy" in got and "xy" in want:
+        out["xy_frames"] = [t for t, (a, b) in enumerate(zip(got["xy"], want["xy"]))
+                            if len(a) != len(b) or not all(map(np.array_equal, a, b))]
+    ga, gb = np.asarray(got["warps"]), np.asarray(want["warps"])
+    if ga.shape != gb.shape:
+        return {**out, "warp": (math.inf, math.inf)}
+    out["warp"] = ((float(np.abs(ga[:, :, :2] - gb[:, :, :2]).max()),
+                    float(np.abs(ga[:, :, 2] - gb[:, :, 2]).max())) if ga.size else (0.0, 0.0))
+    return out
+
+
+def track_phase(card: str) -> dict:
+    """``YOLO(seg160, device="cuda").track`` over ``track_frames`` with
+    BOT-SORT (sparseOptFlow) and ByteTrack, launch counts zeroed just before
+    and read just after: against the port on the CPU and against the
+    committed JAX record, ids equal on every frame, boxes within
+    ``TRACK_BOX_ATOL``, the warps within ``TRACK_WARP_ATOL``; against the
+    CPU, every frame's ``Masks.xy`` equal point for point; the cv2 fill
+    launched (``Masks.xy`` reads the masks); host ms a frame of the tracker
+    update, the GMC and the contour finder. Returns the launch counts."""
+    frames = track_frames()
+    model = YOLO(CKPT, device="cuda")
+    model.predict(frames[:1], imgsz=TRACK_IMGSZ)  # warm-up
+    zero_launch_counts()
+    card_runs = {name: track_run(model, name, frames) for name in TRACKER_NAMES}
+    counts = launch_counts()
+    cpu = YOLO(CKPT, device="cpu")
+    cpu_runs = {name: track_run(cpu, name, frames) for name in TRACKER_NAMES}
+    jax_runs = load_track_record()
+    bad = []
+    for name in TRACKER_NAMES:
+        r = card_runs[name]
+        n = len(frames)
+        t = {k: 1e3 * sum(v) / n for k, v in r["times"].items()}
+        vs_cpu, vs_jax = track_gaps(r, cpu_runs[name]), track_gaps(r, jax_runs[name])
+        tracks = sorted({int(i) for ids in r["ids"] for i in ids if i >= 0})
+        near = min((abs(float(c) - 0.1) for cs in cpu_runs[name]["conf"] for c in cs),
+                   default=math.inf)
+        log("track", f"{name}: {n} frames {TRACK_HW[0]}x{TRACK_HW[1]} at imgsz {TRACK_IMGSZ} "
+            f"(conf 0.1), {sum(len(i) for i in r['ids'])} detections, tracks {tracks}, "
+            f"{r['points']} Masks.xy points; card against CPU: id frames differing "
+            f"{vs_cpu['id_frames']}, Masks.xy frames differing {vs_cpu['xy_frames']}, boxes "
+            f"max {vs_cpu['box']:.2e} px, warps {vs_cpu['warp']}; "
+            f"against the JAX record: id frames differing {vs_jax['id_frames']}, boxes max "
+            f"{vs_jax['box']:.2e} px, warps max (2x2, px) {vs_jax['warp']} (limits "
+            f"{TRACK_BOX_ATOL} px, {TRACK_WARP_ATOL}); the CPU's score nearest the 0.1 threshold "
+            f"{near:.2e} off it; host ms a frame: tracker update {t['update']:.3f}, GMC "
+            f"{t['gmc']:.3f}, contours {t['contours']:.3f}; wall {r['wall']:.2f}s on the card, "
+            f"{cpu_runs[name]['wall']:.2f}s on the CPU | {card}")
+        for what, g in (("cpu", vs_cpu), ("jax", vs_jax)):
+            if (g["id_frames"] or g.get("xy_frames") or g["box"] > TRACK_BOX_ATOL
+                    or g["warp"][0] > TRACK_WARP_ATOL[0]
+                    or g["warp"][1] > TRACK_WARP_ATOL[1]):
+                bad.append((name, what, g))
+        if not tracks or not r["points"]:
+            bad.append((name, "empty", tracks, r["points"]))
+    log("track", f"launches {counts} | {card}")
+    if bad or counts["fill_polygons_cv2"] == 0:
+        raise AssertionError(f"track: {bad}, launches {counts}")
+    return counts
+
+
+def coco_json(images, texts) -> dict:
+    """A COCO instances json of a labelled set: an image entry each
+    (``{i:04d}.png``), an annotation a label line with its polygon in
+    pixels, its box, ``category_id`` the class + 1 and ``iscrowd`` 0."""
+    out = {"images": [], "annotations": [], "categories": []}
+    for i, (img, text) in enumerate(zip(images, texts)):
+        h, w = img.shape[:2]
+        out["images"].append({"id": i, "file_name": f"{i:04d}.png", "height": h, "width": w})
+        for line in text.strip().splitlines():
+            v = line.split()
+            xy = np.asarray(v[1:], np.float64).reshape(-1, 2) * (w, h)
+            lo, hi = xy.min(0), xy.max(0)
+            out["annotations"].append({
+                "id": len(out["annotations"]), "image_id": i, "category_id": int(v[0]) + 1,
+                "iscrowd": 0, "segmentation": [xy.reshape(-1).tolist()],
+                "bbox": [lo[0], lo[1], hi[0] - lo[0], hi[1] - lo[1]]})
+    return out
+
+
+def convert_check(card: str, d: Path) -> dict:
+    """``convert_coco`` (``data/converter.py``) on ``coco_json`` of the
+    seg160 floor val set under ``d`` (images as PNG files beside it), then
+    ``YOLO(seg160).val(data=yaml)`` on the converted labels, launch counts
+    zeroed just before and read just after: the metrics equal the
+    in-memory set's exactly and the even-odd fill launched. Returns the
+    counts."""
+    images, labels = floor_val_set()
+    with np.load(FLOOR_VAL) as z:
+        texts = [str(t) for t in z["labels"]]
+    (d / "images" / "val").mkdir(parents=True)
+    (d / "annotations").mkdir()
+    for i, img in enumerate(images):
+        (d / "images" / "val" / f"{i:04d}.png").write_bytes(png_bytes(img))
+    (d / "annotations" / "instances_val.json").write_text(json.dumps(coco_json(images, texts)))
+    t = time.perf_counter()
+    convert_coco(str(d / "annotations"), save_dir=str(d), cls91to80=False)
+    convert_s = time.perf_counter() - t
+    n_files = len(list((d / "labels" / "val").glob("*.txt")))
+    yaml = d / "data.yaml"
+    yaml.write_text(f"path: {d}\ntrain: images/val\nval: images/val\n"
+                    f"names:\n  0: circle\n  1: rect\n")
+    seg = YOLO(CKPT, device="cuda")
+    mem = seg.val(images, labels, imgsz=160, batch=4)
+    zero_launch_counts()
+    disk = seg.val(data=str(yaml), imgsz=160, batch=4)
+    counts = launch_counts()
+    same = disk == mem
+    log("convert", f"convert_coco of the seg160 floor val set's COCO json ({len(images)} images, "
+        f"{sum(len(x.splitlines()) for x in texts)} polygons; {convert_s:.3f}s) -> {n_files} "
+        f"label files; val(data=yaml) on them: mask mAP50-95 {disk['metrics/mAP50-95(M)']:.4f}, "
+        f"box {disk['metrics/mAP50-95(B)']:.4f}, equal to the in-memory set's {same}; launches "
+        f"{counts} | {card}")
+    if not same or n_files != len(images) or counts["fill_polygons"] == 0:
+        raise AssertionError(f"convert: {disk} vs {mem}, {n_files} files, launches {counts}")
+    return counts
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -5068,6 +5408,10 @@ def main() -> int:
     atan2f_instr = gt_rays_sass(built["gt_rays"][0], card)
     atan2f_floor(rows_checks[TRAIN_NPAD], "rows", atan2f_instr, card)
     atan2f_floor(pairs_check, "pairs", atan2f_instr, card)
+
+    # 27. the RT-DETR trainer to its floor, in a process of its own from here
+    # on (every kernel timing above is taken); joined before the report
+    start_floor_run()
 
     # 4. the main path: predict on the card
     phase_start["predict"] = time.perf_counter()
@@ -5187,12 +5531,10 @@ def main() -> int:
     phase_start["rtdetr"] = time.perf_counter()
     rtdetr_counts = rtdetr_phases(card)
 
-    # 26-28. the host train chain (a seg trainer on it launches both
-    # kernels), the RT-DETR trainer to its floor, and rtdetr-l
+    # 26 and 28. the host train chain (a seg trainer on it launches both
+    # kernels) and rtdetr-l (27, the RT-DETR trainer, runs beside them)
     phase_start["host_pipeline"] = time.perf_counter()
     host_counts = host_pipeline(card)
-    phase_start["rtdetr_trainer"] = time.perf_counter()
-    rtdetr_counts["trainer"] = rtdetr_trainer(card)
     phase_start["rtdetr_l"] = time.perf_counter()
     rtdetr_counts["rtdetr-l"] = rtdetr_l(card)
 
@@ -5245,7 +5587,20 @@ def main() -> int:
     save_lines(save_check.finish(), card)
     check_dir.cleanup()
 
-    # 42. report: launches summed over the main paths' runs
+    # 42-43. tracking (BOT-SORT and ByteTrack, Masks.xy) and the COCO converter
+    phase_start["track"] = time.perf_counter()
+    track_counts = track_phase(card)
+    phase_start["convert"] = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        convert_counts = convert_check(card, Path(d))
+
+    # 27 joined: the RT-DETR floor run's lines, its checks' outcome and counts
+    phase_start["rtdetr_join"] = time.perf_counter()
+    rtdetr_counts["trainer"] = join_floor_run(timeout=900)["counts"]
+    if any(rtdetr_counts["trainer"].values()):
+        raise AssertionError(f"rtdetr_trainer: launches {rtdetr_counts['trainer']}")
+
+    # 44. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,
@@ -5255,6 +5610,7 @@ def main() -> int:
                 + classify_counts[k] + sum(c[k] for c in rtdetr_counts.values())
                 + host_counts[k] + fastsam_counts[k] + serve_counts[k] + ddp_counts[k]
                 + serve_mesh_counts[k] + datasets_counts[k] + lifecycle_counts[k]
+                + track_counts[k] + convert_counts[k]
                 for k in KERNEL_WRAPPERS}
     serve_other = sum(c["fill_polygons_cv2"] for k, c in serve_parts.items()
                       if k not in ("segment", "streams"))
@@ -5273,14 +5629,16 @@ def main() -> int:
          "launches_fastsam": fastsam_counts["fill_polygons"],
          "launches_ddp": ddp_counts["fill_polygons"],
          "launches_datasets": datasets_counts["fill_polygons"],
-         "launches_lifecycle": lifecycle_counts["fill_polygons"]},
+         "launches_lifecycle": lifecycle_counts["fill_polygons"],
+         "launches_convert": convert_counts["fill_polygons"]},
         {"name": "fill_polygons_cv2", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
                      "no TPU kernel)",
          "launches": launches["fill_polygons_cv2"], **fill_rows["fill_polygons_cv2"],
          "library_ms": None, "launches_fastsam": fastsam_counts["fill_polygons_cv2"],
          "launches_serve": serve_counts["fill_polygons_cv2"],
-         "launches_serve_mesh": serve_mesh_counts["fill_polygons_cv2"]},
+         "launches_serve_mesh": serve_mesh_counts["fill_polygons_cv2"],
+         "launches_track": track_counts["fill_polygons_cv2"]},
         {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
          "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_NPAD]),
@@ -5311,7 +5669,8 @@ def main() -> int:
         f"{serve_mesh_counts} (the masks served by two replicas), datasets {datasets_counts} "
         f"(the seg160 yaml's validation), lifecycle {lifecycle_counts} (the five optimizers' "
         f"float64 steps, the CLI's validation, the tuner's two trainings; ddp's counts hold (a)'s "
-        f"resumed run); "
+        f"resumed run), track {track_counts} (the masks of both trackers' results, read for "
+        f"Masks.xy), convert {convert_counts} (the converted labels' validation); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
         "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "
@@ -5334,4 +5693,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_floor_run()

@@ -23,7 +23,11 @@ from contours alone), and one predict of a fresh yolo_nas_s behind
 ``InferenceServer`` on the seg160 checkpoint, and two synthetic captures
 through ``LoadStreams``; then the lifecycle: the CLI's ``version`` and
 ``cfg``, a callback, a mid-run checkpoint with optax's state (read without
-optax) and a resume from it; and scipy and cv2 were never imported."""
+optax) and a resume from it; then tracking: the trackers, the contour
+finder, the annotator and the converter are among the modules, and
+``YOLO.track`` runs BOT-SORT (its sparse-flow GMC) and ByteTrack on three
+panning frames with ``Masks.xy`` read; and scipy and cv2 were never
+imported."""
 import subprocess
 import sys
 from pathlib import Path
@@ -186,13 +190,25 @@ with tempfile.TemporaryDirectory() as d:
     resumed = pkg.YOLO(mid, device="cpu")
     resumed.train(data=split, resume=True, epochs=2, project=d, name="b")
     assert resumed.trainer.start_epoch == 1 and resumed.trainer.state.step == 4
+tracking = {f"yolo_contour_regression_tpu_torch.{m}" for m in (
+    "trackers", "trackers.basetrack", "trackers.bot_sort", "trackers.byte_tracker",
+    "trackers.track", "trackers.utils.kalman_filter", "trackers.utils.lsa",
+    "trackers.utils.matching", "ops.contours", "data.annotator", "data.converter")}
+assert tracking <= set(mods), sorted(tracking - set(mods))
+pan = chip_smoke.track_frames(3, 96, 128, seed=1)
+n_tracked = 0
+for name in ("botsort", "bytetrack"):
+    tracked = model.track(pan, imgsz=64, tracker=name)
+    assert all(r.track_ids.shape == (len(r),) for r in tracked)
+    n_tracked += sum(len(c) for r in tracked for c in r.masks.xy)
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 assert not [n for n in sys.modules if n.split(".")[0] == "scipy"]
 print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;",
       "val mask mAP50-95", val["metrics/mAP50-95(M)"], ";", "train step loss",
       float(metrics["loss"]), ";", "YOLO.train steps", trained, "; detect", n_det, "detections",
-      "; SAM everything mode", len(gen[0]), "masks; served", len(served), "images")
+      "; SAM everything mode", len(gen[0]), "masks; served", len(served), "images;",
+      "tracked contour points", n_tracked)
 """
 
 
@@ -205,6 +221,6 @@ def test_port_imports_and_predicts_without_jax_cv2_yaml_triton():
     assert "detections" in res.stdout and "train step loss" in res.stdout
     assert "val mask mAP50-95" in res.stdout and "YOLO.train steps 2" in res.stdout
     assert "; detect" in res.stdout and "; SAM everything mode" in res.stdout
-    assert "; served 2 images" in res.stdout
+    assert "; served 2 images" in res.stdout and "tracked contour points" in res.stdout
     n_mods = int(res.stdout.split("imported ")[1].split()[0])
     assert n_mods >= 20  # ops, nn, utils, engine, data modules of the port

@@ -116,7 +116,7 @@ def test_segment_predict_and_train(dataset, capsys, tmp_path):
 def test_special_commands(capsys, tmp_path, monkeypatch):
     """help, version, checks (Python, torch and the device in place of jax
     and flax), settings (a json file; reset), and what raises: hub (the
-    network), export, track and benchmark (not ported), an unknown mode."""
+    network), export and benchmark (not ported), an unknown mode."""
     for argv in ([], ["help"], ["--help"]):
         assert tcfg.entrypoint(argv) == 0
         assert "usage: yolo TASK MODE" in capsys.readouterr().out
@@ -135,7 +135,7 @@ def test_special_commands(capsys, tmp_path, monkeypatch):
     assert "settings reset" in capsys.readouterr().out
     with pytest.raises(RuntimeError, match="network"):
         tcfg.entrypoint(["hub", "login", "KEY"])
-    for mode in ("export", "track", "benchmark"):
+    for mode in ("export", "benchmark"):
         with pytest.raises(NotImplementedError, match="not ported"):
             tcfg.entrypoint(["detect", mode])
     with pytest.raises(ValueError, match="mode"):

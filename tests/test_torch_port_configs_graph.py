@@ -230,10 +230,12 @@ def test_four_level_losses_and_grads_match_jax(level, pose):
                else jloss.detection_loss(fs, jb, strides, nc, HYP))
         return out.total, out.items
 
-    (jtotal, jitems), jgrads = jax.value_and_grad(jfn, has_aux=True)(
+    # compiled once each: eager dispatch took most of this test's time
+    (jtotal, jitems), jgrads = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
         [jnp.asarray(f) for f in feats])
-    _, jassign = jloss.detection_loss([jnp.asarray(f[..., :64 + nc]) for f in feats], jb,
-                                      strides, nc, HYP, return_assign=True)
+    jassign = jax.jit(lambda fs: jloss.detection_loss(fs, jb, strides, nc, HYP,
+                                                      return_assign=True)[1])(
+        [jnp.asarray(f[..., :64 + nc]) for f in feats])
     tfeats = [_t(f).permute(0, 3, 1, 2).contiguous().requires_grad_() for f in feats]
     tb = {n: _t(a) for n, a in batch.items()}
     out = (tloss.pose_loss(tfeats, tb, strides, nc, HYP, (k, 3)) if pose

@@ -22,6 +22,7 @@ from tests.test_torch_port_configs_graph import _imgsz, _jax_narrow
 from tests.test_torch_port_detect import _det_batch
 from tests.test_torch_port_pose import HYP, _pose_batch
 from tests.test_torch_port_train import _f64, _np, _t
+from tests.torch_port_jax_init import compiled_init
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -55,10 +56,14 @@ def test_four_level_step_matches_jax_f64(name):
         fn = jax.jit(jax.value_and_grad(jstep.make_loss_fn(jm64, HYP), has_aux=True))
         (jl, _), jg = fn(v64["params"], v64["batch_stats"], jnp.asarray(images, jnp.float64), jb)
         jl, jg = float(jl), from_jax_variables(_np(jg), {})
-        jout, _ = jm64.raw_forward(v64, jnp.asarray(images, jnp.float64), train=True)
-        _, jassign = jloss.detection_loss([o[..., :o.shape[-1] - nk] for o in jout], jb,
-                                          jm.strides, cfg["nc"], HYP, return_assign=True)
-        jfg, jidx = np.asarray(jassign.fg_mask), np.asarray(jassign.target_gt_idx)
+        def assign(vv, x, b):  # compiled once: eager dispatch took 20-40 s of this test
+            jout, _ = jm64.raw_forward(vv, x, train=True)
+            _, a = jloss.detection_loss([o[..., :o.shape[-1] - nk] for o in jout], b,
+                                        jm.strides, cfg["nc"], HYP, return_assign=True)
+            return a.fg_mask, a.target_gt_idx
+
+        jfg, jidx = (np.asarray(a) for a in jax.jit(assign)(
+            v64, jnp.asarray(images, jnp.float64), jb))
     tb = {k: _t(a) for k, a in batch.items()}
     model = load_jax_variables(build_model(cfg), v["params"], v["batch_stats"]).double().train()
     loss, items = tstep.make_loss_fn(model, HYP)(_t(images).double(), tb)
@@ -89,7 +94,7 @@ def test_four_level_init_priors_equal_jax(name):
     cfg = narrow(name)
     model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
     jm = jbuild_model(cfg)
-    jv = jm.init(jax.random.PRNGKey(0), imgsz=_imgsz(jm.strides))
+    jv = compiled_init(jm, jax.random.PRNGKey(0), _imgsz(jm.strides))
     layer = len(cfg["backbone"]) + len(cfg["head"]) - 1
     jhead_p, head = jv["params"][f"layer{layer}"], model.model[layer]
     jdet, det = jhead_p.get("detect", jhead_p), getattr(head, "detect", head)

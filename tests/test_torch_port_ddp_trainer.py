@@ -21,6 +21,7 @@ import torch
 
 from tests import torch_port_ranks as ranks
 from tests.helpers import make_shape_dataset
+from tests.torch_port_jax_init import compiled_init, compiled_trainer_init
 from yolo_contour_regression_tpu.data import device_augment as jda
 from yolo_contour_regression_tpu.engine import trainer as jtrainer
 from yolo_contour_regression_tpu.nn.tasks import build_model
@@ -56,7 +57,7 @@ def runs(tmp_path_factory):
     every rank through ``jax_init.npz`` in the port's project directory."""
     tmp = tmp_path_factory.mktemp("ddp")
     yaml = make_shape_dataset(tmp / "ds", n_train=8, n_val=4, imgsz=64, seed=0)
-    init = build_model(NARROW, nc=2).init(jax.random.PRNGKey(0), imgsz=64)
+    init = compiled_init(build_model(NARROW, nc=2), jax.random.PRNGKey(0), 64)
     (tmp / "port").mkdir()
     ranks.save_tree(tmp / "port" / "jax_init.npz",
                     jax.tree_util.tree_map(np.asarray, init["params"]),
@@ -68,10 +69,11 @@ def runs(tmp_path_factory):
     try:
         with ThreadPoolExecutor(1) as ex:  # the ranks train while JAX does
             port = ex.submit(tt.train, str(yaml))
-            jt = jtrainer.SegmentationTrainer(overrides={
-                **TRAIN, "data": str(yaml), "steps_per_dispatch": 1,
-                "project": str(tmp / "jax"), "name": "t"})
-            jm = jt.train()
+            with compiled_trainer_init():
+                jt = jtrainer.SegmentationTrainer(overrides={
+                    **TRAIN, "data": str(yaml), "steps_per_dispatch": 1,
+                    "project": str(tmp / "jax"), "name": "t"})
+                jm = jt.train()
             tm = port.result()
     finally:
         jda._warp_image_separable = warp

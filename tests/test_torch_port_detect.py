@@ -360,7 +360,8 @@ def test_detection_loss_and_grad_match_jax(seed, n_pad):
                                            (8, 16, 32), nc, hyp, return_assign=True)
         return out.total, (out.items, assign)
 
-    (jtotal, (jitems, jassign)), jgrads = jax.value_and_grad(jfn, has_aux=True)(
+    # compiled once: eager dispatch took most of this test's time
+    (jtotal, (jitems, jassign)), jgrads = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
         [jnp.asarray(f) for f in feats])
     tfeats = [_t(f).permute(0, 3, 1, 2).contiguous().requires_grad_() for f in feats]
     out, assign = tloss.detection_loss(tfeats, {k: _t(v) for k, v in batch.items()}, (8, 16, 32),

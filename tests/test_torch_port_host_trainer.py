@@ -24,10 +24,10 @@ import torch
 
 from tests.helpers import make_shape_dataset
 from tests.test_torch_port_rtdetr_loss import _jax_draws
+from tests.torch_port_jax_init import compiled_trainer_init
 from yolo_contour_regression_tpu.engine import trainer as jtrainer
 from yolo_contour_regression_tpu.engine.model import YOLO as JaxYOLO
 from yolo_contour_regression_tpu.engine.model import TASK_MAP as JAX_TASK_MAP
-from yolo_contour_regression_tpu.nn.tasks import build_model
 from yolo_contour_regression_tpu.utils import checkpoint as jckpt
 from yolo_contour_regression_tpu_torch.data import dataset as tdataset
 from yolo_contour_regression_tpu_torch.engine import trainer as ttrainer
@@ -100,13 +100,16 @@ def _jax_dn(batch, step):
 
 def train_both(task, tmp):
     """Both trainers of ``task`` on the same data and initial weights under
-    ``tmp``: JAX's init from ``PRNGKey(0)`` carried into the port's."""
+    ``tmp``: JAX's trainer's init (``PRNGKey(0)``, compiled) carried into the
+    port's."""
     yaml = make_shape_dataset(tmp / "ds", n_train=8, n_val=4, imgsz=64, seed=0)
     over = {**TRAIN, **TASK_TRAIN[task], "model": NARROW[task]}
     jcls = jtrainer.SegmentationTrainer if task == "segment" else JAX_TASK_MAP[task]["trainer"]
-    jt = jcls(overrides={**over, "data": str(yaml), "project": str(tmp / "jax"), "name": "t"})
-    jm = jt.train()
-    init = _np_tree(build_model(NARROW[task], nc=2).init(jax.random.PRNGKey(0), imgsz=64))
+    with compiled_trainer_init() as seen:
+        jt = jcls(overrides={**over, "data": str(yaml), "project": str(tmp / "jax"),
+                             "name": "t"})
+        jm = jt.train()
+    init = seen["v"]
 
     def jax_init(model, generator):
         return tckpt.load_jax_variables(model, init["params"], init["batch_stats"])

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests.torch_port_jax_init import compiled_init
 from yolo_contour_regression_tpu.cfg import DEFAULT_CFG_PATH
 from yolo_contour_regression_tpu.cfg import get_cfg as jax_get_cfg
 from yolo_contour_regression_tpu.nn.tasks import build_model
@@ -100,7 +101,7 @@ def inits():
     """The full-width yolov8n-seg at nc 2: JAX's init from PRNGKey(0) and
     the port's from a seeded generator, as JAX trees."""
     jm = build_model("yolov8n-seg.yaml", nc=2)
-    jv = jm.init(jax.random.PRNGKey(0), imgsz=64)
+    jv = compiled_init(jm, jax.random.PRNGKey(0), 64)
     tm = SegmentationModel(yaml_model_load("yolov8n-seg.yaml"), nc=2)
     tv = to_jax_variables(init_weights(tm, torch.Generator().manual_seed(0)).state_dict())
     return jm, (_tree(jv["params"]), _tree(jv["batch_stats"])), tv, tm
@@ -183,7 +184,7 @@ def test_amp_matches_jax_bf16(train):
     rng = np.random.default_rng(0)
     x = rng.random((2, 64, 64, 3)).astype(np.float32)
     j32 = build_model(NARROW, nc=2)
-    jv = j32.init(jax.random.PRNGKey(1), imgsz=64)
+    jv = compiled_init(j32, jax.random.PRNGKey(1), 64)
     jv = {"params": _tree(jv["params"]),
           "batch_stats": jax.tree_util.tree_map(
               lambda v: np.asarray(v) + rng.uniform(0.0, 0.5, v.shape).astype(np.float32),

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import torch
 
 from chip_smoke import POSE_CKPT
+from tests.torch_port_jax_init import compiled_init
 from yolo_contour_regression_tpu.engine import step as jstep
 from yolo_contour_regression_tpu.nn.modules import head as jhead
 from yolo_contour_regression_tpu.nn.tasks import build_model as jbuild_model
@@ -171,7 +172,7 @@ def test_init_weights_takes_the_pose_priors():
     and keypoint biases 0, as JAX's."""
     cfg = narrow(5)
     model = init_weights(PoseModel(cfg), torch.Generator().manual_seed(0))
-    jv = jbuild_model(cfg).init(jax.random.PRNGKey(0), imgsz=64)
+    jv = compiled_init(jbuild_model(cfg), jax.random.PRNGKey(0), 64)  # this file runs no eager init
     head = jv["params"]["layer22"]
     for i in range(3):
         for tb, jb in ((model.model[22].detect.cv3[i][2].bias, head["detect"][f"cv3_{i}_2"]),
@@ -220,10 +221,12 @@ def test_pose_loss_and_grad_match_jax(k, seed, n_pad):
         out = jloss.pose_loss(fs, jb, (8, 16, 32), nc, HYP, (k, 3))
         return out.total, out.items
 
-    (jtotal, jitems), jgrads = jax.value_and_grad(jfn, has_aux=True)(
+    # compiled once each: eager dispatch took most of this test's time
+    (jtotal, jitems), jgrads = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
         [jnp.asarray(f) for f in feats])
-    _, jassign = jloss.detection_loss([jnp.asarray(f[..., :-nk]) for f in feats], jb,
-                                      (8, 16, 32), nc, HYP, return_assign=True)
+    jassign = jax.jit(lambda fs: jloss.detection_loss(fs, jb, (8, 16, 32), nc, HYP,
+                                                      return_assign=True)[1])(
+        [jnp.asarray(f[..., :-nk]) for f in feats])
     tfeats = [_t(f).permute(0, 3, 1, 2).contiguous().requires_grad_() for f in feats]
     tb = {n: _t(v) for n, v in batch.items()}
     out = tloss.pose_loss(tfeats, tb, (8, 16, 32), nc, HYP, (k, 3))
@@ -286,10 +289,14 @@ def test_pose_network_loss_and_gradients_match_jax_f64(k):
                          jb64)
         jl, jg = float(jl), from_jax_variables(_np(jg), {})
         jg = {n: w.double() for n, w in jg.items()}
-        jout, _ = jm64.raw_forward(v64, jnp.asarray(images, jnp.float64), train=True)
-        _, jassign = jloss.detection_loss([o[..., :-nk] for o in jout], jb64, (8, 16, 32), 2,
-                                          HYP, return_assign=True)
-        jfg, jidx = np.asarray(jassign.fg_mask), np.asarray(jassign.target_gt_idx)
+        def assign(vv, x, b):  # compiled once: eager dispatch took ~20 s of this test
+            jout, _ = jm64.raw_forward(vv, x, train=True)
+            _, a = jloss.detection_loss([o[..., :-nk] for o in jout], b, (8, 16, 32), 2, HYP,
+                                        return_assign=True)
+            return a.fg_mask, a.target_gt_idx
+
+        jfg, jidx = (np.asarray(a) for a in jax.jit(assign)(
+            v64, jnp.asarray(images, jnp.float64), jb64))
     tb = {n: _t(a) for n, a in batch.items()}
     model = load_jax_variables(PoseModel(cfg), v["params"], v["batch_stats"]).double().train()
     marks = []

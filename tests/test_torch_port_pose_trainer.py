@@ -24,10 +24,10 @@ import torch
 
 from tests.helpers import make_pose_dataset
 from tests.test_torch_port_trainer import IDENTITY_AUG, LOSS_RTOL, METRIC_ATOL, _np_tree, _rows
+from tests.torch_port_jax_init import compiled_trainer_init
 from yolo_contour_regression_tpu.data import device_augment as jda
 from yolo_contour_regression_tpu.engine import trainer as jtrainer
 from yolo_contour_regression_tpu.engine.model import YOLO as JaxYOLO
-from yolo_contour_regression_tpu.nn.tasks import build_model
 from yolo_contour_regression_tpu.utils import checkpoint as jckpt
 from yolo_contour_regression_tpu_torch import YOLO
 from yolo_contour_regression_tpu_torch.engine import trainer as ttrainer
@@ -68,23 +68,23 @@ def _data(root):
 def runs(tmp_path_factory):
     """Both pose trainers on the same data and initial weights, JAX's
     separable warp in float32, its trainer one step per dispatch and its
-    network in float64; the port's init replaced by JAX's (``PRNGKey(0)`` on
-    the config with the data's ``kpt_shape``), carried across."""
+    network in float64; the port's init replaced by JAX's trainer's
+    (``PRNGKey(0)`` on the config with the data's ``kpt_shape``, compiled;
+    the float64 build's parameters are float32), carried across."""
     tmp = tmp_path_factory.mktemp("pose_trainers")
     yaml = make_pose_dataset(tmp / "ds", n_train=8, n_val=4, imgsz=64, seed=0)
     warp, build = jda._warp_image_separable, jtrainer.build_model
     jda._warp_image_separable = partial(warp, dtype=jnp.float32)
     jtrainer.build_model = lambda *a, **kw: build(*a, **{**kw, "dtype": jnp.float64})
     try:
-        with jax.enable_x64(True):
+        with jax.enable_x64(True), compiled_trainer_init() as seen:
             jt = jtrainer.PoseTrainer(overrides={
                 **TRAIN, "data": str(yaml), "steps_per_dispatch": 1,
                 "project": str(tmp / "jax"), "name": "t"})
             jm = jt.train()
     finally:
         jda._warp_image_separable, jtrainer.build_model = warp, build
-    init = build_model({**NARROW, "kpt_shape": KPT_SHAPE}, task="pose", nc=1).init(
-        jax.random.PRNGKey(0), imgsz=64)
+    init = seen["v"]
 
     def jax_init(model, generator):
         return tckpt.load_jax_variables(model, _np_tree(init["params"]),

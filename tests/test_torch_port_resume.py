@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from tests.helpers import make_shape_dataset
+from tests.torch_port_jax_init import compiled_init, compiled_trainer_init
 from yolo_contour_regression_tpu.data import device_augment as jda
 from yolo_contour_regression_tpu.engine import trainer as jtrainer
 from yolo_contour_regression_tpu.nn.tasks import build_model
@@ -124,7 +125,7 @@ def runs(tmp_path_factory):
     """The uninterrupted runs of both trainers, and the resumed ones."""
     tmp = tmp_path_factory.mktemp("resume")
     yaml = make_shape_dataset(tmp / "ds", n_train=8, n_val=4, imgsz=64, seed=0)
-    init = build_model(NARROW, nc=2).init(jax.random.PRNGKey(0), imgsz=64)
+    init = compiled_init(build_model(NARROW, nc=2), jax.random.PRNGKey(0), 64)
 
     def jax_init(model, generator):
         return tckpt.load_jax_variables(model, _np_tree(init["params"]),
@@ -140,7 +141,8 @@ def runs(tmp_path_factory):
             t = jtrainer.SegmentationTrainer(overrides={
                 **TRAIN, "data": str(yaml), "project": str(tmp / "jax"), "name": name, **over})
             rec = Recorder().attach(t)
-            return t, t.train(), rec
+            with compiled_trainer_init():  # the init above, compiled once in the process
+                return t, t.train(), rec
 
         def port_run(name, cls=ttrainer.SegmentationTrainer, **over):
             t = cls(overrides={**TRAIN, "project": str(tmp / "port"), "name": name, **over},

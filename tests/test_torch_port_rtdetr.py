@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import torch
 
 from tests.test_torch_port_modules import _carry, _randomize
+from tests.torch_port_jax_init import compiled_init
 from yolo_contour_regression_tpu.nn import fuse as jfuse
 from yolo_contour_regression_tpu.nn.modules import head as jhead
 from yolo_contour_regression_tpu.nn.modules import transformer as jtr
@@ -248,7 +249,7 @@ def test_decoder_refinement_chain_gradient():
 def jax_init():
     """JAX's yolov8n-rtdetr at nc 2, ``init(imgsz=64)`` from PRNGKey(0)."""
     jm = jbuild_model("yolov8n-rtdetr.yaml", nc=2)
-    return jm, jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0), imgsz=64))
+    return jm, jax.tree_util.tree_map(np.asarray, compiled_init(jm, jax.random.PRNGKey(0), 64))
 
 
 def test_yaml_model_load_and_parameters_match_jax(jax_init):

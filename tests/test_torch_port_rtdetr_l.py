@@ -313,7 +313,8 @@ def test_narrow_loss_and_gradients_match_jax_f64():
         dn_q = int(np.prod(dn["labels"].shape[1:]))
         outs, _ = jax.jit(lambda vv: jm64.raw_forward(vv, x, train=True, head_extra=dn))(v64)
         costs = _jax_costs(outs, jb, dn_q)
-    assign = [np.asarray(jloss.hungarian_assign(jnp.asarray(c), n_valid)) for c in costs]
+    auction = jax.jit(jloss.hungarian_assign)
+    assign = [np.asarray(auction(jnp.asarray(c), n_valid)) for c in costs]
     real = jloss.hungarian_assign
     calls = iter(assign)
     jloss.hungarian_assign = lambda cost, n: jnp.asarray(next(calls))

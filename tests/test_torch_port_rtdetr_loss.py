@@ -181,7 +181,9 @@ def _grad_pair(jfn, tfn, arrays):
             args[i] = a
         return sum(jfn(*args)), jfn(*args)
 
-    (_, jout), jg = jax.value_and_grad(jsum, argnums=tuple(range(len(floats))), has_aux=True)(
+    # compiled once: eager dispatch took most of these tests' time
+    (_, jout), jg = jax.jit(jax.value_and_grad(jsum, argnums=tuple(range(len(floats))),
+                                               has_aux=True))(
         *(jnp.asarray(arrays[i]) for i in floats))
     targs = [_t(a).clone().requires_grad_(i in floats) for i, a in enumerate(arrays)]
     tout = tfn(*targs)
@@ -250,9 +252,11 @@ def test_rtdetr_loss_matches_jax(with_dn):
                                          {k: jnp.asarray(v) for k, v in dn.items()})
         return total, items
 
-    (jt, jitems), jg = jax.value_and_grad(lambda *m: jfn(*m), argnums=(0, 1, 2, 3),
-                                          has_aux=True)(*map(jnp.asarray,
-                                                             (dec_b, dec_s, enc_b, enc_s)))
+    # compiled once: eager dispatch took most of this test's time
+    (jt, jitems), jg = jax.jit(jax.value_and_grad(lambda *m: jfn(*m), argnums=(0, 1, 2, 3),
+                                                  has_aux=True))(*map(jnp.asarray,
+                                                                      (dec_b, dec_s, enc_b,
+                                                                       enc_s)))
     maps = [_t(a).clone().requires_grad_() for a in (dec_b, dec_s, enc_b, enc_s)]
     tt, titems = tloss.rtdetr_loss(tuple(maps), {k: _t(v) for k, v in batch.items()}, NC,
                                    dn=None if dn is None else {k: _t(v) for k, v in dn.items()})
@@ -353,9 +357,9 @@ def _jax_costs(outs, batch, dn_q):
     gl = batch["cls"].astype(jnp.int32)
     mg = batch["mask_gt"].astype(bool)
     pairs = [(outs[0][i][:, dn_q:], outs[1][i][:, dn_q:]) for i in range(outs[0].shape[0])]
-    costs = [np.asarray(jloss.match_cost(b, s, gb, gl, mg), np.float32)
-             for b, s in pairs + [(outs[2], outs[3])]]
-    return costs
+    cost = jax.jit(jloss.match_cost)  # compiled once: eager dispatch took most of its time
+    return [np.asarray(cost(b, s, gb, gl, mg), np.float32)
+            for b, s in pairs + [(outs[2], outs[3])]]
 
 
 @pytest.fixture(scope="module")
@@ -378,7 +382,8 @@ def network():
         dn_q = int(np.prod(dn["labels"].shape[1:]))
         outs, _ = jax.jit(lambda vv: jm.raw_forward(vv, x, train=True, head_extra=dn))(v64)
         costs = _jax_costs(outs, jb, dn_q)
-    assign = [np.asarray(jloss.hungarian_assign(jnp.asarray(c), n_valid)) for c in costs]
+    auction = jax.jit(jloss.hungarian_assign)
+    assign = [np.asarray(auction(jnp.asarray(c), n_valid)) for c in costs]
     real = jloss.hungarian_assign
     calls = iter(assign * 3)  # the loss, then the step's loss, each in layer order
     jloss.hungarian_assign = lambda cost, n: jnp.asarray(next(calls))

@@ -182,7 +182,7 @@ def test_eval_batch_matches_jax(models):
     got = {k: t.numpy() for k, t in v.eval_batch(
         ty.model, {k: torch.from_numpy(batch[k]) for k in v.eval_keys}).items()}
     imgs = jnp.asarray(batch["img"].astype(np.float32) / 255.0)
-    pred = jy.model.predict(jy.variables, imgs)
+    pred = jax.jit(jy.model.predict)(jy.variables, imgs)  # eager: ~60 s of this test
     wh2 = jnp.asarray([IMGSZ, IMGSZ] * 2, jnp.float32)
     rp, osh = jnp.asarray(batch["ratio_pad"]), jnp.asarray(batch["ori_shape"])
     boxes = np.asarray(jscale_boxes(jxywh2xyxy(pred[..., :4]) * wh2, rp, osh))

@@ -299,9 +299,10 @@ def test_segori_loss_and_grad_match_jax(seed, n_pad):
     levels, proto = _maps(seed, 2, 64, 2, 8)
     j, t = _loss_pair(levels, proto, batch)
     _check_loss(j, t, LOSS_RTOL)
-    _, jassign = jloss.detection_loss([jnp.asarray(f[..., :-8]) for f in levels],
-                                      {n: jnp.asarray(v) for n, v in batch.items()}, STRIDES, 2,
-                                      HYP, return_assign=True)
+    jb = {n: jnp.asarray(v) for n, v in batch.items()}
+    jassign = jax.jit(lambda fs: jloss.detection_loss(fs, jb, STRIDES, 2, HYP,
+                                                      return_assign=True)[1])(
+        [jnp.asarray(f[..., :-8]) for f in levels])  # compiled once: eager took most of it
     assign = tloss.detect_targets([f[:, :-8] for f in t[1]], {n: _t(v) for n, v in batch.items()},
                                   STRIDES, 2).assign
     fg = assign.fg_mask.numpy()

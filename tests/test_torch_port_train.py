@@ -237,7 +237,8 @@ def test_segmentation_loss_and_grad_match_jax(seed, n_pad, cand):
                                       (8, 16, 32), nc, hyp, cand=cand)
         return out.total, out.items
 
-    (jtotal, jitems), jgrads = jax.value_and_grad(jfn, has_aux=True)(
+    # compiled once: eager dispatch took most of this test's time
+    (jtotal, jitems), jgrads = jax.jit(jax.value_and_grad(jfn, has_aux=True))(
         [jnp.asarray(f) for f in feats])
     tfeats = [_t(f).permute(0, 3, 1, 2).contiguous().requires_grad_() for f in feats]
     out = tloss.segmentation_loss(tfeats, {k: _t(v) for k, v in batch.items()}, (8, 16, 32), nc,
@@ -381,19 +382,33 @@ def runs(narrow):
     return get
 
 
+# the float64 JAX model of NARROW and its compiled loss gradient, by the
+# loss's weights (the optimizer's settings never enter the loss): the step
+# cases share one trace and compile of it
+_JAX_F64_GRAD = {}
+
+
+def _jax_f64_grad(jm_cfg, hyp):
+    key = (id(jm_cfg),) + tuple(getattr(hyp, k, None) for k in (
+        "box", "cls", "dfl", "kobj", "pose", "cand_balance"))
+    if key not in _JAX_F64_GRAD:
+        jm = build_model(jm_cfg, dtype=jnp.float64)
+        _JAX_F64_GRAD[key] = jm, jax.jit(jax.value_and_grad(
+            jstep.make_loss_fn(jm, hyp, cand=128), has_aux=True))
+    return _JAX_F64_GRAD[key]
+
+
 def _jax_f64_run(jm_cfg, v, images, batch, hyp, steps):
     """The JAX make_train_step with the network in float64 (the loss math
     stays f32 inside segmentation_loss): per step the loss, the gradients
     (torch keys) before the update, and the state after it."""
     out = []
     with jax.enable_x64(True):
-        jm = build_model(jm_cfg, dtype=jnp.float64)
+        jm, grad_fn = _jax_f64_grad(jm_cfg, hyp)
         v64 = _f64(v)
         tx = joptim.build_optimizer(v64["params"], copy.copy(hyp), 10, 100)
         state = jstep.init_train_state(v64, tx)
         step = jstep.make_train_step(jm, tx, copy.copy(hyp), cand=128, donate=False)
-        grad_fn = jax.jit(jax.value_and_grad(jstep.make_loss_fn(jm, hyp, cand=128),
-                                             has_aux=True))
         x = jnp.asarray(images, jnp.float64)
         jb = {k: jnp.asarray(a) for k, a in batch.items()}
         for _ in range(steps):

@@ -22,11 +22,11 @@ import jax.numpy as jnp
 import torch
 
 from tests.helpers import make_shape_dataset
+from tests.torch_port_jax_init import compiled_trainer_init
 from yolo_contour_regression_tpu.data import build as jbuild
 from yolo_contour_regression_tpu.data import device_augment as jda
 from yolo_contour_regression_tpu.engine import trainer as jtrainer
 from yolo_contour_regression_tpu.engine.model import YOLO as JaxYOLO
-from yolo_contour_regression_tpu.nn.tasks import build_model
 from yolo_contour_regression_tpu.utils import checkpoint as jckpt
 from yolo_contour_regression_tpu_torch import YOLO
 from yolo_contour_regression_tpu_torch.engine import trainer as ttrainer
@@ -92,13 +92,14 @@ def runs(tmp_path_factory):
     warp = jda._warp_image_separable
     jda._warp_image_separable = partial(warp, dtype=jnp.float32)
     try:
-        jt = jtrainer.SegmentationTrainer(overrides={
-            **TRAIN, "data": str(yaml), "steps_per_dispatch": 1, "project": str(tmp / "jax"),
-            "name": "t"})
-        jm = jt.train()
+        with compiled_trainer_init() as seen:
+            jt = jtrainer.SegmentationTrainer(overrides={
+                **TRAIN, "data": str(yaml), "steps_per_dispatch": 1,
+                "project": str(tmp / "jax"), "name": "t"})
+            jm = jt.train()
     finally:
         jda._warp_image_separable = warp
-    init = build_model(NARROW, nc=2).init(jax.random.PRNGKey(0), imgsz=64)
+    init = seen["v"]
 
     def jax_init(model, generator):
         return tckpt.load_jax_variables(model, _np_tree(init["params"]),

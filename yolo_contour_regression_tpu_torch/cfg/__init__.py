@@ -18,8 +18,10 @@ TASK and MODE may also be given as ``task=`` and ``mode=``; without them
 the mode is predict and the model's own task is taken; ``model=`` defaults
 to ``TASK2MODEL``, ``device=`` to ``cuda``. train, val, predict and serve
 go to the ``YOLO`` facade, each with the keys its method takes (others are
-logged and dropped); metrics are printed, the exit code is 0. export, track
-and benchmark are not ported; ``hub`` needs the network and raises. ``cfg``
+logged and dropped); metrics are printed, the exit code is 0. track goes to
+``YOLO.track`` with every key (``tracker=botsort.yaml`` or
+``bytetrack.yaml``; the rest are ``predict``'s), as JAX's CLI routes it,
+and prints nothing. export and benchmark are not ported; ``hub`` needs the network and raises. ``cfg``
 prints ``DEFAULT_CFG`` as yaml (``default_cfg_yaml``, which
 ``yaml.safe_load`` reads back to the dict); ``copy-cfg`` writes it to
 ``default_copy.yaml`` in the working directory.
@@ -226,7 +228,6 @@ TASK2MODEL = {
 }
 # the modes the port's facade does not have, and where they wait (ROADMAP.md)
 NOT_PORTED = {"export": "export (ROADMAP Queue 1 item 3.4)",
-              "track": "tracking (ROADMAP Queue 1 item 3.2)",
               "benchmark": "utils/benchmarks.py (ROADMAP Queue 1 item 5)"}
 HELP = (
     "usage: yolo TASK MODE [k=v ...]\n"

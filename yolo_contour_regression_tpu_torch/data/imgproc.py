@@ -224,8 +224,14 @@ def hsv_to_bgr(img: np.ndarray) -> np.ndarray:
 
 
 def _reflect101(n: int, pad: int) -> np.ndarray:
-    i = np.abs(np.arange(-pad, n + pad))
-    return np.where(i >= n, 2 * (n - 1) - i, i)
+    """Indices of BORDER_REFLECT_101 for any pad (reflected again past the
+    far edge, as ``cv::borderInterpolate`` does)."""
+    i = np.arange(-pad, n + pad)
+    if n == 1:
+        return np.zeros_like(i)
+    while ((i < 0) | (i >= n)).any():
+        i = np.where(i < 0, -i, np.where(i >= n, 2 * (n - 1) - i, i))
+    return i
 
 
 def box_blur(img: np.ndarray, k: int) -> np.ndarray:
@@ -444,3 +450,347 @@ def resize_area(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
         out[d] += b * rows[s]
     return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape((nh, nw) + img.shape[2:])
 
+
+
+# --- camera-motion estimation (BOT-SORT's sparseOptFlow) ------------------------
+# OpenCV 5.0's CPU kernels as its x86-64 wheel runs them on an AVX-512 CPU: the float filters'
+# vector code fuses multiply-adds (FMA) and takes AVX-512 rows of 32 columns
+# (``CORNER_ROW_LANES``), with a plain tail; images whose width is a multiple
+# of 32 have no tail.
+
+CORNER_ROW_LANES = 32
+MAX_CORNERS, QUALITY_LEVEL = 1000, 0.01  # goodFeaturesToTrack as BOT-SORT calls it
+LK_WIN, LK_LEVELS, LK_ITERS, LK_EPS, LK_MIN_EIG = 21, 3, 30, 0.01, 1e-4
+W_BITS = 14
+# estimateAffinePartial2D's RANSAC defaults: reprojection threshold (px),
+# iterations, confidence
+RANSAC_THRESH, RANSAC_ITERS, RANSAC_CONFIDENCE = 3.0, 2000, 0.99
+
+
+def corner_min_eigen_val(gray: np.ndarray) -> np.ndarray:
+    """``cv2.cornerMinEigenVal(gray, blockSize=3, ksize=3)`` of a uint8
+    image (float32): 3x3 Sobel derivatives scaled by 1 / (4 * 3 * 255) in
+    float32 (dx: [-1, 0, 1] across, then [s, 2s, s] down as one fused
+    multiply-add on the pair sum; dy: [s, 2s, s] across as a chain of fused
+    multiply-adds in the vector columns, plain in the tail, then [-1, 0, 1]
+    down), the products summed over 3x3 boxes in float64 (row sums, then a
+    running column sum) and rounded to float32, and the smaller eigenvalue
+    ``(a + c) - sqrt((a - c)^2 + b^2)`` of the halved sums; reflect-101
+    borders throughout."""
+    h, w = gray.shape
+    s, s2 = f32(1.0 / 3060.0), f32(2.0 / 3060.0)
+    ci, ri = _reflect101(w, 1), _reflect101(h, 1)
+    p = gray.astype(f32)[ri][:, ci]
+    rx = p[:, 2:] - p[:, :-2]
+    dx = _fma32(rx[:-2] + rx[2:], s, rx[1:-1] * s2)
+    fused = _fma32(p[:, 2:], s, _fma32(p[:, 1:-1], s2, p[:, :-2] * s))
+    plain = p[:, :-2] * s + p[:, 1:-1] * s2 + p[:, 2:] * s
+    tail = w // CORNER_ROW_LANES * CORNER_ROW_LANES
+    ry = np.concatenate([fused[:, :tail], plain[:, tail:]], 1)
+    dy = ry[2:] - ry[:-2]
+    sums = []
+    for prod in (dx * dx, dx * dy, dy * dy):
+        q = prod.astype(np.float64)[:, ci]
+        rows = ((q[:, :-2] + q[:, 1:-1]) + q[:, 2:])[ri]
+        out = np.empty((h, w), f32)
+        run = rows[0] + rows[1]
+        for y in range(h):
+            s0 = run + rows[y + 2]
+            out[y] = s0
+            run = s0 - rows[y]
+        sums.append(out)
+    a, b, c = sums[0] * f32(0.5), sums[1], sums[2] * f32(0.5)
+    t = a - c
+    return (a + c) - np.sqrt(t * t + b * b)
+
+
+def good_features_to_track(gray: np.ndarray):
+    """``cv2.goodFeaturesToTrack(gray, maxCorners=1000, qualityLevel=0.01,
+    minDistance=1, blockSize=3)``: (n, 1, 2) float32 corners or None.
+    Responses (``corner_min_eigen_val``) at or below ``QUALITY_LEVEL`` of
+    the largest (float32) are zeroed; a corner is an inner pixel whose
+    response is nonzero and the largest of its 3x3 block; corners are
+    sorted by response, descending, ties by position, the later pixel in
+    raster order first (OpenCV's comparator); the first ``MAX_CORNERS``
+    are kept. The grid check at minDistance 1 drops no corner (two pixels
+    are never closer than 1), so there is none."""
+    e = corner_min_eigen_val(gray)
+    h, w = e.shape
+    e = np.where(e > f32(float(e.max()) * QUALITY_LEVEL), e, f32(0))
+    inner = e[1:-1, 1:-1]
+    local_max = np.max([e[1 + dy:h - 1 + dy, 1 + dx:w - 1 + dx]
+                        for dy in (-1, 0, 1) for dx in (-1, 0, 1)], 0)
+    ys, xs = np.nonzero((inner != 0) & (inner == local_max))
+    if not len(ys):
+        return None
+    ys, xs = ys + 1, xs + 1
+    order = np.lexsort((-(ys * w + xs), -e[ys, xs]))[:MAX_CORNERS]
+    return np.stack([xs[order], ys[order]], 1).astype(f32).reshape(-1, 1, 2)
+
+
+def pyr_down(img: np.ndarray) -> np.ndarray:
+    """``cv2.pyrDown`` of a one-channel uint8 image: the 5x5 kernel
+    [1 4 6 4 1]^2 over the image reflected at its border, (sum + 128) >> 8,
+    every second pixel."""
+    h, w = img.shape
+    dh, dw = (h + 1) // 2, (w + 1) // 2
+    p = img.astype(np.int32)[_reflect101(h, 2)][:, _reflect101(w, 2)]
+    c = [p[:, 2 * np.arange(dw) + k] for k in range(5)]
+    row = c[0] + c[4] + (c[1] + c[3]) * 4 + c[2] * 6
+    r = [row[2 * np.arange(dh) + k] for k in range(5)]
+    return ((r[0] + r[4] + (r[1] + r[3]) * 4 + r[2] * 6 + 128) >> 8).astype(np.uint8)
+
+
+def scharr_deriv(img: np.ndarray):
+    """The LK tracker's int16 Scharr derivatives (OpenCV's ``calcSharrDeriv``,
+    unscaled): ``(Ix, Iy)`` int32 arrays, reflect-101 borders."""
+    h, w = img.shape
+    p = img.astype(np.int32)[_reflect101(h, 1)]
+    t0 = ((p[:-2] + p[2:]) * 3 + p[1:-1] * 10)[:, _reflect101(w, 1)]
+    t1 = (p[2:] - p[:-2])[:, _reflect101(w, 1)]
+    return t0[:, 2:] - t0[:, :-2], (t1[:, 2:] + t1[:, :-2]) * 3 + t1[:, 1:-1] * 10
+
+
+def _lk_pyramid(img: np.ndarray) -> list:
+    """``cv::buildOpticalFlowPyramid`` at the LK defaults: level 0 and
+    ``pyr_down``s of it, stopping at a level whose next would be no wider
+    or taller than the window."""
+    levels = [img]
+    for _ in range(LK_LEVELS):
+        h, w = levels[-1].shape
+        if (w + 1) // 2 <= LK_WIN or (h + 1) // 2 <= LK_WIN:
+            break
+        levels.append(pyr_down(levels[-1]))
+    return levels
+
+
+def _bilinear_weights(frac: np.ndarray):
+    """The four 14-bit bilinear weights of ``(a, b)`` rows, as OpenCV's LK
+    rounds them (float32 products, half to even; the fourth takes the rest),
+    shaped to broadcast over (n, win, win) windows."""
+    a, b = frac[:, 0], frac[:, 1]
+    one, scale = f32(1), f32(1 << W_BITS)
+    w00 = np.rint((one - a) * (one - b) * scale).astype(np.int32)
+    w01 = np.rint(a * (one - b) * scale).astype(np.int32)
+    w10 = np.rint((one - a) * b * scale).astype(np.int32)
+    w11 = (1 << W_BITS) - w00 - w01 - w10
+    return [x[:, None, None] for x in (w00, w01, w10, w11)]
+
+
+def _window(padded: np.ndarray, corner: np.ndarray, weights, shift: int) -> np.ndarray:
+    """(n, win, win) int32 windows of ``padded`` (the level padded by the
+    window on each side, int32) at integer top-left ``corner`` (n, 2) x, y,
+    interpolated in fixed point: the weighted four neighbours + 2^(shift -
+    1), >> shift. One gather of the (win + 1)^2 patch serves the four."""
+    stride = padded.shape[1]
+    k = np.arange(LK_WIN + 1)
+    at = (((corner[:, 1, None] + LK_WIN + k) * stride)[:, :, None]
+          + (corner[:, 0, None] + LK_WIN + k)[:, None, :])
+    q = padded.reshape(-1).take(at)
+    w00, w01, w10, w11 = weights
+    v = (q[:, :-1, :-1] * w00 + q[:, :-1, 1:] * w01 + q[:, 1:, :-1] * w10
+         + q[:, 1:, 1:] * w11)
+    return (v + (1 << (shift - 1))) >> shift
+
+
+def _window_dot(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Sum over each (win, win) window of the integer products ``a * b``,
+    exact in int64, rounded once to float32. OpenCV adds the same products
+    in float32 in its SIMD lanes' order; the two differ by a few float32
+    roundings, far inside the LK stop (0.01 px)."""
+    return np.einsum("nij,nij->n", a.astype(np.int64), b).astype(f32)
+
+
+def calc_optical_flow_pyr_lk(prev: np.ndarray, nxt: np.ndarray, pts: np.ndarray):
+    """``cv2.calcOpticalFlowPyrLK(prev, nxt, pts, None)`` at its defaults
+    (21x21 window, maxLevel 3, (COUNT | EPS, 30, 0.01), minEigThreshold
+    1e-4) on one-channel uint8 images: ``(next_pts (n, 1, 2) float32,
+    status (n, 1) uint8)``. OpenCV's fixed point is kept: the pyramids
+    (``pyr_down``, reflect-101 padding by the window), the int16 Scharr
+    derivatives padded with zeros, 14-bit bilinear weights, the window at
+    5 extra bits; the window sums are exact (``_window_dot``), the Newton
+    steps in float32, the stop at a squared
+    step of 0.01^2 or on an oscillation (then half the step back). Status 0
+    for a point whose window leaves the image or whose gradient matrix's
+    smaller eigenvalue is under the threshold at level 0."""
+    prev_levels, next_levels = _lk_pyramid(prev), _lk_pyramid(nxt)
+    top = min(len(prev_levels), len(next_levels)) - 1
+    start = np.asarray(pts, f32).reshape(-1, 2)
+    n = len(start)
+    status = np.ones(n, bool)
+    out = np.zeros((n, 2), f32)
+    half, fscale = f32((LK_WIN - 1) * 0.5), f32(1.0 / (1 << 20))
+
+    def outside(corner, h, w):
+        return ((corner[:, 0] < -LK_WIN) | (corner[:, 0] >= w) | (corner[:, 1] < -LK_WIN)
+                | (corner[:, 1] >= h))
+
+    for level in range(top, -1, -1):
+        img, nimg = prev_levels[level], next_levels[level]
+        h, w = img.shape
+        ri, ci = _reflect101(h, LK_WIN), _reflect101(w, LK_WIN)
+        ipad = img.astype(np.int32)[ri][:, ci]
+        jpad = nimg.astype(np.int32)[ri][:, ci]
+        ix, iy = scharr_deriv(img)
+        dpad = [np.pad(d, LK_WIN) for d in (ix, iy)]
+        prev_pt = start * f32(1.0 / (1 << level))
+        guess = prev_pt.copy() if level == top else out * f32(2)
+        out = guess.copy()
+        pt = prev_pt - half
+        corner = np.floor(pt).astype(np.int64)
+        bad = outside(corner, h, w)
+        if level == 0:
+            status &= ~bad
+        idx = np.nonzero(~bad)[0]
+        if not len(idx):
+            continue
+        weights = _bilinear_weights(pt[idx] - corner[idx].astype(f32))
+        iwin = _window(ipad, corner[idx], weights, W_BITS - 5)
+        gx = _window(dpad[0], corner[idx], weights, W_BITS)
+        gy = _window(dpad[1], corner[idx], weights, W_BITS)
+        a11 = _window_dot(gx, gx) * fscale
+        a12 = _window_dot(gx, gy) * fscale
+        a22 = _window_dot(gy, gy) * fscale
+        det = a11 * a22 - a12 * a12
+        t = a11 - a22
+        min_eig = ((a22 + a11) - np.sqrt(t * t + f32(4) * a12 * a12)) / f32(2 * LK_WIN * LK_WIN)
+        ok = ~((min_eig < f32(LK_MIN_EIG)) | (det < np.finfo(f32).eps))
+        if level == 0:
+            status[idx[~ok]] = False
+        idx, iwin, gx, gy = idx[ok], iwin[ok], gx[ok], gy[ok]
+        a11, a12, a22 = a11[ok], a12[ok], a22[ok]
+        inv = f32(1) / det[ok]
+        cur = guess[idx] - half
+        last = np.zeros_like(cur)
+        live = np.ones(len(idx), bool)
+        for j in range(LK_ITERS):
+            act = np.nonzero(live)[0]
+            corner = np.floor(cur[act]).astype(np.int64)
+            gone = outside(corner, h, w)
+            if level == 0:
+                status[idx[act[gone]]] = False
+            live[act[gone]] = False
+            act, corner = act[~gone], corner[~gone]
+            if not len(act):
+                break
+            weights = _bilinear_weights(cur[act] - corner.astype(f32))
+            diff = _window(jpad, corner, weights, W_BITS - 5) - iwin[act]
+            b1 = _window_dot(diff, gx[act]) * fscale
+            b2 = _window_dot(diff, gy[act]) * fscale
+            delta = np.stack([(a12[act] * b2 - a22[act] * b1) * inv[act],
+                              (a12[act] * b1 - a11[act] * b2) * inv[act]], 1)
+            cur[act] = cur[act] + delta
+            out[idx[act]] = cur[act] + half
+            small = (delta.astype(np.float64) ** 2).sum(1) <= LK_EPS * LK_EPS
+            back = np.zeros(len(act), bool)
+            if j > 0:
+                swing = np.abs(delta + last[act])
+                back = ~small & (swing[:, 0] < LK_EPS) & (swing[:, 1] < LK_EPS)
+                out[idx[act[back]]] -= delta[back] * f32(0.5)
+            live[act[small | back]] = False
+            last[act] = delta
+        if level == 0:
+            end = np.floor(out[idx] - half).astype(np.int64)
+            status[idx[outside(end, h, w)]] = False
+    return out.reshape(-1, 1, 2), status.astype(np.uint8).reshape(-1, 1)
+
+
+class CvRNG:
+    """OpenCV's ``cv::RNG`` as RANSAC seeds it (``RNG((uint64)-1)``): a
+    64-bit multiply-with-carry state, ``next`` = the low 32 bits after
+    ``state = low32 * 4164903690 + high32``; ``uniform(a, b)`` = ``next %
+    (b - a) + a``."""
+
+    def __init__(self):
+        self.state = (1 << 64) - 1
+
+    def next(self) -> int:
+        s = self.state
+        self.state = ((s & 0xFFFFFFFF) * 4164903690 + (s >> 32)) & 0xFFFFFFFFFFFFFFFF
+        return self.state & 0xFFFFFFFF
+
+    def uniform(self, a: int, b: int) -> int:
+        return a if a == b else self.next() % (b - a) + a
+
+
+def _similarity_of_pair(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """OpenCV's two-point similarity (AffinePartial2DEstimatorCallback::
+    runKernel), float64 (2, 3), same operation order."""
+    x1, y1, x2, y2 = (float(v) for v in src.reshape(-1))
+    X1, Y1, X2, Y2 = (float(v) for v in dst.reshape(-1))
+    dd = (x1 - x2) * (x1 - x2) + (y1 - y2) * (y1 - y2)
+    d = 1.0 / dd if dd else math.inf
+    s0 = d * ((X1 - X2) * (x1 - x2) + (Y1 - Y2) * (y1 - y2))
+    s1 = d * ((Y1 - Y2) * (x1 - x2) - (X1 - X2) * (y1 - y2))
+    s2 = d * ((Y1 - Y2) * (x1 * y2 - x2 * y1) - (X1 * y2 - X2 * y1) * (y1 - y2)
+              - (X1 * x2 - X2 * x1) * (x1 - x2))
+    s3 = d * (-(X1 - X2) * (x1 * y2 - x2 * y1) - (Y1 * x2 - Y2 * x1) * (x1 - x2)
+              - (Y1 * y2 - Y2 * y1) * (y1 - y2))
+    return np.array([[s0, -s1, s2], [s1, s0, s3]])
+
+
+def _ransac_iters(confidence: float, outlier_share: float, max_iters: int) -> int:
+    """``cv::RANSACUpdateNumIters`` for 2-point models."""
+    num = math.log(max(1.0 - confidence, 2.2250738585072014e-308))
+    denom = 1.0 - (1.0 - outlier_share) ** 2
+    if denom < 2.2250738585072014e-308:
+        return 0
+    denom = math.log(denom)
+    if denom >= 0 or -num >= max_iters * (-denom):
+        return max_iters
+    return int(np.rint(num / denom))
+
+
+def estimate_affine_partial_2d(src: np.ndarray, dst: np.ndarray):
+    """``cv2.estimateAffinePartial2D(src, dst, method=cv2.RANSAC)`` at its
+    defaults: ``(M (2, 3) float64 or None, inliers (n, 1) uint8)``.
+
+    RANSAC as OpenCV runs it: ``CvRNG`` seeded with 2^64 - 1 draws two
+    distinct points (the second redrawn while equal to the first), their
+    similarity (``_similarity_of_pair``) scores the points by float32
+    squared reprojection error against ``RANSAC_THRESH``^2, a model with more
+    inliers than the best so far (and at least 2) wins and shrinks the
+    iteration count (``_ransac_iters``). The winner is then refined on its
+    inliers: OpenCV runs 10 Levenberg-Marquardt iterations on the similarity
+    (a, b, tx, ty); the problem is linear, so this solves its least squares
+    directly (normal equations in float64). OpenCV 5's solver stops about
+    1e-7 short of that optimum (its geodesic-acceleration step works on
+    finite differences of rounding noise), so the two agree to about 1e-7,
+    not bit for bit."""
+    src = np.asarray(src, f32).reshape(-1, 2)
+    dst = np.asarray(dst, f32).reshape(-1, 2)
+    n = len(src)
+    if n < 2:
+        return None, np.zeros((n, 1), np.uint8)
+    if n == 2:
+        return _similarity_of_pair(src, dst), np.ones((2, 1), np.uint8)
+    rng = CvRNG()
+    limit, best_count, best, best_mask = RANSAC_ITERS, 0, None, None
+    thr = f32(RANSAC_THRESH * RANSAC_THRESH)
+    it = 0
+    while it < limit:
+        i0 = rng.uniform(0, n)
+        i1 = rng.uniform(0, n)
+        while i1 == i0:
+            i1 = rng.uniform(0, n)
+        m = _similarity_of_pair(src[[i0, i1]], dst[[i0, i1]])
+        F = m.reshape(-1).astype(f32)
+        with np.errstate(all="ignore"):
+            ex = F[0] * src[:, 0] + F[1] * src[:, 1] + F[2] - dst[:, 0]
+            ey = F[3] * src[:, 0] + F[4] * src[:, 1] + F[5] - dst[:, 1]
+            mask = ex * ex + ey * ey <= thr
+        count = int(mask.sum())
+        if count > max(best_count, 1):
+            best_count, best, best_mask = count, m, mask
+            limit = _ransac_iters(RANSAC_CONFIDENCE, (n - count) / n, limit)
+        it += 1
+    if best is None:
+        return None, np.zeros((n, 1), np.uint8)
+    s, d = src[best_mask].astype(np.float64), dst[best_mask].astype(np.float64)
+    k = len(s)
+    jac = np.zeros((2 * k, 4))
+    jac[0::2] = np.stack([s[:, 0], -s[:, 1], np.ones(k), np.zeros(k)], 1)
+    jac[1::2] = np.stack([s[:, 1], s[:, 0], np.zeros(k), np.ones(k)], 1)
+    a, b, tx, ty = np.linalg.solve(jac.T @ jac, jac.T @ d.reshape(-1))
+    return (np.array([[a, -b, tx], [b, a, ty]]),
+            best_mask.astype(np.uint8).reshape(-1, 1))

@@ -230,6 +230,21 @@ class YOLO:
     def __call__(self, source=None, **kwargs):
         return self.predict(source, **kwargs)
 
+    def track(self, source, stream: bool = False, tracker: str = "botsort", conf: float = 0.1,
+              **kwargs):
+        """``predict`` with multi-object tracking (the JAX facade's
+        ``track``): the results of ``source`` streamed through a fresh
+        ``tracker`` (``"botsort"`` or ``"bytetrack"``, a ``.yaml`` suffix
+        dropped; ``trackers/track.py:track_results``), each given
+        ``track_ids`` aligned with its boxes. ``conf`` defaults to 0.1 (the
+        trackers take low scores too); the other keywords are
+        ``predict``'s. A list, or with ``stream`` a generator."""
+        from ..trackers.track import track_results
+
+        results = self.predict(source, conf=conf, stream=True, **kwargs)
+        gen = track_results(results, tracker_type=str(tracker).replace(".yaml", ""))
+        return gen if stream else list(gen)
+
     def serve(self, host: str = "127.0.0.1", port: int = 8570, imgsz: int = 640,
               max_batch: int = 32, max_delay_ms: float = 5.0, background: bool = False, **kw):
         """The dynamic-batching HTTP server over this model

@@ -22,9 +22,12 @@ The data methods are JAX's: ``Boxes.xywh``, ``.xyxyn``, ``.xywhn``,
 ``Contours.xy``, and ``Results.new``, ``keys``, ``__getitem__``,
 ``update``, ``verbose``, ``tojson`` and ``save_txt``; ``cpu``, ``numpy``
 and ``to`` return the result itself (its arrays are host numpy already).
-``Masks.xy`` / ``.xyn`` (cv2's ``findContours``) and ``plot``, ``save`` and
-``save_crop`` (drawing and an image encoder) wait for the tracking and
-annotator slice and raise ``NotImplementedError``.
+``Masks.xy`` / ``.xyn`` are each mask's largest outer contour
+(``ops/contours.py``, cv2's ``findContours`` and ``contourArea`` without
+cv2). A tracked result (``YOLO.track``) carries ``track_ids``, aligned with
+its boxes (-1 where no track matched). ``plot``, ``save`` and ``save_crop``
+(drawing and an image encoder) are not ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..ops.contours import largest_contour
 from ..ops.raster import fill_polygons_cv2
 
 
@@ -76,11 +80,11 @@ class Boxes:
         return self.xywh / np.array([w, h, w, h], np.float32)
 
 
-NOT_YET = "waits for the tracking and annotator slice of the port"
+NOT_YET = "is not ported (drawing: ROADMAP Queue 1 item 3.3)"
 
 
 class Masks:
-    """Binary masks (n, H, W)."""
+    """Binary masks (n, H, W) and their outer contours."""
 
     def __init__(self, data: np.ndarray, orig_shape):
         self.data = np.asarray(data)
@@ -91,11 +95,14 @@ class Masks:
 
     @property
     def xy(self):
-        raise NotImplementedError(f"Masks.xy (cv2.findContours of each mask) {NOT_YET}")
+        """Each mask's largest outer contour, (k, 2) float32 pixels ((0, 2)
+        for an empty mask), as the JAX ``Masks.xy``."""
+        return [largest_contour(m) for m in self.data.astype(np.uint8)]
 
     @property
     def xyn(self):
-        raise NotImplementedError(f"Masks.xyn (cv2.findContours of each mask) {NOT_YET}")
+        h, w = self.orig_shape
+        return [c / np.array([w, h], np.float32) for c in self.xy]
 
 
 class Contours:
