@@ -291,15 +291,25 @@ Phases, one timestamped line each (elapsed seconds):
      launches, zeroed just before and read just after); against the port
      on the CPU: ids equal per frame, boxes within 0.05 px; against the
      committed JAX record (``tests/data/torch_port_track_jax.npz``): ids,
-     boxes within 0.05 px, the GMC warps within 1e-4 (2x2) and 0.01 px;
+     boxes within 0.05 px (the card's detections), the GMC warps equal;
      host ms a frame of the tracker update, the GMC and the contour finder.
   43. convert: ``convert_coco`` on a COCO json of the seg160 floor val set
      (PNG files, polygons in pixels); ``val(data=yaml)`` on its labels gives
      the in-memory floor set's metrics exactly (the even-odd fill's
      launches).
-  44. report: a JSON line of the kernels (launches summed over the predict,
+  44. export: a fresh ``YOLO("yolov8n-seg.yaml")`` predicts on the card
+     without ``train`` (weights drawn at first use) and the same after
+     ``reset_weights`` (the cv2 fill's launches); the seg160 checkpoint's
+     facade exports ONNX at 640 (fused on the CPU, as the exporter does for
+     ONNX): its SHA-256 against JAX's export of the same fused weights, the
+     numpy executor's output against the same weights' predict on the
+     card; the pt2 artifact reloaded by
+     ``AutoBackend`` against the fused predict; ``AutoBackend`` on the
+     ``.ckpt``, the ``.yaml`` and an Ultralytics-style ``.pt``
+     (``export_phase``).
+  45. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs of every task,
-     FastSAM's, the serve phase's and phases 38-43's), the card's line, and
+     FastSAM's, the serve phase's and phases 38-44's), the card's line, and
      last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 """
@@ -311,6 +321,7 @@ import copy
 import csv
 import ctypes
 import filecmp
+import hashlib
 import io
 import json
 import os
@@ -5030,6 +5041,41 @@ def png_bytes(img: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
+def ultralytics_pt(state_dict, path: Path, epoch: int = 7):
+    """``state_dict`` (the reference's names, ``model.{i}....``) saved by
+    ``torch.save`` the way an Ultralytics checkpoint holds its model:
+    ``{"model": tree, "epoch", "train_args"}``, ``tree`` modules of a class
+    whose module exists only while the file is written (a temporary
+    folder), so that it cannot be imported when the file is read, as a
+    ``.pt`` read without the ultralytics package."""
+    import importlib
+
+    with tempfile.TemporaryDirectory() as d:
+        (Path(d) / "smoke_ultralytics_tasks.py").write_text(
+            "import torch.nn as tnn\n\n\nclass Node(tnn.Module):\n    pass\n")
+        sys.path.insert(0, d)
+        try:
+            node_cls = importlib.import_module("smoke_ultralytics_tasks").Node
+            root = node_cls()
+            for key, t in state_dict.items():
+                *names, leaf = key.split(".")
+                node = root
+                for n in names:
+                    if n not in node._modules:
+                        node.add_module(n, node_cls())
+                    node = node._modules[n]
+                t = t.detach().cpu().clone()
+                if leaf.startswith("running_") or leaf == "num_batches_tracked":
+                    node.register_buffer(leaf, t)
+                else:
+                    node.register_parameter(leaf, torch.nn.Parameter(t, requires_grad=False))
+            torch.save({"model": root, "epoch": epoch, "train_args": {"imgsz": 64}}, path)
+        finally:
+            sys.path.remove(d)
+            sys.modules.pop("smoke_ultralytics_tasks", None)
+    return path
+
+
 def datasets_phase(card: str, d: Path) -> tuple:
     """Datasets on disk, under ``d``: the seg160 floor val set written as
     PNG files with its label files and a yaml, ``YOLO(seg160).val(data=
@@ -5093,7 +5139,7 @@ TRACK_RECORD = ROOT / "tests" / "data" / "torch_port_track_jax.npz"
 TRACK_N, TRACK_HW, TRACK_IMGSZ, TRACK_SEED = 12, (480, 640), 160, 0
 TRACKER_NAMES = ("botsort", "bytetrack")
 TRACK_BOX_ATOL = BOX_ATOL  # px, boxes of tracked results
-TRACK_WARP_ATOL = (1e-4, 0.01)  # GMC warps: the 2x2 part, the translation (px)
+TRACK_WARP_ATOL = (0.0, 0.0)  # GMC warps, the 2x2 part and the translation: equal
 
 
 def track_frames(n: int = TRACK_N, h: int = TRACK_HW[0], w: int = TRACK_HW[1],
@@ -5233,7 +5279,7 @@ def track_phase(card: str) -> dict:
     BOT-SORT (sparseOptFlow) and ByteTrack, launch counts zeroed just before
     and read just after: against the port on the CPU and against the
     committed JAX record, ids equal on every frame, boxes within
-    ``TRACK_BOX_ATOL``, the warps within ``TRACK_WARP_ATOL``; against the
+    ``TRACK_BOX_ATOL``, the warps equal (``TRACK_WARP_ATOL``); against the
     CPU, every frame's ``Masks.xy`` equal point for point; the cv2 fill
     launched (``Masks.xy`` reads the masks); host ms a frame of the tracker
     update, the GMC and the contour finder. Returns the launch counts."""
@@ -5333,6 +5379,149 @@ def convert_check(card: str, d: Path) -> dict:
         f"{counts} | {card}")
     if not same or n_files != len(images) or counts["fill_polygons"] == 0:
         raise AssertionError(f"convert: {disk} vs {mem}, {n_files} files, launches {counts}")
+    return counts
+
+
+EXPORT_IMGSZ = 640
+# JAX's export of the port-fused seg160 checkpoint at 640 with the port's exporter metadata
+# (tests/test_torch_port_onnx.py)
+ONNX_SHA = ROOT / "tests" / "data" / "torch_port_onnx_seg160_640.sha256"
+# the numpy executor's float32 im2col sums against the card's cuDNN convs: the JAX
+# ONNX tests' tolerance, |got - want| <= atol + rtol * |want| on every entry
+ONNX_ATOL, ONNX_RTOL = 2e-3, 1e-2
+# the reloaded pt2 program against the eager fused predict on the card, of the output's
+# scale (pixels over max(1, the largest box coordinate)): the program is the same aten
+# graph, but it may take other cuDNN kernels than the eager calls
+PT2_TOL = 1e-5
+
+
+def same_results(got, want) -> bool:
+    """Two lists of polar results: boxes, contours and masks bit-identical."""
+    return len(got) == len(want) and all(
+        torch.equal(torch.as_tensor(a.boxes.data), torch.as_tensor(b.boxes.data))
+        and np.array_equal(a.contours.points, b.contours.points)
+        and torch.equal(torch.as_tensor(a.masks.data), torch.as_tensor(b.masks.data))
+        for a, b in zip(got, want))
+
+
+def output_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest gap, of the output's scale: max(1, the largest box
+    coordinate)."""
+    scale = max(1.0, float(want[:, :4].abs().max()))
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def ulp_gap(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Elementwise distance of two float32 arrays in units in the last place."""
+    ia, ib = (np.asarray(v, np.float32).view(np.int32).astype(np.int64) for v in (a, b))
+    ia, ib = (np.where(i < 0, -(i & 0x7FFFFFFF), i) for i in (ia, ib))
+    return np.abs(ia - ib)
+
+
+def fold_gap(a, b) -> dict:
+    """Two fused models of the same weights: their state dicts' tensors that
+    differ, the values that differ, and the largest gap in ulps."""
+    sa, sb = a.state_dict(), b.state_dict()
+    gaps = [ulp_gap(sa[k].cpu().numpy(), sb[k].cpu().numpy()) for k in sa]
+    return {"tensors": len(gaps), "tensors_apart": sum(int(g.max() > 0) for g in gaps),
+            "values_apart": sum(int((g > 0).sum()) for g in gaps),
+            "max_ulps": max(int(g.max()) for g in gaps)}
+
+
+def export_phase(card: str, d: Path) -> dict:
+    """(a) A fresh ``YOLO("yolov8n-seg.yaml")`` predicts on the card without
+    ``train`` (its weights drawn at first use), its masks read, and predicts
+    the same after ``reset_weights``; (b) the seg160 checkpoint's facade on
+    the card exports ONNX at 640 (``export(format="onnx")``, which fuses on
+    the CPU; the card's fold is printed against the CPU's, ``fold_gap``):
+    the file's SHA-256 against JAX's (``ONNX_SHA``), and the writer's graph
+    of the same CPU-fused weights run by the numpy executor on a frame
+    against their predict on the card (``ONNX_ATOL``, ``ONNX_RTOL``); (c)
+    the facade's ``export()`` (pt2) on the card, reloaded by
+    ``AutoBackend``, against the fused predict (``PT2_TOL``, and whether bit
+    for bit); (d) ``AutoBackend`` on the ``.ckpt`` (the predict fused on the
+    card, bit for bit), the ``.yaml`` (the fresh facade's predict, bit for
+    bit), and a ``.pt`` with Ultralytics' names and an unimportable class
+    (``ultralytics_pt``) of the fresh facade's weights against the
+    ``.ckpt`` the facade saves of them: equal bit for bit. Launch counts
+    zeroed before (a), read after (d). Returns them."""
+    from yolo_contour_regression_tpu_torch.nn.autobackend import AutoBackend
+    from yolo_contour_regression_tpu_torch.onnx.export import export_onnx
+
+    frames = shape_images(4, *RASTER_HW, seed=7)
+    zero_launch_counts()
+    fresh = YOLO("yolov8n-seg.yaml", device="cuda")
+    first = fresh.predict(frames, imgsz=EXPORT_IMGSZ, conf=0.001, batch=4)
+    again = fresh.reset_weights().predict(frames, imgsz=EXPORT_IMGSZ, conf=0.001, batch=4)
+    n_det = sum(len(r) for r in first)
+    fresh_same = same_results(first, again)
+    log("export", f"fresh yolov8n-seg.yaml on the card, no train: {n_det} detections on "
+        f"{len(frames)} {RASTER_HW[0]}x{RASTER_HW[1]} frames at {EXPORT_IMGSZ} (conf 0.001), "
+        f"equal after reset_weights (boxes, contours, masks): {fresh_same} | {card}")
+
+    seg = YOLO(CKPT, device="cuda")
+    t = time.perf_counter()
+    onnx_path = Path(seg.export(format="onnx", imgsz=EXPORT_IMGSZ, project=str(d)))
+    write_s = time.perf_counter() - t
+    sha = hashlib.sha256(onnx_path.read_bytes()).hexdigest()
+    jax_sha = ONNX_SHA.read_text().strip()
+    card_fused = fuse_model(copy.deepcopy(seg.model))
+    fused = fuse_model(copy.deepcopy(seg.model).cpu())  # the exporter's fold for ONNX
+    fold = fold_gap(card_fused, fused)
+    graph, outs = export_onnx(fused, str(d / "seg160_graph.onnx"), imgsz=EXPORT_IMGSZ)
+    fused.cuda()
+    img = shape_images(1, EXPORT_IMGSZ, EXPORT_IMGSZ, seed=8)[0]
+    x = np.ascontiguousarray(img[..., ::-1].transpose(2, 0, 1)[None], np.float32) / 255.0
+    t = time.perf_counter()
+    got = graph.run({"images": x})[outs[0][0]]
+    run_s = time.perf_counter() - t
+    xc = torch.from_numpy(x).cuda()
+    with torch.no_grad():
+        want = fused.predict(xc)
+    want_np = want.cpu().numpy()
+    err = np.abs(got - want_np)
+    over = int((err > ONNX_ATOL + ONNX_RTOL * np.abs(want_np)).sum())
+    log("export", f"onnx: the facade's export of seg160 on the card, fused on the CPU (the "
+        f"card's fold against it: {fold}), {onnx_path.stat().st_size} bytes at {EXPORT_IMGSZ}, "
+        f"sha256 {sha} (JAX's export of the same fused weights: {jax_sha}; equal "
+        f"{sha == jax_sha}), written in {write_s:.2f}s; numpy executor {run_s:.2f}s, output "
+        f"{outs[0][1]}, against the same weights' predict on the card: max |executor - card| "
+        f"{float(err.max()):.3e}, entries over {ONNX_ATOL} + {ONNX_RTOL} x |card| {over} | "
+        f"{card}")
+    with torch.no_grad():
+        want = card_fused.predict(xc)  # the facade's pt2 export and AutoBackend fold on the card
+
+    t = time.perf_counter()
+    pt2 = seg.export(imgsz=EXPORT_IMGSZ, project=str(d))
+    pt2_s = time.perf_counter() - t
+    backend = AutoBackend(pt2, device="cuda")
+    with torch.no_grad():
+        out = backend(xc)
+    pt2_gap = output_gap(out, want)
+    log("export", f"pt2: {Path(pt2).name} {Path(pt2).stat().st_size} bytes in {pt2_s:.2f}s on "
+        f"{backend.device}; AutoBackend against the fused predict: max gap {pt2_gap:.3e} of the "
+        f"output's scale (limit {PT2_TOL}), bit for bit {torch.equal(out, want)}; the facade's "
+        f"model left unfused: {not seg.model.fused} | {card}")
+
+    ckpt_eq = torch.equal(AutoBackend(CKPT, device="cuda")(xc), want)
+    with torch.no_grad():
+        fresh_want = fresh.model.predict(xc)
+    yaml_eq = torch.equal(AutoBackend("yolov8n-seg.yaml", device="cuda")(xc), fresh_want)
+    seeded_ckpt = fresh.save(d / "seeded.ckpt")
+    pt = ultralytics_pt(fresh.model.state_dict(), d / "seeded_ultralytics.pt")
+    pt_out = AutoBackend(pt, device="cuda")(xc)
+    pt_eq = torch.equal(pt_out, AutoBackend(seeded_ckpt, device="cuda")(xc))
+    counts = launch_counts()
+    log("export", f"AutoBackend on the card: .ckpt equal to the fused predict {ckpt_eq}, .yaml "
+        f"equal to the fresh facade's predict {yaml_eq}, .pt (Ultralytics names, an "
+        f"unimportable class) equal to the .ckpt of the same weights {pt_eq}; launches "
+        f"{counts} | {card}")
+    bad = {k: v for k, v in (("fresh", fresh_same and n_det > 0), ("sha", sha == jax_sha),
+                             ("onnx", over == 0), ("pt2", pt2_gap <= PT2_TOL),
+                             ("unfused", not seg.model.fused), ("ckpt", ckpt_eq),
+                             ("yaml", yaml_eq), ("pt", pt_eq)) if not v}
+    if bad or counts["fill_polygons_cv2"] == 0:
+        raise AssertionError(f"export: failed {sorted(bad)}, launches {counts}")
     return counts
 
 
@@ -5594,13 +5783,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         convert_counts = convert_check(card, Path(d))
 
+    # 44. export and artifacts: the fresh facade, ONNX (JAX's bytes), pt2, AutoBackend
+    phase_start["export"] = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        export_counts = export_phase(card, Path(d))
+
     # 27 joined: the RT-DETR floor run's lines, its checks' outcome and counts
     phase_start["rtdetr_join"] = time.perf_counter()
     rtdetr_counts["trainer"] = join_floor_run(timeout=900)["counts"]
     if any(rtdetr_counts["trainer"].values()):
         raise AssertionError(f"rtdetr_trainer: launches {rtdetr_counts['trainer']}")
 
-    # 44. report: launches summed over the main paths' runs
+    # 45. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,
@@ -5610,7 +5804,7 @@ def main() -> int:
                 + classify_counts[k] + sum(c[k] for c in rtdetr_counts.values())
                 + host_counts[k] + fastsam_counts[k] + serve_counts[k] + ddp_counts[k]
                 + serve_mesh_counts[k] + datasets_counts[k] + lifecycle_counts[k]
-                + track_counts[k] + convert_counts[k]
+                + track_counts[k] + convert_counts[k] + export_counts[k]
                 for k in KERNEL_WRAPPERS}
     serve_other = sum(c["fill_polygons_cv2"] for k, c in serve_parts.items()
                       if k not in ("segment", "streams"))
@@ -5638,7 +5832,8 @@ def main() -> int:
          "library_ms": None, "launches_fastsam": fastsam_counts["fill_polygons_cv2"],
          "launches_serve": serve_counts["fill_polygons_cv2"],
          "launches_serve_mesh": serve_mesh_counts["fill_polygons_cv2"],
-         "launches_track": track_counts["fill_polygons_cv2"]},
+         "launches_track": track_counts["fill_polygons_cv2"],
+         "launches_export": export_counts["fill_polygons_cv2"]},
         {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
          "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_NPAD]),
@@ -5670,7 +5865,8 @@ def main() -> int:
         f"(the seg160 yaml's validation), lifecycle {lifecycle_counts} (the five optimizers' "
         f"float64 steps, the CLI's validation, the tuner's two trainings; ddp's counts hold (a)'s "
         f"resumed run), track {track_counts} (the masks of both trackers' results, read for "
-        f"Masks.xy), convert {convert_counts} (the converted labels' validation); "
+        f"Masks.xy), convert {convert_counts} (the converted labels' validation), export "
+        f"{export_counts} (the fresh facade's masks, twice); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
         "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "

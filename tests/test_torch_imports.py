@@ -1,8 +1,10 @@
 """The PyTorch port imports nothing that a CUDA machine with only torch,
 numpy and the standard library lacks: in a fresh interpreter that refuses
-jax, flax, optax, cv2, PIL, yaml, torchvision, triton and the JAX package,
-every module of the port (the CLI's ``__main__``, the callbacks, tuner,
-checks and settings among them) and ``chip_smoke`` import, the CPU predict runs
+jax, flax, optax, cv2, PIL, yaml, torchvision, triton, onnx, onnxruntime,
+tensorflow, tf2onnx, openvino and the JAX package, every module of the port
+(the CLI's ``__main__``, the callbacks, tuner, checks and settings, the
+``onnx/`` writer, the exporter and ``AutoBackend`` among them) and
+``chip_smoke`` import, the CPU predict runs
 on the committed seg160 checkpoint, the CPU validator runs on two images
 of the floor set with it, one CPU train step runs on it, and
 ``YOLO("yolov8n-seg.yaml").train`` runs one epoch on the CPU on four of the
@@ -26,25 +28,35 @@ through ``LoadStreams``; then the lifecycle: the CLI's ``version`` and
 optax) and a resume from it; then tracking: the trackers, the contour
 finder, the annotator and the converter are among the modules, and
 ``YOLO.track`` runs BOT-SORT (its sparse-flow GMC) and ByteTrack on three
-panning frames with ``Masks.xy`` read; and scipy and cv2 were never
-imported."""
+panning frames with ``Masks.xy`` read; then the seg160 checkpoint is
+exported to ONNX; and scipy and cv2 were never imported."""
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "yaml", "torchvision", "triton",
+           "onnx", "onnxruntime", "tensorflow", "tf2onnx", "openvino",
            "yolo_contour_regression_tpu")
 
 SCRIPT = r"""
-import importlib, importlib.abc, pkgutil, sys
+import importlib, importlib.abc, importlib.machinery, os, pkgutil, sys
 BLOCKED = set(sys.argv[1].split(","))
 
-class Refuse(importlib.abc.MetaPathFinder):
+class Refuse(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    # a blocked name has a spec without origin, whose import fails: an import raises,
+    # and a probe by importlib.util.find_spec (torch's dynamo probes onnx and tensorflow
+    # that way when it is first imported) learns nothing of where it lies
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
-            raise ModuleNotFoundError(f"blocked: {name}", name=name)
+            return importlib.machinery.ModuleSpec(name, self)
         return None
+
+    def create_module(self, spec):
+        raise ModuleNotFoundError(f"blocked: {spec.name}", name=spec.name)
+
+    def exec_module(self, module):
+        pass
 
 for name in list(sys.modules):  # anything a site hook imported already
     if name.split(".")[0] in BLOCKED:
@@ -201,6 +213,14 @@ for name in ("botsort", "bytetrack"):
     tracked = model.track(pan, imgsz=64, tracker=name)
     assert all(r.track_ids.shape == (len(r),) for r in tracked)
     n_tracked += sum(len(c) for r in tracked for c in r.masks.xy)
+exporting = {f"yolo_contour_regression_tpu_torch.{m}" for m in (
+    "onnx", "onnx.builder", "onnx.export", "onnx.proto", "onnx.rtdetr", "engine.exporter",
+    "nn.autobackend", "utils.torch_convert")}
+assert exporting <= set(mods), sorted(exporting - set(mods))
+import tempfile
+with tempfile.TemporaryDirectory() as d:
+    onnx_path = model.export(format="onnx", imgsz=64, project=d)
+    exported = os.path.getsize(onnx_path)
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 assert not [n for n in sys.modules if n.split(".")[0] == "scipy"]
@@ -208,7 +228,7 @@ print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;"
       "val mask mAP50-95", val["metrics/mAP50-95(M)"], ";", "train step loss",
       float(metrics["loss"]), ";", "YOLO.train steps", trained, "; detect", n_det, "detections",
       "; SAM everything mode", len(gen[0]), "masks; served", len(served), "images;",
-      "tracked contour points", n_tracked)
+      "tracked contour points", n_tracked, "; onnx bytes", exported)
 """
 
 
@@ -222,5 +242,6 @@ def test_port_imports_and_predicts_without_jax_cv2_yaml_triton():
     assert "val mask mAP50-95" in res.stdout and "YOLO.train steps 2" in res.stdout
     assert "; detect" in res.stdout and "; SAM everything mode" in res.stdout
     assert "; served 2 images" in res.stdout and "tracked contour points" in res.stdout
+    assert "; onnx bytes" in res.stdout
     n_mods = int(res.stdout.split("imported ")[1].split()[0])
     assert n_mods >= 20  # ops, nn, utils, engine, data modules of the port

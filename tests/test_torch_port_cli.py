@@ -4,7 +4,7 @@ package's on the CPU: ``parse_key_value_args`` types values as JAX's
 (``yaml.safe_load``) on a table of strings; ``cfg`` prints the defaults as
 yaml that ``yaml.safe_load`` reads back to JAX's ``DEFAULT_CFG`` on every
 key; ``segment val`` gives ``YOLO.val``'s metrics exactly; the special
-commands; the modes that are not ported raise."""
+commands; the mode that is not ported raises."""
 import ast
 import subprocess
 import sys
@@ -116,7 +116,8 @@ def test_segment_predict_and_train(dataset, capsys, tmp_path):
 def test_special_commands(capsys, tmp_path, monkeypatch):
     """help, version, checks (Python, torch and the device in place of jax
     and flax), settings (a json file; reset), and what raises: hub (the
-    network), export and benchmark (not ported), an unknown mode."""
+    network), benchmark (not ported), export of a format the port does not
+    write (the facade's recipe), an unknown mode."""
     for argv in ([], ["help"], ["--help"]):
         assert tcfg.entrypoint(argv) == 0
         assert "usage: yolo TASK MODE" in capsys.readouterr().out
@@ -135,9 +136,10 @@ def test_special_commands(capsys, tmp_path, monkeypatch):
     assert "settings reset" in capsys.readouterr().out
     with pytest.raises(RuntimeError, match="network"):
         tcfg.entrypoint(["hub", "login", "KEY"])
-    for mode in ("export", "benchmark"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tcfg.entrypoint(["detect", mode])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tcfg.entrypoint(["detect", "benchmark"])
+    with pytest.raises(NotImplementedError, match="Offline recipe"):
+        tcfg.entrypoint(["detect", "export", "format=tflite", "device=cpu"])
     with pytest.raises(ValueError, match="mode"):
         tcfg.entrypoint(["mode=fly"])
 

@@ -26,6 +26,7 @@ from chip_smoke import DETECT_CKPT, shape_images, shape_val_set
 from tests.helpers import make_shape_dataset
 from tests.test_torch_port_segori import NARROW
 from tests.test_torch_port_trainer import IDENTITY_AUG, LOSS_RTOL, _np_tree, _rows
+from tests.torch_port_jax_init import compiled_trainer_init
 from yolo_contour_regression_tpu.cfg import get_cfg
 from yolo_contour_regression_tpu.data import device_augment as jda
 from yolo_contour_regression_tpu.engine import predictor as jpredictor
@@ -324,7 +325,9 @@ def recorded_jax_init():
     """JAX's trainer initializes its model once (``BaseModel.init`` from
     ``PRNGKey(seed)``): a numpy copy of those variables (taken before the
     step donates them) lands in the yielded dict's ``"v"``, so the port can
-    start from them without a second, eager init."""
+    start from them without a second init. The init stays eager: for the
+    narrow classify config the compiled init (``compiled_trainer_init``,
+    bit-identical) takes longer than the eager one."""
     seen, orig = {}, jtasks.BaseModel.init
 
     def init(self, *args, **kwargs):
@@ -343,13 +346,15 @@ def recorded_jax_init():
 def runs(tmp_path_factory):
     """Both segment_ori trainers on the same data and initial weights,
     JAX's separable warp in float32 and its trainer one step per dispatch;
-    the port's init replaced by JAX's (``PRNGKey(0)``), carried across."""
+    the port's init replaced by JAX's (``PRNGKey(0)``, compiled: the same
+    variables bit for bit as the eager init of this config), carried
+    across."""
     tmp = tmp_path_factory.mktemp("segori_trainers")
     yaml = make_shape_dataset(tmp / "ds", n_train=8, n_val=4, imgsz=64, seed=0)
     warp = jda._warp_image_separable
     jda._warp_image_separable = partial(warp, dtype=jnp.float32)
     try:
-        with recorded_jax_init() as seen:
+        with compiled_trainer_init() as seen:
             jt = jtrainer.SegmentationOriTrainer(overrides={
                 **TRAIN, "data": str(yaml), "steps_per_dispatch": 1,
                 "project": str(tmp / "jax"), "name": "t"})

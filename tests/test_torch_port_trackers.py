@@ -10,12 +10,8 @@ the JAX package's on the CPU:
   frame's output equal exactly, ids included;
 - ``BOTSORT`` with ``sparseOptFlow`` on seeded panning frames
   (``chip_smoke.track_frames``): given the JAX GMC's warps (replayed into
-  the port's tracker) every frame's output equal exactly; with the port's
-  own GMC, on the ``SPARSE_FLOW_SEEDS`` sequences, ids, scores and classes
-  equal exactly and boxes within ``BOX_ATOL`` (the warps differ by up to
-  ~3e-4 px: the port's LK sums its windows exactly where OpenCV adds them
-  in float32, and OpenCV 5's affine refinement is not reproduced bit for
-  bit, see ``data/imgproc.py``)."""
+  the port's tracker) and with the port's own GMC, on the
+  ``SPARSE_FLOW_SEEDS`` sequences, every frame's output equal exactly."""
 import numpy as np
 import pytest
 
@@ -25,8 +21,6 @@ from yolo_contour_regression_tpu.trackers import BYTETracker as JaxBYTETracker
 from yolo_contour_regression_tpu.trackers.utils import kalman_filter as jkf
 from yolo_contour_regression_tpu_torch.trackers import BOTSORT, BYTETracker
 from yolo_contour_regression_tpu_torch.trackers.utils import kalman_filter as kf
-
-BOX_ATOL = 1e-3  # px, BOT-SORT's boxes with each side's own GMC
 
 
 @pytest.mark.parametrize("name", ["KalmanFilterXYAH", "KalmanFilterXYWH"])
@@ -176,15 +170,7 @@ def test_botsort_sparse_flow_given_jax_warps_equals_jax(panning):
 
 
 def _sparse_flow_equal(images, frames):
-    got, want = run(BOTSORT(), frames, images), run(JaxBOTSORT(), frames, images)
-    assert len(got) == len(want)
-    worst = 0.0
-    for t, (g, w) in enumerate(zip(got, want)):
-        np.testing.assert_array_equal(g[:, 4:], w[:, 4:], err_msg=f"frame {t}")
-        if len(g):
-            worst = max(worst, float(np.abs(g[:, :4] - w[:, :4]).max()))
-    print(f"BOT-SORT with sparseOptFlow, port against JAX: boxes max {worst:.2e} px")
-    assert worst <= BOX_ATOL
+    assert_same(run(BOTSORT(), frames, images), run(JaxBOTSORT(), frames, images))
 
 
 def test_botsort_sparse_flow_equals_jax(panning):

@@ -376,14 +376,54 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     assert isinstance(rtdetr.trainer, ttrainer.RTDETRTrainer)
 
 
-def test_a_fresh_facade_has_no_weights_until_trained():
-    """``YOLO("yolov8n-seg.yaml")`` names the model and builds nothing: the
-    trainer builds and initializes it from ``seed``, so predict and val
-    raise until then."""
+def test_a_fresh_facade_has_no_weights_until_trained(tmp_path):
+    """``YOLO("yolov8n-seg.yaml")`` builds nothing until it is used (the name
+    is kept: no weights exist before the first use). Then, as JAX's facade
+    (``_ensure_variables``), predict draws the weights as ``reset_weights``
+    draws them, so a fresh facade predicts what it predicts after
+    ``reset_weights``; ``train`` still builds and initializes a model of
+    its own, not the facade's; and ``auto_annotate`` runs with its default
+    ``det_model`` (this config) on a folder of images."""
+    from chip_smoke import png_bytes, shape_images
+    from yolo_contour_regression_tpu_torch.data.annotator import auto_annotate
+    from yolo_contour_regression_tpu_torch.nn.tasks import (build_model, init_weights,
+                                                            yaml_model_load)
+
     m = YOLO("yolov8n-seg.yaml", device="cpu")
     assert m.model is None and m.overrides["model"] == "yolov8n-seg.yaml"
-    img = np.full((64, 64, 3), 40, np.uint8)
-    with pytest.raises(RuntimeError, match="no weights"):
-        m.predict(img, imgsz=64)
-    with pytest.raises(RuntimeError, match="no weights"):
-        m.val([img], [(np.zeros(0), np.zeros((0, 4)), [])], imgsz=64)
+    images = shape_images(2, 64, 80, seed=3)
+    first = m.predict(images, imgsz=64, conf=0.001)
+    lazy = m.model
+    assert lazy is not None and not lazy.training
+    again = m.reset_weights().predict(images, imgsz=64, conf=0.001)
+    assert sum(len(r) for r in first) > 0
+    for a, b in zip(first, again, strict=True):
+        np.testing.assert_array_equal(a.boxes.data, b.boxes.data)
+        np.testing.assert_array_equal(a.contours.points, b.contours.points)
+
+    start = []
+    with torch.no_grad():
+        next(m.model.parameters()).add_(1.0)  # the facade's weights, changed
+    m.add_callback("on_train_start", lambda t: start.append(
+        (t.model, {k: v.detach().clone() for k, v in t.model.state_dict().items()})))
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (48, 64, 3), dtype=np.uint8) for _ in range(2)]
+    labels = [(np.array([0]), np.array([[0.5, 0.5, 0.4, 0.5]], np.float32),
+               np.zeros((1, 360, 2), np.float32))] * 2
+    m.train(data={"train": (imgs, labels), "val": (imgs, labels), "names": {0: "a"}},
+            epochs=1, imgsz=64, batch=2, nbs=2, val=False, project=str(tmp_path))
+    (trained, at_start), = start
+    assert trained is not lazy and m.model is not lazy  # the trainer's own, then adopted
+    want = init_weights(build_model(yaml_model_load("yolov8n-seg.yaml"), nc=1),
+                        torch.Generator().manual_seed(0)).state_dict()
+    assert at_start.keys() == want.keys()
+    for k, v in at_start.items():
+        assert torch.equal(v.cpu(), want[k]), k
+
+    folder = tmp_path / "images"
+    folder.mkdir()
+    for i, img in enumerate(images):
+        (folder / f"{i}.png").write_bytes(png_bytes(img))
+    out = auto_annotate(str(folder), output_dir=str(tmp_path / "labels"), imgsz=64, conf=0.001,
+                        device="cpu")
+    assert sorted(p.name for p in Path(out).iterdir()) == ["0.txt", "1.txt"]

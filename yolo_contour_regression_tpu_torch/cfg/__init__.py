@@ -21,7 +21,9 @@ go to the ``YOLO`` facade, each with the keys its method takes (others are
 logged and dropped); metrics are printed, the exit code is 0. track goes to
 ``YOLO.track`` with every key (``tracker=botsort.yaml`` or
 ``bytetrack.yaml``; the rest are ``predict``'s), as JAX's CLI routes it,
-and prints nothing. export and benchmark are not ported; ``hub`` needs the network and raises. ``cfg``
+and prints nothing; export goes to ``YOLO.export`` with every key
+(``format=pt2`` by default, or ``onnx``; ``engine/exporter.py``) and prints
+nothing. benchmark is not ported; ``hub`` needs the network and raises. ``cfg``
 prints ``DEFAULT_CFG`` as yaml (``default_cfg_yaml``, which
 ``yaml.safe_load`` reads back to the dict); ``copy-cfg`` writes it to
 ``default_copy.yaml`` in the working directory.
@@ -227,8 +229,7 @@ TASK2MODEL = {
     "pose": "yolov8n-pose.yaml",
 }
 # the modes the port's facade does not have, and where they wait (ROADMAP.md)
-NOT_PORTED = {"export": "export (ROADMAP Queue 1 item 3.4)",
-              "benchmark": "utils/benchmarks.py (ROADMAP Queue 1 item 5)"}
+NOT_PORTED = {"benchmark": "utils/benchmarks.py (ROADMAP Queue 1 item 5)"}
 HELP = (
     "usage: yolo TASK MODE [k=v ...]\n"
     f"  TASK in {TASKS}\n  MODE in {MODES}\n"

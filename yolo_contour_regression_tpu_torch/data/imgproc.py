@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import functools
 import math
+from fractions import Fraction
 from typing import Tuple
 
 import numpy as np
@@ -465,6 +466,15 @@ W_BITS = 14
 # estimateAffinePartial2D's RANSAC defaults: reprojection threshold (px),
 # iterations, confidence
 RANSAC_THRESH, RANSAC_ITERS, RANSAC_CONFIDENCE = 3.0, 2000, 0.99
+# its refinement: OpenCV 5's LevMarq with geodesic acceleration, at most
+# refineIters = 10 iterations, LevMarq::Settings' defaults otherwise
+LM_ITERS, LM_LAMBDA, LM_UP, LM_DOWN = 10, 1e-4, 2.0, 3.0
+LM_GEO_STEP, LM_GEO_SCALE = 1e-4, 0.5
+LM_STEP_TOL = LM_ENERGY_TOL = LM_GRAD_TOL = 1e-6
+LM_MIN_DIAG, LM_MAX = 1e-6, 1e32  # damping clamp; the cap on the damping and lambda
+# cv::gemm hands a product to OpenBLAS from 100 rows of A; OpenBLAS sums
+# blocks of 128 rows
+GEMM_BLAS_ROWS, GEMM_BLAS_BLOCK = 100, 128
 
 
 def corner_min_eigen_val(gray: np.ndarray) -> np.ndarray:
@@ -593,12 +603,49 @@ def _window(padded: np.ndarray, corner: np.ndarray, weights, shift: int) -> np.n
     return (v + (1 << (shift - 1))) >> shift
 
 
-def _window_dot(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Sum over each (win, win) window of the integer products ``a * b``,
-    exact in int64, rounded once to float32. OpenCV adds the same products
-    in float32 in its SIMD lanes' order; the two differ by a few float32
-    roundings, far inside the LK stop (0.01 px)."""
-    return np.einsum("nij,nij->n", a.astype(np.int64), b).astype(f32)
+# OpenCV's LK adds its window products in float32, in 128-bit SIMD lanes: the
+# columns up to the last whole vector step (LK_VEC_COLS) in lanes, the rest in a
+# scalar tail, each accumulator row after row; np.cumsum adds in that order
+LK_VEC_COLS = 16
+
+
+def _in_order(values: np.ndarray) -> np.ndarray:
+    """Float32 sums over the last axis, added one value after another."""
+    return np.cumsum(values, axis=-1, dtype=f32)[..., -1]
+
+
+def _window_tail(prod: np.ndarray) -> np.ndarray:
+    """The scalar tail: each window's products past ``LK_VEC_COLS``,
+    rounded to float32 one by one, added row by row."""
+    return _in_order(prod[:, :, LK_VEC_COLS:].reshape(len(prod), -1).astype(f32))
+
+
+def _window_gram(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The gradient matrix's sums over each (win, win) window of ``a * b``
+    as OpenCV adds them: 8 pixels a step, each product rounded to float32
+    and added into one 4-lane accumulator (the step's first 4 pixels, then
+    its last 4), the lanes reduced as (0 + 2) + (1 + 3) and added to the
+    tail."""
+    prod = a.astype(np.int64) * b
+    n = len(prod)
+    vec = prod[:, :, :LK_VEC_COLS].astype(f32).reshape(n, LK_WIN, -1, 4)  # (n, y, step-half, lane)
+    lanes = _in_order(vec.transpose(0, 3, 1, 2).reshape(n, 4, -1))
+    return _window_tail(prod) + ((lanes[:, 0] + lanes[:, 2]) + (lanes[:, 1] + lanes[:, 3]))
+
+
+def _window_mismatch(diff: np.ndarray, grad: np.ndarray) -> np.ndarray:
+    """The mismatch vector's sums over each window of ``diff * grad`` as
+    OpenCV adds them: 8 pixels a step, pixels k and k + 4 of a step paired
+    in exact int32 dot products, each rounded to float32 into two
+    accumulators of two lanes (pairs 0 and 1, pairs 2 and 3), those added
+    lane by lane and then the two lanes, and added to the tail."""
+    prod = diff.astype(np.int64) * grad
+    n = len(prod)
+    vec = prod[:, :, :LK_VEC_COLS].reshape(n, LK_WIN, -1, 8)
+    pairs = (vec[..., :4] + vec[..., 4:]).astype(f32)  # (n, y, step, pair)
+    lanes = _in_order(pairs.transpose(0, 3, 1, 2).reshape(n, 4, -1))
+    both = lanes[:, :2] + lanes[:, 2:]
+    return _window_tail(prod) + (both[:, 0] + both[:, 1])
 
 
 def calc_optical_flow_pyr_lk(prev: np.ndarray, nxt: np.ndarray, pts: np.ndarray):
@@ -608,8 +655,9 @@ def calc_optical_flow_pyr_lk(prev: np.ndarray, nxt: np.ndarray, pts: np.ndarray)
     status (n, 1) uint8)``. OpenCV's fixed point is kept: the pyramids
     (``pyr_down``, reflect-101 padding by the window), the int16 Scharr
     derivatives padded with zeros, 14-bit bilinear weights, the window at
-    5 extra bits; the window sums are exact (``_window_dot``), the Newton
-    steps in float32, the stop at a squared
+    5 extra bits; the window sums in float32 in OpenCV's SIMD order
+    (``_window_gram``, ``_window_mismatch``), the Newton steps in float32,
+    the stop at a squared
     step of 0.01^2 or on an oscillation (then half the step back). Status 0
     for a point whose window leaves the image or whose gradient matrix's
     smaller eigenvalue is under the threshold at level 0."""
@@ -648,9 +696,9 @@ def calc_optical_flow_pyr_lk(prev: np.ndarray, nxt: np.ndarray, pts: np.ndarray)
         iwin = _window(ipad, corner[idx], weights, W_BITS - 5)
         gx = _window(dpad[0], corner[idx], weights, W_BITS)
         gy = _window(dpad[1], corner[idx], weights, W_BITS)
-        a11 = _window_dot(gx, gx) * fscale
-        a12 = _window_dot(gx, gy) * fscale
-        a22 = _window_dot(gy, gy) * fscale
+        a11 = _window_gram(gx, gx) * fscale
+        a12 = _window_gram(gx, gy) * fscale
+        a22 = _window_gram(gy, gy) * fscale
         det = a11 * a22 - a12 * a12
         t = a11 - a22
         min_eig = ((a22 + a11) - np.sqrt(t * t + f32(4) * a12 * a12)) / f32(2 * LK_WIN * LK_WIN)
@@ -675,8 +723,8 @@ def calc_optical_flow_pyr_lk(prev: np.ndarray, nxt: np.ndarray, pts: np.ndarray)
                 break
             weights = _bilinear_weights(cur[act] - corner.astype(f32))
             diff = _window(jpad, corner, weights, W_BITS - 5) - iwin[act]
-            b1 = _window_dot(diff, gx[act]) * fscale
-            b2 = _window_dot(diff, gy[act]) * fscale
+            b1 = _window_mismatch(diff, gx[act]) * fscale
+            b2 = _window_mismatch(diff, gy[act]) * fscale
             delta = np.stack([(a12[act] * b2 - a22[act] * b1) * inv[act],
                               (a12[act] * b1 - a11[act] * b2) * inv[act]], 1)
             cur[act] = cur[act] + delta
@@ -741,6 +789,199 @@ def _ransac_iters(confidence: float, outlier_share: float, max_iters: int) -> in
     return int(np.rint(num / denom))
 
 
+def _fma64(a: float, b: float, c: float) -> float:
+    """``fma(a, b, c)`` in float64, rounded once."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _jt_times(jac: np.ndarray, r: np.ndarray) -> np.ndarray:
+    """``cv::gemm(J, r, 1, noArray(), 0, out, GEMM_1_T)``, J^T r, added as
+    cv2 5.0's wheel adds it. Under ``GEMM_BLAS_ROWS`` rows, OpenCV's loop:
+    four running sums over the rows by index mod 4 (the rows past the last
+    whole four into the first), then added in order. From there, OpenBLAS:
+    blocks of ``GEMM_BLAS_BLOCK`` rows, each summed in order and added to the
+    result in turn, the last 129-255 rows split in two (the first a multiple
+    of 4 near half)."""
+    prod = jac * r[:, None]
+    n = len(r)
+    if n < GEMM_BLAS_ROWS:
+        m = n - n % 4
+        lanes = np.zeros((4, jac.shape[1]))
+        if m:
+            lanes = np.cumsum(prod[:m].reshape(-1, 4, jac.shape[1]), axis=0)[-1]
+        first = lanes[0]
+        for row in prod[m:]:
+            first = first + row
+        return ((first + lanes[1]) + lanes[2]) + lanes[3]
+    out = np.zeros(jac.shape[1])
+    k = 0
+    while k < n:
+        left = n - k
+        size = (min(left, GEMM_BLAS_BLOCK) if left >= 2 * GEMM_BLAS_BLOCK or left <= GEMM_BLAS_BLOCK
+                else (left // 2 + 3) // 4 * 4)
+        out = out + np.cumsum(prod[k:k + size], axis=0)[-1]
+        k += size
+    return out
+
+
+def _cv_hypot(a: float, b: float) -> float:
+    """OpenCV's own ``hypot`` in its Jacobi SVD."""
+    a, b = abs(a), abs(b)
+    if a > b:
+        b /= a
+        return a * math.sqrt(1 + b * b)
+    if b > 0:
+        a /= b
+        return b * math.sqrt(1 + a * a)
+    return 0.0
+
+
+def _solve_svd(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """``cv::solve(a, b, x, DECOMP_SVD)`` for a small square float64 ``a``:
+    OpenCV's one-sided Jacobi SVD of a^T (``JacobiSVDImpl_``: rotations of
+    row pairs until none is needed, sums in order, its ``hypot``; the rows
+    sorted by singular value and normalized) and its back-substitution
+    (``SVBkSb``, singular values under 2 eps of their sum skipped)."""
+    at = [[float(v) for v in row] for row in np.asarray(a, np.float64).T]
+    n = len(at)
+    eps, tiny = np.finfo(np.float64).eps, np.finfo(np.float64).tiny
+
+    def sum_sq(row):
+        sd = 0.0
+        for t in row:
+            sd += t * t
+        return sd
+
+    w = [sum_sq(row) for row in at]
+    vt = [[float(i == k) for k in range(n)] for i in range(n)]
+    for _ in range(max(n, 30)):
+        changed = False
+        for i in range(n - 1):
+            for j in range(i + 1, n):
+                ai, aj = at[i], at[j]
+                p = 0.0
+                for x, y in zip(ai, aj):
+                    p += x * y
+                if abs(p) <= 10 * eps * math.sqrt(w[i] * w[j]):
+                    continue
+                p *= 2
+                beta = w[i] - w[j]
+                gamma = _cv_hypot(p, beta)
+                if beta < 0:
+                    s = math.sqrt((gamma - beta) * 0.5 / gamma)
+                    c = p / (gamma * s * 2)
+                else:
+                    c = math.sqrt((gamma + beta) / (gamma * 2))
+                    s = p / (gamma * c * 2)
+                for row_i, row_j in ((ai, aj), (vt[i], vt[j])):
+                    for k in range(n):
+                        row_i[k], row_j[k] = row_i[k] * c + row_j[k] * s, row_j[k] * c - row_i[k] * s
+                w[i], w[j] = sum_sq(ai), sum_sq(aj)
+                changed = True
+        if not changed:
+            break
+    w = [math.sqrt(sum_sq(row)) for row in at]
+    for i in range(n - 1):
+        j = i
+        for k in range(i + 1, n):
+            if w[j] < w[k]:
+                j = k
+        w[i], w[j] = w[j], w[i]
+        at[i], at[j] = at[j], at[i]
+        vt[i], vt[j] = vt[j], vt[i]
+    rhs = [float(v) for v in np.asarray(b, np.float64).reshape(-1)]
+    threshold = 0.0
+    for wi in w:
+        threshold += wi
+    threshold *= 2 * eps
+    x = [0.0] * n
+    for i in range(n):
+        if abs(w[i]) <= threshold:
+            continue
+        norm = 1 / w[i] if w[i] > tiny else 0.0
+        proj = 0.0
+        for uk, bk in zip(at[i], rhs):
+            proj += (uk * norm) * bk
+        proj *= 1 / w[i]
+        for k in range(n):
+            x[k] = x[k] + proj * vt[i][k]
+    return np.array(x)
+
+
+def _refine_similarity(src: np.ndarray, dst: np.ndarray, model: np.ndarray) -> np.ndarray:
+    """estimateAffinePartial2D's refinement of a similarity (a, b, tx, ty) on
+    its inliers, as OpenCV 5's ``LevMarq`` runs it with its dense backend:
+    residuals (a x - b y + tx - x', b x + a y + ty - y') in float64, J^T J
+    summed in order, J^T r by ``_jt_times``, the energy |r|^2; each
+    iteration damps the diagonal d of J^T J to d + clamp(lambda d), solves by
+    ``_solve_svd``, adds the geodesic acceleration (the residual at
+    ``LM_GEO_STEP`` along the step, in J^T form, with the fused multiply-adds
+    of ``scaleAdd`` and ``addWeighted``) when it is under the step's size,
+    and keeps the step if the energy did not rise: lambda then shrinks by the
+    step's quality (at most ``LM_DOWN`` fold), else grows by a factor that
+    doubles. It stops after ``LM_ITERS`` iterations, or on a gradient, a
+    step or a relative energy change under its tolerance."""
+    s = np.asarray(src, np.float64)
+    d = np.asarray(dst, np.float64)
+    k = len(s)
+    jac = np.zeros((2 * k, 4))
+    jac[0::2] = np.stack([s[:, 0], -s[:, 1], np.ones(k), np.zeros(k)], 1)
+    jac[1::2] = np.stack([s[:, 1], s[:, 0], np.zeros(k), np.ones(k)], 1)
+    jtj = np.cumsum(jac[:, :, None] * jac[:, None, :], axis=0)[-1]
+    diag = np.diag(jtj).copy()
+
+    def residual(p):
+        a, b, tx, ty = p
+        return np.stack([a * s[:, 0] - b * s[:, 1] + tx - d[:, 0],
+                         b * s[:, 0] + a * s[:, 1] + ty - d[:, 1]], 1).reshape(-1)
+
+    x = np.array([model[0, 0], model[1, 0], model[0, 2], model[1, 2]])
+    r = residual(x)
+    energy = np.cumsum(r * r)[-1]
+    lam, up = LM_LAMBDA, LM_UP
+    h = LM_GEO_STEP
+    scale = 1.0 * (1.0 / (h * h))
+    moved = True
+    for _ in range(LM_ITERS):
+        if moved:
+            jtb = _jt_times(jac, r)
+            grad = np.abs(jtb).max()
+        lm_diag = np.minimum(np.maximum(diag * lam, LM_MIN_DIAG), LM_MAX)
+        damped = jtj.copy()
+        damped[np.diag_indices(4)] = lm_diag + diag
+        v = _solve_svd(damped, -jtb)
+        pv = v * (jtb - lm_diag * v)
+        predicted = ((pv[0] + pv[1]) + pv[2]) + pv[3]
+        step_norm = np.cumsum(v * v)[-1]
+        jtb_geo = _jt_times(jac, residual(x + v * h))
+        part = [_fma64(jtb[i], h - 1.0, jtb_geo[i]) for i in range(4)]
+        lmv = (h * lm_diag) * v
+        accel = _solve_svd(damped, -np.array([_fma64(part[i], scale, lmv[i] * scale)
+                                              for i in range(4)]))
+        with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+            if np.sqrt((accel @ accel) / (v @ v)) < 1.0:
+                v = np.array([_fma64(accel[i], LM_GEO_SCALE, v[i]) for i in range(4)])
+            xn = x + v
+            rn = residual(xn)
+            en = np.cumsum(rn * rn)[-1]
+            drop = energy - en
+            moved = not drop < 0
+            if moved:
+                rho = drop / (predicted * -0.5)
+                shrink = 1.0 - np.power(rho + rho - 1.0, 3.0)
+                lam = (shrink if shrink > 1.0 / LM_DOWN else 1.0 / LM_DOWN) * lam
+                x, r, energy, up = xn, rn, en, LM_UP
+                if (LM_GRAD_TOL > grad or LM_STEP_TOL > step_norm
+                        or LM_ENERGY_TOL > drop / en):
+                    break
+            else:
+                lam, up = lam * up, up + up
+        if not lam < LM_MAX:
+            break
+    a, b, tx, ty = x
+    return np.array([[a, -b, tx], [b, a, ty]])
+
+
 def estimate_affine_partial_2d(src: np.ndarray, dst: np.ndarray):
     """``cv2.estimateAffinePartial2D(src, dst, method=cv2.RANSAC)`` at its
     defaults: ``(M (2, 3) float64 or None, inliers (n, 1) uint8)``.
@@ -751,12 +992,7 @@ def estimate_affine_partial_2d(src: np.ndarray, dst: np.ndarray):
     squared reprojection error against ``RANSAC_THRESH``^2, a model with more
     inliers than the best so far (and at least 2) wins and shrinks the
     iteration count (``_ransac_iters``). The winner is then refined on its
-    inliers: OpenCV runs 10 Levenberg-Marquardt iterations on the similarity
-    (a, b, tx, ty); the problem is linear, so this solves its least squares
-    directly (normal equations in float64). OpenCV 5's solver stops about
-    1e-7 short of that optimum (its geodesic-acceleration step works on
-    finite differences of rounding noise), so the two agree to about 1e-7,
-    not bit for bit."""
+    inliers by OpenCV 5's Levenberg-Marquardt (``_refine_similarity``)."""
     src = np.asarray(src, f32).reshape(-1, 2)
     dst = np.asarray(dst, f32).reshape(-1, 2)
     n = len(src)
@@ -786,11 +1022,5 @@ def estimate_affine_partial_2d(src: np.ndarray, dst: np.ndarray):
         it += 1
     if best is None:
         return None, np.zeros((n, 1), np.uint8)
-    s, d = src[best_mask].astype(np.float64), dst[best_mask].astype(np.float64)
-    k = len(s)
-    jac = np.zeros((2 * k, 4))
-    jac[0::2] = np.stack([s[:, 0], -s[:, 1], np.ones(k), np.zeros(k)], 1)
-    jac[1::2] = np.stack([s[:, 1], s[:, 0], np.zeros(k), np.ones(k)], 1)
-    a, b, tx, ty = np.linalg.solve(jac.T @ jac, jac.T @ d.reshape(-1))
-    return (np.array([[a, -b, tx], [b, a, ty]]),
+    return (_refine_similarity(src[best_mask], dst[best_mask], best),
             best_mask.astype(np.uint8).reshape(-1, 1))

@@ -21,6 +21,7 @@ and rtdetr tasks (counterpart of the JAX package's ``engine/model.py``)::
     httpd = model.serve(port=8570, imgsz=640, background=True)  # POST /predict, GET /stats
     YOLO("runs/segment_train/weights/last.ckpt").train(resume=True)  # go on with a cut run
     YOLO("runs/floor_seg160/best.ckpt").fuse().save("fused.ckpt")  # deploy form, JAX's format
+    YOLO("runs/floor_seg160/best.ckpt").export(format="onnx", imgsz=640)  # also "pt2", the default
     model.info(detailed=True); model.add_callback("on_fit_epoch_end", fn); model.tune(data)
 
 SAM, FastSAM and NAS (``models/``) are facades of their own; FastSAM and
@@ -29,18 +30,22 @@ NAS are this facade bound to the segment and detect tasks.
 A name ending in ``.yaml`` names a fresh model (``nn/tasks.py``:
 ``yaml_model_load``; ``yolov8n-seg.yaml`` is the polar segment task,
 ``yolov8n.yaml`` detect, ``yolov8n-pose.yaml`` pose, ``yolov8n-segori.yaml``
-segment_ori, ``yolov8n-cls.yaml`` classify, ``yolov8n-rtdetr.yaml`` rtdetr)
-that has no weights until ``train`` builds and initializes it from ``seed``
-and adopts its ``best.ckpt`` (RT-DETR trains on the host train chain, as
-JAX's); anything else is a checkpoint of one of those tasks of the JAX
-package, in its
+segment_ori, ``yolov8n-cls.yaml`` classify, ``yolov8n-rtdetr.yaml`` rtdetr).
+Its weights are drawn on first use, as ``reset_weights`` draws them (JAX's
+``_ensure_variables``): by the first of ``predict``, ``val``, ``track``,
+``fuse``, ``save``, ``export`` and ``names``; ``train`` builds and
+initializes a model of its own from ``seed`` and adopts its ``best.ckpt``
+(RT-DETR trains on the host train chain, as JAX's). Anything else is a
+checkpoint of one of those tasks of the JAX package, in its
 training form or fused (``deploy == "fused"``, as the JAX ``YOLO.save``
 writes it after ``fuse()``), or one the port's trainer wrote. The task
 comes from the checkpoint's ``train_args`` or, failing that, the config's
 head; ``predict``, ``val`` and ``train`` take the task's classes.
 
 ``save`` writes the facade's weights in the JAX package's format, fused ones
-too (``deploy == "fused"``); ``load`` reads a checkpoint into the facade;
+too (``deploy == "fused"``); ``export`` writes the fused predict as a
+``torch.export`` program (``.pt2``) or an ONNX file (``engine/exporter.py``);
+``load`` reads a checkpoint into the facade;
 ``info`` gives JAX's dict (layers, parameters and, ``detailed``, a row a
 layer); ``reset_weights`` draws fresh weights from seed 0; ``to`` moves the
 model (JAX's is the identity); ``add_callback``, ``clear_callback`` and
@@ -56,6 +61,7 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from ..cfg import get_cfg
 from ..data.utils import check_cls_dataset, check_det_dataset
 from ..models.rtdetr.predict import RTDETRPredictor
 from ..models.rtdetr.val import RTDETRValidator
@@ -127,7 +133,7 @@ class YOLO:
 
     def _new(self, name: str):
         self.task = _check_task(guess_model_task(yaml_model_load(name)))
-        self.model: Optional[TaskModel] = None  # the trainer builds it
+        self.model: Optional[TaskModel] = None  # drawn at first use (_weights)
         self.imgsz = 640
         self.overrides = {"model": name, "task": self.task}
 
@@ -159,9 +165,13 @@ class YOLO:
         return self._weights().names
 
     def _weights(self) -> TaskModel:
+        """The facade's model. A fresh config's is built here at first use,
+        its weights drawn as ``reset_weights`` draws them (``init_weights``
+        from seed 0), on the facade's device."""
         if self.model is None:
-            raise RuntimeError(f"{self.overrides['model']} has no weights yet: train it, or "
-                               f"load a checkpoint")
+            model = build_model(yaml_model_load(self.overrides["model"]))
+            init_weights(model, torch.Generator().manual_seed(0))
+            self.model = model.to(self.device).eval()
         return self.model
 
     def train(self, data=None, mark: Optional[Callable[[str], None]] = None, device=None,
@@ -303,6 +313,22 @@ class YOLO:
             kw["mask_ratio"] = mask_ratio
         self.validator = TASK_MAP[self.task]["validator"](**kw)
         return self.validator(self._weights(), images, labels, names=self.names)
+
+    def export(self, **kwargs) -> str:
+        """Write the fused predict of the facade's weights to a file (JAX's
+        ``export``; ``engine/exporter.py``): ``format`` ``"pt2"`` (the
+        default; a ``torch.export`` program, which ``nn/autobackend.py``
+        reloads) or ``"onnx"`` (JAX's ONNX writer), at ``imgsz`` (default
+        the facade's), ``batch`` 1 unless given, into ``project`` (default
+        the working directory), named after the config or checkpoint. The
+        facade's model is not fused in place. Returns the path."""
+        from .exporter import Exporter
+
+        overrides = {"model": str(self.ckpt_path or ""), **self.overrides, **kwargs,
+                     "mode": "export"}
+        overrides.setdefault("batch", 1)
+        overrides.setdefault("format", "pt2")
+        return Exporter(args=get_cfg(overrides=overrides))(self._weights())
 
     def fuse(self) -> "YOLO":
         """The deploy form, in place (``nn/fuse.py:fuse_model``): every Conv,

@@ -142,6 +142,15 @@ def flatten_levels(outs: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([o.permute(0, 2, 3, 1).reshape(o.shape[0], -1, o.shape[1]) for o in outs], 1)
 
 
+def decode_polar(outs: Sequence[torch.Tensor], strides: Sequence[int], nc: int,
+                 nm: int = polar_ops.NUM_RAYS) -> torch.Tensor:
+    """Eval-time polar decode in one tensor (the JAX ``decode_polar``; the
+    exported predict's layout): (B, 4 + nc + 3 * nm, A) = [xyxy box | nc
+    sigmoid scores | nm seg-x | nm seg-y | nm valid flags]."""
+    boxes, scores, extras = decode_polar_parts(outs, strides, nc, nm)
+    return torch.cat([boxes, scores, finalize_polar_extras(extras, nm)], -1).transpose(1, 2)
+
+
 def decode_polar_parts(
     outs: Sequence[torch.Tensor],
     strides: Sequence[int],

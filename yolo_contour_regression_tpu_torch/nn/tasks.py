@@ -706,6 +706,12 @@ class SegmentationModel(TaskModel):
         super().__init__(cfg if cfg is not None else YOLOV8_SEG, nc=nc, ch=ch)
         self.nm = self.head_spec.kwargs.get("nm", 36)
 
+    def predict(self, x):
+        """x (B, 3, H, W) float -> (B, 4 + nc + 3 * nm, A): xyxy boxes,
+        sigmoid scores, the contours' x, y and valid flags
+        (``decode_polar``; the exported predict)."""
+        return head_mod.decode_polar(self(x), self.strides, self.nc, self.nm)
+
     def predict_parts(self, x, sigmoid: bool = True):
         """x (B, 3, H, W) float -> (boxes (B, A, 4), scores (B, A, nc),
         extras (B, A, 38)); ``sigmoid=False`` returns raw class logits."""
