@@ -307,9 +307,24 @@ Phases, one timestamped line each (elapsed seconds):
      ``AutoBackend`` against the fused predict; ``AutoBackend`` on the
      ``.ckpt``, the ``.yaml`` and an Ultralytics-style ``.pt``
      (``export_phase``).
-  45. report: a JSON line of the kernels (launches summed over the predict,
+  45. int8: ``YOLO(seg160).quantize`` on the card and on the CPU,
+     calibrated on the 16 floor val frames at 160 (``int8_calib_batches``):
+     the int8 kernels, ``w_scale`` and biases equal bit for bit, ``x_scale``
+     within 1e-5 relative; every int8 conv's int32 accumulations, card
+     against CPU on the same int8 input, bit for bit (160 batch 4, 640
+     batch 1); ``val`` on the card within 0.01 of JAX's int8 record
+     (``tests/data/torch_port_int8_seg160.npz``) on every metric, and the
+     floor where the record meets it; ``save`` -> ``YOLO(path)`` predicts
+     the same results bit for bit, and the served int8 handle equals its
+     direct predict; int8 against fused predict at 640 batch 8 on 480x640
+     frames (ms an image, each conv's ms, the layers where int8 loses, the
+     int8 forward's top device operators); ``benchmark()`` of the seg160
+     checkpoint at 640 batch 16 with the floor set, ``yolo benchmark``,
+     ``profile_models`` and ``check_train_batch_size`` (yolov8n-seg at 640)
+     (``int8_phase``).
+  46. report: a JSON line of the kernels (launches summed over the predict,
      validate, train-step, trainer and fused validate runs of every task,
-     FastSAM's, the serve phase's and phases 38-44's), the card's line, and
+     FastSAM's, the serve phase's and phases 38-45's), the card's line, and
      last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero.
 """
@@ -355,7 +370,8 @@ from yolo_contour_regression_tpu_torch.data import augment, imgproc
 from yolo_contour_regression_tpu_torch.data.dataset import TrainDataset, parse_label_lines
 from yolo_contour_regression_tpu_torch.data.imcodec import imdecode, imread
 from yolo_contour_regression_tpu_torch.data.streams import LoadStreams
-from yolo_contour_regression_tpu_torch.nn.fuse import fuse_model
+from yolo_contour_regression_tpu_torch.nn import quant as quant_mod
+from yolo_contour_regression_tpu_torch.nn.fuse import FusedConv, fuse_model
 from yolo_contour_regression_tpu_torch.nn.modules import head as head_mod
 from yolo_contour_regression_tpu_torch.engine.predictor import (
     ClassificationPredictor, DetectionPredictor, PosePredictor, SegmentationOriPredictor,
@@ -420,6 +436,9 @@ TRAIN_GRAD_TOL = 1e-3
 FLOOR_VAL = ROOT / "tests" / "data" / "torch_port_floor_seg160_val16.npz"
 FLOOR_TRAIN = ROOT / "tests" / "data" / "torch_port_floor_seg160_train64.npz"
 FLOOR_JSON = ROOT / "runs" / "floor_seg160" / "floor.json"
+# JAX's int8 record of the seg160 checkpoint, calibrated on the floor val frames at 160
+INT8_RECORD = ROOT / "tests" / "data" / "torch_port_int8_seg160.npz"
+INT8_IMGSZ, INT8_CALIB_BATCH = 160, 4
 # the detect floor set (16 val and 64 train images at 96 px, decoded, with
 # their label lines and the JAX validator's metrics of the floor_detect
 # checkpoint; tests/test_torch_port_detect_val.py regenerates them)
@@ -1912,6 +1931,35 @@ def floor_val_set():
 def floor_train_set():
     """The 64 train images of the same floor set, decoded the same way."""
     return _decoded_set(FLOOR_TRAIN)
+
+
+def int8_calib_batches(imgsz: int = INT8_IMGSZ, batch: int = INT8_CALIB_BATCH):
+    """The calibration batches of the int8 checks: the 16 seg160 floor val
+    frames letterboxed to ``imgsz`` (the predictor's letterbox), RGB, in [0,
+    1], (B, H, W, 3) float32 in batches of ``batch`` (JAX's ``quantize``
+    layout)."""
+    frames = [augment.bgr_to_rgb(augment.letterbox(img, (imgsz, imgsz))[0])
+              for img in floor_val_set()[0]]
+    x = np.stack(frames).astype(np.float32) / np.float32(255.0)
+    return [x[i:i + batch] for i in range(0, len(x), batch)]
+
+
+def int8_record(path: Path = INT8_RECORD) -> dict:
+    """JAX's int8 record of the seg160 checkpoint
+    (``tests/torch_port_int8_record.py``): its calibration (``cal``: key ->
+    absmax and shape features), the quantize counts, the int8 model's
+    validator metrics on the floor set, and its head outputs on the first
+    ``head_frames`` calibration frames (NHWC, a level each)."""
+    with np.load(path) as z:
+        feats = ("h", "w", "cin", "cout", "groups")
+        cal = {str(k): {"absmax": float(a), **dict(zip(feats, (int(v) for v in f)))}
+               for k, a, f in zip(z["cal_keys"], z["cal_absmax"], z["cal_features"])}
+        heads = [z[f"head_{i}"] for i in range(int(z["n_heads"]))]
+        return {"cal": cal, "metrics": {str(k): float(v) for k, v in
+                                        zip(z["metric_names"], z["metrics"])},
+                "n_quantized": int(z["n_quantized"]), "n_skipped": int(z["n_skipped"]),
+                "head_frames": int(z["head_frames"]), "heads": heads,
+                "written_by": str(z["written_by"])}
 
 
 def floor_detect_val_set():
@@ -5525,6 +5573,248 @@ def export_phase(card: str, d: Path) -> dict:
     return counts
 
 
+INT8_METRIC_ATOL = 0.01  # the int8 validator's metrics on the card against JAX's int8 record
+INT8_SCALE_RTOL = 1e-5  # x_scale, card calibration against CPU calibration
+INT8_TIME_IMGSZ, INT8_TIME_BATCH = 640, 8  # int8 against fused predict, on 480x640 frames
+INT8_BENCH_IMGSZ, INT8_BENCH_BATCH = 640, 16  # benchmark()'s defaults (JAX's)
+
+
+def quant_convs(model) -> dict:
+    """The int8 convs of a model by name."""
+    return {n: m for n, m in model.named_modules() if isinstance(m, quant_mod.QuantConv2d)}
+
+
+def conv_inputs(model, x: torch.Tensor) -> dict:
+    """Each int8 conv's input in one forward of ``x``, by name."""
+    seen = {}
+    hooks = [m.register_forward_pre_hook(lambda m, a, n=n: seen.__setitem__(n, a[0].detach()))
+             for n, m in quant_convs(model).items()]
+    with torch.inference_mode():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def int8_accumulations(model, xs, card: str) -> dict:
+    """For every int8 conv of the card's ``model`` and each input of
+    ``xs``: its int8 input on the card (``quantize_input`` with its
+    ``x_scale``), then the int32 accumulations of that input on the card and
+    on the CPU (``int8_conv2d``, the same kernel): equal bit for bit, or
+    raise."""
+    n_conv = n_acc = 0
+    for x in xs:
+        inputs = conv_inputs(model, x)
+        for name, m in quant_convs(model).items():
+            x_q = quant_mod.quantize_input(inputs[name], m.x_scale)
+            geom = (m.stride, m.padding, m.dilation, m.groups)
+            with torch.inference_mode():
+                got = quant_mod.int8_conv2d(x_q, m.weight, *geom).cpu()
+                want = quant_mod.int8_conv2d(x_q.cpu(), m.weight.cpu(), *geom)
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"int8: {name}'s int32 accumulations, card against CPU: "
+                                     f"{bad} of {want.numel()} differ at input {tuple(x.shape)}")
+            n_conv += 1
+            n_acc += want.numel()
+    return {"convs": n_conv, "accumulations": n_acc}
+
+
+def conv_ms(model, x: torch.Tensor, reps: int = 5) -> dict:
+    """ms of each conv of a fused or int8 model (the ``conv`` of every
+    ``FusedConv``: a float conv or a ``QuantConv2d``) in a forward of ``x``,
+    CUDA events around each, the median of ``reps`` forwards after one
+    warm-up; by the FusedConv's name."""
+    convs = {n: m.conv for n, m in model.named_modules() if isinstance(m, FusedConv)}
+    ev, runs = {}, []
+
+    def pre(n):
+        def record(m, a):
+            ev[n] = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[n][0].record()
+        return record
+
+    def post(n):
+        return lambda m, a, o: ev[n][1].record()
+
+    hooks = [h for n, c in convs.items() for h in (c.register_forward_pre_hook(pre(n)),
+                                                   c.register_forward_hook(post(n)))]
+    try:
+        for _ in range(reps + 1):
+            with torch.inference_mode():
+                model(x)
+            torch.cuda.synchronize()
+            runs.append({n: a.elapsed_time(b) for n, (a, b) in ev.items()})
+    finally:
+        for h in hooks:
+            h.remove()
+    return {n: statistics.median(r[n] for r in runs[1:]) for n in convs}
+
+
+def top_device_ops(fn, n: int = 6) -> list:
+    """The ``n`` aten operators of one call of ``fn`` whose own kernels take
+    the most device time, by ``torch.profiler`` (name, device ms, calls);
+    [] where it records no device time (then not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0 and e.key.startswith("aten::"):
+            rows.append((e.key, round(dev_us / 1e3, 3), e.count))
+    return sorted(rows, key=lambda r: -r[1])[:n]
+
+
+def int8_phase(card: str, d: Path) -> dict:
+    """Native int8 on the card (``nn/quant.py``), held to the CPU and to
+    JAX's int8 record (``INT8_RECORD``). (a) ``YOLO(seg160).quantize`` on the
+    card and on the CPU, calibrated on ``int8_calib_batches()``: the int8
+    kernels, ``w_scale`` and biases equal bit for bit, ``x_scale`` within
+    ``INT8_SCALE_RTOL``; (b) every int8 conv's int32 accumulations, card
+    against CPU on the same int8 input, bit for bit (``int8_accumulations``,
+    at 160 batch 4 and at 640 batch 1); (c) ``val`` on the card of the floor
+    set at 160 batch 4: each metric within ``INT8_METRIC_ATOL`` of JAX's
+    int8 record, and the floor where the record meets it; (d) ``save`` ->
+    ``YOLO(path)`` on the card predicts the same results bit for bit, and
+    the int8 handle served (``serve_direct``, not re-fused) equals its
+    direct predict; (e) int8 against fused predict at 640 batch 8 on 480x640
+    frames, ms an image and each conv's ms (the layers where int8 loses, and
+    the device's top operators of an int8 forward); (f) ``benchmark()`` of
+    the seg160 checkpoint at 640 with the floor set (``YOLO.benchmark``),
+    ``yolo benchmark`` through the CLI, ``profile_models`` and
+    ``check_train_batch_size`` for yolov8n-seg at 640. Launch counts zeroed
+    before (c), read after (d) (the even-odd fill of the validator's mask
+    IoU, the cv2-rule fill of the predicted and served masks). Returns
+    them."""
+    from yolo_contour_regression_tpu_torch.utils import autobatch, benchmarks
+
+    rec = int8_record()
+    calib = int8_calib_batches()
+    t = time.perf_counter()
+    q = YOLO(CKPT, device="cuda").quantize(calib)
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t
+    qc = YOLO(CKPT, device="cpu").quantize(calib)
+    sd, sdc = q.model.state_dict(), qc.model.state_dict()
+    exact = [k for k in sd if not k.endswith("x_scale") and not torch.equal(sd[k].cpu(), sdc[k])]
+    xs_gap = max(abs(float(sd[k]) - float(sdc[k])) / float(sdc[k]) for k in sd
+                 if k.endswith("x_scale"))
+    n_q = len(quant_convs(q.model))
+    log("int8", f"seg160 quantized on the card in {q_s:.2f}s ({n_q} int8 convs; JAX's record "
+        f"{rec['n_quantized']} quantized, {rec['n_skipped']} skipped), on the CPU too: tensors "
+        f"apart (int8 kernels, w_scale, bias) {len(exact)} of {len(sd) - n_q}, x_scale largest "
+        f"relative gap {xs_gap:.2e} (limit {INT8_SCALE_RTOL}) | {card}")
+    if exact or xs_gap > INT8_SCALE_RTOL or n_q != rec["n_quantized"]:
+        raise AssertionError(f"int8: card quantize against CPU: apart {exact[:5]}, x_scale "
+                             f"{xs_gap:.2e}, {n_q} int8 convs")
+
+    frames = shape_images(INT8_TIME_BATCH, *RASTER_HW, seed=9)
+    xb = torch.from_numpy(np.stack([augment.bgr_to_rgb(augment.letterbox(
+        f, (INT8_TIME_IMGSZ, INT8_TIME_IMGSZ))[0]) for f in frames]).astype(np.float32) / 255.0)
+    xb = xb.permute(0, 3, 1, 2).contiguous().cuda()
+    xs = [torch.from_numpy(calib[0]).permute(0, 3, 1, 2).contiguous().cuda(), xb[:1]]
+    t = time.perf_counter()
+    acc = int8_accumulations(q.model, xs, card)
+    log("int8", f"int32 accumulations card = CPU bit for bit: {acc['convs']} conv calls "
+        f"({n_q} convs x {len(xs)} inputs: {INT8_IMGSZ} batch {len(calib[0])}, "
+        f"{INT8_TIME_IMGSZ} batch 1), "
+        f"{acc['accumulations']:,} sums, {time.perf_counter() - t:.2f}s | {card}")
+
+    images, labels = floor_val_set()
+    zero_launch_counts()
+    got = q.val(images, labels, imgsz=INT8_IMGSZ, batch=4)
+    want = rec["metrics"]
+    gaps = {k: abs(got[k] - want[k]) for k in want}
+    floor = json.loads(FLOOR_JSON.read_text())
+    below = {k: got[k] for k, n in floor["floor_keys"].items()
+             if want[k] >= floor["floor"][n] and not got[k] >= floor["floor"][n]}
+    log("int8", f"val on the card, floor set at {INT8_IMGSZ} batch 4: "
+        + ", ".join(f"{k.split('/')[1]} {got[k]:.4f} (JAX int8 {want[k]:.4f})" for k in
+                    METRIC_KEYS) + f"; largest gap {max(gaps.values()):.2e} (limit "
+        f"{INT8_METRIC_ATOL}); below the floor {below} | {card}")
+    if max(gaps.values()) > INT8_METRIC_ATOL or below:
+        raise AssertionError(f"int8: val against JAX's int8 record {gaps}, below floor {below}")
+
+    path = q.save(d / "seg160_int8.ckpt")
+    back = YOLO(path, device="cuda")
+    same = same_results(back.predict(images, imgsz=INT8_IMGSZ, batch=4),
+                        q.predict(images, imgsz=INT8_IMGSZ, batch=4))
+    counts = launch_counts()
+    serve_counts = serve_direct(q, images, INT8_IMGSZ, 8, "int8 seg160", card)  # zeroes them
+    counts = {k: counts[k] + serve_counts[k] for k in counts}
+    log("int8", f"save -> YOLO(path) on the card: int8 {back.model.quantized}, predictions bit "
+        f"for bit {same}; served int8 handle = direct (served launches {serve_counts}); "
+        f"launches {counts} | {card}")
+    if not (same and back.model.quantized) or counts["fill_polygons"] == 0 \
+            or counts["fill_polygons_cv2"] == 0:
+        raise AssertionError(f"int8: save/load {same}, launches {counts}")
+
+    fused = YOLO(CKPT, device="cuda").fuse()
+    lat = {}
+    for name, m in (("fused", fused), ("int8", q)):
+        predict_ms(m, frames, INT8_TIME_IMGSZ, INT8_TIME_BATCH, masks=True)  # warm-up
+        runs = [predict_ms(m, frames, INT8_TIME_IMGSZ, INT8_TIME_BATCH, masks=True)
+                for _ in range(5)]
+        lat[name] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    f_ms, q_ms = conv_ms(fused.model, xb), conv_ms(q.model, xb)
+    loses = sorted(((q_ms[n] - f_ms[n], n) for n in q_ms if q_ms[n] > f_ms[n]), reverse=True)
+    shapes = {n: (m.conv.in_channels, m.conv.out_channels, tuple(m.conv.weight.shape[2:]),
+                  tuple(m.conv.stride)) for n, m in q.model.named_modules()
+              if isinstance(m, FusedConv)}
+    def int8_forward():
+        with torch.inference_mode():
+            q.model(xb)
+
+    ops = top_device_ops(int8_forward)
+    for name in ("fused", "int8"):
+        log("int8", f"predict at {INT8_TIME_IMGSZ} batch {INT8_TIME_BATCH} on {RASTER_HW[0]}x"
+            f"{RASTER_HW[1]} frames, {name}, ms an image (host clock, median of 5): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in lat[name].items()) + f" | {card}")
+    log("int8", f"convs at {INT8_TIME_IMGSZ} batch {INT8_TIME_BATCH} (CUDA events, median of "
+        f"5): fused "
+        f"{sum(f_ms.values()):.3f} ms, int8 {sum(q_ms.values()):.3f} ms over {len(q_ms)} convs; "
+        f"int8 slower in {len(loses)}, by {sum(v for v, _ in loses):.3f} ms, "
+        f"{sum(q_ms[n] for _, n in loses) / max(sum(q_ms.values()), 1e-9):.1%} of int8's conv "
+        f"time; the largest losses (ms int8 / fused, cin, cout, k, stride): "
+        + "; ".join(f"{n} {q_ms[n]:.3f} / {f_ms[n]:.3f} {shapes[n]}" for _, n in loses[:6])
+        + f"; the int8 forward's top device operators (name, ms, calls): {ops or 'not measured'}"
+        f" | {card}")
+
+    t = time.perf_counter()
+    rows = YOLO(CKPT, device="cuda").benchmark(data=(images, labels), imgsz=INT8_BENCH_IMGSZ,
+                                               batch=INT8_BENCH_BATCH, project=str(d / "bench"),
+                                               verbose=False)
+    bench_s = time.perf_counter() - t
+    for row in rows:
+        log("int8", f"benchmark seg160 at {INT8_BENCH_IMGSZ} (data: the floor set): {row} | "
+            f"{card}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = entrypoint(["segment", "benchmark", f"model={CKPT}", f"imgsz={INT8_IMGSZ}", "batch=4",
+                         "formats=[native,int8]", "verbose=false", f"project={d / 'cli'}"])
+    cli_rows = [ast.literal_eval(line) for line in out.getvalue().strip().splitlines()]
+    profile = benchmarks.profile_models(["yolov8n-seg.yaml"], imgsz=INT8_BENCH_IMGSZ,
+                                        verbose=False)
+    fit = autobatch.train_batch_fit(YOLO("yolov8n-seg.yaml", device="cuda"), INT8_BENCH_IMGSZ)
+    log("int8", f"benchmark() {bench_s:.2f}s; yolo benchmark (CLI, exit {rc}) at "
+        f"{INT8_IMGSZ} batch 4: {cli_rows}; profile_models: {profile}; check_train_batch_size "
+        f"yolov8n-seg at {INT8_BENCH_IMGSZ}: batch {fit['batch']}, eval bytes at batch 2 / 4 "
+        f"{fit['b2']:,} / {fit['b4']:,} ({(fit['b4'] - fit['b2']) / 2 / 2**20:.1f} MiB an image, train est. "
+        f"{fit['per_sample_train'] / 2**20:.1f} MiB), card {fit['total_bytes'] / 2**30:.2f} GiB "
+        f"| {card}")
+    failed = [r["format"] for r in rows if r["format"] in ("native", "fused", "int8", "pt2")
+              and r["status"] != "ok"]
+    if failed or rc != 0 or [r["status"] for r in cli_rows] != ["ok", "ok"] or fit["batch"] < 1:
+        raise AssertionError(f"int8: benchmark rows failed {failed}, CLI {rc} {cli_rows}")
+    return counts
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -5788,13 +6078,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         export_counts = export_phase(card, Path(d))
 
+    # 45. native int8: card against CPU and JAX's int8 record, save/load, serving, timing,
+    # the benchmark table, profile_models and AutoBatch
+    phase_start["int8"] = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        int8_counts = int8_phase(card, Path(d))
+
     # 27 joined: the RT-DETR floor run's lines, its checks' outcome and counts
     phase_start["rtdetr_join"] = time.perf_counter()
     rtdetr_counts["trainer"] = join_floor_run(timeout=900)["counts"]
     if any(rtdetr_counts["trainer"].values()):
         raise AssertionError(f"rtdetr_trainer: launches {rtdetr_counts['trainer']}")
 
-    # 45. report: launches summed over the main paths' runs
+    # 46. report: launches summed over the main paths' runs
     phase_start["report"] = time.perf_counter()
     segori_counts = {"predict": segori_predict_counts, "validate": segori_val_counts,
                      "train step": segori_step_counts, "trainer": segori_trainer_counts,
@@ -5804,7 +6100,7 @@ def main() -> int:
                 + classify_counts[k] + sum(c[k] for c in rtdetr_counts.values())
                 + host_counts[k] + fastsam_counts[k] + serve_counts[k] + ddp_counts[k]
                 + serve_mesh_counts[k] + datasets_counts[k] + lifecycle_counts[k]
-                + track_counts[k] + convert_counts[k] + export_counts[k]
+                + track_counts[k] + convert_counts[k] + export_counts[k] + int8_counts[k]
                 for k in KERNEL_WRAPPERS}
     serve_other = sum(c["fill_polygons_cv2"] for k, c in serve_parts.items()
                       if k not in ("segment", "streams"))
@@ -5824,7 +6120,8 @@ def main() -> int:
          "launches_ddp": ddp_counts["fill_polygons"],
          "launches_datasets": datasets_counts["fill_polygons"],
          "launches_lifecycle": lifecycle_counts["fill_polygons"],
-         "launches_convert": convert_counts["fill_polygons"]},
+         "launches_convert": convert_counts["fill_polygons"],
+         "launches_int8": int8_counts["fill_polygons"]},
         {"name": "fill_polygons_cv2", "route": "cuda", "source": src + "raster.cu",
          "replaces": "yolo_contour_regression_tpu/engine/results.py:115 (host cv2.fillPoly; "
                      "no TPU kernel)",
@@ -5833,7 +6130,8 @@ def main() -> int:
          "launches_serve": serve_counts["fill_polygons_cv2"],
          "launches_serve_mesh": serve_mesh_counts["fill_polygons_cv2"],
          "launches_track": track_counts["fill_polygons_cv2"],
-         "launches_export": export_counts["fill_polygons_cv2"]},
+         "launches_export": export_counts["fill_polygons_cv2"],
+         "launches_int8": int8_counts["fill_polygons_cv2"]},
         {"name": "gt_rays_rows", "route": "cuda", "source": src + "gt_rays.cu",
          "replaces": "yolo_contour_regression_tpu/ops/pallas_polar.py:217",
          "launches": launches["gt_rays_rows"], **report_row(rows_checks[TRAIN_NPAD]),
@@ -5866,7 +6164,8 @@ def main() -> int:
         f"float64 steps, the CLI's validation, the tuner's two trainings; ddp's counts hold (a)'s "
         f"resumed run), track {track_counts} (the masks of both trackers' results, read for "
         f"Masks.xy), convert {convert_counts} (the converted labels' validation), export "
-        f"{export_counts} (the fresh facade's masks, twice); "
+        f"{export_counts} (the fresh facade's masks, twice), int8 {int8_counts} (the int8 "
+        f"validator's mask IoU; the int8 model's predicted and served masks); "
         "fill_polygons (even-odd, the validator's mask IoU): ms a launch at N=300 V=36 on the "
         "validator's 640x640 grid, at 480x640 (the *_480x640 keys), and at the segment_ori GT "
         "masks' N=128 and N=768, V=360 on 160x160 (the *_V360_160x160 keys); "

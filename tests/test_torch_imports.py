@@ -1,7 +1,7 @@
 """The PyTorch port imports nothing that a CUDA machine with only torch,
 numpy and the standard library lacks: in a fresh interpreter that refuses
 jax, flax, optax, cv2, PIL, yaml, torchvision, triton, onnx, onnxruntime,
-tensorflow, tf2onnx, openvino and the JAX package, every module of the port
+tensorflow, tf2onnx, openvino, thop and the JAX package, every module of the port
 (the CLI's ``__main__``, the callbacks, tuner, checks and settings, the
 ``onnx/`` writer, the exporter and ``AutoBackend`` among them) and
 ``chip_smoke`` import, the CPU predict runs
@@ -29,14 +29,18 @@ optax) and a resume from it; then tracking: the trackers, the contour
 finder, the annotator and the converter are among the modules, and
 ``YOLO.track`` runs BOT-SORT (its sparse-flow GMC) and ByteTrack on three
 panning frames with ``Masks.xy`` read; then the seg160 checkpoint is
-exported to ONNX; and scipy and cv2 were never imported."""
+exported to ONNX; then the seg160 checkpoint is quantized to int8, saved,
+reloaded, benchmarked (its int8 row) and predicts (``nn/quant.py``,
+``utils/benchmarks.py``, ``utils/autobatch.py``, ``utils/torch_utils.py`` and
+``models/yolo`` are among the modules; ``thop`` is refused too); and scipy
+and cv2 were never imported."""
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "yaml", "torchvision", "triton",
-           "onnx", "onnxruntime", "tensorflow", "tf2onnx", "openvino",
+           "onnx", "onnxruntime", "tensorflow", "tf2onnx", "openvino", "thop",
            "yolo_contour_regression_tpu")
 
 SCRIPT = r"""
@@ -221,6 +225,18 @@ import tempfile
 with tempfile.TemporaryDirectory() as d:
     onnx_path = model.export(format="onnx", imgsz=64, project=d)
     exported = os.path.getsize(onnx_path)
+int8_mods = {f"yolo_contour_regression_tpu_torch.{m}" for m in (
+    "nn.quant", "utils.benchmarks", "utils.autobatch", "utils.torch_utils", "models.yolo",
+    "models.yolo.model", "models.yolo.segment")}
+assert int8_mods <= set(mods), sorted(int8_mods - set(mods))
+calib = [np.random.default_rng(0).uniform(0, 1, (1, 64, 64, 3)).astype(np.float32)]
+q = pkg.YOLO("runs/floor_seg160/best.ckpt", device="cpu").quantize(calib)
+with tempfile.TemporaryDirectory() as d:
+    q_back = pkg.YOLO(q.save(d + "/q.ckpt"), device="cpu")
+    rows = q_back.benchmark(imgsz=64, batch=1, formats=["int8"], project=d, verbose=False)
+n_int8 = sum(len(r) for r in q_back.predict(chip_smoke.shape_images(1, 120, 200, seed=0),
+                                            imgsz=160))
+assert q_back.model.quantized and rows[0]["status"] == "ok" and n_int8 > 0, (rows, n_int8)
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 assert not [n for n in sys.modules if n.split(".")[0] == "scipy"]
@@ -228,7 +244,8 @@ print("imported", len(mods), "modules;", sum(len(r) for r in res), "detections;"
       "val mask mAP50-95", val["metrics/mAP50-95(M)"], ";", "train step loss",
       float(metrics["loss"]), ";", "YOLO.train steps", trained, "; detect", n_det, "detections",
       "; SAM everything mode", len(gen[0]), "masks; served", len(served), "images;",
-      "tracked contour points", n_tracked, "; onnx bytes", exported)
+      "tracked contour points", n_tracked, "; onnx bytes", exported, "; int8 detections",
+      n_int8)
 """
 
 
@@ -242,6 +259,6 @@ def test_port_imports_and_predicts_without_jax_cv2_yaml_triton():
     assert "val mask mAP50-95" in res.stdout and "YOLO.train steps 2" in res.stdout
     assert "; detect" in res.stdout and "; SAM everything mode" in res.stdout
     assert "; served 2 images" in res.stdout and "tracked contour points" in res.stdout
-    assert "; onnx bytes" in res.stdout
+    assert "; onnx bytes" in res.stdout and "; int8 detections" in res.stdout
     n_mods = int(res.stdout.split("imported ")[1].split()[0])
     assert n_mods >= 20  # ops, nn, utils, engine, data modules of the port

@@ -116,8 +116,9 @@ def test_segment_predict_and_train(dataset, capsys, tmp_path):
 def test_special_commands(capsys, tmp_path, monkeypatch):
     """help, version, checks (Python, torch and the device in place of jax
     and flax), settings (a json file; reset), and what raises: hub (the
-    network), benchmark (not ported), export of a format the port does not
-    write (the facade's recipe), an unknown mode."""
+    network), export of a format the port does not write (the facade's
+    recipe), an unknown mode. benchmark is a mode the CLI runs (its run:
+    ``tests/test_torch_port_benchmarks.py``)."""
     for argv in ([], ["help"], ["--help"]):
         assert tcfg.entrypoint(argv) == 0
         assert "usage: yolo TASK MODE" in capsys.readouterr().out
@@ -136,8 +137,7 @@ def test_special_commands(capsys, tmp_path, monkeypatch):
     assert "settings reset" in capsys.readouterr().out
     with pytest.raises(RuntimeError, match="network"):
         tcfg.entrypoint(["hub", "login", "KEY"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcfg.entrypoint(["detect", "benchmark"])
+    assert "benchmark" in tcfg.MODES and not hasattr(tcfg, "NOT_PORTED")
     with pytest.raises(NotImplementedError, match="Offline recipe"):
         tcfg.entrypoint(["detect", "export", "format=tflite", "device=cpu"])
     with pytest.raises(ValueError, match="mode"):

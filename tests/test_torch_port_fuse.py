@@ -225,10 +225,13 @@ def test_yolo_fuse_keeps_the_detections(ckpt):
 
 
 def test_int8_checkpoints_still_raise(tmp_path):
+    """A checkpoint marked ``deploy == "int8"`` whose tree holds no int8
+    kernel (here the training-form detect tree) raises, naming int8; real
+    int8 checkpoints load (``tests/test_torch_port_quant.py``)."""
     ckpt = load_checkpoint(DETECT_CKPT)
     ckpt["deploy"] = "int8"
     import pickle
     path = tmp_path / "int8.ckpt"
     path.write_bytes(pickle.dumps(ckpt))
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8"):
         YOLO(path, device="cpu")

@@ -23,7 +23,9 @@ logged and dropped); metrics are printed, the exit code is 0. track goes to
 ``bytetrack.yaml``; the rest are ``predict``'s), as JAX's CLI routes it,
 and prints nothing; export goes to ``YOLO.export`` with every key
 (``format=pt2`` by default, or ``onnx``; ``engine/exporter.py``) and prints
-nothing. benchmark is not ported; ``hub`` needs the network and raises. ``cfg``
+nothing; benchmark goes to ``YOLO.benchmark`` with every key
+(``utils/benchmarks.py``) and prints a row a format. ``hub`` needs the
+network and raises. ``cfg``
 prints ``DEFAULT_CFG`` as yaml (``default_cfg_yaml``, which
 ``yaml.safe_load`` reads back to the dict); ``copy-cfg`` writes it to
 ``default_copy.yaml`` in the working directory.
@@ -228,8 +230,6 @@ TASK2MODEL = {
     "classify": "yolov8n-cls.yaml",
     "pose": "yolov8n-pose.yaml",
 }
-# the modes the port's facade does not have, and where they wait (ROADMAP.md)
-NOT_PORTED = {"benchmark": "utils/benchmarks.py (ROADMAP Queue 1 item 5)"}
 HELP = (
     "usage: yolo TASK MODE [k=v ...]\n"
     f"  TASK in {TASKS}\n  MODE in {MODES}\n"
@@ -356,8 +356,6 @@ def entrypoint(argv=None) -> int:
     mode = mode or overrides.pop("mode", None) or "predict"
     if mode not in MODES:
         raise ValueError(f"mode '{mode}' not in {MODES}")
-    if mode in NOT_PORTED:
-        raise NotImplementedError(f"yolo {mode} is not ported: {NOT_PORTED[mode]}")
     from ..engine.model import YOLO
 
     device = overrides.pop("device", None)
@@ -367,7 +365,7 @@ def entrypoint(argv=None) -> int:
     result = _call(getattr(model, mode), overrides, mode)
     if isinstance(result, dict):  # metrics
         print(result)
-    elif mode == "predict" and result is not None:
+    elif mode in ("predict", "benchmark") and result is not None:  # results, or rows
         for r in result if isinstance(result, (list, tuple)) else [result]:
             print(r)
     return 0

@@ -22,6 +22,8 @@ and rtdetr tasks (counterpart of the JAX package's ``engine/model.py``)::
     YOLO("runs/segment_train/weights/last.ckpt").train(resume=True)  # go on with a cut run
     YOLO("runs/floor_seg160/best.ckpt").fuse().save("fused.ckpt")  # deploy form, JAX's format
     YOLO("runs/floor_seg160/best.ckpt").export(format="onnx", imgsz=640)  # also "pt2", the default
+    YOLO("runs/floor_seg160/best.ckpt").quantize([x_bhwc_01, ...]).save("int8.ckpt")  # w8a8
+    rows = YOLO("runs/floor_seg160/best.ckpt").benchmark(imgsz=640, data="data.yaml")  # a table
     model.info(detailed=True); model.add_callback("on_fit_epoch_end", fn); model.tune(data)
 
 SAM, FastSAM and NAS (``models/``) are facades of their own; FastSAM and
@@ -37,13 +39,16 @@ Its weights are drawn on first use, as ``reset_weights`` draws them (JAX's
 initializes a model of its own from ``seed`` and adopts its ``best.ckpt``
 (RT-DETR trains on the host train chain, as JAX's). Anything else is a
 checkpoint of one of those tasks of the JAX package, in its
-training form or fused (``deploy == "fused"``, as the JAX ``YOLO.save``
-writes it after ``fuse()``), or one the port's trainer wrote. The task
+training form, fused (``deploy == "fused"``, as the JAX ``YOLO.save``
+writes it after ``fuse()``) or int8 (``"int8"``, after ``quantize()``), or
+one the port's trainer wrote. The task
 comes from the checkpoint's ``train_args`` or, failing that, the config's
 head; ``predict``, ``val`` and ``train`` take the task's classes.
 
-``save`` writes the facade's weights in the JAX package's format, fused ones
-too (``deploy == "fused"``); ``export`` writes the fused predict as a
+``save`` writes the facade's weights in the JAX package's format, fused and
+int8 ones too; ``quantize`` makes the int8 deploy form (``nn/quant.py``);
+``benchmark`` gives the cross-format table (``utils/benchmarks.py``);
+``export`` writes the fused predict as a
 ``torch.export`` program (``.pt2``) or an ONNX file (``engine/exporter.py``);
 ``load`` reads a checkpoint into the facade;
 ``info`` gives JAX's dict (layers, parameters and, ``detailed``, a row a
@@ -54,6 +59,7 @@ evolutionary ``Tuner`` (``utils/tuner.py``; Ray Tune is not ported).
 """
 from __future__ import annotations
 
+import copy
 import logging
 import threading
 from pathlib import Path
@@ -66,6 +72,7 @@ from ..data.utils import check_cls_dataset, check_det_dataset
 from ..models.rtdetr.predict import RTDETRPredictor
 from ..models.rtdetr.val import RTDETRValidator
 from ..nn.fuse import fuse_model
+from ..nn.quant import as_quantized_model, quantize_variables
 from ..nn.tasks import (TASK_MODELS, TaskModel, build_model, guess_model_task, init_weights,
                         yaml_model_load)
 from ..utils.checkpoint import (checkpoint_variables, load_checkpoint, load_jax_variables,
@@ -140,7 +147,7 @@ class YOLO:
     def _load(self, path):
         ckpt = load_checkpoint(path)
         deploy = ckpt.get("deploy")
-        if deploy not in (None, "fused"):
+        if deploy not in (None, "fused", "int8"):
             raise NotImplementedError(f"deploy={deploy!r} checkpoints are not ported")
         train_args = ckpt.get("train_args") or {}
         cfg = ckpt["model_yaml"]
@@ -149,9 +156,12 @@ class YOLO:
         if not isinstance(self.model, TASK_MODELS[self.task]):
             raise NotImplementedError(f"task={self.task!r} on a {type(self.model).__name__}")
         self.model.names = dict(ckpt.get("names") or self.model.names)
-        if deploy == "fused":  # a fused params tree, no batch_stats
+        if deploy in ("fused", "int8"):  # a fused params tree, no batch_stats
             fuse_model(self.model)
-        load_jax_variables(self.model, *checkpoint_variables(ckpt))
+        if deploy == "int8":  # int8 kernels and their scales (nn/quant.py)
+            as_quantized_model(self.model, checkpoint_variables(ckpt)[0])
+        else:
+            load_jax_variables(self.model, *checkpoint_variables(ckpt))
         self.model.to(self.device).eval()
         # the JAX facade takes the training imgsz as the predict default, and
         # keeps the training single_cls (for val) and data
@@ -330,26 +340,64 @@ class YOLO:
         overrides.setdefault("format", "pt2")
         return Exporter(args=get_cfg(overrides=overrides))(self._weights())
 
+    def benchmark(self, **kwargs):
+        """The cross-format table of ``utils/benchmarks.py:benchmark`` for
+        this facade's model: a row a format (native, fused, int8, pt2,
+        onnx, ...) with its status, latency and, given ``data``, mAP."""
+        from ..utils.benchmarks import benchmark
+
+        return benchmark(self, **kwargs)
+
     def fuse(self) -> "YOLO":
         """The deploy form, in place (``nn/fuse.py:fuse_model``): every Conv,
         Conv2 and RepConv folded with its BatchNorm into one conv (a Linear
         stays as it is). A no-op on a fused model; the model no longer
-        trains."""
-        fuse_model(self._weights())
+        trains. Raises on an int8 model (JAX's guard: no float deploy form
+        is left to return to)."""
+        if getattr(self._weights(), "quantized", False):
+            raise RuntimeError("fuse() on an int8-quantized model: quantization is inference-"
+                               "final; reload the fp32 checkpoint to re-fuse or retrain")
+        fuse_model(self.model)
+        return self
+
+    def quantize(self, calib_batches, selective: bool = False) -> "YOLO":
+        """Native w8a8 int8 for deploy (``nn/quant.py``; JAX's ``quantize``):
+        fuses first if needed, calibrates the input scales on
+        ``calib_batches`` (an iterable of (B, H, W, 3) float arrays in [0,
+        1]) on the facade's device, and swaps in int8 convs (an s8 x s8 ->
+        s32 conv, ``int8_conv2d``). Inference only afterwards; ``save``
+        writes ``deploy="int8"``. ``selective`` quantizes only the convs
+        with 128 or more in-channels (JAX's ``int8_wins``).
+
+        An unfused model is fused on the CPU and moved back, so its int8
+        kernels and ``w_scale`` are the same bits on any device (the card's
+        BatchNorm fold is a few ulps off the CPU's); a model fused already
+        keeps its own fold. Raises on an int8 model, leaving it as it is."""
+        model = self._weights()
+        if getattr(model, "quantized", False):
+            raise RuntimeError("quantize() on an already-int8 model would recalibrate scales "
+                               "from int8 codes (silent corruption); reload the fp32 checkpoint "
+                               "to re-quantize")
+        if not model.fused:
+            model = fuse_model(copy.deepcopy(model).cpu()).to(self.device)
+        self.model, _, _ = quantize_variables(model, calib_batches, selective=selective)
         return self
 
     def save(self, path="model.ckpt") -> Path:
         """The facade's current weights (fused ones too: ``deploy ==
-        "fused"``) as a checkpoint of the JAX package's format, which
-        ``YOLO(path)`` here or in the JAX package loads (JAX's ``save``:
+        "fused"``; int8 ones: ``"int8"``) as a checkpoint of the JAX
+        package's format, which ``YOLO(path)`` here or in the JAX package
+        loads (JAX's ``save``:
         no EMA, no optimizer state, step 0, epoch -1; ``train_args`` the
         task and the facade's overrides)."""
         model = self._weights()
         params, batch_stats = to_jax_variables(model.state_dict())
+        deploy = ("int8" if getattr(model, "quantized", False) else "fused" if model.fused
+                  else None)
         return save_checkpoint(path, params, batch_stats, None, step=0, epoch=-1,
                                best_fitness=0.0, train_args={"task": self.task, **self.overrides},
                                model_yaml=model.yaml, names=dict(self.names or {}),
-                               deploy="fused" if model.fused else None)
+                               deploy=deploy)
 
     def load(self, weights) -> "YOLO":
         """Load a checkpoint into this facade, on its device (JAX's

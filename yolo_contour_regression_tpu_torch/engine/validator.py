@@ -200,19 +200,27 @@ class SegmentationValidator(DetectionValidator):
         ``boxes`` (B, max_det, 4) in the image's frame, ``scores``,
         ``classes``, ``valid``, ``ious_box`` and ``ious_mask`` (B, N,
         max_det) of GT against detections, ``gt_boxes`` (B, N, 4),
-        ``pred_pts`` (B, max_det, 36, 2) and ``pred_pts_valid``."""
+        ``pred_pts`` (B, max_det, 36, 2) and ``pred_pts_valid``. A model
+        without ``predict_parts`` (an exported artifact's wrapper) is read
+        through its ``predict``, the scores gated as probabilities."""
         mark = self.mark
         img, ratio_pad, ori_shape = batch["img"], batch["ratio_pad"], batch["ori_shape"]
         H, W = img.shape[1:3]
         mark("forward_nms")
         x = _as_float(img).permute(0, 3, 1, 2).contiguous()
-        boxes_p, logits_p, extras_p = model.predict_parts(x, sigmoid=False)
-        out = non_max_suppression_parts(boxes_p, logits_p, extras_p, multi_label=True,
-                                        scores_are_logits=True, **self.nms_kw)
+        if hasattr(model, "predict_parts"):
+            boxes_p, logits_p, extras_p = model.predict_parts(x, sigmoid=False)
+            out = non_max_suppression_parts(boxes_p, logits_p, extras_p, multi_label=True,
+                                            scores_are_logits=True, **self.nms_kw)
+            ex = finalize_polar_extras(out["extras"])
+        else:  # an artifact's predict (utils/benchmarks.py): scores and points decoded
+            p, nc = model.predict(x).transpose(1, 2), model.nc
+            out = non_max_suppression_parts(p[..., :4], p[..., 4:4 + nc], p[..., 4 + nc:],
+                                            multi_label=True, **self.nms_kw)
+            ex = out["extras"]
         mark("scale_box_iou")
         boxes_nat, gt_nat, ious_box = self._scale_box_iou(out["boxes"], batch)
         wh = torch.tensor([W, H], dtype=torch.float32, device=img.device)
-        ex = finalize_polar_extras(out["extras"])
         ppts = scale_coords(torch.stack([ex[..., :NUM_RAYS], ex[..., NUM_RAYS:2 * NUM_RAYS]], -1),
                             ratio_pad)
         pvalid = (ex[..., 2 * NUM_RAYS:] > 0.5) & out["valid"][..., None]

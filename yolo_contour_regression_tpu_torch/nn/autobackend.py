@@ -2,6 +2,7 @@
 of the JAX package's ``nn/autobackend.py``), picked by the file's suffix:
 
   - ``.ckpt``  a checkpoint (the JAX package's format) -> the fused predict
+    (an int8 one's as it is)
   - ``.yaml``  a fresh config -> its predict, the weights drawn as the
     facade draws them (``init_weights`` from seed 0)
   - ``.pt``    an Ultralytics checkpoint, converted to a ``.ckpt`` beside it
@@ -73,7 +74,9 @@ class AutoBackend:
         from .fuse import fuse_model
 
         handle = YOLO(self.path, device=self.device)
-        model = fuse_model(handle.model) if self.fuse else handle.model
+        # an int8 checkpoint's model is fused already and stays as it is
+        quantized = getattr(handle.model, "quantized", False)
+        model = fuse_model(handle.model) if self.fuse and not quantized else handle.model
         self.names = handle.names
         self._fn = model.predict
 

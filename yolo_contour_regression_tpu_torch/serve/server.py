@@ -172,8 +172,8 @@ class InferenceServer:
             raise TypeError(f"mesh must be a parallel.Mesh (create_mesh), not {type(mesh)}")
         self.handle = weights if isinstance(weights, YOLO) else YOLO(weights, device=device)
         self.model = self.handle._weights()
-        if fuse:
-            self.handle.fuse()  # a no-op on a fused model
+        if fuse and not getattr(self.model, "quantized", False):
+            self.handle.fuse()  # a no-op on a fused model; an int8 one is served as it is
         if mesh is None:
             self.replicas = [self.model]
             self.devices = [next(self.model.parameters()).device]

@@ -46,6 +46,10 @@ inverts the name map of the JAX package's
   model.{i}.conv_transpose.weight      params.layer{i}.conv_transpose.kernel
     (in, out, kh, kw), flipped          (kh, kw, in, out)
     (flax applies a transposed kernel as it is, torch flips it)
+  model.{i}.{...}.conv.weight (int8)   params.layer{i}.{...}.conv.kernel (int8)
+  model.{i}.{...}.conv.{w,x}_scale     params.layer{i}.{...}.conv.{w,x}_scale
+    (an int8 conv, ``nn/quant.py:QuantConv2d``: its kernel keeps its
+    dtype, the scales their shapes (C_out) and ())
   (none)                               params.layer{i}.detect = {}
     (RT-DETR: JAX's anchor-head bias pass leaves an empty ``detect``
     subtree in the decoder head; ``to_jax_variables`` puts it back)
@@ -84,6 +88,8 @@ _LEAF_MAP = {
     ("params", "bias"): "bias",
     ("params", "kernel"): "weight",
     ("params", "embedding"): "embedding",
+    ("params", "w_scale"): "w_scale",  # an int8 conv's scales (nn/quant.py)
+    ("params", "x_scale"): "x_scale",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -240,7 +246,8 @@ def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, tor
             leaf = _LEAF_MAP.get((coll, path[-1]))
             if leaf is None:
                 raise KeyError(f"no mapping for {coll}/{'/'.join(path)}")
-            arr = np.asarray(arr, np.float32)
+            arr = np.asarray(arr)
+            arr = arr if arr.dtype == np.int8 else arr.astype(np.float32)  # int8 kernels stay
             if path[-1] == "kernel" and arr.ndim == 3:  # DenseGeneral: kept as it is
                 leaf = "kernel"
             elif path[-1] == "kernel":
@@ -324,7 +331,7 @@ def _jax_leaf(key: str, shape: Tuple[int, ...], keys) -> Tuple[str, Tuple[str, .
         coll, jleaf = "batch_stats", "mean"
     elif leaf == "running_var":
         coll, jleaf = "batch_stats", "var"
-    elif leaf in ("bias", "kernel", "embedding"):
+    elif leaf in ("bias", "kernel", "embedding", "w_scale", "x_scale"):
         coll, jleaf = "params", leaf
     elif leaf == "weight" and ndim == 4 and tokens[-2] == "conv_transpose":
         coll, jleaf, layout = "params", "kernel", "flip_hwio"
@@ -349,14 +356,15 @@ def _jax_layout(signature: Tuple[Tuple[str, Tuple[int, ...]], ...]):
 
 def to_jax_layout(arr: np.ndarray, layout: str) -> np.ndarray:
     """A port leaf in JAX's layout (``_jax_leaf``'s layout change): a new
-    C-contiguous float32 array, made in one copy."""
+    C-contiguous float32 array (int8 for an int8 kernel), made in one
+    copy."""
     if layout == "hwio":
         arr = arr.transpose(2, 3, 1, 0)
     elif layout == "flip_hwio":
         arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
     elif layout == "t":
         arr = arr.T
-    return np.array(arr, dtype=np.float32, order="C")
+    return np.array(arr, dtype=np.int8 if arr.dtype == np.int8 else np.float32, order="C")
 
 
 def jax_paths(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Tuple[Tuple[str, ...], str]]:
